@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of MACH serving (Algorithm 2) on one NVIDIA GPU.
+"""Drive the PyTorch port of MACH serving (Algorithm 2) and training
+(Algorithm 1, through the fused logit-free loss) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -22,7 +23,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    to 0 just before and read just after; both kernels must have run.
    Then ms per answer, kernel ms, plain ms, the ``torch.topk`` yardstick
    and peak memory.
-5. The kernel report (one JSON line), then the device line, last.
+5. Fused-xent kernels vs plain on the card, forward and backward: the
+   dense, ELL and gather families against their plain PyTorch versions
+   (loss, lse, dW, dbias, dh) at the ODP shape (R=25, B=32), the
+   ImageNet-21k shape (R=20, B=512) and an odd one (B=37, R·B=259,
+   ragged N), with and without bias; CSR batches with duplicate ids, a
+   row at exactly nnz_max, short and empty rows, at nnz 120 and 1,024
+   through both sparse families.  Loss and lse to rtol 1e-5, gradients
+   to rtol 1e-4 / atol 1e-6 (float atomics reduce them across blocks);
+   each backward runs twice and the largest difference is printed.
+6. Training main path at full width: ``MACHLinear(fused=True)`` with
+   AdamW (lr 0.05) — ODP (K=105,033, d=422,713, B=32, R=25, CSR nnz=120,
+   N=512) 5 steps through the ELL kernels; the same model 2 steps on
+   nnz=1,024 batches through the gather kernels; ImageNet-21k (K=21,841,
+   d=6,144, B=512, R=20, dense, N=512) 3 steps through the dense
+   kernels.  Launch counters are set to 0 just before and read just
+   after; all six launch functions must have run, every loss must be
+   finite, and each first step's loss and gradients must equal the plain
+   version's.  Then ms per step, stage times, peak memory.
+7. The kernel report (one JSON line), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -30,6 +49,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -332,6 +352,410 @@ def phase_main_path(dev) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5: fused-xent kernels vs their plain versions, forward and backward
+# ---------------------------------------------------------------------------
+
+# loss and lse: rtol 1e-5 (f32 products and sums in another order than
+# cuBLAS / torch.logsumexp); gradients rtol 1e-4, atol 1e-6 (the kernels
+# reduce dW, dh and dbias with float atomics across blocks, in an order
+# that changes from run to run).  Inputs at the model's own scales: unit
+# L2 rows of features (as the data generators make them), dense W at its
+# init scale 1/sqrt(d), and a N(0, 1) bias so each head's softmax is far
+# from uniform; at those scales the f32 order noise of a d-long product
+# stays below atol in entries that cancel to near zero.
+LOSS_TOL = {"rtol": 1e-5, "atol": 1e-6}
+GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
+# dense checks: (label, N, d, R, B) — ragged N; B=37 is no multiple of 32
+# and R·B = 259 no multiple of the 128-column tile
+XENT_DENSE_SHAPES = [("odp", 37, 2000, 25, 32),
+                     ("imagenet21k", 37, 6144, 20, 512),
+                     ("odd", 29, 333, 7, 37)]
+# sparse checks: (label, N, d, R, B, nnz_max)
+XENT_SPARSE_SHAPES = [("odp nnz=120", 37, 50000, 25, 32, 120),
+                      ("odp nnz=1024", 11, 50000, 25, 32, 1024),
+                      ("odd", 29, 3001, 7, 37, 50)]
+N_TRAIN = 512
+
+
+def _csr_check_batch(dev, n, d, nnz_max, seed):
+    """A CSR batch with a row at exactly nnz_max holding duplicate ids,
+    a short row, an empty row and ragged rest."""
+    from repro_torch.data.extreme import SparseBatch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, nnz_max + 1, (n,), generator=gen, device=dev)
+    lengths[0], lengths[1], lengths[2] = nnz_max, 2, 0
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(lengths, 0)])
+    total = int(indptr[-1])
+    indices = torch.randint(0, d, (total,), generator=gen, device=dev)
+    indices[1:4] = indices[0]
+    values = torch.rand((total,), generator=gen, device=dev)
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), lengths)
+    sq = torch.zeros(n, device=dev).index_add_(0, rows, values * values)
+    values = values / torch.sqrt(sq.clamp(min=1e-12))[rows]    # unit rows
+    return SparseBatch(indptr.to(torch.int32), indices.to(torch.int32), values,
+                       d, nnz_max)
+
+
+def _loss_and_grads(fn, leaves, g):
+    """(loss, lse, grads) of fn() -> (loss, lse), under cotangent g."""
+    loss, lse = fn()
+    grads = torch.autograd.grad((loss * g).sum(), leaves)
+    torch.cuda.synchronize()
+    return loss.detach(), lse, [t.detach() for t in grads]
+
+
+def _compare(tag, got, want, names) -> float:
+    """Kernel (loss, lse, grads) vs plain; returns the max abs error."""
+    err = 0.0
+    pairs = [("loss", got[0], want[0], LOSS_TOL), ("lse", got[1], want[1], LOSS_TOL)]
+    pairs += [(f"d{name}", a, b, GRAD_TOL)
+              for name, a, b in zip(names, got[2], want[2])]
+    for name, a, b, tol in pairs:
+        if not torch.isfinite(a).all():
+            fail(f"{tag}: non-finite kernel {name}")
+        e = float((a - b).abs().max())
+        if not torch.allclose(a, b, **tol):
+            fail(f"{tag}: kernel {name} differs from plain by up to {e}")
+        err = max(err, e)
+    return err
+
+
+def _run_to_run(fn, leaves, g) -> float:
+    """Largest difference between the gradients of two backward runs."""
+    a = _loss_and_grads(fn, leaves, g)[2]
+    b = _loss_and_grads(fn, leaves, g)[2]
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_xent_vs_plain(dev) -> dict:
+    """Each family's kernels (forward + backward) against the plain
+    version, with and without bias.  Returns per family the max abs
+    error and the run-to-run backward difference."""
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import ops
+
+    stats = {f: {"max_abs_err": 0.0, "run_to_run": 0.0}
+             for f in ("dense", "ell", "gather")}
+
+    def record(family, err, r2r):
+        s = stats[family]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["run_to_run"] = max(s["run_to_run"], r2r)
+
+    for label, n, d, r, b in XENT_DENSE_SHAPES:
+        for bias in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(d + b)
+            h = torch.nn.functional.normalize(
+                torch.randn((n, d), generator=gen, device=dev), dim=1)
+            w = torch.randn((d, r * b), generator=gen, device=dev) / d ** 0.5
+            bb = torch.randn((r * b,), generator=gen, device=dev) \
+                if bias else None
+            y = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                              dtype=torch.int32)
+            g = torch.rand((n,), generator=gen, device=dev) + 0.5
+            leaves = [t.requires_grad_(True) for t in (h, w, bb) if t is not None]
+            names = ["h", "W"] + (["bias"] if bias else [])
+            kern = lambda: mfx.mach_fused_xent_dense(h, w, bb, y, b)
+            err = _compare(f"dense {label} bias={bias}",
+                           _loss_and_grads(kern, leaves, g),
+                           _loss_and_grads(lambda: mfx.fused_xent_dense_plain(
+                               h, w, bb, y, b), leaves, g), names)
+            record("dense", err, _run_to_run(kern, leaves, g))
+        print(f"fused xent vs plain: dense {label} (N={n}, d={d}, R={r}, "
+              f"B={b}) ok, with and without bias", flush=True)
+
+    for label, n, d, r, b, nnz_max in XENT_SPARSE_SHAPES:
+        batch = _csr_check_batch(dev, n, d, nnz_max, seed=nnz_max)
+        cols, vals = ops.csr_to_ell(batch.indptr, batch.indices, batch.values,
+                                    nnz_max, d)
+        for bias in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(d + b + nnz_max)
+            # unit rows of W's products: logits of order 1 from the
+            # product itself (dW does not scale with W)
+            w = torch.randn((d, r * b), generator=gen, device=dev)
+            bb = torch.randn((r * b,), generator=gen, device=dev) \
+                if bias else None
+            y = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                              dtype=torch.int32)
+            g = torch.rand((n,), generator=gen, device=dev) + 0.5
+            leaves = [t.requires_grad_(True) for t in (w, bb) if t is not None]
+            names = ["W"] + (["bias"] if bias else [])
+            want = _loss_and_grads(lambda: mfx.fused_xent_ell_plain(
+                cols, vals, w, bb, y, b), leaves, g)
+            for impl, family in (("densify", "ell"), ("gather", "gather")):
+                kern = lambda f=family: getattr(mfx, f"mach_fused_xent_{f}")(
+                    cols, vals, w, bb, y, b)
+                err = _compare(f"{family} {label} bias={bias}",
+                               _loss_and_grads(kern, leaves, g), want, names)
+                via_ops = ops.mach_fused_xent_csr(
+                    batch.indptr, batch.indices, batch.values, w, y,
+                    num_buckets=b, nnz_max=nnz_max, bias=bb,
+                    sparse_impl=impl).detach()
+                if not torch.allclose(via_ops, want[0], **LOSS_TOL):
+                    fail(f"ops.mach_fused_xent_csr(sparse_impl={impl!r}) "
+                         f"{label}: loss differs from plain")
+                record(family, err, _run_to_run(kern, leaves, g))
+        print(f"fused xent vs plain: ell and gather {label} (N={n}, d={d}, "
+              f"R={r}, B={b}, nnz_max={nnz_max}, duplicates, empty and short "
+              f"rows) ok, with and without bias", flush=True)
+    for family, s in stats.items():
+        print(f"fused xent {family}: max abs error vs plain "
+              f"{s['max_abs_err']:.3e}; largest backward difference between "
+              f"two runs {s['run_to_run']:.3e} (float atomics)", flush=True)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training main path at full width
+# ---------------------------------------------------------------------------
+
+def _bound(family, n, d, r, b, nnz=0, unique=0, j=0):
+    """Least time (ms) for the forward and the backward on this card, and
+    what bounds each.  Dense: 2·N·d·R·B operations forward, 6·N·d·R·B
+    backward (the logits again, then dW and dh).  Sparse: 2·nnz·R·B and
+    4·nnz·R·B over this batch's valid slots; bytes count the W rows this
+    batch touches once, the ELL batch, labels and lse, and every output
+    once — the dense dW (d·R·B) included.  The dense backward is timed
+    as the main path runs it, without dh (its input features need no
+    gradient): 4·N·d·R·B operations."""
+    c = r * b
+    if family == "dense":
+        ops_f, ops_b = 2 * n * d * c, 4 * n * d * c
+        bytes_f = 4 * (n * d + d * c + c + n * r) + 4 * (n + n * r)
+        bytes_b = 4 * (n * d + d * c + c + 2 * n * r + n) + 4 * (d * c + c)
+    else:
+        ops_f, ops_b = 2 * nnz * c, 4 * nnz * c
+        ell = 8 * n * j
+        bytes_f = 4 * unique * c + ell + 4 * (c + n * r) + 4 * (n + n * r)
+        bytes_b = 4 * unique * c + ell + 4 * (c + 2 * n * r + n) + 4 * (d * c + c)
+    out = []
+    for ops_, bytes_ in ((ops_f, bytes_f), (ops_b, bytes_b)):
+        t_ops = ops_ / F32_OPS_PER_S * 1e3
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        out.append((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+    return out
+
+
+def _train(head, params, batch_at, steps, opt, state):
+    """``steps`` AdamW steps; returns (params, state, losses, step ms,
+    first step's (params before, batch, loss, grads))."""
+    from repro_torch.optim import apply_updates, value_and_grad
+    losses, times, first = [], [], None
+    for s in range(steps):
+        x, y = batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(head.loss, params, x, y)
+        upd, state = opt.update(grads, state, params)
+        new = apply_updates(params, upd)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if s == 0:
+            first = (params, (x, y), loss, grads)
+        params = new
+        del upd, grads
+    return params, state, losses, times, first
+
+
+def phase_training(dev, checks: dict) -> list[dict]:
+    import dataclasses
+    from repro_torch.configs.odp_mach import IMAGENET, ODP
+    from repro_torch.core.mach import MACHLinear
+    from repro_torch.data.extreme import (ExtremeDataConfig, ExtremeDataset,
+                                          SparseExtremeDataset)
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    odp_head = MACHLinear(ODP.mach(), ODP.dim, fused=True)
+    odp_params = odp_head.init(torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    odp_data = SparseExtremeDataset(ODP.sparse_data(small=False), device=dev)
+    bow_data = SparseExtremeDataset(
+        dataclasses.replace(ODP.sparse_data(small=False), nnz=1024), device=dev)
+    img_cfg = IMAGENET.mach()
+    img_head = MACHLinear(img_cfg, IMAGENET.dim, fused=True)
+    img_params = img_head.init(torch.Generator(device=dev).manual_seed(1),
+                               device=dev)
+    img_data = ExtremeDataset(ExtremeDataConfig(IMAGENET.num_classes,
+                                                IMAGENET.dim), device=dev)
+    torch.cuda.synchronize()
+    print(f"training main path: set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    runs = {  # name: (head, params, batch_at, steps, family)
+        "odp": (odp_head, odp_params,
+                lambda s: odp_data.batch_at(s, N_TRAIN), 5, "ell"),
+        "odp_bow": (odp_head, None,
+                    lambda s: bow_data.batch_at(s, N_TRAIN), 2, "gather"),
+        "imagenet21k": (img_head, img_params,
+                        lambda s: img_data.batch_at(s, N_TRAIN), 3, "dense"),
+    }
+    opt = adamw(0.05)
+    results = {}
+    # the main path's run: counts from 0, read just after
+    for fn in mfx.CUDA_WRAPPERS:
+        fn.launches = 0
+    odp_state = None
+    for name, (head, params, batch_at, steps, family) in runs.items():
+        if name == "odp_bow":        # the same ODP model, trained on
+            params, state = results["odp"]["params"], odp_state
+        else:
+            state = opt.init(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, state, losses, times, first = _train(head, params, batch_at,
+                                                     steps, opt, state)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        results[name] = {"params": params, "losses": losses, "times": times,
+                         "first": first, "peak_gib": peak, "family": family,
+                         "head": head, "state": state}
+        if name == "odp":
+            odp_state = state
+        print(f"train {name}: {steps} AdamW steps through {family}, losses "
+              f"{[round(v, 4) for v in losses]}, peak memory {peak:.2f} GiB",
+              flush=True)
+    launches = {fn.__name__: fn.launches for fn in mfx.CUDA_WRAPPERS}
+    print(f"training main path launches: {launches}", flush=True)
+    for fn_name, count in launches.items():
+        if count < 1:
+            fail(f"{fn_name} never launched on the training main path")
+    for name, res in results.items():
+        if not all(math.isfinite(v) for v in res["losses"]):
+            fail(f"train {name}: non-finite loss {res['losses']}")
+    r0 = results["odp"]["losses"][0]
+    if abs(r0 - ODP.mach_r * math.log(ODP.mach_b)) > 5.0:
+        fail(f"ODP first loss {r0} far from R ln B at random init")
+
+    smi = _nvidia_smi()
+    rows = []
+    kernel_names = {"dense": ("mach_fused_xent_dense",
+                              "src/repro/kernels/mach_fused_xent.py:724"),
+                    "ell": ("mach_fused_xent_ell",
+                            "src/repro/kernels/mach_fused_xent.py:848"),
+                    "gather": ("mach_fused_xent_gather",
+                               "src/repro/kernels/mach_fused_xent.py:983")}
+    for name, res in results.items():
+        head, family = res["head"], res["family"]
+        params0, (x, y), loss0, grads0 = res["first"]
+        c = head.cfg
+        n, r, b, d = N_TRAIN, c.num_repetitions, c.num_buckets, head.dim
+        w2 = params0["w"].reshape(d, -1).detach().requires_grad_(True)
+        bias = params0["b"].reshape(-1).detach().requires_grad_(True)
+        labels = c.hash_labels(y).movedim(0, -1).to(torch.int32).contiguous()
+        g = torch.full((n,), 1.0 / n, device=dev)
+        if family == "dense":
+            inputs = (x.contiguous(),)
+            plain = lambda: mfx.fused_xent_dense_plain(x, w2, bias, labels, b)
+            fwd, bwd = mfx.dense_fwd_cuda, mfx.dense_bwd_cuda
+            nnz = unique = j = 0
+        else:
+            cols, vals = ops.csr_to_ell(x.indptr, x.indices, x.values,
+                                        x.nnz_max, d)
+            inputs = (cols, vals)
+            plain = lambda: mfx.fused_xent_ell_plain(cols, vals, w2, bias,
+                                                     labels, b)
+            fwd = getattr(mfx, f"{family}_fwd_cuda")
+            bwd = getattr(mfx, f"{family}_bwd_cuda")
+            valid = (cols >= 0) & (cols < d)
+            nnz = int(valid.sum())
+            unique = int(torch.unique(cols[valid]).numel())
+            j = cols.shape[1]
+        # first step == plain: the mean loss and its gradients (the
+        # summed-loss scale is held by the checks above, at smaller N)
+        pl, _, pgrads = _loss_and_grads(plain, [w2, bias], g)
+        err = abs(float(loss0) - float(pl.sum() / n))
+        if not math.isclose(float(loss0), float(pl.sum() / n), rel_tol=1e-5):
+            fail(f"train {name}: first loss {float(loss0)} != plain "
+                 f"{float(pl.sum() / n)}")
+        for key, pg in (("w", pgrads[0]), ("b", pgrads[1])):
+            kg = grads0[key].reshape(pg.shape)
+            e = float((kg - pg).abs().max())
+            if not torch.allclose(kg, pg, **GRAD_TOL):
+                fail(f"train {name}: first-step d{key} differs from plain by {e}")
+            print(f"train {name}: first-step d{key} max abs error {e:.3e} "
+                  f"(largest entry {float(pg.abs().max()):.3e})", flush=True)
+            err = max(err, e)
+        # stage times on the first step's inputs (CUDA events)
+        _, lse = fwd(*inputs, w2.detach(), bias.detach(), labels, b)
+        ms_fwd = kernel_ms(lambda: fwd(*inputs, w2.detach(), bias.detach(),
+                                       labels, b), iters=10)
+        bwd_kw = {"need_dh": False} if family == "dense" else {}
+        ms_bwd = kernel_ms(lambda: bwd(*inputs, w2.detach(), bias.detach(),
+                                       labels, lse, g, b, **bwd_kw), iters=10)
+        state = res["state"]
+        ms_adamw = kernel_ms(lambda: opt.update(grads0, state, params0),
+                             iters=5, warmup=1)
+        plain_ms = kernel_ms(lambda: _loss_and_grads(plain, [w2, bias], g),
+                             iters=3, warmup=1)
+        library_ms = kernel_ms(
+            lambda: _library_xent(family, x, w2, bias, labels, b, n, r, d),
+            iters=3, warmup=1)
+        step_ms = statistics.median(res["times"][1:])
+        (bf, byf), (bb_, byb) = _bound(family, n, d, r, b, nnz, unique, j)
+        print(f"train {name}: {step_ms:.3f} ms/step (host clock, median of "
+              f"steps 2..{len(res['times'])}); stages: forward kernel "
+              f"{ms_fwd:.3f} ms, backward kernel {ms_bwd:.3f} ms (dW zero-fill "
+              f"included), AdamW {ms_adamw:.3f} ms; peak "
+              f"{res['peak_gib']:.2f} GiB [{smi}]", flush=True)
+        kname, replaces = kernel_names[family]
+        row = {
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "replaces": replaces,
+            "launches": launches[f"{family}_fwd_cuda"]
+            + launches[f"{family}_bwd_cuda"],
+            "launches_fwd": launches[f"{family}_fwd_cuda"],
+            "launches_bwd": launches[f"{family}_bwd_cuda"],
+            "max_abs_err": err,
+            "ms": ms_fwd + ms_bwd, "ms_fwd": ms_fwd, "ms_bwd": ms_bwd,
+            "plain_ms": plain_ms, "bound_ms": bf + bb_,
+            "bound_by": byf if bf >= bb_ else byb,
+            "bound_ms_fwd": bf, "bound_by_fwd": byf,
+            "bound_ms_bwd": bb_, "bound_by_bwd": byb,
+            "library_ms": library_ms,
+            "shape": (f"{name}: N={n} d={d} R={r} B={b}"
+                      + (f" ELL J={j}, {nnz} valid slots, {unique} "
+                         f"distinct features" if family != "dense" else "")
+                      + ", with bias; forward + backward"),
+            "train_step_ms": step_ms, "adamw_ms": ms_adamw,
+            "peak_gib": res["peak_gib"],
+            "check_max_abs_err": checks[family]["max_abs_err"],
+            "run_to_run_max_diff": checks[family]["run_to_run"]}
+        if family == "dense":
+            row["ms_bwd_with_dh"] = kernel_ms(lambda: bwd(
+                *inputs, w2.detach(), bias.detach(), labels, lse, g, b),
+                iters=10)
+        rows.append(row)
+        print(f"kernel {kname} ({name}): forward {ms_fwd:.4f} ms + backward "
+              f"{ms_bwd:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bf:.4f} ({byf}) + {bb_:.4f} "
+              f"({byb}) ms, launches {row['launches']}, first-step max abs "
+              f"err {err:.3e} [{smi}]", flush=True)
+        del res["params"], res["first"], res["state"]
+    return rows
+
+
+def _library_xent(family, x, w2, bias, labels, b, n, r, d):
+    """The materializing computation in PyTorch library calls (never used
+    by the port): the logits by torch.matmul (dense) or torch.sparse.mm
+    on the CSR batch, F.cross_entropy on the (N·R, B) view, autograd."""
+    leaves = [w2, bias]
+    if family == "dense":
+        logits = x @ w2
+    else:
+        csr = torch.sparse_csr_tensor(x.indptr.long(), x.indices.long(),
+                                      x.values, size=(n, d))
+        logits = torch.sparse.mm(csr, w2)
+    logits = logits + bias
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(n * r, b), labels.reshape(-1).long(), reduction="sum")
+    return torch.autograd.grad(loss / n, leaves)
+
+
 def _nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -375,6 +799,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = phase_main_path(dev)
+
+    t0 = time.perf_counter()
+    checks = phase_xent_vs_plain(dev)
+    print(f"fused xent vs plain: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rows += phase_training(dev, checks)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
                         (Algorithm 1's trainLogistic target transform).
 * ``MACHLinear``      — the paper-faithful model: R independent B-way
                         logistic regressions over raw features (dense or
-                        CSR-sparse).
+                        CSR-sparse); ``fused=True`` trains through the
+                        logit-free fused loss.
 * ``MACHOutputHead``  — drop-in replacement for an LM's d×V softmax head,
                         producing (…, R, B) logits with O(d·R·B) params.
 
@@ -12,10 +13,9 @@ Both heads implement ``MACHHead``.  Parameters are plain dicts of
 tensors, with the same keys and layouts as the JAX package's params
 (``convert.py`` carries them across), so both packages compute the same
 thing on the same weights.  Prediction (Algorithm 2) lives in
-``estimators.py`` (reference) and ``kernels/`` (CUDA decode kernels).
-
-The logit-free fused training loss is not ported yet: ``fused_loss``
-raises ``NotImplementedError``.
+``estimators.py`` (reference) and ``kernels/`` (CUDA decode kernels);
+``fused_loss`` runs the fused projection + CE kernels
+(``kernels/mach_fused_xent.py``), which never form the logits.
 """
 
 from __future__ import annotations
@@ -115,7 +115,12 @@ def mach_loss(logits: torch.Tensor, hashed_labels: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     lbl = hashed_labels.movedim(0, -1).long()                 # (..., R)
     picked = torch.gather(logp, -1, lbl[..., None])[..., 0]   # (..., R)
-    nll = -picked.sum(dim=-1)                                 # (...,)
+    return _weighted_mean(-picked.sum(dim=-1), weights)
+
+
+def _weighted_mean(nll: torch.Tensor,
+                   weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean per-example loss, optionally masked (all-zero weights -> 0)."""
     if weights is not None:
         return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
     return nll.mean()
@@ -157,12 +162,15 @@ class MACHHead(abc.ABC):
     def head_logits(self, params: dict, inputs: Any) -> torch.Tensor:
         """inputs -> (..., R, B) per-head bucket logits."""
 
+    @abc.abstractmethod
     def fused_loss(self, params: dict, inputs: Any, labels: torch.Tensor,
-                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Logit-free fused projection + CE: not ported yet."""
-        raise NotImplementedError(
-            "fused_loss (the fused-xent training kernels) is not ported "
-            "yet; see ROADMAP.md, open item 'training'")
+                   weights: Optional[torch.Tensor] = None,
+                   bucket_select: Optional[tuple] = None,
+                   bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logit-free counterpart of ``loss`` (fused projection + CE):
+        the same value and gradients, without the (…, R, B) logits.
+        ``bucket_select`` / ``bucket_proxy`` (dynamic bucket selection)
+        are not ported yet and raise ``NotImplementedError``."""
 
     @abc.abstractmethod
     def param_count(self) -> int:
@@ -212,12 +220,15 @@ class MACHLinear(MACHHead):
 
     Parameters: w (d, R, B), b (R, B) — total d·R·B + R·B.  Inputs may
     be dense (n, d) tensors or CSR ``SparseBatch``es (the ODP
-    bag-of-words regime), densified for the projection.
+    bag-of-words regime).  ``head_logits`` densifies a CSR batch; with
+    ``fused=True``, ``loss`` runs the fused logit-free kernels on it as
+    it is.
     """
 
-    def __init__(self, cfg: MACHConfig, dim: int):
+    def __init__(self, cfg: MACHConfig, dim: int, fused: bool = False):
         self.cfg = cfg
         self.dim = dim
+        self.fused = fused
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None) -> dict:
@@ -239,6 +250,38 @@ class MACHLinear(MACHHead):
         w = params["w"]
         out = torch.matmul(x, w.reshape(self.dim, -1))
         return out.reshape(x.shape[:-1] + w.shape[1:]) + params["b"]
+
+    def loss(self, params: dict, x: Any, y: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Routes through the fused logit-free path when ``fused=True``
+        (same value and gradients), else materializes the (n, R, B)
+        logits."""
+        if self.fused:
+            return self.fused_loss(params, x, y, weights)
+        return super().loss(params, x, y, weights)
+
+    def fused_loss(self, params: dict, x: Any, y: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   bucket_select: Optional[tuple] = None,
+                   bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logit-free loss via ``ops.mach_fused_xent`` (dense x) or
+        ``ops.mach_fused_xent_csr`` (SparseBatch x), the bias a native
+        kernel operand on both."""
+        from repro_torch.kernels import ops  # deferred: kernels import core
+        c = self.cfg
+        hashed = c.hash_labels(y).movedim(0, -1)             # (n, R)
+        w2 = params["w"].reshape(self.dim, -1)               # (d, R·B)
+        bias = params["b"].reshape(-1)                       # (R·B,)
+        if is_sparse_batch(x):
+            nll = ops.mach_fused_xent_csr(
+                x.indptr, x.indices, x.values, w2, hashed,
+                num_buckets=c.num_buckets, nnz_max=x.nnz_max, bias=bias,
+                bucket_select=bucket_select, bucket_proxy=bucket_proxy)
+        else:
+            nll = ops.mach_fused_xent(
+                x, w2, hashed, num_buckets=c.num_buckets, bias=bias,
+                bucket_select=bucket_select, bucket_proxy=bucket_proxy)
+        return _weighted_mean(nll, weights)
 
     def param_count(self) -> int:
         c = self.cfg
@@ -291,6 +334,21 @@ class MACHOutputHead(MACHHead):
 
     def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return self.apply(params, h)
+
+    def fused_loss(self, params: dict, h: torch.Tensor, labels: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   bucket_select: Optional[tuple] = None,
+                   bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logit-free counterpart of ``loss``: the projection is fused
+        into the hashed cross-entropy (``ops.mach_fused_xent``), so the
+        (…, R, B) logits never exist; gradients reach h and the kernel."""
+        from repro_torch.kernels import ops  # deferred: kernels import core
+        hashed = self.cfg.hash_labels(labels).movedim(0, -1)
+        nll = ops.mach_fused_xent(h, params["kernel"], hashed,
+                                  num_buckets=self.cfg.num_buckets,
+                                  bucket_select=bucket_select,
+                                  bucket_proxy=bucket_proxy)
+        return _weighted_mean(nll, weights)
 
     def param_count(self) -> int:
         return self.dim * self.out_features

@@ -20,20 +20,38 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mach_decode", "mach_topk")
+SOURCES = ("mach_decode", "mach_topk", "mach_fused_xent_dense",
+           "mach_fused_xent_ell", "mach_fused_xent_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each library's launch function (pointers and the
+# argument types of each library's launch functions (pointers and the
 # stream as c_void_p, so none is cut to 32 bits)
 SIGNATURES = {
-    "mach_decode": ("mach_top1_launch",
-                    [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
-    "mach_topk": ("mach_topk_launch",
-                  [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P]),
+    "mach_decode": {
+        "mach_top1_launch":
+            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]},
+    "mach_topk": {
+        "mach_topk_launch":
+            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P]},
+    "mach_fused_xent_dense": {
+        "fused_xent_dense_fwd_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "fused_xent_dense_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]},
+    "mach_fused_xent_ell": {
+        "fused_xent_ell_fwd_launch":
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "fused_xent_ell_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]},
+    "mach_fused_xent_gather": {
+        "fused_xent_gather_fwd_launch":
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "fused_xent_gather_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -104,16 +122,16 @@ def build_all() -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with its
-    launch function's argument types declared."""
+    launch functions' argument types declared."""
     if name not in _loaded:
         job = _start(name)
         if job is not None:
             _finish(name, job)
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.mach_error_string.argtypes = [ctypes.c_int]
         lib.mach_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib

@@ -1,0 +1,332 @@
+"""Fused projection + MACH R-head cross-entropy (the logit-free training loss).
+
+One function, three input families.  For activations a (N, d), head
+weights W (d, R·B), an optional bias (R·B,) and hashed labels y (N, R):
+
+    logits = a @ W + bias,  loss_n = Σ_r [lse(logits[n, r]) − logits[n, r, y_nr]]
+
+* ``mach_fused_xent_dense``  — a is a dense (N, d) tensor; kernel
+  ``csrc/mach_fused_xent_dense.cu`` (replaces
+  ``repro/kernels/mach_fused_xent.py::mach_fused_xent_pallas``).
+* ``mach_fused_xent_ell``    — a is a padded-ELL batch cols/vals (N, J),
+  padded slots carrying col id d and val 0; kernel
+  ``csrc/mach_fused_xent_ell.cu``, tiles of rows (replaces
+  ``mach_fused_xent_sparse_pallas``, the ODP default below
+  ``GATHER_NNZ_THRESHOLD`` nonzeros a row).
+* ``mach_fused_xent_gather`` — the same ELL function, one row a block
+  (replaces ``mach_fused_xent_gather_pallas``, for nnz at or above the
+  threshold).
+
+Each returns (loss (N,), lse (N, R)).  On CUDA tensors it runs a
+``torch.autograd.Function`` whose forward and backward are the kernels:
+the forward keeps the per-head logsumexp as its residual and the
+backward uses it, forming dlogits = g·(softmax − onehot(y)) from one
+recomputation of each logits tile.  The (N, R·B) logits never reach
+device memory.  On CPU tensors the family's plain PyTorch version runs
+and autograd differentiates it.  Gradients flow to W, the bias and (dense
+family) a; ELL ``vals`` are data and get none on either device.
+
+Inputs are float32 (other dtypes raise ``ValueError``), labels int32.
+The kernels choose their own tiles; there are no block-size knobs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.mach_decode import _SMEM_OPTIN
+
+GATHER_NNZ_THRESHOLD = 512    # nnz_max at which CSR batches take the gather family
+
+_ELL_MAX_ROWS = 16            # rows an ELL block stages (csrc kMaxRows)
+_ELL_FIXED_SMEM = 4 * (16 * 129 + 3 * 16 * 8)   # its logits tile + statistics
+
+
+# ---------------------------------------------------------------------------
+# operand checks
+# ---------------------------------------------------------------------------
+
+def _check_head(w, bias, labels, num_buckets, n, d, device):
+    if labels.dim() != 2 or labels.shape[0] != n:
+        raise ValueError(f"labels must be (N, R) with N={n}, got "
+                         f"{tuple(labels.shape)}")
+    r = labels.shape[1]
+    if n < 1 or r < 1 or num_buckets < 1:
+        raise ValueError(f"need N, R, B >= 1, got N={n}, R={r}, "
+                         f"B={num_buckets}")
+    if tuple(w.shape) != (d, r * num_buckets):
+        raise ValueError(f"w {tuple(w.shape)} != ({d}, {r}*{num_buckets})")
+    if bias is not None and tuple(bias.shape) != (r * num_buckets,):
+        raise ValueError(f"bias {tuple(bias.shape)} != ({r}*{num_buckets},)")
+    if labels.dtype != torch.int32:
+        raise ValueError(f"labels must be int32, got {labels.dtype}")
+    for name, t in (("w", w), ("bias", bias)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for t in (w, bias, labels):
+        if t is not None and t.device != device:
+            raise ValueError("fused xent operands are on different devices")
+
+
+def check_dense(h, w, bias, labels, num_buckets):
+    if h.dim() != 2:
+        raise ValueError(f"h must be (N, d), got {tuple(h.shape)}")
+    if h.dtype != torch.float32:
+        raise ValueError(f"h must be float32, got {h.dtype}")
+    _check_head(w, bias, labels, num_buckets, h.shape[0], h.shape[1], h.device)
+
+
+def check_ell(cols, vals, w, bias, labels, num_buckets):
+    if cols.dim() != 2 or tuple(vals.shape) != tuple(cols.shape):
+        raise ValueError(f"cols/vals must both be (N, J), got "
+                         f"{tuple(cols.shape)} and {tuple(vals.shape)}")
+    if cols.dtype != torch.int32:
+        raise ValueError(f"cols must be int32, got {cols.dtype}")
+    if vals.dtype != torch.float32:
+        raise ValueError(f"vals must be float32, got {vals.dtype}")
+    if vals.device != cols.device or cols.shape[1] < 1:
+        raise ValueError("cols/vals must share a device and have J >= 1")
+    _check_head(w, bias, labels, num_buckets, cols.shape[0], w.shape[0],
+                cols.device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and what the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def _xent_plain(logits, labels, num_buckets):
+    lg = logits.reshape(logits.shape[0], -1, num_buckets)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return (lse - picked).sum(dim=-1), lse.detach()
+
+
+def fused_xent_dense_plain(h, w, bias, labels, num_buckets):
+    """Plain PyTorch: materialize the (N, R·B) logits, then the CE."""
+    logits = h @ w
+    if bias is not None:
+        logits = logits + bias
+    return _xent_plain(logits, labels, num_buckets)
+
+
+def fused_xent_ell_plain(cols, vals, w, bias, labels, num_buckets):
+    """Plain PyTorch: gather the (N, J, R·B) rows W[cols] (padded slots
+    masked out), contract with vals, then the CE.  ``vals`` is detached;
+    duplicate ids sum in the contraction and in W's gradient."""
+    valid = (cols >= 0) & (cols < w.shape[0])
+    rows = w[torch.where(valid, cols, 0).long()]
+    v = torch.where(valid, vals, 0.0).detach()
+    logits = torch.bmm(v[:, None, :], rows)[:, 0]
+    if bias is not None:
+        logits = logits + bias
+    return _xent_plain(logits, labels, num_buckets)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers: one per launch function, each with a launch counter
+# ---------------------------------------------------------------------------
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(source: str, fn: str, device: torch.device, *args) -> None:
+    lib = _build.load(source)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, fn)(*args, stream)
+    _build.check(lib, code, fn)
+
+
+def _forward_outputs(n, r, device):
+    lse = torch.empty((n, r), dtype=torch.float32, device=device)
+    return lse, torch.empty_like(lse), torch.empty((n,), dtype=torch.float32,
+                                                    device=device)
+
+
+def _ell_rows_per_block(j: int) -> int:
+    rows = (_SMEM_OPTIN - _ELL_FIXED_SMEM) // (8 * j)
+    if rows < 1:
+        raise ValueError(f"J={j} ELL slots of one row do not fit in shared "
+                         f"memory; use the gather family")
+    return min(_ELL_MAX_ROWS, rows)
+
+
+def dense_fwd_cuda(h, w, bias, labels, num_buckets):
+    """Forward kernel on contiguous CUDA operands -> (loss, lse)."""
+    (n, d), r = h.shape, labels.shape[1]
+    lse, nll, loss = _forward_outputs(n, r, h.device)
+    _launch("mach_fused_xent_dense", "fused_xent_dense_fwd_launch", h.device,
+            h.data_ptr(), w.data_ptr(), _ptr(bias), labels.data_ptr(), n, d, r,
+            num_buckets, lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
+    dense_fwd_cuda.launches += 1
+    return loss, lse
+
+
+def dense_bwd_cuda(h, w, bias, labels, lse, g, num_buckets, need_dh=True):
+    """Backward kernel -> (dh or None, dW, dbias or None), from the saved
+    lse and the (N,) cotangent g."""
+    (n, d), r = h.shape, labels.shape[1]
+    dh = torch.zeros_like(h) if need_dh else None
+    dw = torch.zeros_like(w)
+    db = None if bias is None else torch.zeros_like(bias)
+    _launch("mach_fused_xent_dense", "fused_xent_dense_bwd_launch", h.device,
+            h.data_ptr(), w.data_ptr(), _ptr(bias), labels.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), n, d, r, num_buckets, _ptr(dh),
+            dw.data_ptr(), _ptr(db))
+    dense_bwd_cuda.launches += 1
+    return dh, dw, db
+
+
+def ell_fwd_cuda(cols, vals, w, bias, labels, num_buckets):
+    (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
+    lse, nll, loss = _forward_outputs(n, r, cols.device)
+    _launch("mach_fused_xent_ell", "fused_xent_ell_fwd_launch", cols.device,
+            cols.data_ptr(), vals.data_ptr(), w.data_ptr(), _ptr(bias),
+            labels.data_ptr(), n, j, d, r, num_buckets, _ell_rows_per_block(j),
+            lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
+    ell_fwd_cuda.launches += 1
+    return loss, lse
+
+
+def ell_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
+    dw = torch.zeros_like(w)
+    db = None if bias is None else torch.zeros_like(bias)
+    _launch("mach_fused_xent_ell", "fused_xent_ell_bwd_launch", cols.device,
+            cols.data_ptr(), vals.data_ptr(), w.data_ptr(), _ptr(bias),
+            labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, j, d, r,
+            num_buckets, _ell_rows_per_block(j), dw.data_ptr(), _ptr(db))
+    ell_bwd_cuda.launches += 1
+    return dw, db
+
+
+def gather_fwd_cuda(cols, vals, w, bias, labels, num_buckets):
+    (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
+    lse, nll, loss = _forward_outputs(n, r, cols.device)
+    _launch("mach_fused_xent_gather", "fused_xent_gather_fwd_launch",
+            cols.device, cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
+            _ptr(bias), labels.data_ptr(), n, j, d, r, num_buckets,
+            lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
+    gather_fwd_cuda.launches += 1
+    return loss, lse
+
+
+def gather_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
+    dw = torch.zeros_like(w)
+    db = None if bias is None else torch.zeros_like(bias)
+    _launch("mach_fused_xent_gather", "fused_xent_gather_bwd_launch",
+            cols.device, cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
+            _ptr(bias), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, j,
+            d, r, num_buckets, dw.data_ptr(), _ptr(db))
+    gather_bwd_cuda.launches += 1
+    return dw, db
+
+
+CUDA_WRAPPERS = (dense_fwd_cuda, dense_bwd_cuda, ell_fwd_cuda, ell_bwd_cuda,
+                 gather_fwd_cuda, gather_bwd_cuda)
+for _fn in CUDA_WRAPPERS:
+    _fn.launches = 0
+
+
+class _DenseXent(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h, w, bias, labels, num_buckets):
+        loss, lse = dense_fwd_cuda(h, w, bias, labels, num_buckets)
+        ctx.save_for_backward(h, w, bias, labels, lse)
+        ctx.num_buckets = num_buckets
+        ctx.mark_non_differentiable(lse)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        h, w, bias, labels, lse = ctx.saved_tensors
+        dh, dw, db = dense_bwd_cuda(h, w, bias, labels, lse,
+                                    g.to(torch.float32).contiguous(),
+                                    ctx.num_buckets,
+                                    need_dh=ctx.needs_input_grad[0])
+        return dh, dw, db, None, None
+
+
+_SPARSE_KERNELS = {"ell": (ell_fwd_cuda, ell_bwd_cuda),
+                   "gather": (gather_fwd_cuda, gather_bwd_cuda)}
+
+
+class _SparseXent(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cols, vals, w, bias, labels, num_buckets, family):
+        fwd, _ = _SPARSE_KERNELS[family]
+        loss, lse = fwd(cols, vals, w, bias, labels, num_buckets)
+        ctx.save_for_backward(cols, vals, w, bias, labels, lse)
+        ctx.num_buckets, ctx.family = num_buckets, family
+        ctx.mark_non_differentiable(lse)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        cols, vals, w, bias, labels, lse = ctx.saved_tensors
+        _, bwd = _SPARSE_KERNELS[ctx.family]
+        dw, db = bwd(cols, vals, w, bias, labels, lse,
+                     g.to(torch.float32).contiguous(), ctx.num_buckets)
+        return None, None, dw, db, None, None, None
+
+
+def _contig(*ts):
+    return [None if t is None else t.contiguous() for t in ts]
+
+
+def _no_path(device):
+    return ValueError(f"no fused xent path for device {device}")
+
+
+# ---------------------------------------------------------------------------
+# the three families
+# ---------------------------------------------------------------------------
+
+def mach_fused_xent_dense(h: torch.Tensor, w: torch.Tensor,
+                          bias: Optional[torch.Tensor], labels: torch.Tensor,
+                          num_buckets: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h (N, d), w (d, R·B), bias (R·B,) or None, labels (N, R) int32 ->
+    (loss (N,), lse (N, R)).  Differentiable wrt h, w and bias."""
+    check_dense(h, w, bias, labels, num_buckets)
+    if h.device.type == "cuda":
+        return _DenseXent.apply(*_contig(h, w, bias, labels), num_buckets)
+    if h.device.type == "cpu":
+        return fused_xent_dense_plain(h, w, bias, labels, num_buckets)
+    raise _no_path(h.device)
+
+
+def _sparse(family, cols, vals, w, bias, labels, num_buckets):
+    check_ell(cols, vals, w, bias, labels, num_buckets)
+    if cols.device.type == "cuda":
+        return _SparseXent.apply(*_contig(cols, vals.detach(), w, bias, labels),
+                                 num_buckets, family)
+    if cols.device.type == "cpu":
+        return fused_xent_ell_plain(cols, vals, w, bias, labels, num_buckets)
+    raise _no_path(cols.device)
+
+
+def mach_fused_xent_ell(cols: torch.Tensor, vals: torch.Tensor,
+                        w: torch.Tensor, bias: Optional[torch.Tensor],
+                        labels: torch.Tensor, num_buckets: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Padded-ELL cols (N, J) int32 / vals (N, J) f32 -> (loss, lse)
+    through row-tile blocks (the low-nnz family).  Differentiable wrt w
+    and bias; vals get no gradient."""
+    return _sparse("ell", cols, vals, w, bias, labels, num_buckets)
+
+
+def mach_fused_xent_gather(cols: torch.Tensor, vals: torch.Tensor,
+                           w: torch.Tensor, bias: Optional[torch.Tensor],
+                           labels: torch.Tensor, num_buckets: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same function as ``mach_fused_xent_ell``, one example row a
+    block (the high-nnz family)."""
+    return _sparse("gather", cols, vals, w, bias, labels, num_buckets)

@@ -1,10 +1,11 @@
-"""Public decode ops.
+"""Public decode and training-loss ops.
 
 Dispatch is by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions (large CPU top-k
 problems to a blocked streaming version with the same results).  There
-are no knobs that pick a path.  Every public op names its oracle in
-``kernels/ref.py`` in ``ORACLES``.
+are no knobs that pick a device path; the one algorithm knob,
+``sparse_impl``, picks a sparse kernel family.  Every public op names
+its oracle in ``kernels/ref.py`` in ``ORACLES``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import ref
 from repro_torch.kernels.mach_decode import (check_decode_operands,
                                              mach_decode)
@@ -115,9 +117,123 @@ def mach_scores(meta_probs: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.reshape(lead + (table.shape[1],))
 
 
+def _no_bucket_select(bucket_select, bucket_proxy) -> None:
+    if bucket_select is not None or bucket_proxy is not None:
+        raise NotImplementedError(
+            "bucket_select / bucket_proxy (dynamic bucket selection) are not "
+            "ported yet; see ROADMAP.md, open item 1.2")
+
+
+def csr_to_ell(indptr: torch.Tensor, indices: torch.Tensor,
+               values: torch.Tensor, nnz_max: int, num_features: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CSR -> padded ELL (cols (N, nnz_max) int32, vals (N, nnz_max)).
+
+    Row n's entries land in slots [0, len_n); padded slots carry col id
+    ``num_features`` and val 0 (the kernels skip ids outside [0, d), so
+    that id is never read).  An ``nnz_max`` below the longest row would
+    silently truncate it, so it is rejected on every call: that check
+    reads max(diff(indptr)) back to the host, one device-to-host copy
+    (and synchronisation) per call on a CUDA batch.  Differentiable wrt
+    ``values`` (a gather).
+    """
+    n = indptr.shape[0] - 1
+    nnz = indices.shape[0]
+    if n > 0:
+        longest = int(torch.diff(indptr.long()).max())
+        if longest > nnz_max:
+            raise ValueError(
+                f"nnz_max={nnz_max} < longest CSR row ({longest}): the "
+                f"kernel would silently truncate it")
+    dev = indptr.device
+    if nnz == 0:
+        return (torch.full((n, nnz_max), num_features, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((n, nnz_max), dtype=values.dtype, device=dev))
+    start = indptr.long()
+    pos = start[:-1, None] + torch.arange(nnz_max, device=dev)[None, :]
+    valid = pos < start[1:, None]
+    posc = torch.clamp(pos, max=nnz - 1)
+    cols = torch.where(valid, indices[posc].to(torch.int32), num_features)
+    vals = torch.where(valid, values[posc], torch.zeros((), dtype=values.dtype,
+                                                        device=dev))
+    return cols.to(torch.int32), vals
+
+
+def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
+                    hashed_labels: torch.Tensor, *, num_buckets: int,
+                    bias: Optional[torch.Tensor] = None,
+                    bucket_select: Optional[tuple] = None,
+                    bucket_proxy: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Logit-free fused projection + R-head CE on dense inputs.
+
+    h (..., d) f32; w (d, R·B) f32; hashed_labels (..., R) bucket ids;
+    optional bias (R·B,) -> (...,) f32 per-example loss.  On CUDA the
+    dense kernel runs both passes and the (…, R·B) logits never exist in
+    device memory; on the CPU the plain version runs.  Differentiable
+    wrt h, w and bias.  The kernels choose their own tiles: the TPU
+    knobs ``block_n/block_c/block_d`` have no counterpart.
+    ``bucket_select`` / ``bucket_proxy`` raise ``NotImplementedError``.
+    """
+    _no_bucket_select(bucket_select, bucket_proxy)
+    lead, d = h.shape[:-1], h.shape[-1]
+    r = hashed_labels.shape[-1]
+    loss, _ = mfx.mach_fused_xent_dense(
+        h.reshape(-1, d), w, bias,
+        hashed_labels.reshape(-1, r).to(torch.int32), num_buckets)
+    return loss.reshape(lead)
+
+
+def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
+                        values: torch.Tensor, w: torch.Tensor,
+                        hashed_labels: torch.Tensor, *, num_buckets: int,
+                        nnz_max: int, bias: Optional[torch.Tensor] = None,
+                        sparse_impl: Optional[str] = None,
+                        bucket_select: Optional[tuple] = None,
+                        bucket_proxy: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Sparse-feature fused projection + R-head CE (the ODP d=422k
+    training path).
+
+    indptr (N+1,), indices (nnz,), values (nnz,) — a CSR batch over d
+    features; w (d, R·B); hashed_labels (N, R); optional bias (R·B,) ->
+    (N,) f32.  The batch is re-laid-out as padded ELL (``csr_to_ell``);
+    neither a dense (N, d) activation nor the (N, R·B) logits exist in
+    device memory on CUDA.  ``sparse_impl`` picks the family: "densify"
+    (the ELL row-tile family, which replaces the TPU's densifying
+    kernel; it keeps that knob value's name but densifies nothing),
+    "gather" (one row a block), or None: gather at ``nnz_max >=
+    GATHER_NNZ_THRESHOLD``, else the ELL row-tile family.  The port routes
+    by that threshold alone (the TPU's extra switch on a VMEM budget has
+    no meaning on this card).  Differentiable wrt w and bias; ``values``
+    get no gradient on either device (features are data).
+    ``bucket_select`` / ``bucket_proxy`` raise ``NotImplementedError``.
+    """
+    d = w.shape[0]
+    r = hashed_labels.shape[-1]
+    if w.dim() != 2 or w.shape[1] != r * num_buckets:
+        raise ValueError(f"w {tuple(w.shape)} != (d, {r}*{num_buckets})")
+    _no_bucket_select(bucket_select, bucket_proxy)
+    if sparse_impl not in (None, "densify", "gather"):
+        raise ValueError(f"sparse_impl must be 'densify', 'gather' or None, "
+                         f"got {sparse_impl!r}")
+    impl = sparse_impl or ("gather" if nnz_max >= mfx.GATHER_NNZ_THRESHOLD
+                           else "densify")
+    family = mfx.mach_fused_xent_gather if impl == "gather" \
+        else mfx.mach_fused_xent_ell
+    cols, vals = csr_to_ell(indptr, indices, values.detach(), nnz_max, d)
+    loss, _ = family(cols, vals, w, bias, hashed_labels.to(torch.int32),
+                     num_buckets)
+    return loss
+
+
 # public op -> its oracle in kernels/ref.py
 ORACLES: dict = {
     "mach_top1": "mach_decode_ref",
     "mach_topk": "mach_topk_ref",
     "mach_scores": "mach_scores_ref",
+    "mach_fused_xent": "mach_fused_xent_ref",
+    "mach_fused_xent_csr": "mach_fused_xent_csr_ref",
+    "csr_to_ell": "csr_densify_ref",
 }

@@ -1,5 +1,6 @@
-"""Pure-PyTorch oracles for the decode ops (the paper-faithful
-computations, which materialize what the kernels never do).
+"""Pure-PyTorch oracles for the decode and training-loss ops (the
+paper-faithful computations, which materialize what the kernels never
+do: the (N, K) scores, the (N, R·B) logits, the dense (N, d) batch).
 
 ``mach_scores_ref`` materializes the full N×K global score matrix G of
 Algorithm 2 with a one-hot contraction; ``mach_topk_ref`` ranks the
@@ -74,3 +75,45 @@ def csr_densify_ref(indptr: torch.Tensor, indices: torch.Tensor,
     rows = torch.repeat_interleave(
         torch.arange(n, device=indptr.device), torch.diff(indptr.long()))
     return out.index_put_((rows, indices.long()), values, accumulate=True)
+
+
+# ---------------------------------------------------------------------------
+# MACH fused cross-entropy (the training loss, Algorithm 1).
+# ---------------------------------------------------------------------------
+
+def mach_xent_ref(logits: torch.Tensor, hashed_labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Per-example summed R-head cross-entropy.
+
+    logits (N, R, B); hashed_labels (N, R) int bucket ids -> (N,) f32,
+    loss_n = sum_r [lse(logits[n, r]) - logits[n, r, y_nr]].
+    """
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, hashed_labels.long()[..., None])[..., 0]
+    return (lse - picked).sum(dim=-1)
+
+
+def mach_fused_xent_ref(h2: torch.Tensor, w: torch.Tensor,
+                        hashed_labels: torch.Tensor, num_buckets: int,
+                        bias: torch.Tensor = None) -> torch.Tensor:
+    """Logit-materializing oracle for the fused projection + CE: h2
+    (N, d), w (d, R·B), hashed_labels (N, R), optional bias (R·B,)
+    broadcast-added to every logits row -> (N,) f32.  Forms the full
+    (N, R·B) f32 logits the kernels never write."""
+    n, r = hashed_labels.shape
+    logits = h2.to(torch.float32) @ w.to(torch.float32)
+    if bias is not None:
+        logits = logits + bias.to(torch.float32)[None, :]
+    return mach_xent_ref(logits.reshape(n, r, num_buckets), hashed_labels)
+
+
+def mach_fused_xent_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
+                            values: torch.Tensor, w: torch.Tensor,
+                            hashed_labels: torch.Tensor, num_buckets: int,
+                            bias: torch.Tensor = None) -> torch.Tensor:
+    """Densifying oracle for the sparse fused projection + CE: the CSR
+    batch is scattered into a dense f32 (N, d) activation (duplicate ids
+    sum), then reduced by ``mach_fused_xent_ref``."""
+    x = csr_densify_ref(indptr, indices, values.to(torch.float32), w.shape[0])
+    return mach_fused_xent_ref(x, w, hashed_labels, num_buckets, bias=bias)

@@ -64,6 +64,18 @@ def test_kernel_sources_present_and_hashed():
         assert name in _build.SIGNATURES
     assert _build.library_path("mach_decode") != _build.library_path("mach_topk")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the three fused-xent families: one source each, a forward and a
+    # backward launch function each, and the shared epilogue header
+    for family in ("dense", "ell", "gather"):
+        name = f"mach_fused_xent_{family}"
+        assert name in _build.SOURCES
+        assert set(_build.SIGNATURES[name]) == {
+            f"fused_xent_{family}_fwd_launch", f"fused_xent_{family}_bwd_launch"}
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "mach_xent_common.cuh"' in source
+        for fn in _build.SIGNATURES[name]:
+            assert f"int {fn}(" in source
+    assert (_build.CSRC / "mach_xent_common.cuh").exists()
 
 
 def test_cpu_tensors_never_reach_the_build(monkeypatch):
@@ -76,3 +88,15 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
     ops.mach_top1(meta, table, num_classes=100)
     for est in ("unbiased", "min", "median"):
         ops.mach_topk(meta, table, num_classes=100, k=5, estimator=est)
+    # the training ops, forward and backward
+    w = torch.randn(12, 4 * 8, requires_grad=True)
+    bias = torch.zeros(4 * 8, requires_grad=True)
+    labels = torch.randint(0, 8, (3, 4), dtype=torch.int32)
+    h = torch.randn(3, 12, requires_grad=True)
+    ops.mach_fused_xent(h, w, labels, num_buckets=8, bias=bias).sum().backward()
+    indptr = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    indices = torch.tensor([1, 1, 0, 11, 4], dtype=torch.int32)
+    for impl in ("densify", "gather"):
+        ops.mach_fused_xent_csr(indptr, indices, torch.rand(5), w, labels,
+                                num_buckets=8, nnz_max=3, bias=bias,
+                                sparse_impl=impl).sum().backward()
