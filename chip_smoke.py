@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of MACH serving (Algorithm 2) and training
-(Algorithm 1, through the fused logit-free loss) on one NVIDIA GPU.
+"""Drive the PyTorch port of MACH serving (Algorithm 2, streaming and
+count-min candidate decode) and training (Algorithm 1, through the fused
+logit-free loss) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -16,6 +17,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    shape where classes collide in bulk, with ragged N and K.  Dyadic
    inputs (multiples of 2^-10) must agree exactly, values and indices;
    random inputs to rtol 1e-6, indices equal except on near-ties.
+3b. Candidate kernels vs plain on the card: bucket top-m (kernel 7)
+   exactly, at N=37, m in {1, 3, B}; the candidate filter (kernel 8) at
+   N <= 5, both hash sources, the three estimators, (m, t) in {(1, 1),
+   (2, 2), (B, R)} and a flat-random (1, R) that exercises the backfill
+   slot, k in {1, 10, 100}: values, bands and ids equal, dyadic and
+   random.  Shapes: ODP (R=25, B=32), ImageNet-21k (R=20, B=512), the
+   JAX gate (R=16, B=8192, K=1,048,576) and a tiny collide one (R=B=4).
 4. Main path at full ODP width: ``MACHLinear`` (K=105,033, d=422,713,
    B=32, R=25) with seeded random weights answers a 256-query CSR batch
    (nnz=120) through ``predict`` and ``estimators.predict_topk(k=10)``
@@ -23,6 +31,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    to 0 just before and read just after; both kernels must have run.
    Then ms per answer, kernel ms, plain ms, the ``torch.topk`` yardstick
    and peak memory.
+4b. Candidate main path at full width: ODP (phase 4's model and batch)
+   and ImageNet-21k (K=21,841, d=6,144, B=512, R=20, dense features,
+   N=256) through ``estimators.predict_topk(candidate_mode=(m, t))`` for
+   each estimator, exact (B, R) and approximate ((2|4, 1) unbiased,
+   (2|4, 2) min and median), and ``predict(candidate_mode=(B, R))``.
+   Launch counters from 0; both candidate kernels must have run.  Exact
+   mode must equal the streaming kernel's answer bit for bit, predict
+   equal ``mach_top1`` up to near-ties, the approximate answers the
+   plain path's on 16 queries; recall@10 is printed.  Then answer,
+   kernel, plain, ``torch.topk`` and streaming-kernel times, bounds,
+   peak memory, and the JAX gate shape (N=8, m=12, planted-signal
+   batch): candidate kernels vs the plain streaming top-k, recall@10.
 5. Fused-xent kernels vs plain on the card, forward and backward: the
    dense, ELL and gather families against their plain PyTorch versions
    (loss, lse, dW, dbias, dh) at the ODP shape (R=25, B=32), the
@@ -66,6 +86,13 @@ N_MAIN, K_MAIN = 256, 10
 # kernel-vs-plain shapes: (label, N, R, B, K) — ragged N and K tails
 CHECK_SHAPES = [("odp", 37, 25, 32, 105033), ("imagenet21k", 37, 20, 512, 21841),
                 ("collide", 5, 4, 2, 5003)]
+# candidate-kernel checks: (label, N, R, B, K) — kernel 8 at small N,
+# kernel 7 at N=37; the gate shape's R·B is beyond the streaming kernel
+CAND_SHAPES = [("odp", 5, 25, 32, 105033), ("imagenet21k", 5, 20, 512, 21841),
+               ("gate", 3, 16, 8192, 1048576), ("collide", 5, 4, 4, 5003)]
+# the JAX benchmark's decode gate: K, R, B, N, k, m; t per estimator
+GATE = {"K": 1048576, "R": 16, "B": 8192, "N": 8, "k": 10, "m": 12}
+GATE_T = {"unbiased": 1, "min": 2, "median": 2}
 
 
 def fail(msg: str) -> None:
@@ -185,6 +212,86 @@ def phase_kernels_vs_plain(dev) -> int:
         print(f"kernels vs plain: {label} (N={n}, R={r}, B={b}, K={num_classes})"
               f" ok", flush=True)
     return checked
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the candidate kernels (7 and 8) vs their plain versions
+# ---------------------------------------------------------------------------
+
+def _check_candidates(name, got, want) -> float:
+    """Kernel 8's (value, band, id) top-k vs the plain version's, at
+    the same k: bands equal (so dead and backfill slots sit in the same
+    positions), values and ids equal (the kernel repeats the plain
+    arithmetic, so this holds on random inputs too), no duplicate id.
+    Returns the max abs error of the live values."""
+    (kv, kb, ki), (pv, pb, pi) = got, want
+    if not torch.equal(kb, pb):
+        fail(f"{name}: bands differ (dead/backfill slots out of place)")
+    live = kb > 0
+    if not torch.isfinite(kv[live]).all():
+        fail(f"{name}: non-finite kernel values")
+    err = float((kv[live] - pv[live]).abs().max()) if live.any() else 0.0
+    if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+        bad = (ki != pi).any(-1).nonzero()[:3].flatten().tolist()
+        fail(f"{name}: kernel != plain (rows {bad}, max err {err})")
+    for row, ok in zip(ki.tolist(), live.tolist()):
+        ids = [i for i, o in zip(row, ok) if o]
+        if len(set(ids)) != len(ids):
+            fail(f"{name}: duplicate class ids in a row")
+    return err
+
+
+def phase_candidates_vs_plain(dev) -> dict:
+    from repro_torch.core.hashing import MultShiftFamily, inverted_table
+    from repro_torch.kernels import mach_candidates as mc
+
+    stats = {"bucket_topm": 0, "mach_candidate_topk": 0, "max_abs_err": 0.0,
+             "topm_max_abs_err": 0.0, "backfill_rows": 0}
+    for label, n, r, b, num_classes in CAND_SHAPES:
+        fam = MultShiftFamily(b, r, seed=1)
+        table = fam.table(num_classes, dev)
+        inv = inverted_table(table, b, device=dev)
+        hashes = {"table": {"table": table},
+                  "inline": {"inline_coeffs": fam.coeffs_tensor(dev),
+                             "inline_shift": fam.shift}}
+        for dyadic in (True, False):
+            kind = "dyadic" if dyadic else "random"
+            meta7 = _inputs(37, r, b, dyadic, seed=b + r, dev=dev)
+            for m in sorted({1, 3, b}):
+                kt, ki = mc.bucket_topm_cuda(meta7, m)
+                pt, pi = mc.bucket_topm(meta7, m)
+                torch.cuda.synchronize()
+                if not (torch.equal(kt, pt) and torch.equal(ki, pi)):
+                    fail(f"bucket_topm {label} {kind} m={m}: kernel != plain")
+                stats["topm_max_abs_err"] = max(stats["topm_max_abs_err"],
+                                                float((kt - pt).abs().max()))
+                stats["bucket_topm"] += 1
+            meta = _inputs(n, r, b, dyadic, seed=r * b + 1, dev=dev)
+            settings = [(1, 1), (2, 2), (b, r)] + ([] if dyadic else [(1, r)])
+            for m, t in settings:
+                tau, ids = mc.bucket_topm(meta, m)
+                for mode, hash_kw in hashes.items():
+                    for est in ESTIMATORS:
+                        want = mc.mach_candidate_topk_plain(
+                            meta, tau, ids, inv, num_classes=num_classes, k=100,
+                            t=t, estimator=est, **hash_kw)
+                        if (m, t) == (1, r):
+                            stats["backfill_rows"] += int((want[1][:, 0] == 1).sum())
+                        for k in (1, 10, 100):
+                            got = mc.mach_candidate_topk_cuda(
+                                meta, tau, ids, inv, num_classes=num_classes,
+                                k=k, t=t, estimator=est, **hash_kw)
+                            torch.cuda.synchronize()
+                            err = _check_candidates(
+                                f"candidates {label} {kind} {mode} {est} m={m} "
+                                f"t={t} k={k}", got, [x[:, :k] for x in want])
+                            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                            stats["mach_candidate_topk"] += 1
+        print(f"candidate kernels vs plain: {label} (N={n}, R={r}, B={b}, "
+              f"K={num_classes}, L={inv.shape[1]}) ok", flush=True)
+    if stats["backfill_rows"] < 1:
+        fail("no flat-random row exercised the backfill slot")
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +456,360 @@ def phase_main_path(dev) -> list[dict]:
             f"{ms_k100:.4f} ms [{smi}]", flush=True)
     print(f"yardstick: multi-hot f32 GEMM + torch.topk (scores materialized) "
           f"{gemm_topk:.4f} ms [{smi}]", flush=True)
+    return rows, {"head": head, "params": params, "batch": batch,
+                  "table": table}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the candidate decode main path at full ODP and ImageNet-21k
+# width, and the JAX package's gate shape
+# ---------------------------------------------------------------------------
+
+def _candidate_bounds(meta, ids, inv, table, n, r, b, k, num_classes,
+                      gathers):
+    """Least time (ms) for kernel 8 and for kernel 7 on this card, and
+    what bounds each.  Kernel 8: the ``gathers`` probability values its
+    early stop leaves on these inputs (``pool_gathers``), one f32
+    operation each, vs the bytes of the probabilities, tau and ids, the
+    distinct inverted rows this batch touches (and, in table mode, the
+    table entries of the classes in them), counted once, and the
+    outputs.  Kernel 7: N·R·B comparisons vs the probabilities read and
+    tau and ids written."""
+    from repro_torch.kernels.mach_candidates import candidate_chunks
+    m, ell = ids.shape[-1], inv.shape[1]
+    rows = torch.unique(candidate_chunks(ids, b))
+    nbytes = 4 * n * r * b + 4 * n * r * (1 + m) + 4 * rows.numel() * ell \
+        + 12 * n * k
+    if table is not None:
+        cls = torch.unique(inv[rows.long()])
+        nbytes += 4 * r * int((cls < num_classes).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = gathers / F32_OPS_PER_S * 1e3
+    k8 = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t7_bytes = (4 * n * r * b + 4 * n * r * (1 + m)) / HBM_BYTES_PER_S * 1e3
+    t7_ops = n * r * b / F32_OPS_PER_S * 1e3
+    k7 = (t7_ops, "operations") if t7_ops >= t7_bytes else (t7_bytes, "bytes")
+    return k8, k7
+
+
+def _planted_probs(dev, n, r, b, coeffs, shift, num_classes, seed,
+                   n_plant=20, lo=5.0, hi=9.0):
+    """A trained-head-like batch, after the JAX benchmark's generator:
+    per row, ``n_plant`` random classes get a logit boost U(lo, hi) in
+    every repetition's bucket of them, over N(0, 1) noise logits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    classes = torch.randint(0, num_classes, (n, n_plant), generator=gen,
+                            device=dev)
+    w = lo + (hi - lo) * torch.rand((n, n_plant), generator=gen, device=dev)
+    hc = ((coeffs[None, :, None] * classes[:, None, :]) & 0xFFFFFFFF) >> shift
+    noise = torch.randn((n, r, b), generator=gen, device=dev)
+    boost = torch.zeros((n, r, b), device=dev).scatter_add_(
+        2, hc, w[:, None, :].expand(n, r, n_plant).contiguous())
+    return torch.softmax(noise + boost, -1)
+
+
+def _recall(got, want) -> float:
+    k = want.shape[1]
+    return sum(len(set(a) & set(c)) for a, c in
+               zip(got.tolist(), want.tolist())) / (k * want.shape[0])
+
+
+def _check_decoded(name, kv, ki, pv, pi) -> float:
+    """Decoded candidate answers vs the plain path's: (-inf, -1) slots
+    in the same positions, values and ids equal."""
+    dead = ki < 0
+    if not torch.equal(dead, pi < 0) or not (kv[dead] == -torch.inf).all():
+        fail(f"{name}: filtered slots out of place")
+    if not torch.isfinite(kv[~dead]).all():
+        fail(f"{name}: non-finite values")
+    err = float((kv[~dead] - pv[~dead]).abs().max()) if (~dead).any() else 0.0
+    if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+        fail(f"{name}: answer != plain path's (max err {err})")
+    return err
+
+
+def _imagenet_serving(dev):
+    from repro_torch.configs.odp_mach import IMAGENET
+    from repro_torch.core.mach import MACHLinear
+    from repro_torch.data.extreme import ExtremeDataConfig, ExtremeDataset
+    head = MACHLinear(IMAGENET.mach(), IMAGENET.dim)
+    params = head.init(torch.Generator(device=dev).manual_seed(1), device=dev)
+    data = ExtremeDataset(ExtremeDataConfig(IMAGENET.num_classes, IMAGENET.dim),
+                          device=dev)
+    x, _ = data.batch_at(0, N_MAIN)
+    return {"head": head, "params": params, "batch": x,
+            "table": head.table(dev)}
+
+
+def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
+    from repro_torch.core import estimators as est
+    from repro_torch.kernels import mach_candidates as mc
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    models = {"odp": odp, "imagenet21k": _imagenet_serving(dev)}
+    for ctx in models.values():
+        cfg = ctx["head"].cfg
+        ctx["K"], ctx["R"], ctx["B"] = (cfg.num_classes, cfg.num_repetitions,
+                                        cfg.num_buckets)
+        ctx["inv"] = ctx["head"].inverted_table(dev)
+        ctx["meta"] = ctx["head"].meta_probs(ctx["params"], ctx["batch"])
+        ctx["meta_nrb"] = ctx["meta"].movedim(0, -2).contiguous()
+        ctx["exact"] = {e: (ctx["B"], ctx["R"]) for e in ESTIMATORS}
+    approx_m = {"odp": 2, "imagenet21k": 4}
+    for name, ctx in models.items():
+        ctx["approx"] = {e: (approx_m[name], 1 if e == "unbiased" else 2)
+                         for e in ESTIMATORS}
+    torch.cuda.synchronize()
+    print(f"candidate main path: set-up {time.perf_counter() - t0:.1f} s; "
+          + "; ".join(f"{name} K={c['K']} B={c['B']} R={c['R']} L="
+                      f"{c['inv'].shape[1]}" for name, c in models.items()),
+          flush=True)
+
+    def answer(ctx, e, setting):
+        return est.predict_topk(ctx["meta"], ctx["table"], K_MAIN, e,
+                                candidate_mode=ctx[setting][e],
+                                inverted=ctx["inv"])
+
+    # the main path's run: counts from 0, read just after
+    mc.bucket_topm_cuda.launches = 0
+    mc.mach_candidate_topk_cuda.launches = 0
+    out, peak_gib = {}, {}
+    for name, ctx in models.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        for e in ESTIMATORS:
+            for setting in ("exact", "approx"):
+                out[name, e, setting] = answer(ctx, e, setting)
+        out[name, "predict"] = ctx["head"].predict(
+            ctx["params"], ctx["batch"], candidate_mode=(ctx["B"], ctx["R"]))
+        torch.cuda.synchronize()
+        peak_gib[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {"bucket_topm": mc.bucket_topm_cuda.launches,
+                "mach_candidate_topk": mc.mach_candidate_topk_cuda.launches}
+    smi = _nvidia_smi()
+    print(f"candidate main path launches: {launches}, peak memory "
+          + ", ".join(f"{name} {v:.2f} GiB" for name, v in peak_gib.items())
+          + f" [{smi}]", flush=True)
+    for kname, count in launches.items():
+        if count < 1:
+            fail(f"kernel {kname} never launched on the candidate main path")
+
+    # right answers: exact mode == streaming bit for bit; predict ==
+    # mach_top1 up to near-ties; approximate == the plain path
+    err = checks["max_abs_err"]
+    recall = {}
+    for name, ctx in models.items():
+        K = ctx["K"]
+        sums = md.summed_scores(ctx["meta_nrb"], ctx["table"])
+        for e in ESTIMATORS:
+            cv, ci = out[name, e, "exact"]
+            sv, si = est.predict_topk(ctx["meta"], ctx["table"], K_MAIN, e)
+            if tuple(ci.shape) != (N_MAIN, K_MAIN) or not torch.isfinite(cv).all():
+                fail(f"{name} exact {e}: wrong shape or non-finite values")
+            if not (torch.equal(cv, sv) and torch.equal(ci, si)):
+                fail(f"{name} {e}: exact-mode candidates != streaming kernel")
+            av, ai = out[name, e, "approx"]
+            m, t = ctx["approx"][e]
+            sub = ctx["meta_nrb"][:16]
+            tau, ids = mc.bucket_topm(sub, m)
+            pv, pi = mc.finish_candidates(
+                *mc.mach_candidate_topk_plain(
+                    sub, tau, ids, ctx["inv"], ctx["table"], num_classes=K,
+                    k=K_MAIN, t=t, estimator=e),
+                ctx["R"], ctx["B"], e)
+            err = max(err, _check_decoded(f"{name} approx {e} (m={m}, t={t})",
+                                          av[:16], ai[:16], pv, pi))
+            recall[name, e] = _recall(ai, si)
+        _, top1 = ops.mach_top1(ctx["meta_nrb"], ctx["table"], num_classes=K)
+        pred = out[name, "predict"].long()
+        a = torch.gather(sums, 1, top1.long()[:, None])
+        c = torch.gather(sums, 1, pred[:, None])
+        if not torch.allclose(a, c, rtol=1e-6, atol=0):
+            fail(f"{name}: candidate predict disagrees with mach_top1 beyond "
+                 f"near-ties")
+        n_same = int((top1.long() == pred).sum())
+        print(f"candidate answers ok ({name}): exact mode == streaming kernel "
+              f"bit for bit for {', '.join(ESTIMATORS)}; predict(candidate_mode="
+              f"({ctx['B']}, {ctx['R']})) == mach_top1 on {n_same}/{N_MAIN}, the "
+              f"rest near-ties; approximate == plain on 16 queries; recall@"
+              f"{K_MAIN} vs streaming (information, random weights): "
+              + ", ".join(f"{e} (m, t)={ctx['approx'][e]} "
+                          f"{recall[name, e]:.3f}" for e in ESTIMATORS),
+              flush=True)
+
+    timings = {}
+    for name, ctx in models.items():
+        for e in ESTIMATORS:
+            stream_ms = wall_ms(lambda: est.predict_topk(
+                ctx["meta"], ctx["table"], K_MAIN, e))
+            for setting in ("exact", "approx"):
+                timings[name, e, setting] = wall_ms(
+                    lambda: answer(ctx, e, setting))
+            print(f"answer {name} predict_topk[{e},k={K_MAIN}] from meta: "
+                  f"streaming {stream_ms:.3f} ms/batch, candidates exact "
+                  f"{ctx['exact'][e]} {timings[name, e, 'exact']:.3f}, approx "
+                  f"{ctx['approx'][e]} {timings[name, e, 'approx']:.3f} [{smi}]",
+                  flush=True)
+        full = wall_ms(lambda: ctx["head"].predict(
+            ctx["params"], ctx["batch"], candidate_mode=(ctx["B"], ctx["R"])))
+        print(f"answer {name} predict(candidate_mode=({ctx['B']}, {ctx['R']})) "
+              f"with the projection: {full:.3f} ms/batch [{smi}]", flush=True)
+
+    # kernel, plain, library and streaming times on the main path's inputs
+    by_setting, gathers = {}, {}
+    for name, ctx in models.items():
+        meta, inv, table = ctx["meta_nrb"], ctx["inv"], ctx["table"]
+        K, R, B = ctx["K"], ctx["R"], ctx["B"]
+        for setting in ("exact", "approx"):
+            for e in ESTIMATORS:
+                m, t = ctx[setting][e]
+                tau, ids = mc.bucket_topm_cuda(meta, m)
+                kw = {"num_classes": K, "k": K_MAIN, "t": t, "estimator": e}
+                fam = ctx["head"].cfg.family
+                row = {
+                    "m": m, "t": t,
+                    "ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
+                        meta, tau, ids, inv, table, **kw), iters=5, warmup=1),
+                    # the same work with the hash recomputed in-register
+                    # instead of read from the (R, K) table
+                    "inline_ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
+                        meta, tau, ids, inv, **kw,
+                        inline_coeffs=fam.coeffs_tensor(dev),
+                        inline_shift=fam.shift), iters=5, warmup=1),
+                    "plain_ms": kernel_ms(lambda: mc.mach_candidate_topk_plain(
+                        meta, tau, ids, inv, table, **kw), iters=2, warmup=1),
+                    "streaming_ms": kernel_ms(lambda: mt.mach_topk_cuda(
+                        meta, table, num_classes=K, k=K_MAIN, estimator=e)),
+                    "topm_ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, m)),
+                    "topm_plain_ms": kernel_ms(lambda: mc.bucket_topm(meta, m)),
+                    "topm_library_ms": kernel_ms(
+                        lambda: torch.topk(meta, m, dim=-1)),
+                }
+                if (name, m) not in gathers:
+                    gathers[name, m] = mc.pool_gathers(meta, tau, ids, inv,
+                                                       table, num_classes=K)
+                row["gathers"] = gathers[name, m]
+                (row["bound_ms"], row["bound_by"]), \
+                    (row["topm_bound_ms"], row["topm_bound_by"]) = \
+                    _candidate_bounds(meta, ids, inv, table, N_MAIN, R, B,
+                                      K_MAIN, K, row["gathers"])
+                by_setting[f"{name} {setting} {e}"] = row
+                print(f"kernel mach_candidate_topk {name} {e} (m, t)=({m}, {t})"
+                      f": {row['ms']:.4f} ms (inline hash {row['inline_ms']:.4f}"
+                      f"), plain {row['plain_ms']:.4f} ms, "
+                      f"library: none (no single PyTorch call computes the "
+                      f"filter), streaming kernel 2 {row['streaming_ms']:.4f} "
+                      f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+                      f"{row['gathers']} gathers); "
+                      f"bucket_topm {row['topm_ms']:.4f} ms, plain "
+                      f"{row['topm_plain_ms']:.4f}, torch.topk "
+                      f"{row['topm_library_ms']:.4f}, bound "
+                      f"{row['topm_bound_ms']:.5f} ({row['topm_bound_by']}) "
+                      f"[{smi}]", flush=True)
+
+    gate = phase_candidate_gate(dev)
+    primary = by_setting["odp exact unbiased"]
+    shape = (f"odp: N={N_MAIN} R={odp['R']} B={odp['B']} K={odp['K']} "
+             f"L={odp['inv'].shape[1]} k={K_MAIN} table hash, unbiased, exact "
+             f"mode (m, t)=({odp['B']}, {odp['R']})")
+    rows = [{
+        "name": "bucket_topm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mach_candidates.cu",
+        "replaces": "src/repro/kernels/mach_candidates.py:140",
+        "launches": launches["bucket_topm"],
+        "max_abs_err": checks["topm_max_abs_err"],
+        "ms": primary["topm_ms"], "plain_ms": primary["topm_plain_ms"],
+        "bound_ms": primary["topm_bound_ms"],
+        "bound_by": primary["topm_bound_by"],
+        "library_ms": primary["topm_library_ms"],
+        "shape": f"N={N_MAIN} R={odp['R']} B={odp['B']} m={odp['B']} (odp "
+                 f"exact mode)",
+        "ms_by_setting": {key: {f: v[f] for f in ("m", "topm_ms",
+                                                   "topm_plain_ms",
+                                                   "topm_library_ms",
+                                                   "topm_bound_ms")}
+                          for key, v in by_setting.items()},
+        "gate_ms": gate["topm_ms"],
+    }, {
+        "name": "mach_candidate_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mach_candidates.cu",
+        "replaces": "src/repro/kernels/mach_candidates.py:377",
+        "launches": launches["mach_candidate_topk"], "max_abs_err": err,
+        "ms": primary["ms"], "plain_ms": primary["plain_ms"],
+        "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
+        "gathers": primary["gathers"],
+        "library_ms": None, "streaming_ms": primary["streaming_ms"],
+        "shape": shape,
+        "ms_by_setting": {key: {f: v[f] for f in ("m", "t", "ms", "inline_ms",
+                                                   "plain_ms", "streaming_ms",
+                                                   "gathers", "bound_ms",
+                                                   "bound_by")}
+                          for key, v in by_setting.items()},
+        "answer_ms": {" ".join(key): v for key, v in timings.items()},
+        "peak_gib": peak_gib, "gate": gate,
+    }]
     return rows
+
+
+def phase_candidate_gate(dev) -> dict:
+    """The JAX package's decode gate shape (K=1,048,576, R=16, B=8192,
+    N=8, m=12, inline multiply-shift), where the streaming kernel
+    refuses R·B: the candidate kernels vs the plain streaming top-k."""
+    from repro_torch.core.hashing import MultShiftFamily, inverted_table
+    from repro_torch.kernels import mach_candidates as mc
+    from repro_torch.kernels import mach_topk as mt
+
+    g = GATE
+    fam = MultShiftFamily(g["B"], g["R"], seed=0)
+    coeffs, shift = fam.coeffs_tensor(dev), fam.shift
+    inv = inverted_table(fam.table_np(g["K"]), g["B"], device=dev)
+    meta = _planted_probs(dev, g["N"], g["R"], g["B"], coeffs, shift, g["K"],
+                          seed=7)
+    flat = _inputs(g["N"], g["R"], g["B"], False, seed=9, dev=dev)
+    hash_kw = {"inline_coeffs": coeffs, "inline_shift": shift}
+    smi = _nvidia_smi()
+    res = {"shape": f"N={g['N']} R={g['R']} B={g['B']} K={g['K']} "
+                    f"L={inv.shape[1]} k={g['k']} m={g['m']} inline hash",
+           "topm_ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, g["m"]))}
+    tau, ids = mc.bucket_topm_cuda(meta, g["m"])
+    res["gathers"] = mc.pool_gathers(meta, tau, ids, inv, num_classes=g["K"],
+                                     **hash_kw)
+    for e in ESTIMATORS:
+        t = GATE_T[e]
+
+        def cand(p, e=e, t=t):
+            return mc.mach_candidate_topk(p, inv, num_classes=g["K"], k=g["k"],
+                                          m=g["m"], t=t, estimator=e, **hash_kw)
+
+        def stream(p, e=e):
+            return mt.mach_topk_plain(p, num_classes=g["K"], k=g["k"],
+                                      estimator=e, **hash_kw)
+
+        kw = {"num_classes": g["K"], "k": g["k"], "t": t, "estimator": e}
+        row = {"t": t,
+               "ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
+                   meta, tau, ids, inv, **kw, **hash_kw), iters=10),
+               "decode_ms": kernel_ms(lambda: cand(meta), iters=10),
+               "plain_streaming_ms": kernel_ms(lambda: stream(meta), iters=3),
+               "recall_at_k": _recall(cand(meta)[1], stream(meta)[1]),
+               "recall_at_k_flat_random": _recall(cand(flat)[1],
+                                                  stream(flat)[1])}
+        (row["bound_ms"], row["bound_by"]), _ = _candidate_bounds(
+            meta, ids, inv, None, g["N"], g["R"], g["B"], g["k"], g["K"],
+            res["gathers"])
+        res[e] = row
+        print(f"gate {res['shape']} {e} t={t}: kernel 8 {row['ms']:.4f} ms, "
+              f"candidate decode (kernels 7 + 8 + decode) {row['decode_ms']:.4f}"
+              f" ms vs plain streaming top-k {row['plain_streaming_ms']:.4f} ms "
+              f"(the streaming kernel refuses R·B={g['R'] * g['B']}); bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {res['gathers']} "
+              f"gathers); recall@{g['k']} "
+              f"{row['recall_at_k']:.3f} planted, "
+              f"{row['recall_at_k_flat_random']:.3f} flat-random [{smi}]",
+              flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +1258,20 @@ def main() -> int:
     print(f"kernels vs plain: {checked} comparisons ok in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = phase_main_path(dev)
+    t0 = time.perf_counter()
+    cand_checks = phase_candidates_vs_plain(dev)
+    print(f"candidate kernels vs plain: {cand_checks['bucket_topm']} bucket_topm "
+          f"and {cand_checks['mach_candidate_topk']} mach_candidate_topk "
+          f"comparisons ok ({cand_checks['backfill_rows']} backfill rows), max "
+          f"abs err {cand_checks['max_abs_err']:.3e}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows, odp = phase_main_path(dev)
+    t0 = time.perf_counter()
+    rows += phase_candidate_main_path(dev, odp, cand_checks)
+    print(f"candidate main path: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del odp
 
     t0 = time.perf_counter()
     checks = phase_xent_vs_plain(dev)

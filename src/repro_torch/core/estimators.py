@@ -13,10 +13,12 @@ values, ``(lo + hi) * 0.5`` (``torch.median`` returns the lower one).
 
 The gathered tensor (R, ..., K) is materialized here — this module is
 the reference path; ``predict_topk`` routes to the streaming decode
-kernel, which never materializes it.
+kernel or the candidate-filtered one, which never materialize it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -90,7 +92,9 @@ def predict_classes(meta_probs: torch.Tensor, table: torch.Tensor,
 
 def predict_topk(meta_probs: torch.Tensor, table: torch.Tensor, k: int,
                  estimator: str = "unbiased", *,
-                 candidate_mode=None) -> tuple[torch.Tensor, torch.Tensor]:
+                 candidate_mode=None,
+                 inverted: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k (p̂ values, class ids) under the chosen estimator.
 
     meta_probs: (R, ..., B) — same layout as the other estimators here.
@@ -99,14 +103,13 @@ def predict_topk(meta_probs: torch.Tensor, table: torch.Tensor, k: int,
     on the CPU.  Returns ((..., k) f32, (..., k) int32); ties go to the
     lowest class id.
 
-    ``candidate_mode``: None | "exact" stream all K classes.  The
-    count-min candidate filter ((m, t) tuples) is not ported yet.
+    ``candidate_mode``: None | "exact" stream all K classes; an (m, t)
+    tuple routes through the count-min candidate filter (requires
+    ``inverted``, the (R·B, L) table from ``hashing.inverted_table``) —
+    cost independent of K, top-k approximate (see ``ops.mach_topk``).
     """
-    if candidate_mode is not None and candidate_mode != "exact":
-        raise NotImplementedError(
-            "candidate_mode=(m, t) (count-min candidate decode) is not "
-            "ported yet; see ROADMAP.md, open item 'candidate decode'")
     from repro_torch.kernels import ops  # deferred: kernels sit above core
     return ops.mach_topk(meta_probs.movedim(0, -2), table,
                          num_classes=table.shape[-1], k=k,
-                         estimator=estimator)
+                         estimator=estimator, candidate_mode=candidate_mode,
+                         inverted=inverted)

@@ -176,6 +176,16 @@ def inverted_table_np(table: np.ndarray, num_buckets: int,
     return inv
 
 
+def inverted_table(table, num_buckets: int, pad_to: int = 128,
+                   device=None) -> torch.Tensor:
+    """(R·B, L) int32 inverted table (see ``inverted_table_np``) on
+    ``device`` (default ``cuda``); ``table`` is an (R, K) array or tensor."""
+    if isinstance(table, torch.Tensor):
+        table = table.cpu().numpy()
+    return torch.from_numpy(inverted_table_np(table, num_buckets, pad_to)).to(
+        resolve_device(device))
+
+
 # the known hash-family kinds — ``MACHConfig`` validates against this
 HASH_KINDS = ("auto", "carter_wegman", "mult_shift")
 

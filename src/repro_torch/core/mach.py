@@ -79,6 +79,11 @@ class MACHConfig:
         return hashing.inverted_table_np(self.table_np(), self.num_buckets,
                                          pad_to)
 
+    def inverted_table(self, pad_to: int = 128, device=None) -> torch.Tensor:
+        """The (R·B, L) int32 inverted table on ``device`` (default ``cuda``)."""
+        return hashing.inverted_table(self.table_np(), self.num_buckets,
+                                      pad_to, device)
+
     # --- theory (paper §3.1) ---
     def indistinguishable_bound(self) -> float:
         return hashing.indistinguishable_pair_bound(
@@ -178,11 +183,19 @@ class MACHHead(abc.ABC):
 
     def table(self, device) -> torch.Tensor:
         """The config's (R, K) table on ``device``, built on first use."""
+        return self._cached("_tables", device, self.cfg.table)
+
+    def inverted_table(self, device) -> torch.Tensor:
+        """The config's (R·B, L) inverted table on ``device``, built on
+        first use (candidate-filtered decode)."""
+        return self._cached("_inverted", device, self.cfg.inverted_table)
+
+    def _cached(self, slot: str, device, build) -> torch.Tensor:
         device = torch.device(device)
-        tables = self.__dict__.setdefault("_tables", {})
-        if device not in tables:
-            tables[device] = self.cfg.table(device)
-        return tables[device]
+        cache = self.__dict__.setdefault(slot, {})
+        if device not in cache:
+            cache[device] = build(device=device)
+        return cache[device]
 
     def loss(self, params: dict, inputs: Any, labels: torch.Tensor,
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -194,11 +207,26 @@ class MACHHead(abc.ABC):
         return mach_meta_probs(self.head_logits(params, inputs))
 
     def predict(self, params: dict, inputs: Any,
-                estimator: Optional[str] = None) -> torch.Tensor:
-        """argmax-class prediction (Algorithm 2) over all K classes."""
+                estimator: Optional[str] = None, candidate_mode=None,
+                inverted: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """argmax-class prediction (Algorithm 2).
+
+        ``candidate_mode``: None | "exact" score all K classes; an
+        (m, t) tuple routes through the count-min candidate filter
+        (``predict_topk`` with k=1), whose cost is independent of K.
+        ``inverted`` defaults to the head's cached inverted table.
+        """
+        name = estimator or self.cfg.estimator
         meta = self.meta_probs(params, inputs)
-        return est.predict_classes(meta, self.table(meta.device),
-                                   estimator or self.cfg.estimator)
+        table = self.table(meta.device)
+        if candidate_mode is not None and candidate_mode != "exact":
+            if inverted is None:
+                inverted = self.inverted_table(meta.device)
+            _, idx = est.predict_topk(meta, table, 1, name,
+                                      candidate_mode=candidate_mode,
+                                      inverted=inverted)
+            return idx[..., 0]
+        return est.predict_classes(meta, table, name)
 
     def class_probs(self, params: dict, inputs: Any,
                     estimator: Optional[str] = None) -> torch.Tensor:

@@ -20,8 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mach_decode", "mach_topk", "mach_fused_xent_dense",
-           "mach_fused_xent_ell", "mach_fused_xent_gather")
+SOURCES = ("mach_decode", "mach_topk", "mach_candidates",
+           "mach_fused_xent_dense", "mach_fused_xent_ell",
+           "mach_fused_xent_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,11 @@ SIGNATURES = {
         "mach_topk_launch":
             [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _P, _P]},
+    "mach_candidates": {
+        "bucket_topm_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "mach_candidate_topk_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "mach_fused_xent_dense": {
         "fused_xent_dense_fwd_launch":
             [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],

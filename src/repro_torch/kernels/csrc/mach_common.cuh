@@ -1,4 +1,5 @@
-// Shared pieces of the MACH decode kernels (mach_decode.cu, mach_topk.cu).
+// Shared pieces of the MACH decode kernels (mach_decode.cu, mach_topk.cu,
+// mach_candidates.cu).
 //
 // A decode block holds the R*B meta-probabilities of a few queries in
 // shared memory and walks classes k: it hashes k into R bucket ids (from
@@ -63,6 +64,37 @@ __device__ __forceinline__ float gather_sum(const float* __restrict__ p,
     if (j < r_count) s = __fadd_rn(s, p[j * b + h[j]]);
   }
   return s;
+}
+
+// Median of g[0, r_count), the pads g[r_count, kMaxR) holding +inf: an
+// ascending bitonic network over the kMaxR registers (every index is a
+// compile-time constant once unrolled, so g stays in registers), then the
+// midpoint of order statistics (R-1)/2 and R/2, as jnp.median.
+__device__ __forceinline__ float sorted_median(float (&g)[kMaxR], int r_count) {
+#pragma unroll
+  for (int size = 2; size <= kMaxR; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kMaxR; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const float x = g[i], y = g[j];
+          const bool up = (i & size) == 0;
+          g[i] = up ? fminf(x, y) : fmaxf(x, y);
+          g[j] = up ? fmaxf(x, y) : fminf(x, y);
+        }
+      }
+    }
+  }
+  const int lo = (r_count - 1) / 2, hi = r_count / 2;
+  float v_lo = 0.f, v_hi = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxR; ++i) {
+    if (i == lo) v_lo = g[i];
+    if (i == hi) v_hi = g[i];
+  }
+  return __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
 }
 
 // Bitonic sort of n (a power of two) keys in shared memory, best key

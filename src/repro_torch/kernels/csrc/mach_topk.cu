@@ -70,33 +70,8 @@ __device__ __forceinline__ bool class_score(const float* __restrict__ p,
   }
   // median >= thr needs the hi-th order statistic >= thr, i.e. at least
   // R - hi values >= thr; otherwise the class ranks below the threshold
-  const int lo = (r_count - 1) / 2, hi = r_count / 2;
-  if (at_least_thr < r_count - hi) return false;
-  // ascending bitonic network over the 32 registers: every index is a
-  // compile-time constant once unrolled, so g stays in registers
-#pragma unroll
-  for (int size = 2; size <= kMaxR; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-      for (int i = 0; i < kMaxR; ++i) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const float x = g[i], y = g[j];
-          const bool up = (i & size) == 0;
-          g[i] = up ? fminf(x, y) : fmaxf(x, y);
-          g[j] = up ? fmaxf(x, y) : fminf(x, y);
-        }
-      }
-    }
-  }
-  float v_lo = 0.f, v_hi = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxR; ++i) {
-    if (i == lo) v_lo = g[i];
-    if (i == hi) v_hi = g[i];
-  }
-  out = __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
+  if (at_least_thr < r_count - r_count / 2) return false;
+  out = sorted_median(g, r_count);
   return true;
 }
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import ref
+from repro_torch.kernels.mach_candidates import mach_candidate_topk
 from repro_torch.kernels.mach_decode import (check_decode_operands,
                                              mach_decode)
 from repro_torch.kernels.mach_decode import table_from_inline as _table_from_inline
@@ -25,6 +26,8 @@ from repro_torch.kernels.mach_topk import (check_topk_args, estimator_scores,
 
 # CPU top-k problems with N·K·R above this stream K in blocks
 _BLOCKED_MIN = 2 ** 24
+# candidate_mode value that streams all K classes
+CANDIDATE_EXACT = "exact"
 
 
 def mach_top1(meta_probs: torch.Tensor,
@@ -78,7 +81,9 @@ def mach_topk(meta_probs: torch.Tensor,
               k: int,
               estimator: str = "unbiased",
               inline_coeffs: Optional[torch.Tensor] = None,
-              inline_shift: Optional[int] = None
+              inline_shift: Optional[int] = None,
+              candidate_mode=None,
+              inverted: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k classes under any paper estimator (unbiased | min | median).
 
@@ -88,7 +93,25 @@ def mach_topk(meta_probs: torch.Tensor,
     ties to the lowest class id.  The CUDA kernel streams K and never
     materializes the (batch, K) scores; on the CPU, small problems
     materialize them and large ones stream K in blocks.
+
+    ``candidate_mode``: None or "exact" stream all K classes; an (m, t)
+    tuple routes through the count-min candidate filter
+    (``mach_topk_candidates``, which needs ``inverted``), whose cost is
+    independent of K and whose top-k is approximate (filtered slots
+    come back as (-inf, -1)).
     """
+    if candidate_mode is not None and candidate_mode != CANDIDATE_EXACT:
+        if isinstance(candidate_mode, str) or len(candidate_mode) != 2:
+            raise ValueError(f"candidate_mode must be None, "
+                             f"{CANDIDATE_EXACT!r} or (m, t), got "
+                             f"{candidate_mode!r}")
+        if inverted is None:
+            raise ValueError("candidate_mode=(m, t) needs the inverted table")
+        m, t = candidate_mode
+        return mach_topk_candidates(
+            meta_probs, table, inverted=inverted, num_classes=num_classes,
+            k=k, m=m, t=t, estimator=estimator, inline_coeffs=inline_coeffs,
+            inline_shift=inline_shift)
     check_topk_args(num_classes, k, estimator)
     lead = meta_probs.shape[:-2]
     r, b = meta_probs.shape[-2:]
@@ -105,6 +128,41 @@ def mach_topk(meta_probs: torch.Tensor,
                                      k=k, estimator=estimator,
                                      inline_coeffs=inline_coeffs,
                                      inline_shift=inline_shift)
+    return val.reshape(lead + (k,)), idx.reshape(lead + (k,))
+
+
+def mach_topk_candidates(meta_probs: torch.Tensor,
+                         table: Optional[torch.Tensor] = None, *,
+                         inverted: torch.Tensor,
+                         num_classes: int,
+                         k: int,
+                         m: int,
+                         t: int = 1,
+                         estimator: str = "unbiased",
+                         inline_coeffs: Optional[torch.Tensor] = None,
+                         inline_shift: Optional[int] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate-filtered top-k: count-min filter over the per-repetition
+    bucket top-m, then gather + score only the candidates.
+
+    meta_probs: (..., R, B) — leading dims flattened internally;
+    ``inverted`` is the (R·B, L) table from ``hashing.inverted_table``.
+    Returns (values, indices) shaped (..., k); slots beyond the
+    surviving candidates are (-inf, -1), and a row with no count>=t
+    candidate backfills slot 0 with its best count>=1 candidate.  With
+    m = B and t = R the result equals the streaming ``mach_topk``
+    exactly.  Both hash sources run on both devices (kernels 7 and 8 on
+    CUDA tensors, their plain versions on CPU tensors).  The JAX
+    package's ``compact_cap`` has no counterpart: the whole pool is
+    scored, as the TPU kernel and the oracle do.
+    """
+    lead = meta_probs.shape[:-2]
+    r, b = meta_probs.shape[-2:]
+    flat = meta_probs.reshape((-1, r, b)).to(torch.float32).contiguous()
+    val, idx = mach_candidate_topk(
+        flat, inverted, table, num_classes=num_classes, k=k, m=m, t=t,
+        estimator=estimator, inline_coeffs=inline_coeffs,
+        inline_shift=inline_shift)
     return val.reshape(lead + (k,)), idx.reshape(lead + (k,))
 
 
@@ -232,6 +290,7 @@ def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
 ORACLES: dict = {
     "mach_top1": "mach_decode_ref",
     "mach_topk": "mach_topk_ref",
+    "mach_topk_candidates": "mach_candidate_topk_ref",
     "mach_scores": "mach_scores_ref",
     "mach_fused_xent": "mach_fused_xent_ref",
     "mach_fused_xent_csr": "mach_fused_xent_csr_ref",

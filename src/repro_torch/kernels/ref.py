@@ -63,6 +63,38 @@ def mach_topk_ref(meta_probs: torch.Tensor, table: torch.Tensor, k: int,
     return topk_lowest_id(scores, k)
 
 
+def mach_candidate_topk_ref(meta_probs: torch.Tensor, table: torch.Tensor,
+                            k: int, m: int, t: int = 1,
+                            estimator: str = "unbiased"
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force candidate-filtered top-k — the oracle for
+    ``mach_topk_candidates``.
+
+    A class is a candidate iff its bucket value is >= the m-th largest
+    bucket value (its bucket is in the top-m) in at least t of the R
+    repetitions; candidates rank by the estimator score.  Filtered slots
+    are (-inf, -1); a row with no count>=t candidate backfills slot 0
+    with its best count>=1 candidate.  Materializes the (N, K)
+    membership and scores by design — the decode paths never do.
+    """
+    meta = meta_probs.to(torch.float32)
+    scores = mach_estimator_scores_ref(meta, table, estimator)      # (N, K)
+    tau = torch.topk(meta, m, dim=-1).values.amin(-1)               # (N, R)
+    n, r, _ = meta.shape
+    g = torch.gather(meta, 2, table.long()[None].expand(n, r, -1))  # (N, R, K)
+    count = (g >= tau[:, :, None]).sum(1)                           # (N, K)
+    val, idx = topk_lowest_id(torch.where(count >= t, scores, -torch.inf), k)
+    if t > 1:
+        s1 = torch.where(count >= 1, scores, -torch.inf)
+        i1 = torch.argmax(s1, dim=-1)
+        v1 = torch.gather(s1, 1, i1[:, None])[:, 0]
+        fill = (val[:, 0] == -torch.inf) & (v1 > -torch.inf)
+        val[:, 0] = torch.where(fill, v1, val[:, 0])
+        idx[:, 0] = torch.where(fill, i1.to(torch.int32), idx[:, 0])
+    idx = torch.where(val == -torch.inf, -1, idx)
+    return val, idx
+
+
 def csr_densify_ref(indptr: torch.Tensor, indices: torch.Tensor,
                     values: torch.Tensor, num_features: int) -> torch.Tensor:
     """CSR (indptr (N+1,), indices (nnz,), values (nnz,)) -> dense

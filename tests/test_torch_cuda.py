@@ -1,5 +1,5 @@
-"""The CUDA kernels (decode; fused projection + CE, forward and
-backward) against their plain versions, on the card.  Gradients at rtol
+"""The CUDA kernels (decode; candidate decode; fused projection + CE,
+forward and backward) against their plain versions, on the card.  Gradients at rtol
 1e-4 / atol 1e-6: the kernels reduce dW, dh and dbias with float
 atomics, in another order than the plain version (and from run to run).
 
@@ -12,7 +12,8 @@ package, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
-from repro_torch.core.hashing import MultShiftFamily
+from repro_torch.core.hashing import MultShiftFamily, inverted_table
+from repro_torch.kernels import mach_candidates as mc
 from repro_torch.kernels import mach_decode as md
 from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import mach_topk as mt
@@ -77,6 +78,57 @@ def test_wrappers_reject_bad_operands(dev):
         mt.mach_topk_cuda(meta, table.long(), num_classes=50, k=3)
     with pytest.raises(ValueError, match="different devices"):
         md.mach_decode_cuda(meta, table.cpu(), num_classes=50)
+
+
+@pytest.mark.parametrize("m", [1, 3, 64])
+def test_bucket_topm_kernel_equals_plain(dev, m):
+    meta = (_dyadic(9, 7, 64, dev, seed=m) * 8).floor() / 8     # bulk ties
+    before = mc.bucket_topm_cuda.launches
+    kt, ki = mc.bucket_topm_cuda(meta, m)
+    assert mc.bucket_topm_cuda.launches == before + 1
+    pt, pi = mc.bucket_topm(meta, m)
+    assert torch.equal(kt, pt) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("estimator", ["unbiased", "min", "median"])
+@pytest.mark.parametrize("r,b,n,num_classes", [(25, 32, 5, 20011),
+                                               (4, 4, 3, 3001)])
+def test_candidate_kernel_equals_plain(dev, r, b, n, num_classes, estimator):
+    meta = _dyadic(n, r, b, dev, seed=r + b)
+    fam = MultShiftFamily(b, r, 2)
+    table = fam.table(num_classes, dev)
+    inv = inverted_table(table, b, device=dev)
+    for m, t in ((1, 1), (2, 2), (b, r)):
+        tau, ids = mc.bucket_topm(meta, m)
+        for hash_kw in ({"table": table},
+                        {"inline_coeffs": fam.coeffs_tensor(dev),
+                         "inline_shift": fam.shift}):
+            before = mc.mach_candidate_topk_cuda.launches
+            got = mc.mach_candidate_topk_cuda(meta, tau, ids, inv,
+                                              num_classes=num_classes, k=33,
+                                              t=t, estimator=estimator,
+                                              **hash_kw)
+            assert mc.mach_candidate_topk_cuda.launches == before + 1
+            want = mc.mach_candidate_topk_plain(meta, tau, ids, inv,
+                                                num_classes=num_classes, k=33,
+                                                t=t, estimator=estimator,
+                                                **hash_kw)
+            for a, c in zip(got, want):
+                assert torch.equal(a, c)
+
+
+def test_candidate_exact_mode_equals_streaming_kernel(dev):
+    meta = _dyadic(7, 20, 512, dev, seed=5)
+    fam = MultShiftFamily(512, 20, 4)
+    table = fam.table(21841, dev)
+    inv = inverted_table(table, 512, device=dev)
+    for est in ("unbiased", "min", "median"):
+        sv, si = ops.mach_topk(meta, table, num_classes=21841, k=10,
+                               estimator=est)
+        cv, ci = ops.mach_topk(meta, table, num_classes=21841, k=10,
+                               estimator=est, candidate_mode=(512, 20),
+                               inverted=inv)
+        assert torch.equal(cv, sv) and torch.equal(ci, si)
 
 
 # ---------------------------------------------------------------------------

@@ -75,13 +75,6 @@ def test_gather_rejects_r_mismatch():
                                 "mode")
 
 
-def test_predict_topk_candidate_mode_not_ported():
-    meta, tab = _case(4, 8, 50, (2,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.predict_topk(torch.from_numpy(meta), torch.from_numpy(tab), 3,
-                        candidate_mode=(2, 1))
-
-
 def test_meta_probs_and_loss_match_jax():
     rng = np.random.default_rng(1)
     logits = rng.normal(size=(6, 5, 16)).astype(np.float32)

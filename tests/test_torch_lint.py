@@ -16,7 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core.hashing import inverted_table
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.mach_decode import table_from_inline
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -76,6 +78,14 @@ def test_kernel_sources_present_and_hashed():
         for fn in _build.SIGNATURES[name]:
             assert f"int {fn}(" in source
     assert (_build.CSRC / "mach_xent_common.cuh").exists()
+    # the candidate decode: kernels 7 and 8 in one source
+    assert "mach_candidates" in _build.SOURCES
+    assert set(_build.SIGNATURES["mach_candidates"]) == {
+        "bucket_topm_launch", "mach_candidate_topk_launch"}
+    source = (_build.CSRC / "mach_candidates.cu").read_text()
+    assert '#include "mach_common.cuh"' in source
+    for fn in _build.SIGNATURES["mach_candidates"]:
+        assert f"int {fn}(" in source
 
 
 def test_cpu_tensors_never_reach_the_build(monkeypatch):
@@ -88,6 +98,15 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
     ops.mach_top1(meta, table, num_classes=100)
     for est in ("unbiased", "min", "median"):
         ops.mach_topk(meta, table, num_classes=100, k=5, estimator=est)
+    # the candidate decode, both hash sources
+    coeffs = torch.tensor([2654435761, 40503, 97, 12345], dtype=torch.int64)
+    inline = table_from_inline(coeffs, 29, 100)
+    inverted = inverted_table(inline, 8, device="cpu")
+    for hash_kw in ({"table": inline},
+                    {"inline_coeffs": coeffs, "inline_shift": 29}):
+        for est in ("unbiased", "min", "median"):
+            ops.mach_topk_candidates(meta, inverted=inverted, num_classes=100,
+                                     k=5, m=3, t=2, estimator=est, **hash_kw)
     # the training ops, forward and backward
     w = torch.randn(12, 4 * 8, requires_grad=True)
     bias = torch.zeros(4 * 8, requires_grad=True)
