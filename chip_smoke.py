@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of MACH serving (Algorithm 2, streaming and
-count-min candidate decode) and training (Algorithm 1, through the fused
-logit-free loss) on one NVIDIA GPU.
+count-min candidate decode), training (Algorithm 1, through the fused
+logit-free loss) and language-model serving (recurrentgemma-2b with the
+MACH head, through the slot engine) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -61,13 +62,49 @@ Phases, in order; any failure exits non-zero and prints no result:
    after; all six launch functions must have run, every loss must be
    finite, and each first step's loss and gradients must equal the plain
    version's.  Then ms per step, stage times, peak memory.
-7. The kernel report (one JSON line), then the device line, last.
+7. LM kernels vs plain on the card: the RG-LRU scan (kernel 9) equal to
+   its plain sequential loop bit for bit, float32 at (1, 4096, 2560),
+   (4, 1, 2560) and a ragged (3, 37, 300) with nonzero h0 (and bfloat16
+   at the ragged shape); flash attention (kernel 10) at (1, 4096, 10,
+   256) / (1, 4096, 1, 256) bfloat16 with window 2048 and without, a
+   GQA case (KV=2, H=8, hd=128, ragged T) and a float32 one: float32 to
+   rtol 1e-5 / atol 1e-6, bfloat16 within 2 bf16 ulps of each (query,
+   head) row's largest output.  Then the MACH decode kernels (1 and 2)
+   at the LM head's shape (R=8, B=2048, K=256,000, inline multiply-shift
+   hash; N=1 as after a prefill, N=4 as in the pooled decode, where a
+   block holds 3 queries and the last block 1): top-1 and top-k (k 1 and
+   50, the three estimators) against their plain versions, dyadic inputs
+   exactly, random ones as in phase 3.
+8. LM serving at full width: recurrentgemma-2b (26 layers, bf16, MACH
+   head B=2048, R=8 over V=256,000) with seeded random weights on the
+   card, served by ``ServingEngine`` (4 slots, max_len 4,160, top_k 50,
+   16 new tokens): a 4,096-token prompt (the flash branch, the ring-cache
+   roll, kernel 9 at T=4,096) and prompts of 5, 77 and 300 tokens, the
+   77-token one sampled at temperature 0.8.  Launch counters from 0:
+   kernel 10 in the long prefill, kernel 9 in every prefill and decode
+   step, kernel 2 in every serve step (the engine's greedy rows take the
+   top-1 of its fused top-k, so the engine launches kernel 1 no time);
+   then a direct greedy prefill + decode_step + next_token loop (kernel
+   1), whose tokens the greedy requests must equal.  The two runs' counts
+   are reported apart.  Then the path's own outputs: kernels 1 and 2 vs
+   plain on the four prompts' last hidden states (k=50, the sampled
+   rows' candidates); the 4,096-token prefill against the same model on
+   the dense branch (flash_threshold raised), with a decode step on the
+   rolled ring caches against a dense prefill of the 4,097 tokens: the
+   first attention layer's K/V and every cache's positions and index
+   exactly; the last hidden states and every cache held to the model in
+   float32 on the dense branch, with at most twice the bf16 dense
+   branch's relative L2 error there, plus 2^-9.  Then prefill ms, ms per pooled decode
+   step, tokens/s, peak memory, and kernel, plain, bound and library
+   times.
+9. The kernel report (one JSON line), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -1216,6 +1253,510 @@ def _library_xent(family, x, w2, bias, labels, b, n, r, d):
     return torch.autograd.grad(loss / n, leaves)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the LM substrate kernels (9 and 10) vs their plain versions
+# ---------------------------------------------------------------------------
+
+BF16_TOPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+LRU_SHAPES = [(1, 4096, 2560), (4, 1, 2560), (3, 37, 300)]
+# flash checks: (label, B, T, H, KV, hd, window, dtype) — the prefill
+# shape of recurrentgemma-2b with and without its window, GQA, float32
+FLASH_SHAPES = [
+    ("recurrentgemma prefill", 1, 4096, 10, 1, 256, 2048, torch.bfloat16),
+    ("recurrentgemma no window", 1, 4096, 10, 1, 256, None, torch.bfloat16),
+    ("GQA ragged", 2, 1000, 8, 2, 128, None, torch.bfloat16),
+    ("float32 windowed", 1, 777, 4, 1, 64, 100, torch.float32),
+]
+FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
+LM_PROMPTS = (4096, 5, 77, 300)  # the 4,096-token one hits the flash branch
+LM_SAMPLED = 2                   # index of the request sampled at T = 0.8
+LM_MAX_NEW, LM_SLOTS, LM_MAX_LEN, LM_TOP_K = 16, 4, 4160, 50
+# the LM head's decode checks: N=1 (after a prefill) and the decode pool
+LM_HEAD_N, LM_HEAD_K = (1, LM_SLOTS), (1, LM_TOP_K)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at |x| (8 significand bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _bf16_row_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of each (query, head) row's
+    largest output.  An output entry that cancels towards zero carries
+    the error of its row's scale: e is rounded to bfloat16 from scores
+    whose float32 sums ran in another order, and one e on the other side
+    of a rounding boundary moves the row by p·|v|·2^-8."""
+    scale = want.float().abs().amax(dim=-1, keepdim=True)
+    return float(((got.float() - want.float()).abs() / _bf16_ulp(scale)).max())
+
+
+def _flash_inputs(dev, b, t, h, kv, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def attended_pairs(t: int, window) -> int:
+    """(query, key) pairs a causal, optionally windowed self-attention of
+    length t attends: sum over rows i of min(i + 1, window)."""
+    w = t if window is None else min(window, t)
+    return w * (w + 1) // 2 + (t - w) * w
+
+
+def phase_lm_kernels_vs_plain(dev) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+
+    errs = {"lru_scan": 0.0, "flash_attention": 0.0}
+    cases = 0
+    for b, t, d in LRU_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t)
+        a = torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5
+        x = torch.randn((b, t, d), generator=gen, device=dev)
+        h0 = torch.randn((b, d), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and t > 64:
+                continue
+            got = ls.lru_scan_cuda(a.to(dtype), x.to(dtype), h0)
+            want = ls.lru_scan_plain(a.to(dtype), x.to(dtype), h0)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not torch.equal(got, want):
+                err = float((got.float() - want.float()).abs().max())
+                fail(f"lru_scan {(b, t, d)} {dtype}: kernel != plain "
+                     f"(max err {err})")
+            cases += 1
+    for label, b, t, h, kv, hd, window, dtype in FLASH_SHAPES:
+        q, k, v = _flash_inputs(dev, b, t, h, kv, hd, dtype, seed=t + h)
+        got = fa.flash_attention_cuda(q, k, v, window=window)
+        want = fa.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or not torch.isfinite(got.float()).all():
+            fail(f"flash_attention {label}: wrong dtype or non-finite output")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            ok = torch.allclose(got, want, **FLASH_F32_TOL)
+        else:
+            ulps = _bf16_row_ulps(got, want)
+            ok = ulps <= 2.0
+            print(f"flash_attention {label}: max {ulps:.2f} bf16 ulps of the "
+                  f"row scale from plain (elementwise max "
+                  f"{float((diff / _bf16_ulp(want)).max()):.1f})", flush=True)
+        if not ok:
+            fail(f"flash_attention {label}: kernel vs plain max abs err {err}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        cases += 1
+    head_cases, errs["lm_head"] = _lm_head_vs_plain(dev)
+    return {"cases": cases, "head_cases": head_cases, "errs": errs}
+
+
+def _lm_head_vs_plain(dev) -> tuple[int, float]:
+    """Kernels 1 and 2 vs their plain versions at the LM head's shape
+    and hash source, on dyadic and random probabilities."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+
+    mach = get_config("recurrentgemma-2b").mach
+    fam = mach.family
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    table = fam.table(num_classes, dev)
+    hash_kw = {"inline_coeffs": fam.coeffs_tensor(dev),
+               "inline_shift": fam.shift}
+    cases, err = 0, 0.0
+    for n in LM_HEAD_N:
+        for dyadic in (True, False):
+            meta = _inputs(n, r, b, dyadic, seed=n + 7, dev=dev)
+            tag = f"LM head n={n} {'dyadic' if dyadic else 'random'} inline"
+            kv, ki = md.mach_decode_cuda(meta, num_classes=num_classes,
+                                         **hash_kw)
+            pv, pi = md.mach_decode_plain(meta, num_classes=num_classes,
+                                          **hash_kw)
+            torch.cuda.synchronize()
+            err = max(err, _check_same(f"top1 {tag}", kv, ki, pv, pi,
+                                       md.summed_scores(meta, table), dyadic))
+            cases += 1
+            for est in ESTIMATORS:
+                scores = mt.estimator_scores(meta, table, est)
+                for k in LM_HEAD_K:
+                    kv, ki = mt.mach_topk_cuda(meta, num_classes=num_classes,
+                                               k=k, estimator=est, **hash_kw)
+                    pv, pi = mt.mach_topk_plain(meta, num_classes=num_classes,
+                                                k=k, estimator=est, **hash_kw)
+                    torch.cuda.synchronize()
+                    err = max(err, _check_same(f"topk {est} k={k} {tag}", kv,
+                                               ki, pv, pi, scores, dyadic))
+                    cases += 1
+    print(f"LM head decode kernels vs plain: {cases} comparisons ok (R={r}, "
+          f"B={b}, K={num_classes}, N in {LM_HEAD_N}, k in {LM_HEAD_K})",
+          flush=True)
+    return cases, err
+
+
+# ---------------------------------------------------------------------------
+# phase 8: full-width recurrentgemma-2b served by the slot engine
+# ---------------------------------------------------------------------------
+
+def _serve(model, params, prompts, after_first_tick=None):
+    """Serve the LM phase's requests on a fresh engine, one tick at a
+    time.  Returns (tokens per request, ms per tick, seconds)."""
+    from repro_torch.serving import (Request, SamplingParams, ServeConfig,
+                                     ServingEngine)
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=LM_MAX_LEN, num_slots=LM_SLOTS, top_k=LM_TOP_K,
+        max_new_tokens=LM_MAX_NEW, seed=0))
+    for i, p in enumerate(prompts):
+        sampling = SamplingParams(temperature=0.8) if i == LM_SAMPLED \
+            else SamplingParams()
+        engine.submit(Request(prompt=p[0].tolist(), sampling=sampling))
+    torch.cuda.synchronize()
+    results, tick_ms = [], []
+    t0 = time.perf_counter()
+    while engine.metrics.completed < len(prompts):
+        t1 = time.perf_counter()
+        results += engine.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+        if after_first_tick is not None and len(tick_ms) == 1:
+            after_first_tick()
+    run_s = time.perf_counter() - t0
+    if len(results) != len(prompts):
+        fail(f"lm serve: {len(results)} of {len(prompts)} requests finished")
+    return ([r.tokens for r in sorted(results, key=lambda r: r.request_id)],
+            tick_ms, run_s)
+
+
+def _direct_greedy(model, params, prompts, engine_tokens, dev):
+    """A greedy prefill + decode_step + next_token loop straight off the
+    model API.  The requests sit in the same 4-row pool at the same slots
+    as in the engine (on the card a matrix product's rows depend on the
+    batch shape it runs at, not on the other rows), and the sampled row
+    is fed the engine's sampled tokens."""
+    pool = model.init_caches(LM_SLOTS, LM_MAX_LEN, device=dev)
+    toks = []
+    for i, p in enumerate(prompts):
+        caches, h = model.prefill(params, p, LM_MAX_LEN)
+        model.insert_cache_slot(pool, caches, i)
+        toks.append([int(model.next_token(params, h)[0][0])])
+    toks[LM_SAMPLED] = list(engine_tokens[LM_SAMPLED][:1])
+    for step in range(1, LM_MAX_NEW):
+        last = torch.tensor([t[-1] for t in toks], device=dev)
+        pos = torch.tensor([p.shape[1] + step - 1 for p in prompts],
+                           device=dev)
+        pool, h = model.decode_step(params, pool, last, pos, per_slot=True)
+        ids = model.next_token(params, h)[0].tolist()
+        for i in range(LM_SLOTS):
+            toks[i].append(engine_tokens[i][step] if i == LM_SAMPLED
+                           else ids[i])
+    return toks
+
+
+def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+    from repro_torch.models import LanguageModel
+
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-2b")
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev) for n in LM_PROMPTS]
+    torch.cuda.synchronize()
+    print(f"lm serve: recurrentgemma-2b full width ({cfg.num_layers} layers, "
+          f"d={cfg.d_model}, V={cfg.vocab_size}, MACH B={cfg.mach.num_buckets}"
+          f" R={cfg.mach.num_repetitions}), {n_params:,} params "
+          f"(param_count_estimate {cfg.param_count_estimate():,}) = "
+          f"{n_bytes / 1e9:.3f} GB; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the main path's run: counts from 0, read just after
+    kernels = {"lru_scan": ls.lru_scan_cuda,
+               "flash_attention": fa.flash_attention_cuda,
+               "mach_decode": md.mach_decode_cuda,
+               "mach_topk": mt.mach_topk_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    after_tick0 = {}
+
+    def first_tick():
+        after_tick0.update({n: fn.launches for n, fn in kernels.items()})
+
+    engine_tokens, tick_ms, run_s = _serve(model, params, prompts, first_tick)
+    served = {n: fn.launches for n, fn in kernels.items()}
+    direct = _direct_greedy(model, params, prompts, engine_tokens, dev)
+    torch.cuda.synchronize()
+    in_loop = {n: fn.launches - served[n] for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"lm serve launches: engine {served} (after the admission tick "
+          f"{after_tick0}); direct greedy loop {in_loop}; peak "
+          f"{peak_gib:.2f} GiB", flush=True)
+
+    # checks: every request done, greedy == the direct loop, the kernels ran
+    for i, toks in enumerate(engine_tokens):
+        if len(toks) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
+            fail(f"lm serve: request {i} gave {toks}")
+        if i != LM_SAMPLED and list(toks) != direct[i]:
+            fail(f"lm serve: greedy request {i} (prompt {LM_PROMPTS[i]}) "
+                 f"gave {list(toks)}, the direct loop {direct[i]}")
+    n_attn = cfg.layout().count("attn_local")
+    n_rec = cfg.layout().count("rglru")
+    decode_ticks = len(tick_ms)
+    if served["flash_attention"] != n_attn:
+        fail(f"flash_attention launched {served['flash_attention']} times, "
+             f"expected {n_attn} (the 4,096-token prefill)")
+    if after_tick0["lru_scan"] < n_rec * len(prompts) or \
+            served["lru_scan"] != n_rec * (len(prompts) + decode_ticks):
+        fail(f"lru_scan launches {after_tick0['lru_scan']} / "
+             f"{served['lru_scan']}: not one a recurrent layer per prefill "
+             f"and decode step")
+    if served["mach_topk"] < 1:
+        fail("the engine's serve steps did not launch mach_topk")
+    if in_loop["mach_decode"] < 1:
+        fail("the direct greedy loop's next_token did not launch mach_decode")
+    print(f"lm serve ok: {len(engine_tokens)} requests, greedy tokens == the direct "
+          f"greedy loop; request 0 (4,096-token prompt): "
+          f"{list(engine_tokens[0])}", flush=True)
+    head_err = _lm_head_on_path(model, params, prompts)
+    _flash_vs_dense(model, params, prompts[0], rng)
+
+    # end-to-end times (host clock, synchronized): the same requests on a
+    # fresh engine again, warm; then the decode step split into the model
+    # step and the MACH head + top-k
+    warm_tokens, warm_ms, warm_s = _serve(model, params, prompts)
+    if warm_tokens != engine_tokens:
+        fail("lm serve: a second run of the same requests gave other tokens")
+    tokens = sum(len(t) for t in warm_tokens)
+    decode_ms = statistics.median(warm_ms[1:])
+    prefill_ms = wall_ms(lambda: model.prefill(params, prompts[0], LM_MAX_LEN),
+                         runs=3, warmup=1)
+    pool = model.init_caches(LM_SLOTS, LM_MAX_LEN, device=dev)
+    last = torch.zeros((LM_SLOTS,), dtype=torch.int64, device=dev)
+    pos = torch.full((LM_SLOTS,), 100, dtype=torch.int64, device=dev)
+    step_ms = wall_ms(lambda: model.decode_step(params, pool, last, pos,
+                                                per_slot=True))
+    hidden = torch.randn((LM_SLOTS, cfg.d_model), device=dev).to(cfg.dtype)
+    head_ms = wall_ms(lambda: model.topk_candidates(params, hidden, LM_TOP_K))
+    smi = _nvidia_smi()
+    print(f"lm serve: prefill of the 4,096-token prompt {prefill_ms:.3f} ms "
+          f"(median of 3); pooled decode step {decode_ms:.3f} ms (engine "
+          f"tick, warm run, median of {len(warm_ms) - 1}); alone, the model's "
+          f"decode_step {step_ms:.3f} ms and the MACH head + top-k "
+          f"{head_ms:.3f} ms (medians of 7); admission tick (4 prefills + a "
+          f"decode step) {warm_ms[0]:.3f} ms warm, {tick_ms[0]:.3f} ms in "
+          f"the first run; {tokens} tokens in {warm_s * 1e3:.1f} ms = "
+          f"{tokens / warm_s:.1f} tokens/s warm ({tokens / run_s:.1f} in the "
+          f"first run); params {n_bytes / 2**30:.2f} GiB, peak "
+          f"{peak_gib:.2f} GiB [{smi}]", flush=True)
+
+    # kernel times at the main path's shapes
+    rows = []
+    b, t, d = 1, LM_PROMPTS[0], cfg.resolved_rnn_width
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    h0 = torch.zeros((b, d), device=dev)
+    ms9 = kernel_ms(lambda: ls.lru_scan_cuda(a, x, h0))
+    a4, x4 = a[:, :1].expand(LM_SLOTS, 1, d).contiguous(), \
+        x[:, :1].expand(LM_SLOTS, 1, d).contiguous()
+    ms9_decode = kernel_ms(lambda: ls.lru_scan_cuda(
+        a4, x4, torch.zeros((LM_SLOTS, d), device=dev)))
+    plain9 = kernel_ms(lambda: ls.lru_scan_plain(a, x, h0), iters=3, warmup=1)
+    bytes9 = 3 * b * t * d * 4 + b * d * 4
+    rows.append({
+        "name": "lru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:46",
+        "launches": served["lru_scan"],
+        "max_abs_err": checks["errs"]["lru_scan"],
+        "ms": ms9, "plain_ms": plain9,
+        "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"prefill (B, T, D)=({b}, {t}, {d}) float32",
+        "ms_decode": ms9_decode,
+        "shape_decode": f"decode ({LM_SLOTS}, 1, {d}) float32"})
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    window = cfg.local_window
+    q, k, v = _flash_inputs(dev, b, t, h, kv, hd, cfg.dtype, seed=2)
+    ms10 = kernel_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window),
+                     iters=10)
+    plain10 = kernel_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         window=window),
+                        iters=3, warmup=1)
+    pairs = attended_pairs(t, window)
+    flops = 4 * hd * h * pairs * b
+    t_ops = flops / BF16_TOPS_PER_S * 1e3
+    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
+    rows_i = torch.arange(t, device=dev)[:, None]
+    cols_i = torch.arange(t, device=dev)[None, :]
+    mask = (cols_i <= rows_i) & (cols_i > rows_i - window)
+    qh, kh, vh = (z.transpose(1, 2) for z in (q, k.expand(b, t, h, hd),
+                                              v.expand(b, t, h, hd)))
+    library10 = kernel_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), iters=5, warmup=2)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "launches": served["flash_attention"],
+        "max_abs_err": checks["errs"]["flash_attention"],
+        "ms": ms10, "plain_ms": plain10,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library10,
+        "shape": (f"prefill q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, "
+                  f"{hd}) bfloat16, causal, window {window}: {pairs:,} "
+                  f"attended pairs a head, {flops / 1e9:.1f} GFLOP"),
+        "bound_ms_f32_cores": flops / F32_OPS_PER_S * 1e3})
+    for row in rows:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
+              f"{row['launches']} on the LM serve path; {row['shape']} "
+              f"[{smi}]", flush=True)
+    print(f"kernel lru_scan at decode ({LM_SLOTS}, 1, {d}): {ms9_decode:.4f} "
+          f"ms; kernel flash_attention bound outside the tensor cores "
+          f"{rows[1]['bound_ms_f32_cores']:.4f} ms [{smi}]", flush=True)
+    lm = {"launches_engine": served, "launches_direct_loop": in_loop,
+          "head_err": head_err, "prefill_ms": prefill_ms,
+          "decode_step_ms": decode_ms, "tokens_per_s": tokens / warm_s,
+          "peak_gib": peak_gib}
+    return rows, lm
+
+
+def _lm_head_on_path(model, params, prompts) -> float:
+    """Kernels 1 and 2 vs plain on the path's own inputs: the head's
+    probabilities at the four prompts' last hidden states, k = top_k."""
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+
+    mach = model.cfg.mach
+    hidden = torch.cat([model.prefill(params, p, LM_MAX_LEN)[1]
+                        for p in prompts])
+    meta = torch.softmax(model.mach_logits(params, hidden).float(), dim=-1)
+    fam = mach.family
+    table = fam.table(mach.num_classes, meta.device)
+    hash_kw = {"inline_coeffs": fam.coeffs_tensor(meta.device),
+               "inline_shift": fam.shift}
+    kv, ki = md.mach_decode_cuda(meta, num_classes=mach.num_classes, **hash_kw)
+    pv, pi = md.mach_decode_plain(meta, num_classes=mach.num_classes,
+                                  **hash_kw)
+    torch.cuda.synchronize()
+    err = _check_same("LM path top1", kv, ki, pv, pi,
+                      md.summed_scores(meta, table), False)
+    for est in ESTIMATORS:
+        kv, ki = mt.mach_topk_cuda(meta, num_classes=mach.num_classes,
+                                   k=LM_TOP_K, estimator=est, **hash_kw)
+        pv, pi = mt.mach_topk_plain(meta, num_classes=mach.num_classes,
+                                    k=LM_TOP_K, estimator=est, **hash_kw)
+        torch.cuda.synchronize()
+        err = max(err, _check_same(f"LM path topk {est} k={LM_TOP_K}", kv, ki,
+                                   pv, pi, mt.estimator_scores(meta, table,
+                                                               est), False))
+    print(f"lm serve: kernels 1 and 2 == plain on the path's head "
+          f"probabilities ({tuple(meta.shape)}, k={LM_TOP_K}, 3 estimators), "
+          f"max abs err {err:.3e}", flush=True)
+    return err
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _flash_vs_dense(model, params, prompt, rng) -> None:
+    """The long prefill through the flash branch against the same model
+    on its dense branch (flash_threshold raised), then a decode step on
+    the rolled ring caches against a dense prefill of one more token.
+
+    Positions, indices, and the first attention layer's K/V (no attention
+    runs before it) must be equal.  The rest is held to the model in
+    float32 on the dense branch, as FlashAttention's tests hold their
+    kernels: each bf16 result's relative L2 error there is at most twice
+    the bf16 dense branch's, plus 2^-9 (half a bf16 ulp).  A wrong layout
+    or a wrong ring offset gives errors of order one."""
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+
+    cfg, f32 = model.cfg, torch.float32
+    dense = LanguageModel(dataclasses.replace(cfg, flash_threshold=1 << 30))
+    truth = LanguageModel(dataclasses.replace(
+        cfg, flash_threshold=1 << 30, dtype=f32, param_dtype=f32))
+    params32 = tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                        params)
+    t, dev = prompt.shape[1], prompt.device
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1,)), device=dev)
+    longer = torch.cat([prompt, tok[None]], 1)
+    runs = {}
+    for name, m, p in (("flash", model, params), ("dense", dense, params),
+                       ("float32", truth, params32)):
+        caches, h = m.prefill(p, prompt, LM_MAX_LEN)
+        run = {"hidden": [h]}
+        for st in caches:
+            for c in st:
+                for field in c._fields:
+                    # a copy: the decode step below writes in place
+                    run.setdefault(field, []).append(getattr(c, field).clone())
+        if name == "flash":   # position t overwrites ring row t mod window
+            run["next"] = [model.decode_step(params, caches, tok,
+                                             torch.tensor([t], device=dev),
+                                             per_slot=True)[1]]
+        else:
+            run["next"] = [m.prefill(p, longer, LM_MAX_LEN)[1]]
+        runs[name] = run
+    del params32
+    for field in ("positions", "index"):
+        for name in ("dense", "float32"):
+            if not all(torch.equal(a, b) for a, b in
+                       zip(runs["flash"][field], runs[name][field])):
+                fail(f"flash vs {name} prefill: cache {field} differ")
+    if not (torch.equal(runs["flash"]["k"][0][0], runs["dense"]["k"][0][0]) and
+            torch.equal(runs["flash"]["v"][0][0], runs["dense"]["v"][0][0])):
+        fail("flash vs dense prefill: the first attention layer's K/V differ")
+    report = []
+    for field, got in runs["flash"].items():
+        if field in ("positions", "index"):
+            continue
+        want = runs["float32"][field]
+        e_flash = max(_rel_l2(a, b) for a, b in zip(got, want))
+        e_dense = max(_rel_l2(a, b) for a, b in zip(runs["dense"][field], want))
+        e_pair = max(_rel_l2(a, b) for a, b in zip(got, runs["dense"][field]))
+        report.append(f"{field} {e_flash:.5f} / {e_dense:.5f} ({e_pair:.5f})")
+        if not e_flash <= 2 * e_dense + 2.0 ** -9:
+            fail(f"flash path vs float32 dense: {field} relative L2 "
+                 f"{e_flash:.5f}, more than twice the bf16 dense branch's "
+                 f"{e_dense:.5f} + 2^-9")
+    print(f"lm serve: prefill of {t} tokens, flash vs dense — positions, index "
+          f"and the first attention layer's K/V equal; relative L2 to float32 "
+          f"dense, flash / bf16 dense (flash vs bf16 dense): "
+          + "; ".join(report) + f" (next = a decode step on the rolled ring "
+          f"vs a dense prefill of {t + 1} tokens); bound 2 x dense + 2^-9",
+          flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def _nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1278,6 +1819,23 @@ def main() -> int:
     print(f"fused xent vs plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     rows += phase_training(dev, checks)
+
+    t0 = time.perf_counter()
+    lm_checks = phase_lm_kernels_vs_plain(dev)
+    print(f"LM kernels vs plain: {lm_checks['cases']} comparisons ok "
+          f"(and {lm_checks['head_cases']} of the LM head's decode) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm_rows, lm = phase_lm_serve(dev, lm_checks)
+    print(f"lm serve: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    for row in rows:
+        if row["name"] in ("mach_decode", "mach_topk"):
+            row["launches_lm_serve"] = lm["launches_engine"][row["name"]]
+            row["launches_lm_direct_greedy_loop"] = \
+                lm["launches_direct_loop"][row["name"]]
+            row["max_abs_err_lm_head"] = max(lm_checks["errs"]["lm_head"],
+                                             lm["head_err"])
+    rows += lm_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

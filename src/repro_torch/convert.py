@@ -1,4 +1,4 @@
-"""Carry MACH head weights from the JAX package into the port.
+"""Carry weights from the JAX package into the port.
 
 ``convert_params`` takes a head's params as the JAX package stores them
 (a dict of arrays — numpy, or anything ``np.asarray`` accepts) and
@@ -8,8 +8,9 @@ shapes and dtypes against the port's head of the same configuration:
 * ``MACHLinear``:     {"w": (d, R, B), "b": (R, B)}
 * ``MACHOutputHead``: {"kernel": (d, R·B)}
 
-The layouts are the same in both packages, so both compute the same
-function on the converted weights.
+``convert_lm_params`` does the same for a whole ``LanguageModel``.  The
+layouts are the same in both packages, so both compute the same function
+on the converted weights.
 """
 
 from __future__ import annotations
@@ -50,3 +51,42 @@ def convert_params(head: MACHHead, params: dict, device=None) -> dict:
                              f"expected {dtype}")
         out[key] = t.to(device)
     return out
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor; bfloat16 arrays (JAX's ml_dtypes) by bits."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def convert_lm_params(model, params, device=None):
+    """The JAX ``LanguageModel.init`` params (a pytree of arrays, as
+    numpy) -> the port's params for ``model`` on ``device``, leaf for
+    leaf.  Raises on a missing or extra leaf, or a leaf whose shape or
+    dtype differs from the port's."""
+    device = resolve_device(device)
+    want = model.init(device="meta")
+
+    def walk(want_t, got_t, path):
+        if isinstance(want_t, dict):
+            got_keys = sorted(got_t) if isinstance(got_t, dict) else None
+            if got_keys != sorted(want_t):
+                raise ValueError(f"params{path}: keys {got_keys} != "
+                                 f"expected {sorted(want_t)}")
+            return {k: walk(want_t[k], got_t[k], f"{path}[{k!r}]")
+                    for k in want_t}
+        if isinstance(want_t, list):
+            if not isinstance(got_t, (list, tuple)) or len(got_t) != len(want_t):
+                raise ValueError(f"params{path}: expected a list of "
+                                 f"{len(want_t)}")
+            return [walk(w, g, f"{path}[{i}]")
+                    for i, (w, g) in enumerate(zip(want_t, got_t))]
+        t = _to_tensor(np.asarray(got_t))
+        if tuple(t.shape) != tuple(want_t.shape) or t.dtype != want_t.dtype:
+            raise ValueError(f"params{path}: {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(want_t.shape)} {want_t.dtype}")
+        return t.to(device)
+
+    return walk(want, params, "")

@@ -22,12 +22,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mach_decode", "mach_topk", "mach_candidates",
            "mach_fused_xent_dense", "mach_fused_xent_ell",
-           "mach_fused_xent_gather")
+           "mach_fused_xent_gather", "lru_scan", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argument types of each library's launch functions (pointers and the
 # stream as c_void_p, so none is cut to 32 bits)
 SIGNATURES = {
@@ -58,6 +59,11 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "fused_xent_gather_bwd_launch":
             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]},
+    "lru_scan": {
+        "lru_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "flash_attention": {
+        "flash_attention_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

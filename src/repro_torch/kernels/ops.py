@@ -1,4 +1,4 @@
-"""Public decode and training-loss ops.
+"""Public decode, training-loss and LM-substrate ops.
 
 Dispatch is by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions (large CPU top-k
@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lru_scan as _ls
 from repro_torch.kernels.mach_candidates import mach_candidate_topk
 from repro_torch.kernels.mach_decode import (check_decode_operands,
                                              mach_decode)
@@ -286,6 +288,42 @@ def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
     return loss
 
 
+def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+             ) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t·h_{t-1} + x_t (the RG-LRU).
+
+    a, x (B, T, D); h0 (B, D) -> h (B, T, D) in x's dtype, carried in
+    float32: kernel 9 on CUDA tensors, its plain sequential loop on CPU
+    tensors (bit for bit the same)."""
+    kind = x.device.type
+    if kind == "cuda":
+        return _ls.lru_scan_cuda(a.contiguous(), x.contiguous(),
+                                 h0.to(torch.float32).contiguous())
+    if kind == "cpu":
+        _ls.check_operands(a, x, h0)
+        return _ls.lru_scan_plain(a, x, h0)
+    raise ValueError(f"no lru_scan path for device {x.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Causal / windowed GQA attention for contiguous positions 0..T-1
+    (queries) and 0..S-1 (keys): q (B, T, H, hd), k/v (B, S, KV, hd) ->
+    (B, T, H, hd).  Kernel 10 on CUDA tensors (the scores never leave
+    the chip), its plain online-softmax version on CPU tensors."""
+    kind = q.device.type
+    if kind == "cuda":
+        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal,
+                                        window=window)
+    if kind == "cpu":
+        _fa.check_operands(q, k, v, window)
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    raise ValueError(f"no flash attention path for device {q.device}")
+
+
 # public op -> its oracle in kernels/ref.py
 ORACLES: dict = {
     "mach_top1": "mach_decode_ref",
@@ -295,4 +333,6 @@ ORACLES: dict = {
     "mach_fused_xent": "mach_fused_xent_ref",
     "mach_fused_xent_csr": "mach_fused_xent_csr_ref",
     "csr_to_ell": "csr_densify_ref",
+    "lru_scan": "lru_scan_ref",
+    "flash_attention": "flash_attention_ref",
 }

@@ -1,6 +1,7 @@
-"""Pure-PyTorch oracles for the decode and training-loss ops (the
-paper-faithful computations, which materialize what the kernels never
-do: the (N, K) scores, the (N, R·B) logits, the dense (N, d) batch).
+"""Pure-PyTorch oracles for the decode, training-loss and LM-substrate
+ops (the paper-faithful computations, which materialize what the kernels
+never do: the (N, K) scores, the (N, R·B) logits, the dense (N, d)
+batch, the (T, S) attention scores).
 
 ``mach_scores_ref`` materializes the full N×K global score matrix G of
 Algorithm 2 with a one-hot contraction; ``mach_topk_ref`` ranks the
@@ -149,3 +150,39 @@ def mach_fused_xent_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
     sum), then reduced by ``mach_fused_xent_ref``."""
     x = csr_densify_ref(indptr, indices, values.to(torch.float32), w.shape[0])
     return mach_fused_xent_ref(x, w, hashed_labels, num_buckets, bias=bias)
+
+
+# ---------------------------------------------------------------------------
+# LM substrate: the RG-LRU recurrence and attention.
+# ---------------------------------------------------------------------------
+
+def lru_scan_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+                 ) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t by an associative scan (Hillis-Steele
+    doubling over the product-sum composition (a2·a1, a2·b1 + b2)), in
+    float32.  a, x (B, T, D); h0 (B, D) -> (B, T, D) in x's dtype."""
+    acc_a = a.to(torch.float32).clone()
+    acc_b = x.to(torch.float32).clone()
+    acc_b[:, 0] += acc_a[:, 0] * h0.to(torch.float32)
+    shift = 1
+    while shift < acc_a.shape[1]:
+        new_b = acc_b.clone()
+        new_b[:, shift:] = acc_a[:, shift:] * acc_b[:, :-shift] + acc_b[:, shift:]
+        acc_a[:, shift:] = acc_a[:, shift:] * acc_a[:, :-shift]
+        acc_b = new_b
+        shift *= 2
+    return acc_b.to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None) -> torch.Tensor:
+    """Materializing oracle for ``ops.flash_attention``: the dense
+    attention of ``models/attention.py`` over the full (T, S) scores at
+    contiguous positions."""
+    from repro_torch.models import attention  # deferred: models import kernels
+    b, t = q.shape[:2]
+    s_len = k.shape[1]
+    q_pos = torch.arange(t, device=q.device).expand(b, t)
+    k_pos = torch.arange(s_len, device=q.device).expand(b, s_len)
+    return attention.attend(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, flash_threshold=1 << 62)

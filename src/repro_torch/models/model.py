@@ -1,0 +1,264 @@
+"""LanguageModel: embeddings → stacked decoder layers → the MACH head.
+
+The port of ``repro/models/model.py`` for decoder-only models whose
+output head is MACH (the paper's head; the dense OAA softmax head, the
+loss, enc-dec, vision, MoE and paged caches are not ported yet — see
+ROADMAP.md).
+
+Public surface:
+  init(generator, device)                      -> params
+  hidden_states(params, tokens, caches=...)    -> (hidden, caches)
+  prefill(params, tokens, max_len)             -> (caches, last_hidden)
+  decode_step(params, caches, tokens, pos)     -> (caches, hidden)
+  next_token / topk_scores / topk_candidates   -> MACH decode (kernels 1-2,
+                                                  or 7-8 with candidate_mode)
+
+Caches are nested lists of ``KVCache`` / ``RecurrentState`` with a
+leading stacked-layer axis and the batch (slot) axis second, as in the
+JAX package; prefill and decode write into them in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.hashing import MultShiftFamily
+from repro_torch.core.mach import MACHOutputHead
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers, recurrent
+from repro_torch.models.transformer import (ModelConfig, apply_stacks,
+                                            init_stacks, plan_stacks, tree_map)
+
+
+class LanguageModel:
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.mach is None:
+            raise NotImplementedError(
+                "the port serves the MACH head only; the dense OAA head is "
+                "not ported yet (see ROADMAP.md)")
+        if cfg.num_encoder_layers or cfg.frontend:
+            raise NotImplementedError(
+                "enc-dec and vision models are not ported yet (see ROADMAP.md)")
+        self.cfg = cfg
+        self.head = MACHOutputHead(cfg.mach, cfg.d_model, torch.float32)
+        self._coeffs: dict = {}
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=None) -> dict:
+        """Random params drawn from ``generator`` (a CUDA generator draws
+        on the card); float leaves cast to ``cfg.param_dtype`` if set."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        p = {"embed": layers.init_embedding(generator, cfg.vocab_size,
+                                            cfg.d_model, device),
+             "stacks": init_stacks(generator, cfg, cfg.layout(), device),
+             "final_norm": layers.init_norm(cfg.d_model, cfg.norm, device),
+             "mach_head": self.head.init(generator, device)}
+        if cfg.param_dtype is not None:
+            p = tree_map(lambda x: x.to(cfg.param_dtype)
+                         if x.is_floating_point() else x, p)
+        return p
+
+    # --------------------------------------------------------------- forward
+    def _embed_tokens(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = layers.embed(params["embed"], tokens, cfg.dtype)
+        if cfg.embed_scale != 1.0:
+            # the scale is rounded to the compute dtype, as in the JAX package
+            x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype,
+                                 device=x.device)
+        return x
+
+    def hidden_states(self, params: dict, tokens: torch.Tensor, *,
+                      caches: Optional[list] = None,
+                      positions: Optional[torch.Tensor] = None,
+                      per_slot: bool = False):
+        """tokens (B, T) -> (hidden (B, T, d), caches)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens)
+        b, t = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(t, dtype=torch.int32,
+                                     device=x.device).expand(b, t)
+        x, caches = apply_stacks(params["stacks"], cfg, cfg.layout(), x,
+                                 positions, caches, per_slot)
+        return layers.apply_norm(params["final_norm"], x, cfg.norm), caches
+
+    def mach_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        return self.head.apply(params["mach_head"], h)       # (..., R, B)
+
+    # --------------------------------------------------------------- serving
+    def init_caches(self, batch_size: int, max_len: int,
+                    linear_cap: Optional[int] = None, device=None) -> list:
+        """Decode caches mirroring the stack nesting.  Local-attention
+        layers whose window is below ``max_len`` get a ring of ``window``
+        rows; ``linear_cap`` overrides the capacity of linear caches."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        hd = cfg.resolved_head_dim
+        caches = []
+        for period, n in plan_stacks(cfg.layout()):
+            st = []
+            for kind in period:
+                if kind == "rglru":
+                    one = recurrent.init_recurrent_state(
+                        batch_size, cfg.resolved_rnn_width, cfg.dtype, device)
+                else:
+                    window = cfg.block_window(kind)
+                    if window is not None and window < max_len:
+                        cap = window
+                    else:
+                        cap = linear_cap if linear_cap else max_len
+                        if window is not None:
+                            cap = min(cap, window)
+                    one = attn_lib.init_cache(batch_size, cap,
+                                              cfg.num_kv_heads, hd, cfg.dtype,
+                                              device)
+                st.append(tree_map(
+                    lambda x: x[None].repeat((n,) + (1,) * x.dim()), one))
+            caches.append(st)
+        return caches
+
+    def prefill(self, params: dict, tokens: torch.Tensor, max_len: int,
+                linear_cap: Optional[int] = None):
+        """Process the prompt tokens (B, T); returns (caches, last hidden
+        (B, d))."""
+        caches = self.init_caches(tokens.shape[0], max_len, linear_cap,
+                                  device=tokens.device)
+        h, caches = self.hidden_states(params, tokens, caches=caches)
+        return caches, h[:, -1]
+
+    def decode_step(self, params: dict, caches: list, tokens: torch.Tensor,
+                    pos: torch.Tensor, per_slot: bool = False):
+        """One token step.  tokens (B,), pos (B,) absolute positions.
+        Returns (caches, hidden (B, d)).  ``per_slot=True`` writes each
+        row's KV at its own cache index (continuous batching); the
+        default writes every row at row 0's index (lockstep)."""
+        h, caches = self.hidden_states(params, tokens[:, None], caches=caches,
+                                       positions=pos[:, None],
+                                       per_slot=per_slot)
+        return caches, h[:, 0]
+
+    @staticmethod
+    def insert_cache_slot(pool: list, one: list, slot: int) -> list:
+        """Copy a batch-1 cache pytree into row ``slot`` of a pooled one
+        (batch axis 1 on every leaf), in place."""
+        def put(p, o):
+            p[:, slot] = o[:, 0]
+        tree_map(put, pool, one)
+        return pool
+
+    def reset_cache_slot(self, pool: list, slot: int, max_len: int) -> list:
+        """Restore row ``slot`` of ``pool`` to the freshly initialized
+        state (empty positions, zero indices and recurrent state)."""
+        device = pool[0][0][0].device
+        return self.insert_cache_slot(
+            pool, self.init_caches(1, max_len, device=device), slot)
+
+    # ------------------------------------------------------------ MACH decode
+    def _hash_kw(self, device) -> dict:
+        """The decode kernels' hash source: inline multiply-shift
+        coefficients, else the (R, K) table."""
+        fam = self.cfg.mach.family
+        if not isinstance(fam, MultShiftFamily):
+            return {"table": self.head.table(device)}
+        device = torch.device(device)
+        if device not in self._coeffs:
+            self._coeffs[device] = fam.coeffs_tensor(device)
+        return {"inline_coeffs": self._coeffs[device],
+                "inline_shift": fam.shift}
+
+    def _meta_probs(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(self.mach_logits(params, hidden).to(torch.float32),
+                             dim=-1)                          # (B, R, Bk)
+
+    def next_token(self, params: dict, hidden: torch.Tensor):
+        """Greedy next token from final hidden states (B, d) -> (ids (B,),
+        values (B,)): the top-1 kernel for the unbiased estimator, the
+        k=1 streaming top-k for min / median."""
+        cfg = self.cfg
+        if cfg.mach.estimator != "unbiased":
+            vals, idxs = self.topk_scores(params, hidden, 1)
+            return idxs[:, 0], vals[:, 0]
+        val, idx = ops.mach_top1(self._meta_probs(params, hidden),
+                                 num_classes=cfg.vocab_size,
+                                 **self._hash_kw(hidden.device))
+        return idx, val
+
+    def mach_inverted_table(self, device) -> torch.Tensor:
+        """The (R·B, L) inverted bucket->class table on ``device``, built
+        once (candidate-filtered decode)."""
+        return self.head.inverted_table(device)
+
+    def topk_scores(self, params: dict, hidden: torch.Tensor, k: int,
+                    estimator: Optional[str] = None, candidate_mode=None):
+        """Top-k (values, class ids) from final hidden states (B, d) on
+        the estimator's scale, through the streaming top-k kernel (no
+        (B, V) scores), or the count-min candidate filter with an
+        (m, t) ``candidate_mode`` (filtered slots (-inf, -1))."""
+        cfg = self.cfg
+        est = estimator or cfg.mach.estimator
+        filtered = candidate_mode not in (None, ops.CANDIDATE_EXACT)
+        inverted = self.mach_inverted_table(hidden.device) if filtered else None
+        return ops.mach_topk(self._meta_probs(params, hidden),
+                             num_classes=cfg.vocab_size, k=k, estimator=est,
+                             candidate_mode=candidate_mode, inverted=inverted,
+                             **self._hash_kw(hidden.device))
+
+    def topk_candidates(self, params: dict, hidden: torch.Tensor, top_k: int,
+                        estimator: Optional[str] = None, candidate_mode=None):
+        """Top-k sampling candidates (vals, idxs), each (B, top_k), on the
+        sampling scale: unbiased values go back to the summed-score scale
+        (× r·(b−1)/b, the inverse of Eq. 2 up to a per-row constant that
+        cancels in the categorical); min / median keep their own."""
+        cfg = self.cfg
+        vals, idxs = self.topk_scores(params, hidden, top_k, estimator,
+                                      candidate_mode)
+        if (estimator or cfg.mach.estimator) == "unbiased":
+            r, b = cfg.mach.num_repetitions, cfg.mach.num_buckets
+            vals = vals * (r * (b - 1.0) / b)
+        return vals, idxs
+
+    @staticmethod
+    def sample_from_candidates(vals: torch.Tensor, idxs: torch.Tensor,
+                               gumbel: torch.Tensor, *, temperature=1.0,
+                               row_top_k: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+        """Temperature / top-k categorical pick over (B, k) candidates by
+        the Gumbel-max rule: argmax(vals / T + gumbel) over each row's
+        first ``row_top_k`` (clamped to [1, k]) candidates.  ``gumbel``
+        (B, k) float32 carries the randomness, so the caller decides whose
+        stream each row draws from.  A row at temperature ~0 with
+        row_top_k 1 picks its top candidate whatever the noise."""
+        top_k = vals.shape[-1]
+        temp = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
+                                           device=vals.device), min=1e-6)
+        if temp.dim():
+            temp = temp[:, None]
+        logits = vals / temp
+        if row_top_k is not None:
+            row_k = torch.clamp(row_top_k.to(torch.int64), 1, top_k)
+            rank = torch.arange(top_k, device=vals.device)[None]
+            logits = torch.where(rank < row_k[:, None], logits, -torch.inf)
+        pick = torch.argmax(logits + gumbel, dim=-1)
+        return torch.gather(idxs, 1, pick[:, None])[:, 0].to(torch.int32)
+
+    def sample_token(self, params: dict, hidden: torch.Tensor,
+                     generator: torch.Generator, *, temperature=1.0,
+                     top_k: int = 50,
+                     row_top_k: Optional[torch.Tensor] = None,
+                     estimator: Optional[str] = None) -> torch.Tensor:
+        """Top-k temperature sampling from final hidden states (B, d),
+        the noise drawn from ``generator`` (on ``hidden``'s device)."""
+        vals, idxs = self.topk_candidates(params, hidden, top_k, estimator)
+        u = torch.rand(vals.shape, generator=generator, device=vals.device)
+        u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+        return self.sample_from_candidates(
+            vals, idxs, -torch.log(-torch.log(u)), temperature=temperature,
+            row_top_k=row_top_k)

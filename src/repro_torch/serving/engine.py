@@ -1,0 +1,444 @@
+"""Continuous-batching serving engine: slot-scheduled MACH decode.
+
+The port of ``repro/serving/engine.py`` with its ``continuous``
+scheduler and contiguous caches.  Callers build a ``Request`` (prompt,
+optional ``SamplingParams``, per-request ``max_new_tokens``, optional
+``on_token`` callback), ``submit()`` it, and drive the engine with
+``step()`` (one scheduler tick) or ``run()`` (drain everything);
+finished requests come back as ``GenerationResult``s.
+
+The KV cache is allocated once as a pool of ``ServeConfig.num_slots``
+slots.  A queued request is admitted by prefilling it alone (batch 1,
+exact prompt length, no padding) and copying its caches into a free
+slot; every decode step then advances the whole pool with per-slot
+positions and per-row cache writes.  EOS or the request's
+``max_new_tokens`` frees the slot at once, and the next queued request
+is admitted into it on the following tick.
+
+Both phases end in the same serve step: the fused streaming top-k
+(kernel 2; kernels 7-8 with ``candidate_mode``) per live estimator,
+then a per-row Gumbel-max pick at the row's temperature over its first
+``row_top_k`` candidates.  Greedy rows ride the same step at
+ε-temperature over their top-1 candidate.  No (batch, V) logits exist.
+
+Randomness is keyed per request: row i's noise at token j comes from
+``numpy.random.default_rng([ServeConfig.seed, salt_i, j])``, where the
+salt is odd for an explicit ``SamplingParams.seed`` and even for an
+engine-assigned request id, so a request's samples depend neither on
+its slot nor on its neighbours, seeded and unseeded requests never
+share a stream, and greedy rows are inert.  The JAX package keys the
+same way with ``fold_in``; the two draw different bits.
+
+``ServeConfig.scheduler="lockstep"`` and ``page_size > 0`` (the paged
+KV cache) raise ``NotImplementedError`` until their slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.estimators import ESTIMATORS
+from repro_torch.kernels import ops
+from repro_torch.models.model import LanguageModel
+
+_GREEDY_TEMP = 1e-6            # ε-temperature: top-1 pick == argmax
+
+SCHEDULERS = ("continuous", "lockstep")
+
+
+def _prng_salt(seed: Optional[int], rid: int) -> int:
+    """Per-request stream identity: explicit seeds (odd salts) and
+    engine-assigned request ids (even salts) never collide."""
+    if seed is not None:
+        return ((2 * seed) | 1) & 0x7FFFFFFF
+    return (2 * rid) & 0x7FFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Typed request/response surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling knobs.
+
+    All-default means greedy (unless ``ServeConfig.temperature`` opts
+    the whole engine into sampling); setting any knob opts the request
+    into sampling — a ``top_k``-only request samples at temperature 1.0.
+    ``top_k`` is clamped to [1, ServeConfig.top_k].  ``estimator`` picks
+    the MACH score reduction (Eq. 2/7/8) for this request, greedy
+    included.  ``seed`` pins the request's private random stream
+    (default: keyed by the engine-assigned request id)."""
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    estimator: Optional[str] = None
+    seed: Optional[int] = None
+
+
+GREEDY = SamplingParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request.  ``on_token`` streams each generated
+    token id as soon as the tick that produced it completes, the first
+    one (from the prefill) included."""
+    prompt: Sequence[int]
+    sampling: SamplingParams = GREEDY
+    max_new_tokens: Optional[int] = None     # None -> ServeConfig default
+    on_token: Optional[Callable[[int], None]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationResult:
+    request_id: int
+    tokens: tuple                 # generated ids (includes EOS if hit)
+    finish_reason: str            # "eos" | "length"
+    prompt_len: int
+    submit_step: int              # engine tick at submit()
+    finish_step: int              # engine tick that produced the last token
+
+    @property
+    def latency_steps(self) -> int:
+        """Scheduler ticks from submission to completion, inclusive."""
+        return self.finish_step - self.submit_step + 1
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    """Counters over the engine's lifetime (see also ``queue_depth``)."""
+    num_slots: int
+    decode_steps: int = 0         # pooled decode calls
+    prefills: int = 0             # admissions (one per request)
+    tokens_generated: int = 0     # real request tokens (free slots excluded)
+    completed: int = 0
+    live_slot_steps: int = 0      # Σ over decode calls of producing slots
+    peak_live_slots: int = 0      # max concurrently occupied slots
+
+    @property
+    def occupancy(self) -> float:
+        """Mean fraction of slots doing useful work per decode step."""
+        denom = self.decode_steps * self.num_slots
+        return self.live_slot_steps / denom if denom else 0.0
+
+    @property
+    def tokens_per_decode_step(self) -> float:
+        return (self.tokens_generated / self.decode_steps
+                if self.decode_steps else 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 2048           # per-request token cap (slot capacity)
+    num_slots: int = 8            # fixed decode-pool width
+    max_new_tokens: int = 64      # default per-request cap
+    eos_id: int = -1              # -1: never stop early
+    temperature: Optional[float] = None   # engine-wide sampling default
+    top_k: int = 50               # fused-kernel candidate cap
+    seed: int = 0
+    scheduler: str = "continuous"  # "continuous" ("lockstep" not ported)
+    page_size: int = 0            # paged KV cache (not ported): must be 0
+    num_pages: int = 0
+    # decode algorithm: None | "exact" stream all V classes; an (m, t)
+    # tuple routes every serve step through the count-min candidate
+    # filter (cost independent of V — see ops.mach_topk_candidates)
+    candidate_mode: Optional[object] = None
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size > 0
+
+
+# ---------------------------------------------------------------------------
+# The unified serve step
+# ---------------------------------------------------------------------------
+
+def gumbel_noise(seed: int, salts: Sequence[int], tok_idx: Sequence[int],
+                 k: int, device) -> torch.Tensor:
+    """(rows, k) float32 Gumbel draws, row i from the stream
+    (seed, salts[i], tok_idx[i])."""
+    rows = [np.random.default_rng([seed, int(s), int(t)]).gumbel(size=k)
+            for s, t in zip(salts, tok_idx)]
+    return torch.as_tensor(np.stack(rows), dtype=torch.float32, device=device)
+
+
+def make_serve_step_fn(model: LanguageModel, top_k: int, candidate_mode=None):
+    """One step for both phases of serving.
+
+    ``caches=None`` selects prefill: ``tokens`` is the (1, L) prompt and
+    fresh caches are built (``pos`` is ignored).  Otherwise one pooled
+    decode step: ``tokens`` is (S, 1), ``pos`` the per-slot absolute
+    positions, and every row's KV write lands at its own cache index.
+
+    Both phases end alike: the fused top-k candidates for each estimator
+    in ``estimators`` (``est_sel`` picks one per row), then the per-row
+    keyed temperature / top-k pick.  Returns ``(caches, ids)``."""
+
+    def serve_step(params, caches, tokens, pos, seed, salts, tok_idx, temps,
+                   row_k, est_sel, *, estimators: tuple, max_len: int):
+        if caches is None:                       # ---- prefill (batch 1)
+            caches, h = model.prefill(params, tokens, max_len)
+        else:                                    # ---- pooled decode step
+            caches, h = model.decode_step(params, caches, tokens[:, 0], pos,
+                                          per_slot=True)
+        cands = [model.topk_candidates(params, h, top_k, est,
+                                       candidate_mode=candidate_mode)
+                 for est in estimators]
+        if len(cands) == 1:
+            vals, idxs = cands[0]
+        else:
+            rows = torch.arange(h.shape[0], device=h.device)
+            sel = torch.as_tensor(est_sel, device=h.device)
+            vals = torch.stack([c[0] for c in cands])[sel, rows]
+            idxs = torch.stack([c[1] for c in cands])[sel, rows]
+        dev = h.device
+        ids = model.sample_from_candidates(
+            vals, idxs, gumbel_noise(seed, salts, tok_idx, top_k, dev),
+            temperature=torch.as_tensor(temps, dtype=torch.float32, device=dev),
+            row_top_k=torch.as_tensor(row_k, device=dev))
+        return caches, ids
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side state of one occupied decode slot."""
+    req_id: int
+    req: Request
+    salt: int                     # PRNG identity: sampling.seed or req_id
+    tokens: list                  # generated so far (first from prefill)
+    pos: int                      # next absolute position (= cache index)
+    temp: float
+    row_k: int
+    est: str
+    max_new: int
+    submit_step: int
+
+
+class ServingEngine:
+    """Slot-scheduled request engine over the unified serve step.
+
+    ``submit()`` validates and queues a ``Request`` (returns its id);
+    ``step()`` runs one scheduler tick — admit queued requests into free
+    slots (per-request prefill + copy), then advance the pool one decode
+    step — and returns the requests that finished this tick; ``run()``
+    ticks until queue and pool drain and returns all results in
+    submission order."""
+
+    def __init__(self, model: LanguageModel, params: dict, scfg: ServeConfig):
+        if scfg.top_k < 1:
+            raise ValueError(f"ServeConfig.top_k must be >= 1, "
+                             f"got {scfg.top_k}")
+        if scfg.num_slots < 1:
+            raise ValueError(f"ServeConfig.num_slots must be >= 1, "
+                             f"got {scfg.num_slots}")
+        if scfg.scheduler not in SCHEDULERS:
+            raise ValueError(f"ServeConfig.scheduler must be one of "
+                             f"{SCHEDULERS}, got {scfg.scheduler!r}")
+        if scfg.max_new_tokens < 1:
+            raise ValueError("ServeConfig.max_new_tokens must be >= 1")
+        if scfg.temperature is not None and scfg.temperature <= 0:
+            raise ValueError(f"ServeConfig.temperature must be > 0 (or "
+                             f"None for greedy), got {scfg.temperature}")
+        if scfg.page_size < 0 or scfg.num_pages < 0:
+            raise ValueError("ServeConfig.page_size / num_pages must be >= 0")
+        if scfg.num_pages and not scfg.page_size:
+            raise ValueError("ServeConfig.num_pages requires page_size > 0")
+        if scfg.scheduler == "lockstep":
+            raise NotImplementedError("scheduler='lockstep' is not ported yet "
+                                      "(see ROADMAP.md)")
+        if scfg.paged:
+            raise NotImplementedError("the paged KV cache (page_size > 0) is "
+                                      "not ported yet (see ROADMAP.md)")
+        cm = scfg.candidate_mode
+        if cm not in (None, ops.CANDIDATE_EXACT) and (
+                isinstance(cm, str) or len(cm) != 2):
+            raise ValueError(f"ServeConfig.candidate_mode must be None, "
+                             f"'exact' or an (m, t) tuple, got {cm!r}")
+        self.model = model
+        self.params = params
+        self.scfg = scfg
+        self.device = params["embed"]["embedding"].device
+        if cm not in (None, ops.CANDIDATE_EXACT):
+            model.mach_inverted_table(self.device)   # build it once, now
+        self._serve_step = make_serve_step_fn(model, scfg.top_k, cm)
+        # the fixed slot pool — allocated once, reused for every request
+        self._pool = model.init_caches(scfg.num_slots, scfg.max_len,
+                                       device=self.device)
+        self._slots: list = [None] * scfg.num_slots
+        self._queue: collections.deque = collections.deque()
+        self._next_id = 0
+        self._tick = 0               # scheduler ticks (latency unit)
+        self.metrics = EngineMetrics(num_slots=scfg.num_slots)
+
+    def __repr__(self) -> str:
+        live = sum(s is not None for s in self._slots)
+        return (f"<ServingEngine slots={live}/{self.scfg.num_slots} "
+                f"queue={len(self._queue)} tick={self._tick} "
+                f"completed={self.metrics.completed}>")
+
+    # ------------------------------------------------------------- submit
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def submit(self, request: Request) -> int:
+        """Validate and enqueue; returns the request id (results carry
+        it, and ``run()`` orders by it)."""
+        scfg = self.scfg
+        prompt = list(request.prompt)
+        if not prompt:
+            raise ValueError("Request.prompt must be non-empty")
+        sp = request.sampling
+        if sp.temperature is not None and sp.temperature <= 0:
+            raise ValueError(f"SamplingParams.temperature must be > 0, "
+                             f"got {sp.temperature}")
+        if sp.top_k is not None and sp.top_k < 1:
+            raise ValueError(f"SamplingParams.top_k must be >= 1, "
+                             f"got {sp.top_k}")
+        if sp.estimator is not None and sp.estimator not in ESTIMATORS:
+            raise ValueError(f"SamplingParams.estimator must be one of "
+                             f"{ESTIMATORS}, got {sp.estimator!r}")
+        max_new = (request.max_new_tokens
+                   if request.max_new_tokens is not None
+                   else scfg.max_new_tokens)
+        if max_new < 1:
+            raise ValueError("Request.max_new_tokens must be >= 1")
+        if len(prompt) + max_new - 1 > scfg.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)} tokens) + max_new_tokens ({max_new}) "
+                f"exceeds the slot capacity ServeConfig.max_len="
+                f"{scfg.max_len}")
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append((rid, request, max_new, self._tick))
+        return rid
+
+    # ----------------------------------------------------------- sampling
+    def _row_knobs(self, req: Request) -> tuple:
+        """(temperature, row_top_k, estimator) for one request's row: it
+        samples iff it sets any knob or the engine default temperature
+        is set; otherwise it rides the greedy ε-temperature top-1 path
+        of its estimator's scores."""
+        cfg, scfg = self.model.cfg, self.scfg
+        sp = req.sampling
+        est = sp.estimator or cfg.mach.estimator
+        samples = (sp.temperature is not None or sp.top_k is not None
+                   or scfg.temperature is not None)
+        if not samples:
+            return _GREEDY_TEMP, 1, est
+        t = sp.temperature if sp.temperature is not None else scfg.temperature
+        t = 1.0 if t is None else t          # top_k-only request: temp 1.0
+        k = sp.top_k if sp.top_k is not None else scfg.top_k
+        return max(float(t), _GREEDY_TEMP), int(np.clip(k, 1, scfg.top_k)), est
+
+    # ---------------------------------------------------------- scheduling
+    def _finish(self, slot: _Slot, reason: str) -> GenerationResult:
+        self.metrics.completed += 1
+        return GenerationResult(
+            request_id=slot.req_id, tokens=tuple(slot.tokens),
+            finish_reason=reason, prompt_len=len(slot.req.prompt),
+            submit_step=slot.submit_step, finish_step=self._tick)
+
+    def _emit(self, slot: _Slot, tok: int) -> Optional[str]:
+        """Record one generated token; the finish reason, if any."""
+        slot.tokens.append(tok)
+        self.metrics.tokens_generated += 1
+        if slot.req.on_token is not None:
+            slot.req.on_token(tok)
+        if self.scfg.eos_id >= 0 and tok == self.scfg.eos_id:
+            return "eos"
+        if len(slot.tokens) >= slot.max_new:
+            return "length"
+        return None
+
+    def _admit(self, finished: list) -> None:
+        scfg = self.scfg
+        while self._queue and None in self._slots:
+            slot_i = self._slots.index(None)
+            rid, req, max_new, submit_step = self._queue.popleft()
+            temp, row_k, est = self._row_knobs(req)
+            salt = _prng_salt(req.sampling.seed, rid)
+            tokens = torch.as_tensor([list(req.prompt)], dtype=torch.int64,
+                                     device=self.device)
+            caches, ids = self._serve_step(
+                self.params, None, tokens, None, scfg.seed, [salt], [0],
+                [temp], [row_k], [0], estimators=(est,), max_len=scfg.max_len)
+            self.metrics.prefills += 1
+            slot = _Slot(req_id=rid, req=req, salt=salt, tokens=[],
+                         pos=len(req.prompt), temp=temp, row_k=row_k, est=est,
+                         max_new=max_new, submit_step=submit_step)
+            reason = self._emit(slot, int(ids[0]))
+            if reason is not None:       # finished at prefill: no slot taken
+                finished.append(self._finish(slot, reason))
+                continue
+            self.model.insert_cache_slot(self._pool, caches, slot_i)
+            self._slots[slot_i] = slot
+
+    def _decode_once(self, finished: list) -> None:
+        scfg = self.scfg
+        live = [s for s in self._slots if s is not None]
+        if not live:
+            return
+        self.metrics.peak_live_slots = max(self.metrics.peak_live_slots,
+                                           len(live))
+        estimators = tuple(sorted({s.est for s in live}))
+        n = scfg.num_slots
+        toks = np.zeros((n, 1), np.int64)
+        pos = np.zeros((n,), np.int64)
+        salts, tok_idx = [0] * n, [0] * n
+        temps = [_GREEDY_TEMP] * n
+        row_k, est_sel = [1] * n, [0] * n
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            toks[i, 0] = s.tokens[-1]
+            pos[i] = s.pos
+            salts[i], tok_idx[i] = s.salt, len(s.tokens)
+            temps[i], row_k[i] = s.temp, s.row_k
+            est_sel[i] = estimators.index(s.est)
+        self._pool, ids = self._serve_step(
+            self.params, self._pool, torch.as_tensor(toks, device=self.device),
+            torch.as_tensor(pos, device=self.device), scfg.seed, salts,
+            tok_idx, temps, row_k, est_sel, estimators=estimators,
+            max_len=scfg.max_len)
+        ids = ids.cpu().tolist()
+        self.metrics.decode_steps += 1
+        self.metrics.live_slot_steps += len(live)
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            s.pos += 1
+            reason = self._emit(s, ids[i])
+            if reason is None:
+                continue
+            finished.append(self._finish(s, reason))
+            # free at once: the next tick admits into this slot
+            self.model.reset_cache_slot(self._pool, i, scfg.max_len)
+            self._slots[i] = None
+
+    def step(self) -> list:
+        """One scheduler tick: admit into free slots, advance the pool
+        one decode step.  Returns the results that finished this tick."""
+        finished: list = []
+        self._admit(finished)
+        self._decode_once(finished)
+        self._tick += 1
+        return finished
+
+    def run(self) -> list:
+        """Drain queue and pool; results in submission order."""
+        out: list = []
+        while self._queue or any(s is not None for s in self._slots):
+            out.extend(self.step())
+        return sorted(out, key=lambda r: r.request_id)

@@ -1,7 +1,14 @@
 """The CUDA kernels (decode; candidate decode; fused projection + CE,
-forward and backward) against their plain versions, on the card.  Gradients at rtol
-1e-4 / atol 1e-6: the kernels reduce dW, dh and dbias with float
-atomics, in another order than the plain version (and from run to run).
+forward and backward; the RG-LRU scan; flash attention) against their
+plain versions, on the card, and one full-width recurrentgemma-2b
+request through the serving engine.  Gradients at rtol 1e-4 / atol
+1e-6: the kernels reduce dW, dh and dbias with float atomics, in another
+order than the plain version (and from run to run).  The RG-LRU scan
+equals its plain version bit for bit; flash attention matches at rtol
+1e-5 / atol 1e-6 in float32 and, in bfloat16, within 2 bf16 ulps of
+each (query, head) row's largest output: the scores' float32 sums run
+in another order, so an e may round to the other bf16 neighbour, which
+moves the whole row by p·|v|·2^-8.
 
 Marked ``cuda``: skips without a GPU.  Needs neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -13,6 +20,8 @@ import pytest
 import torch
 
 from repro_torch.core.hashing import MultShiftFamily, inverted_table
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import mach_candidates as mc
 from repro_torch.kernels import mach_decode as md
 from repro_torch.kernels import mach_fused_xent as mfx
@@ -215,3 +224,118 @@ def test_fused_xent_wrappers_reject_bad_operands(dev):
         mfx.mach_fused_xent_dense(h, w, None, y.long(), 8)
     with pytest.raises(ValueError, match="different devices"):
         mfx.mach_fused_xent_dense(h, w.cpu(), None, y, 8)
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate: RG-LRU scan (kernel 9), flash attention (kernel 10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [(3, 37, 300), (4, 1, 2560), (1, 1000, 256)])
+def test_lru_scan_kernel_equals_plain(dev, b, t, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(t)
+    a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5).to(dtype)
+    x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    h0 = torch.randn((b, d), generator=gen, device=dev)
+    before = ls.lru_scan_cuda.launches
+    got = ops.lru_scan(a, x, h0)
+    assert ls.lru_scan_cuda.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, ls.lru_scan_plain(a, x, h0))
+
+
+def _bf16_row_ulp(x):
+    """bf16 ulp at each (query, head) row's largest |value|."""
+    _, e = torch.frexp(x.float().abs().amax(dim=-1, keepdim=True))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,window,dtype", [
+    (1, 1024, 10, 1, 256, 512, torch.bfloat16),
+    (1, 300, 10, 1, 256, None, torch.bfloat16),
+    (2, 200, 8, 2, 128, None, torch.bfloat16),
+    (1, 130, 4, 4, 32, 50, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain(dev, b, t, h, kv, hd, window,
+                                              dtype):
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dtype)
+    before = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.all((got.float() - want.float()).abs()
+                         <= 2 * _bf16_row_ulp(want))
+
+
+def test_lm_kernel_wrappers_reject_bad_operands(dev):
+    q = torch.randn((1, 8, 2, 20), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention_cuda(q, q[:, :, :1].contiguous(),
+                                q[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half())
+    a = torch.rand((2, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ls.lru_scan_cuda(a, a, torch.zeros((2, 8), device=dev).double())
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_lm_head_decode_kernels_equal_plain(dev, n):
+    """Kernels 1 and 2 at recurrentgemma-2b's head (R=8, B=2048,
+    K=256,000, inline multiply-shift hash): N=1 after a prefill, N=4 in
+    the decode pool (3 queries a block and a ragged last block)."""
+    from repro_torch.configs import get_config
+    mach = get_config("recurrentgemma-2b").mach
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    meta = _dyadic(n, r, b, dev, seed=n)
+    hash_kw = {"inline_coeffs": mach.family.coeffs_tensor(dev),
+               "inline_shift": mach.family.shift}
+    kv, ki = md.mach_decode_cuda(meta, num_classes=num_classes, **hash_kw)
+    pv, pi = md.mach_decode_plain(meta, num_classes=num_classes, **hash_kw)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    for estimator in ("unbiased", "min", "median"):
+        for k in (1, 50):
+            kv, ki = mt.mach_topk_cuda(meta, num_classes=num_classes, k=k,
+                                       estimator=estimator, **hash_kw)
+            pv, pi = mt.mach_topk_plain(meta, num_classes=num_classes, k=k,
+                                        estimator=estimator, **hash_kw)
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), (estimator, k)
+
+
+def test_full_width_serve_one_request(dev):
+    """recurrentgemma-2b at full width (random weights): one greedy
+    request through the engine equals the direct greedy loop, and the
+    path runs kernels 9 and 2 (and kernel 1 in the direct loop)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    from repro_torch.kernels import mach_decode as md, mach_topk as mt
+
+    model = LanguageModel(get_config("recurrentgemma-2b"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompt = list(range(11, 60))
+    counts = (ls.lru_scan_cuda.launches, mt.mach_topk_cuda.launches)
+    eng = ServingEngine(model, params, ServeConfig(max_len=128, num_slots=1,
+                                                   max_new_tokens=4))
+    eng.submit(Request(prompt=prompt))
+    out = eng.run()[0]
+    assert ls.lru_scan_cuda.launches > counts[0]
+    assert mt.mach_topk_cuda.launches > counts[1]
+    before = md.mach_decode_cuda.launches
+    caches, h = model.prefill(params, torch.tensor([prompt], device=dev), 128)
+    toks = [int(model.next_token(params, h)[0][0])]
+    for pos in range(len(prompt), len(prompt) + 3):
+        caches, h = model.decode_step(params, caches,
+                                      torch.tensor(toks[-1:], device=dev),
+                                      torch.tensor([pos], device=dev),
+                                      per_slot=True)
+        toks.append(int(model.next_token(params, h)[0][0]))
+    assert md.mach_decode_cuda.launches > before
+    assert list(out.tokens) == toks

@@ -86,6 +86,18 @@ def test_kernel_sources_present_and_hashed():
     assert '#include "mach_common.cuh"' in source
     for fn in _build.SIGNATURES["mach_candidates"]:
         assert f"int {fn}(" in source
+    # the LM substrate: kernel 9 (the RG-LRU scan) and kernel 10 (flash
+    # attention), one source and one launch function each
+    for name, replaces in (("lru_scan", "lru_scan.py::lru_scan_pallas"),
+                           ("flash_attention",
+                            "flash_attention.py::flash_attention_pallas")):
+        assert name in _build.SOURCES
+        assert set(_build.SIGNATURES[name]) == {f"{name}_launch"}
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"int {name}_launch(" in source
+        assert f"src/repro/kernels/{replaces}" in source
+    assert ops.ORACLES["lru_scan"] == "lru_scan_ref"
+    assert ops.ORACLES["flash_attention"] == "flash_attention_ref"
 
 
 def test_cpu_tensors_never_reach_the_build(monkeypatch):
@@ -119,3 +131,8 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
         ops.mach_fused_xent_csr(indptr, indices, torch.rand(5), w, labels,
                                 num_buckets=8, nnz_max=3, bias=bias,
                                 sparse_impl=impl).sum().backward()
+    # the LM substrate ops
+    ops.lru_scan(torch.rand(2, 5, 8), torch.randn(2, 5, 8), torch.zeros(2, 8))
+    q = torch.randn(1, 6, 4, 16)
+    ops.flash_attention(q, torch.randn(1, 6, 2, 16), torch.randn(1, 6, 2, 16),
+                        window=3)
