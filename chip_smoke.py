@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of MACH serving (Algorithm 2, streaming and
 count-min candidate decode), training (Algorithm 1, through the fused
-logit-free loss) and language-model serving (recurrentgemma-2b with the
-MACH head, through the slot engine) on one NVIDIA GPU.
+logit-free loss), language-model serving (recurrentgemma-2b with the
+MACH head, through the slot engine) and language-model training (the
+same model through the trainer) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -97,7 +98,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    branch's relative L2 error there, plus 2^-9.  Then prefill ms, ms per pooled decode
    step, tokens/s, peak memory, and kernel, plain, bound and library
    times.
-9. The kernel report (one JSON line), then the device line, last.
+9. LM training kernels vs plain on the card: kernel 3 (the R-head CE
+   on given logits), forward and backward, at ragged shapes (float32 and
+   bfloat16, labels at 0 and B-1) and the training path's shape (8,192,
+   8, 2048) in bf16 — loss to rtol 1e-5, gradient to rtol 1e-5 in
+   float32 and within one bf16 ulp in bf16; kernel 9's backward bit for
+   bit against its plain reverse loop at (2, 4096, 2560), (4, 1, 2560),
+   (1, 1, 16) and a ragged (3, 37, 300) in float32 and bf16, nonzero h0;
+   kernel 10's backward at the training shape ((2, 4096, 10, 256) / KV=1,
+   bf16, window 2048) and at small float32 shapes (causal, windowed,
+   unmasked; G = 1, 2, 10) and a ragged bf16 GQA one: dq, dk, dv to rtol
+   1e-4 / atol 1e-5 in float32, within 2 bf16 ulps of each row's largest
+   entry (past a 2^-20 float32 floor) in bf16; the forward with lse equal
+   to the forward without it, bit for bit.
+10. LM training at full width: recurrentgemma-2b (26 layers, bf16 params,
+   remat="full") with seeded random weights, trained through
+   ``Trainer.step_fn`` (``make_train_step``) with launch/train.py's
+   ``TrainConfig`` (AdamW, warmup 2, peak 3e-4, clip 1.0) for 6 steps on
+   ``SyntheticLMStream`` batches of 2 x 4,096 tokens (global batch cut
+   from the train_4k shape's 256 to one chip's memory).  First the first
+   step's gradients, per group (embedding, RG-LRU blocks, attention
+   blocks, MLPs, norms, head), against the same model in float32 on the
+   dense branch: each group's relative L2 error at most twice the bf16
+   dense branch's, plus 2^-9.  Launch counters from 0 over the 6 steps:
+   kernels 3, 9 and 10 forward and backward, each at its count a step
+   (remat runs 9 and 10 forward twice).  Every loss finite; batch 0's
+   loss after the 6 steps below its loss at step 0.  Then ms per step,
+   tokens/s, peak memory, the split into forward + backward and clip +
+   AdamW + apply, and kernel, plain, bound and library times at the
+   path's shapes (``F.cross_entropy`` and SDPA's backward as yardsticks).
+11. The kernel report (one JSON line), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1749,6 +1779,464 @@ def _flash_vs_dense(model, params, prompt, rng) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM training kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 6
+# kernel 3 checks: (N, R, B, dtype) — ragged N and B, then the path's
+# shape (B·T rows of the recurrentgemma head, R=8, B=2048) in bf16
+XENT_LM_SHAPES = [(13, 4, 16, torch.float32), (37, 5, 37, torch.float32),
+                  (37, 5, 37, torch.bfloat16), (70, 8, 2048, torch.float32),
+                  (TRAIN_BATCH * TRAIN_SEQ, 8, 2048, torch.bfloat16)]
+XENT_TOL = {"rtol": 1e-5, "atol": 1e-5}
+# kernel 9 backward checks: (B, T, D, dtype), nonzero h0
+LRU_BWD_SHAPES = [(TRAIN_BATCH, TRAIN_SEQ, 2560, torch.float32),
+                  (4, 1, 2560, torch.float32), (3, 37, 300, torch.float32),
+                  (3, 37, 300, torch.bfloat16), (1, 1, 16, torch.float32)]
+# kernel 10 backward checks: (label, B, T, H, KV, hd, causal, window, dtype)
+FLASH_BWD_SHAPES = [
+    ("recurrentgemma train", TRAIN_BATCH, TRAIN_SEQ, 10, 1, 256, True, 2048,
+     torch.bfloat16),
+    ("causal G=1", 1, 200, 4, 4, 64, True, None, torch.float32),
+    ("windowed G=2", 2, 150, 4, 2, 32, True, 40, torch.float32),
+    ("windowed G=10", 1, 300, 10, 1, 64, True, 100, torch.float32),
+    ("no mask G=2", 1, 97, 4, 2, 16, False, None, torch.float32),
+    ("GQA ragged", 2, 333, 8, 2, 128, True, None, torch.bfloat16),
+]
+FLASH_BWD_F32_TOL = {"rtol": 1e-4, "atol": 1e-5}
+
+
+def _bf16_backward_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of each row's largest entry,
+    after a float32 noise floor of 2^-20 of the tensor's largest entry: a
+    query row that sees one key has P = 1 and an exact dQ of zero, and
+    both compute float32 rounding noise of dP - D there."""
+    scale = want.float().abs().amax(dim=-1, keepdim=True)
+    floor = 2.0 ** -20 * float(want.float().abs().max())
+    excess = ((got.float() - want.float()).abs() - floor).clamp_min(0.0)
+    return float((excess / _bf16_ulp(scale)).max())
+
+
+def phase_lm_train_kernels_vs_plain(dev) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import mach_xent as mx
+
+    errs = {"mach_xent_fwd": 0.0, "mach_xent_bwd": 0.0, "lru_scan_bwd": 0.0,
+            "flash_attention_bwd": 0.0}
+    cases = 0
+    for n, r, b, dtype in XENT_LM_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n + b)
+        logits = (torch.randn((n, r, b), generator=gen, device=dev) * 3
+                  ).to(dtype)
+        labels = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                               dtype=torch.int32)
+        labels[0], labels[-1] = 0, b - 1
+        g = torch.randn((n,), generator=gen, device=dev)
+        loss = mx.mach_xent_cuda_fwd(logits, labels)
+        grad = mx.mach_xent_cuda_bwd(logits, labels, g)
+        want_loss = mx.mach_xent_plain(logits, labels)
+        want_grad = mx.mach_xent_grad_plain(logits, labels, g)
+        torch.cuda.synchronize()
+        tag = f"mach_xent {(n, r, b)} {dtype}"
+        if not torch.allclose(loss, want_loss, **XENT_TOL):
+            fail(f"{tag}: loss off by {float((loss - want_loss).abs().max())}")
+        if grad.dtype != dtype:
+            fail(f"{tag}: gradient in {grad.dtype}")
+        if dtype == torch.float32:
+            ok = torch.allclose(grad, want_grad, rtol=1e-5, atol=1e-7)
+        else:
+            ok = bool(torch.all((grad.float() - want_grad.float()).abs()
+                                <= _bf16_ulp(want_grad)))
+        if not ok:
+            fail(f"{tag}: gradient off by "
+                 f"{float((grad.float() - want_grad.float()).abs().max())}")
+        errs["mach_xent_fwd"] = max(errs["mach_xent_fwd"],
+                                    float((loss - want_loss).abs().max()))
+        errs["mach_xent_bwd"] = max(errs["mach_xent_bwd"], float(
+            (grad.float() - want_grad.float()).abs().max()))
+        cases += 2
+    for b, t, d, dtype in LRU_BWD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t + d)
+        a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5
+             ).to(dtype)
+        x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+        h0 = torch.randn((b, d), generator=gen, device=dev)
+        dh = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+        h = ls.lru_scan_cuda(a, x, h0)
+        got = ls.lru_scan_bwd_cuda(a, h, h0, dh)
+        want = ls.lru_scan_bwd_plain(a, h, h0, dh)
+        torch.cuda.synchronize()
+        for name, gv, wv in zip(("da", "dx", "dh0"), got, want):
+            if gv.dtype != wv.dtype or not torch.equal(gv, wv):
+                fail(f"lru_scan backward {(b, t, d)} {dtype}: {name} kernel "
+                     f"!= plain (max err "
+                     f"{float((gv.float() - wv.float()).abs().max())})")
+        cases += 1
+    for label, b, t, h, kv, hd, causal, window, dtype in FLASH_BWD_SHAPES:
+        q, k, v = _flash_inputs(dev, b, t, h, kv, hd, dtype, seed=t + hd)
+        gen = torch.Generator(device=dev).manual_seed(t)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        plain_out = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window)
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                          causal=causal, window=window)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                            causal=causal, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain_out):
+            fail(f"flash_attention {label}: the forward with lse differs from "
+                 f"the forward without it")
+        report = []
+        for name, gv, wv in zip(("dq", "dk", "dv"), got, want):
+            if gv.dtype != dtype or not torch.isfinite(gv.float()).all():
+                fail(f"flash backward {label}: {name} wrong dtype or "
+                     f"non-finite")
+            err = float((gv.float() - wv.float()).abs().max())
+            if dtype == torch.float32:
+                ok = torch.allclose(gv, wv, **FLASH_BWD_F32_TOL)
+                report.append(f"{name} {err:.2e}")
+            else:
+                ulps = _bf16_backward_ulps(gv, wv)
+                ok = ulps <= 2.0
+                report.append(f"{name} {ulps:.2f} ulps")
+            if not ok:
+                fail(f"flash backward {label}: {name} kernel vs plain max abs "
+                     f"err {err}")
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        print(f"flash_attention backward {label} {dtype}: kernel vs plain "
+              + ", ".join(report) + " (bf16: of each row's largest entry, "
+              "past a 2^-20 float32 floor); forward with lse == without",
+              flush=True)
+        cases += 1
+    return {"cases": cases, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: recurrentgemma-2b trained at full width
+# ---------------------------------------------------------------------------
+
+GRAD_GROUPS = ("embedding", "rglru", "attention", "mlp", "norms", "head")
+
+
+def _grad_group(path: str) -> str:
+    if path.startswith("embed"):
+        return "embedding"
+    if path.startswith("mach_head"):
+        return "head"
+    for key, group in (("rglru", "rglru"), ("attn", "attention"),
+                       ("mlp", "mlp")):
+        if f"/{key}/" in path:
+            return group
+    return "norms"
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{path}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{path}{i}/")]
+    return [(path, tree)]
+
+
+def _group_errors(grads, truth) -> dict:
+    """Relative L2 error of each parameter group's gradient to ``truth``."""
+    num = dict.fromkeys(GRAD_GROUPS, 0.0)
+    den = dict.fromkeys(GRAD_GROUPS, 0.0)
+    for (path, g), (_, t) in zip(_named_leaves(grads), _named_leaves(truth)):
+        group = _grad_group(path)
+        num[group] += float((g.float() - t.float()).square().sum())
+        den[group] += float(t.float().square().sum())
+    return {k: math.sqrt(num[k] / max(den[k], 1e-30)) for k in GRAD_GROUPS}
+
+
+def _first_step_grads_vs_float32(model, params, batch) -> dict:
+    """The first step's gradients of the bf16 flash path against the same
+    model in float32 on the dense branch, with the bf16 dense branch's
+    error as the yardstick: each group's relative L2 error at most twice
+    the bf16 dense branch's, plus 2^-9."""
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import value_and_grad
+
+    cfg, f32 = model.cfg, torch.float32
+    dense = LanguageModel(dataclasses.replace(cfg, flash_threshold=1 << 30))
+    truth_model = LanguageModel(dataclasses.replace(
+        cfg, flash_threshold=1 << 30, dtype=f32, param_dtype=f32))
+    params32 = tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                        params)
+    (loss32, _), truth = value_and_grad(truth_model.loss, params32, batch,
+                                        has_aux=True)
+    del params32
+    errs, losses = {}, {"float32": float(loss32)}
+    for name, m in (("dense", dense), ("flash", model)):
+        (loss, _), grads = value_and_grad(m.loss, params, batch, has_aux=True)
+        errs[name] = _group_errors(grads, truth)
+        losses[name] = float(loss)
+        del grads
+    del truth
+    for group in GRAD_GROUPS:
+        e_flash, e_dense = errs["flash"][group], errs["dense"][group]
+        if not e_flash <= 2 * e_dense + 2.0 ** -9:
+            fail(f"lm train: {group} gradients of the bf16 flash path are "
+                 f"{e_flash:.5f} from float32, more than twice the bf16 dense "
+                 f"branch's {e_dense:.5f} + 2^-9")
+    print("lm train: first-step gradients, relative L2 to the float32 dense "
+          "model, bf16 flash path / bf16 dense branch: "
+          + "; ".join(f"{g} {errs['flash'][g]:.5f} / {errs['dense'][g]:.5f}"
+                      for g in GRAD_GROUPS)
+          + f" (bound 2 x dense + 2^-9); loss float32 {losses['float32']:.6f}"
+          f", bf16 dense {losses['dense']:.6f}, bf16 flash "
+          f"{losses['flash']:.6f}", flush=True)
+    return {"errs": errs, "losses": losses}
+
+
+def phase_lm_train(dev, checks: dict) -> tuple[list[dict], dict]:
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import mach_xent as mx
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import TrainConfig, Trainer, new_train_state
+
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-2b")
+    model = LanguageModel(cfg)
+    # launch/train.py's TrainConfig: AdamW, warmup 2, peak 3e-4, clip 1.0
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2, peak_lr=3e-4,
+                       log_every=min(5, TRAIN_STEPS))
+    trainer = Trainer(model, tcfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    stream = SyntheticLMStream(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), device=dev)
+    batch0 = stream.batch_at(0)
+    torch.cuda.synchronize()
+    print(f"lm train: recurrentgemma-2b full width ({cfg.num_layers} layers, "
+          f"{cfg.param_dtype}, remat={cfg.remat}), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} AdamW steps (warmup 2, peak "
+          f"3e-4, clip 1.0); set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    grad_check = _first_step_grads_vs_float32(model, params, batch0)
+    torch.cuda.empty_cache()
+
+    # the main path's run: counts from 0, read just after
+    kernels = {"mach_xent_fwd": mx.mach_xent_cuda_fwd,
+               "mach_xent_bwd": mx.mach_xent_cuda_bwd,
+               "lru_scan": ls.lru_scan_cuda,
+               "lru_scan_bwd": ls.lru_scan_bwd_cuda,
+               "flash_attention": fa.flash_attention_cuda,
+               "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = new_train_state(params, trainer.opt)
+    del params
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, stream.batch_at(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    with torch.no_grad():
+        after = float(model.loss(state.params, batch0)[0])
+    n_attn = cfg.layout().count("attn_local")
+    n_rec = cfg.layout().count("rglru")
+    # remat: each forward kernel runs again when its period is recomputed
+    expected = {"mach_xent_fwd": 1, "mach_xent_bwd": 1, "lru_scan": 2 * n_rec,
+                "lru_scan_bwd": n_rec, "flash_attention": 2 * n_attn,
+                "flash_attention_bwd": n_attn}
+    print(f"lm train: losses {losses}; batch 0 after {TRAIN_STEPS} steps "
+          f"{after:.6f}; launches {launches} (a step: {expected}); peak "
+          f"{peak_gib:.2f} GiB", flush=True)
+    if not all(math.isfinite(v) for v in losses + [after]):
+        fail(f"lm train: non-finite loss in {losses} / {after}")
+    if not after < losses[0]:
+        fail(f"lm train: batch 0's loss {after} after {TRAIN_STEPS} steps is "
+             f"not below its loss at step 0, {losses[0]}")
+    for name, per_step in expected.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"lm train: {name} launched {launches[name]} times, expected "
+                 f"{per_step} a step")
+
+    # the step split: forward + backward, then clip + AdamW + apply
+    from repro_torch.optim import accumulate_grads, apply_updates
+    from repro_torch.optim import clip_by_global_norm
+    batch = stream.batch_at(TRAIN_STEPS)
+    fb_ms = wall_ms(lambda: accumulate_grads(model.loss, state.params, batch,
+                                             1), runs=2, warmup=1)
+    (_, _), grads = accumulate_grads(model.loss, state.params, batch, 1)
+
+    def update():
+        clipped, _ = clip_by_global_norm(grads, tcfg.clip_norm)
+        upd, _ = trainer.opt.update(clipped, state.opt_state, state.params)
+        return apply_updates(state.params, upd)
+    opt_ms = wall_ms(update, runs=2, warmup=1)
+    del grads, state
+    torch.cuda.empty_cache()
+    smi = _nvidia_smi()
+    train_ms = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"lm train: {train_ms:.3f} ms/step (host clock, median of steps "
+          f"2..{TRAIN_STEPS}; the first {step_ms[0]:.3f} ms), "
+          f"{tokens / train_ms * 1e3:.1f} tokens/s; alone, forward + backward "
+          f"{fb_ms:.3f} ms and clip + AdamW + apply {opt_ms:.3f} ms (medians "
+          f"of 2); peak {peak_gib:.2f} GiB [{smi}]", flush=True)
+
+    rows = _lm_train_kernel_rows(dev, cfg, launches, checks, smi)
+    train = {"launches": launches, "losses": losses, "after": after,
+             "step_ms": train_ms, "peak_gib": peak_gib, "fb_ms": fb_ms,
+             "opt_ms": opt_ms, "grad_check": grad_check}
+    return rows, train
+
+
+def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
+    """Kernel times at the training path's shapes (CUDA events), beside
+    their bounds, plain versions and library yardsticks."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import mach_xent as mx
+
+    rows = []
+    errs = checks["errs"]
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    n, r, nb = b * t, cfg.mach.num_repetitions, cfg.mach.num_buckets
+    gen = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((n, r, nb), generator=gen, device=dev).to(cfg.dtype)
+    labels = torch.randint(0, nb, (n, r), generator=gen, device=dev,
+                           dtype=torch.int32)
+    g = torch.randn((n,), generator=gen, device=dev)
+    ms_f = kernel_ms(lambda: mx.mach_xent_cuda_fwd(logits, labels))
+    ms_b = kernel_ms(lambda: mx.mach_xent_cuda_bwd(logits, labels, g))
+    plain_f = kernel_ms(lambda: mx.mach_xent_plain(logits, labels), iters=3,
+                        warmup=1)
+    plain_b = kernel_ms(lambda: mx.mach_xent_grad_plain(logits, labels, g),
+                        iters=3, warmup=1)
+    flat = logits.reshape(n * r, nb).detach().requires_grad_(True)
+    flat_y = labels.reshape(-1).long()
+    lib_f = kernel_ms(lambda: F.cross_entropy(flat, flat_y, reduction="none"))
+    ce = F.cross_entropy(flat, flat_y, reduction="none")
+    g_rep = g.repeat_interleave(r)
+    lib_b = kernel_ms(lambda: torch.autograd.grad(ce, flat, g_rep,
+                                                  retain_graph=True))
+    del ce, flat
+    bytes_f = n * r * nb * logits.element_size() + 4 * n * r + 4 * n
+    bytes_b = 2 * n * r * nb * logits.element_size() + 4 * n * r + 4 * n
+    shape3 = f"(N, R, B)=({n}, {r}, {nb}) {str(cfg.dtype).split('.')[-1]}"
+    for name, ms, plain, lib, nbytes, direction in (
+            ("mach_xent_fwd", ms_f, plain_f, lib_f, bytes_f, "forward"),
+            ("mach_xent_bwd", ms_b, plain_b, lib_b, bytes_b, "backward")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mach_xent.cu",
+            "replaces": "src/repro/kernels/mach_xent.py:89",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib,
+            "shape": f"{direction}, LM head logits {shape3}",
+            "library": "F.cross_entropy over the (N·R, B) view, reduction "
+                       "none" + (", its backward" if direction == "backward"
+                                 else "")})
+    del logits, labels, g, g_rep
+
+    d = cfg.resolved_rnn_width
+    a = torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    h0 = torch.zeros((b, d), device=dev)
+    dh = torch.randn((b, t, d), generator=gen, device=dev)
+    h = ls.lru_scan_cuda(a, x, h0)
+    ms9 = kernel_ms(lambda: ls.lru_scan_bwd_cuda(a, h, h0, dh))
+    ms9_fwd = kernel_ms(lambda: ls.lru_scan_cuda(a, x, h0))
+    plain9 = kernel_ms(lambda: ls.lru_scan_bwd_plain(a, h, h0, dh), iters=2,
+                       warmup=1)
+    bytes9 = 5 * b * t * d * 4 + 2 * b * d * 4
+    rows.append({
+        "name": "lru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan_bwd.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:46",
+        "launches": launches["lru_scan_bwd"],
+        "max_abs_err": errs["lru_scan_bwd"],
+        "ms": ms9, "plain_ms": plain9,
+        "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"training (B, T, D)=({b}, {t}, {d}) float32",
+        "ms_forward_at_this_shape": ms9_fwd})
+    del a, x, h, dh
+
+    h_, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    window = cfg.local_window
+    q, k, v = _flash_inputs(dev, b, t, h_, kv, hd, cfg.dtype, seed=4)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(cfg.dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    ms10_fwd = kernel_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, window=window, return_lse=True), iters=5)
+    ms10 = kernel_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, out, dout, lse, window=window), iters=5)
+    plain10 = kernel_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, window=window), iters=2, warmup=1)
+    pairs = attended_pairs(t, window)
+    flops = 10 * hd * h_ * pairs * b
+    t_ops = flops / BF16_TOPS_PER_S * 1e3
+    t_bytes = (2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+               + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
+    rows_i = torch.arange(t, device=dev)[:, None]
+    cols_i = torch.arange(t, device=dev)[None, :]
+    mask = (cols_i <= rows_i) & (cols_i > rows_i - window)
+    qh, kh, vh = (z.transpose(1, 2).detach().requires_grad_(True)
+                  for z in (q, k.expand(b, t, h_, hd), v.expand(b, t, h_, hd)))
+    lib10_fwd = kernel_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), iters=5, warmup=2)
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    do_h = dout.transpose(1, 2)
+    lib10 = kernel_ms(lambda: torch.autograd.grad(
+        sdpa, (qh, kh, vh), do_h, retain_graph=True), iters=5, warmup=2)
+    del sdpa, qh, kh, vh, mask
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "launches": launches["flash_attention_bwd"],
+        "max_abs_err": errs["flash_attention_bwd"],
+        "ms": ms10, "plain_ms": plain10,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib10,
+        "shape": (f"training q ({b}, {t}, {h_}, {hd}), k/v ({b}, {t}, {kv}, "
+                  f"{hd}) bfloat16, causal, window {window}: {pairs:,} "
+                  f"attended pairs a head, {flops / 1e9:.1f} GFLOP"),
+        "library": "F.scaled_dot_product_attention backward, boolean mask, "
+                   "k/v expanded to 10 heads",
+        "ms_forward_with_lse_at_this_shape": ms10_fwd,
+        "library_ms_forward_at_this_shape": lib10_fwd,
+        "bound_ms_f32_cores": flops / F32_OPS_PER_S * 1e3})
+    for row in rows:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
+              f"{row['launches']} on the LM train path; {row['shape']} "
+              f"[{smi}]", flush=True)
+    print(f"kernel lru_scan forward at ({b}, {t}, {d}): {ms9_fwd:.4f} ms; "
+          f"kernel flash_attention forward with lse at the training shape: "
+          f"{ms10_fwd:.4f} ms (SDPA forward {lib10_fwd:.4f} ms) [{smi}]",
+          flush=True)
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1836,6 +2324,18 @@ def main() -> int:
             row["max_abs_err_lm_head"] = max(lm_checks["errs"]["lm_head"],
                                              lm["head_err"])
     rows += lm_rows
+
+    t0 = time.perf_counter()
+    train_checks = phase_lm_train_kernels_vs_plain(dev)
+    print(f"LM training kernels vs plain: {train_checks['cases']} comparisons "
+          f"ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train_rows, train = phase_lm_train(dev, train_checks)
+    print(f"lm train: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    for row in rows:
+        if row["name"] in ("lru_scan", "flash_attention"):
+            row["launches_lm_train"] = train["launches"][row["name"]]
+    rows += train_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

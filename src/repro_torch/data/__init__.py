@@ -5,6 +5,8 @@ from repro_torch.data.extreme import (
     SparseExtremeDataConfig,
     SparseExtremeDataset,
 )
+from repro_torch.data.lm import LMDataConfig, SyntheticLMStream
 
-__all__ = ["ExtremeDataConfig", "ExtremeDataset", "SparseBatch",
-           "SparseExtremeDataConfig", "SparseExtremeDataset"]
+__all__ = ["ExtremeDataConfig", "ExtremeDataset", "LMDataConfig",
+           "SparseBatch", "SparseExtremeDataConfig", "SparseExtremeDataset",
+           "SyntheticLMStream"]

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mach_decode", "mach_topk", "mach_candidates",
            "mach_fused_xent_dense", "mach_fused_xent_ell",
-           "mach_fused_xent_gather", "lru_scan", "flash_attention")
+           "mach_fused_xent_gather", "lru_scan", "flash_attention",
+           "mach_xent", "lru_scan_bwd", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,7 +64,17 @@ SIGNATURES = {
         "lru_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "flash_attention": {
         "flash_attention_launch":
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
+    "mach_xent": {
+        "mach_xent_fwd_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "mach_xent_bwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "lru_scan_bwd": {
+        "lru_scan_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _F, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

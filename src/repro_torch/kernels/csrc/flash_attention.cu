@@ -29,6 +29,12 @@
 // registers.  Shared rows are padded (hd + 4 floats) so the float4 reads
 // of K rows are free of bank conflicts.
 //
+// Training asks for the row log-sum-exp as well: with a non-null lse
+// (B, H, T) float32 the kernel also writes m + log(l) for each query row
+// (+inf for a row with no visible column, so that the backward's
+// exp(S - lse) is zero there).  Serving passes none, and the output is
+// the same either way, bit for bit.
+//
 // What bounds it on this card: operations.  4·hd flops per attended
 // (query, key) pair and head — 64.4 GFLOP at (1, 4096, 10, 256) with
 // window 2048 — is 0.065 ms at the 989 TFLOP/s bf16 tensor-core peak,
@@ -77,7 +83,8 @@ inline size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int t_len,
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int t_len,
              int s_len, int heads, int kv_heads, int hd, float scale,
              int causal, int window) {
   extern __shared__ __align__(16) float smem[];
@@ -238,13 +245,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dst[lane + 16 * j] = from_f32<T>(o);
       }
     }
+    if (lse != nullptr && lane == 0) {
+      lse[(static_cast<size_t>(b) * heads + h) * t_len + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : CUDART_INF_F;
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int t_len, int s_len, int heads, int kv_heads,
-                   int hd, float scale, int causal, int window,
+                   void* lse, int batch, int t_len, int s_len, int heads,
+                   int kv_heads, int hd, float scale, int causal, int window,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = mach::allow_smem(flash_kernel<T>, smem);
@@ -252,8 +263,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
   flash_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), t_len, s_len, heads,
-      kv_heads, hd, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), t_len, s_len, heads, kv_heads, hd, scale,
+      causal, window);
   return cudaGetLastError();
 }
 
@@ -264,11 +276,13 @@ extern "C" {
 // q, out (batch, t_len, heads, hd); k, v (batch, s_len, kv_heads, hd);
 // all contiguous float32 (bf16 == 0) or bfloat16 (bf16 == 1).  heads a
 // multiple of kv_heads; hd a multiple of 16, at most 256; window <= 0
-// means no window.  Returns a cudaError_t code.
+// means no window.  lse: null, or (batch, heads, t_len) float32 for the
+// row log-sum-exp.  Returns a cudaError_t code.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int batch, int t_len, int s_len,
-                           int heads, int kv_heads, int hd, float scale,
-                           int causal, int window, int bf16, void* stream) {
+                           void* out, void* lse, int batch, int t_len,
+                           int s_len, int heads, int kv_heads, int hd,
+                           float scale, int causal, int window, int bf16,
+                           void* stream) {
   if (batch < 1 || t_len < 1 || s_len < 1 || heads < 1 || kv_heads < 1 ||
       heads % kv_heads != 0 || hd < 16 || hd > flash::kMaxHd || hd % 16 != 0 ||
       batch * heads > 65535) {
@@ -277,12 +291,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return static_cast<int>(flash::launch<__nv_bfloat16>(
-        q, k, v, out, batch, t_len, s_len, heads, kv_heads, hd, scale, causal,
-        window, s));
+        q, k, v, out, lse, batch, t_len, s_len, heads, kv_heads, hd, scale,
+        causal, window, s));
   }
   return static_cast<int>(flash::launch<float>(
-      q, k, v, out, batch, t_len, s_len, heads, kv_heads, hd, scale, causal,
-      window, s));
+      q, k, v, out, lse, batch, t_len, s_len, heads, kv_heads, hd, scale,
+      causal, window, s));
 }
 
 const char* mach_error_string(int code) {

@@ -1,20 +1,30 @@
 """Causal / windowed GQA flash attention (online softmax, f32 state).
 
-``ops.flash_attention`` takes q (B, T, H, hd) and k, v (B, S, KV, hd) of
-one dtype and returns (B, T, H, hd) in q's dtype, for contiguous
+``ops.flash_attention`` takes q (B, T, H, hd) and k, v (B, S, KV, hd)
+of one dtype and returns (B, T, H, hd) in q's dtype, for contiguous
 positions: query row i may see key column j iff j <= i (causal) and
-j > i - window (windowed).  On a CUDA tensor it calls
+j > i - window (windowed).  It runs the ``torch.autograd.Function``
+``FlashAttention``.  On CUDA tensors its forward calls
 ``flash_attention_cuda``, which launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (it replaces the TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_pallas``); on a CPU
-tensor it runs ``flash_attention_plain``.
+``repro/kernels/flash_attention.py::flash_attention_pallas``), and its
+backward ``flash_attention_bwd_cuda``, the FlashAttention-2 recurrence of
+``csrc/flash_attention_bwd.cu``; on CPU tensors it runs
+``flash_attention_plain`` and ``flash_attention_bwd_plain``.  When a
+gradient is wanted the forward also returns the row log-sum-exp
+(B, H, T) float32, which the backward reads; otherwise it is not formed.
 
 The plain version computes what the TPU kernel's ``_flash_body`` does,
 with the same cast points — q scaled in float32 and rounded to k's
 dtype, float32 scores, masked scores at float32's most negative value,
 the guarded correction of rows with no valid column yet, e rounded to
 v's dtype before P·V, acc / max(l, 1e-37) with l = 0 rows set to zero —
-over the kernel's 64-key tiles, so both round at the same points.
+over the kernel's 64-key tiles, so both round at the same points.  The
+backward is the exact gradient of softmax attention at float32 P (not of
+the forward's rounding of e): P = exp(S − lse) from the saved lse,
+dS = P ∘ (dP − D) with D = rowsum(dO ∘ O), dQ = dS·K·scale and
+dK = dSᵀ·Qs, where Qs is q·scale rounded to k's dtype as the forward
+forms it.
 """
 
 from __future__ import annotations
@@ -47,17 +57,40 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v are on different devices")
 
 
+def _mask(rows, cols, causal, window):
+    ok = torch.ones((rows.shape[0], cols.shape[1]), dtype=torch.bool,
+                    device=rows.device)
+    if causal:
+        ok &= cols <= rows
+    if window is not None:
+        ok &= cols > rows - window
+    return ok
+
+
+def _scaled_q(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q·scale rounded to k's dtype, as float32 (B, H, T, hd)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q.to(torch.float32) * scale).to(k.dtype).to(torch.float32)
+    return qs.permute(0, 2, 1, 3)
+
+
+def _heads(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> float32 (B, H, S, hd), each kv head repeated for
+    its group of query heads."""
+    return x.to(torch.float32).permute(0, 2, 1, 3).repeat_interleave(group, 1)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch: the online-softmax recurrence over 64-key tiles."""
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
+    """Plain PyTorch: the online-softmax recurrence over 64-key tiles.
+    With ``return_lse`` returns (out, lse (B, H, T) float32: m + log l,
+    +inf for a row with no visible column)."""
     b, t, h, hd = q.shape
     s_len, group = k.shape[1], h // k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
-    qs = (q.to(torch.float32) * scale).to(k.dtype).to(torch.float32)
-    qs = qs.permute(0, 2, 1, 3)                                  # (B, H, T, hd)
-    kf = k.to(torch.float32).permute(0, 2, 1, 3).repeat_interleave(group, 1)
-    vf = v.to(torch.float32).permute(0, 2, 1, 3).repeat_interleave(group, 1)
+    qs = _scaled_q(q, k)                                         # (B, H, T, hd)
+    kf, vf = _heads(k, group), _heads(v, group)
     dev = q.device
     m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
@@ -65,12 +98,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = torch.arange(t, device=dev)[:, None]
     for k0 in range(0, s_len, BLOCK_K):
         k1 = min(k0 + BLOCK_K, s_len)
-        cols = torch.arange(k0, k1, device=dev)[None, :]
-        ok = torch.ones((t, k1 - k0), dtype=torch.bool, device=dev)
-        if causal:
-            ok &= cols <= rows
-        if window is not None:
-            ok &= cols > rows - window
+        ok = _mask(rows, torch.arange(k0, k1, device=dev)[None, :], causal,
+                   window)
         sc = torch.where(ok, qs @ kf[:, :, k0:k1].transpose(-1, -2), NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1))
         corr = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), 0.0)
@@ -81,39 +110,158 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-37)[..., None]
     out = torch.where(l[..., None] > 0, out, 0.0)
-    return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    out = out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    if not return_lse:
+        return out
+    return out, torch.where(l > 0, m + torch.log(l), torch.inf)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel on ``q``'s stream.  q, k, v contiguous, one
-    dtype (float32 or bfloat16), hd a multiple of 16 up to 256.
-    ``flash_attention_cuda.launches`` counts the launches."""
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None):
+    """Plain PyTorch: the FlashAttention-2 backward over 64-key tiles,
+    from the forward's output and lse.  Returns (dq, dk, dv) in q's, k's
+    and v's dtypes; dk and dv summed over each kv head's query heads."""
+    b, t, h, hd = q.shape
+    s_len, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qs = _scaled_q(q, k)
+    kf, vf = _heads(k, group), _heads(v, group)
+    do = dout.to(torch.float32).permute(0, 2, 1, 3)              # (B, H, T, hd)
+    dsum = torch.sum(do * out.to(torch.float32).permute(0, 2, 1, 3), dim=-1)
+    dev = q.device
+    dq = torch.zeros_like(qs)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    rows = torch.arange(t, device=dev)[:, None]
+    for k0 in range(0, s_len, BLOCK_K):
+        k1 = min(k0 + BLOCK_K, s_len)
+        ok = _mask(rows, torch.arange(k0, k1, device=dev)[None, :], causal,
+                   window)
+        sc = qs @ kf[:, :, k0:k1].transpose(-1, -2)
+        p = torch.where(ok, torch.exp(sc - lse[..., None]), 0.0)
+        dp = do @ vf[:, :, k0:k1].transpose(-1, -2)
+        ds = p * (dp - dsum[..., None])
+        dq += ds @ kf[:, :, k0:k1]
+        dk[:, :, k0:k1] = ds.transpose(-1, -2) @ qs
+        dv[:, :, k0:k1] = p.transpose(-1, -2) @ do
+
+    def per_kv(x, like):        # (B, H, S, hd) -> (B, S, KV, hd)
+        x = x.reshape(b, kv, group, s_len, hd).sum(2)
+        return x.to(like.dtype).permute(0, 2, 1, 3).contiguous()
+
+    dq = (dq * scale).to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    return dq, per_kv(dk, k), per_kv(dv, v)
+
+
+def _check_cuda(q, k, v, window) -> None:
     check_operands(q, k, v, window)
     if q.device.type != "cuda":
-        raise ValueError("the flash attention kernel needs CUDA tensors")
+        raise ValueError("the flash attention kernels need CUDA tensors")
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
         raise ValueError(f"q, k and v must share one dtype of {_DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    b, t, h, hd = q.shape
+    hd = q.shape[3]
     if hd % 16 or hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} is not a multiple of 16 up to "
                          f"{MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         return_lse: bool = False):
+    """Launch the kernel on ``q``'s stream.  q, k, v contiguous, one
+    dtype (float32 or bfloat16), hd a multiple of 16 up to 256.  With
+    ``return_lse`` returns (out, lse (B, H, T) float32).
+    ``flash_attention_cuda.launches`` counts the launches."""
+    _check_cuda(q, k, v, window)
+    b, t, h, hd = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t,
-            k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
-            int(causal), window if window is not None else 0,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, t, k.shape[1], h,
+            k.shape[2], hd, 1.0 / math.sqrt(hd), int(causal),
+            window if window is not None else 0,
             int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, code, "flash_attention")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """Launch the backward kernels on ``q``'s stream: (dq, dk, dv) from
+    the forward's out and lse and the cotangent dout (contiguous, q's
+    shape and dtype).  ``flash_attention_bwd_cuda.launches`` counts the
+    launches."""
+    _check_cuda(q, k, v, window)
+    b, t, h, hd = q.shape
+    for name, x, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype)):
+        if x.shape != q.shape or x.dtype != dtype or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, q's shape and dtype")
+    if tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, t)}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty_like(lse)
+    lib = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, t, k.shape[1], h, k.shape[2], hd,
+            1.0 / math.sqrt(hd), int(causal),
+            window if window is not None else 0,
+            int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, code, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 10 and its backward kernels on CUDA tensors, the plain
+    versions on CPU tensors.  The lse is formed only when a gradient is
+    wanted; then q, k, v, out and lse are saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        fwd = flash_attention_cuda if q.device.type == "cuda" \
+            else flash_attention_plain
+        if not any(ctx.needs_input_grad[:3]):
+            return fwd(q, k, v, causal=causal, window=window)
+        out, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.device.type == "cuda" \
+            else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse,
+                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+

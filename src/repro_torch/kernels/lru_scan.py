@@ -1,12 +1,16 @@
 """RG-LRU linear recurrence h_t = a_t ⊙ h_{t-1} + x_t (recurrentgemma).
 
 ``ops.lru_scan`` takes a, x (B, T, D) and h0 (B, D) and returns h
-(B, T, D) in x's dtype, carried in float32.  On a CUDA tensor it calls
+(B, T, D) in x's dtype, carried in float32, through the
+``torch.autograd.Function`` ``LruScan``.  On CUDA tensors its forward calls
 ``lru_scan_cuda``, which launches the hand-written kernel in
 ``csrc/lru_scan.cu`` (it replaces the TPU kernel
-``repro/kernels/lru_scan.py::lru_scan_pallas``); on a CPU tensor it runs
-``lru_scan_plain``, the same sequential loop in plain PyTorch.
-Both round a·h and then + x separately, so they agree bit for bit.
+``repro/kernels/lru_scan.py::lru_scan_pallas``), and its backward
+``lru_scan_bwd_cuda``, the reverse recurrence of ``csrc/lru_scan_bwd.cu``;
+on CPU tensors it runs ``lru_scan_plain`` and ``lru_scan_bwd_plain``,
+the same sequential loops in plain PyTorch.  Each pair rounds a product
+and then a sum separately, so kernel and plain version agree bit for
+bit.  The backward reads the forward's output h, not a recomputation.
 """
 
 from __future__ import annotations
@@ -70,3 +74,83 @@ def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
 
 
 lru_scan_cuda.launches = 0
+
+
+def lru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                       dh: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: the reverse float32 loop
+    g_t = dh_t + a_{t+1}·g_{t+1}; dx_t = g_t; da_t = g_t·h_{t-1}
+    (h_{-1} = h0); dh0 = a_0·g_0.  ``h`` is the forward's output, in x's
+    dtype.  Returns (da in a's dtype, dx in h's, dh0 float32)."""
+    af, hf, dhf = a.to(torch.float32), h.to(torch.float32), dh.to(torch.float32)
+    h0f = h0.to(torch.float32)
+    g = torch.zeros_like(h0f)
+    a_next = torch.zeros_like(h0f)
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    dx = torch.empty_like(h)
+    for t in range(h.shape[1] - 1, -1, -1):
+        g = dhf[:, t] + a_next * g
+        dx[:, t] = g.to(dx.dtype)
+        da[:, t] = (g * (hf[:, t - 1] if t > 0 else h0f)).to(da.dtype)
+        a_next = af[:, t]
+    return da, dx, a_next * g
+
+
+def lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                      dh: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel on ``h``'s stream.  a, h (the forward's
+    output) and dh contiguous, one dtype (float32 or bfloat16); h0
+    contiguous float32.  Returns (da, dx, dh0 float32).
+    ``lru_scan_bwd_cuda.launches`` counts the launches."""
+    check_operands(a, h, h0)
+    if h.device.type != "cuda" or dh.device != h.device:
+        raise ValueError("the lru_scan backward kernel needs CUDA tensors")
+    if not a.dtype == h.dtype == dh.dtype or h.dtype not in _DTYPES:
+        raise ValueError(f"a, h and dh must share one dtype of {_DTYPES}, "
+                         f"got {a.dtype}, {h.dtype}, {dh.dtype}")
+    if dh.shape != h.shape:
+        raise ValueError(f"dh {tuple(dh.shape)} != h {tuple(h.shape)}")
+    if h0.dtype != torch.float32:
+        raise ValueError("h0 must be float32")
+    if not all(t.is_contiguous() for t in (a, h, h0, dh)):
+        raise ValueError("a, h, h0 and dh must be contiguous")
+    b, t, d = h.shape
+    da, dx = torch.empty_like(a), torch.empty_like(h)
+    dh0 = torch.empty_like(h0)
+    lib = _build.load("lru_scan_bwd")
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        code = lib.lru_scan_bwd_launch(
+            a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
+            da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), b, t, d,
+            int(h.dtype == torch.bfloat16), stream)
+    _build.check(lib, code, "lru_scan_bwd")
+    lru_scan_bwd_cuda.launches += 1
+    return da, dx, dh0
+
+
+lru_scan_bwd_cuda.launches = 0
+
+
+class LruScan(torch.autograd.Function):
+    """Kernel 9 and its backward kernel on CUDA tensors, the plain loops
+    on CPU tensors.  Saves a, the output h and h0."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        cuda = x.device.type == "cuda"
+        h = (lru_scan_cuda if cuda else lru_scan_plain)(a, x, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        if h.device.type == "cuda":
+            da, dx, dh0 = lru_scan_bwd_cuda(a, h, h0, dh.contiguous())
+        else:
+            da, dx, dh0 = lru_scan_bwd_plain(a, h, h0, dh)
+        return da, dx, dh0.to(h0.dtype)
+

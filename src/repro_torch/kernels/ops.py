@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import mach_fused_xent as mfx
+from repro_torch.kernels import mach_xent as _mx
 from repro_torch.kernels import ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lru_scan as _ls
@@ -177,6 +178,30 @@ def mach_scores(meta_probs: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.reshape(lead + (table.shape[1],))
 
 
+def _check_device(x: torch.Tensor, what: str) -> str:
+    """The device kind of an op with a kernel and a plain version."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {what} path for device {x.device}")
+    return x.device.type
+
+
+def mach_xent(logits: torch.Tensor, hashed_labels: torch.Tensor
+              ) -> torch.Tensor:
+    """Per-example summed R-head CE on given logits, with its backward.
+
+    logits (..., R, B) float32 | bfloat16; hashed_labels (..., R) ->
+    (...,) float32.  Kernel 3 forward and backward on CUDA tensors, its
+    plain versions on CPU tensors; the gradient takes the logits' dtype.
+    """
+    lead = logits.shape[:-2]
+    r, b = logits.shape[-2:]
+    flat = logits.reshape((-1, r, b)).contiguous()
+    labels = hashed_labels.reshape((-1, r)).to(torch.int32).contiguous()
+    _mx.check_operands(flat, labels)
+    _check_device(flat, "mach_xent")
+    return _mx.MachXent.apply(flat, labels).reshape(lead)
+
+
 def _no_bucket_select(bucket_select, bucket_proxy) -> None:
     if bucket_select is not None or bucket_proxy is not None:
         raise NotImplementedError(
@@ -294,15 +319,13 @@ def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
 
     a, x (B, T, D); h0 (B, D) -> h (B, T, D) in x's dtype, carried in
     float32: kernel 9 on CUDA tensors, its plain sequential loop on CPU
-    tensors (bit for bit the same)."""
-    kind = x.device.type
-    if kind == "cuda":
-        return _ls.lru_scan_cuda(a.contiguous(), x.contiguous(),
-                                 h0.to(torch.float32).contiguous())
-    if kind == "cpu":
-        _ls.check_operands(a, x, h0)
-        return _ls.lru_scan_plain(a, x, h0)
-    raise ValueError(f"no lru_scan path for device {x.device}")
+    tensors (bit for bit the same).  Differentiable wrt a, x and h0 (the
+    backward kernel's reverse loop, or its plain version)."""
+    _ls.check_operands(a, x, h0)
+    if _check_device(x, "lru_scan") == "cuda":
+        a, x = a.contiguous(), x.contiguous()
+        h0 = h0.to(torch.float32).contiguous()
+    return _ls.LruScan.apply(a, x, h0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -311,17 +334,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal / windowed GQA attention for contiguous positions 0..T-1
     (queries) and 0..S-1 (keys): q (B, T, H, hd), k/v (B, S, KV, hd) ->
     (B, T, H, hd).  Kernel 10 on CUDA tensors (the scores never leave
-    the chip), its plain online-softmax version on CPU tensors."""
-    kind = q.device.type
-    if kind == "cuda":
-        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal=causal,
-                                        window=window)
-    if kind == "cpu":
-        _fa.check_operands(q, k, v, window)
-        return _fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
-    raise ValueError(f"no flash attention path for device {q.device}")
+    the chip), its plain online-softmax version on CPU tensors.
+    Differentiable wrt q, k and v (the backward kernels, or their plain
+    version)."""
+    _fa.check_operands(q, k, v, window)
+    if _check_device(q, "flash attention") == "cuda":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _fa.FlashAttention.apply(q, k, v, causal, window)
 
 
 # public op -> its oracle in kernels/ref.py
@@ -330,6 +349,7 @@ ORACLES: dict = {
     "mach_topk": "mach_topk_ref",
     "mach_topk_candidates": "mach_candidate_topk_ref",
     "mach_scores": "mach_scores_ref",
+    "mach_xent": "mach_xent_ref",
     "mach_fused_xent": "mach_fused_xent_ref",
     "mach_fused_xent_csr": "mach_fused_xent_csr_ref",
     "csr_to_ell": "csr_densify_ref",

@@ -127,6 +127,16 @@ def mach_xent_ref(logits: torch.Tensor, hashed_labels: torch.Tensor
     return (lse - picked).sum(dim=-1)
 
 
+def mach_xent_grad_ref(logits: torch.Tensor, hashed_labels: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """d loss / d logits = g · (softmax(logits) − onehot(labels)) in the
+    logits' dtype; (N, R, B)."""
+    lg = logits.to(torch.float32)
+    oh = torch.nn.functional.one_hot(hashed_labels.long(), lg.shape[-1])
+    grad = g.to(torch.float32)[:, None, None] * (torch.softmax(lg, dim=-1) - oh)
+    return grad.to(logits.dtype)
+
+
 def mach_fused_xent_ref(h2: torch.Tensor, w: torch.Tensor,
                         hashed_labels: torch.Tensor, num_buckets: int,
                         bias: torch.Tensor = None) -> torch.Tensor:
@@ -161,17 +171,40 @@ def lru_scan_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     """h_t = a_t * h_{t-1} + x_t by an associative scan (Hillis-Steele
     doubling over the product-sum composition (a2·a1, a2·b1 + b2)), in
     float32.  a, x (B, T, D); h0 (B, D) -> (B, T, D) in x's dtype."""
-    acc_a = a.to(torch.float32).clone()
-    acc_b = x.to(torch.float32).clone()
-    acc_b[:, 0] += acc_a[:, 0] * h0.to(torch.float32)
+    acc_a = a.to(torch.float32)
+    acc_b = x.to(torch.float32)
+    first = acc_b[:, :1] + acc_a[:, :1] * h0.to(torch.float32)[:, None]
+    acc_b = torch.cat([first, acc_b[:, 1:]], dim=1)
     shift = 1
-    while shift < acc_a.shape[1]:
-        new_b = acc_b.clone()
-        new_b[:, shift:] = acc_a[:, shift:] * acc_b[:, :-shift] + acc_b[:, shift:]
-        acc_a[:, shift:] = acc_a[:, shift:] * acc_a[:, :-shift]
-        acc_b = new_b
+    while shift < acc_a.shape[1]:       # out of place: autograd runs through
+        acc_b = torch.cat([acc_b[:, :shift],
+                           acc_a[:, shift:] * acc_b[:, :-shift]
+                           + acc_b[:, shift:]], dim=1)
+        acc_a = torch.cat([acc_a[:, :shift],
+                           acc_a[:, shift:] * acc_a[:, :-shift]], dim=1)
         shift *= 2
     return acc_b.to(x.dtype)
+
+
+def lru_scan_grad_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
+                      dh: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(da, dx, dh0): the vector-Jacobian product of ``lru_scan_ref`` with
+    the cotangent dh, by autograd through the associative scan."""
+    leaves = [t.detach().requires_grad_(True) for t in (a, x, h0)]
+    h = lru_scan_ref(*leaves)
+    return torch.autograd.grad(h, leaves, dh.to(h.dtype))
+
+
+def flash_attention_grad_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, window=None):
+    """(dq, dk, dv): the vector-Jacobian product of
+    ``flash_attention_ref`` with the cotangent dout, by autograd through
+    the dense attention."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_ref(*leaves, causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, dout.to(out.dtype))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

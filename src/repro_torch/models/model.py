@@ -1,12 +1,15 @@
 """LanguageModel: embeddings → stacked decoder layers → the MACH head.
 
 The port of ``repro/models/model.py`` for decoder-only models whose
-output head is MACH (the paper's head; the dense OAA softmax head, the
-loss, enc-dec, vision, MoE and paged caches are not ported yet — see
+output head is MACH (the paper's head; the dense OAA softmax head,
+enc-dec, vision, MoE and paged caches are not ported yet, nor, for
+training, the fused logit-free loss and dynamic bucket selection — see
 ROADMAP.md).
 
 Public surface:
   init(generator, device)                      -> params
+  loss(params, batch)                          -> (loss, metrics): the
+                                                  R-head CE (kernel 3)
   hidden_states(params, tokens, caches=...)    -> (hidden, caches)
   prefill(params, tokens, max_len)             -> (caches, last_hidden)
   decode_step(params, caches, tokens, pos)     -> (caches, hidden)
@@ -39,11 +42,13 @@ class LanguageModel:
     def __init__(self, cfg: ModelConfig):
         if cfg.mach is None:
             raise NotImplementedError(
-                "the port serves the MACH head only; the dense OAA head is "
-                "not ported yet (see ROADMAP.md)")
+                "the port serves and trains the MACH head only; the dense OAA "
+                "head is not ported yet, for serving or training (see "
+                "ROADMAP.md)")
         if cfg.num_encoder_layers or cfg.frontend:
             raise NotImplementedError(
-                "enc-dec and vision models are not ported yet (see ROADMAP.md)")
+                "enc-dec and vision models are not ported yet, for serving or "
+                "training (see ROADMAP.md)")
         self.cfg = cfg
         self.head = MACHOutputHead(cfg.mach, cfg.d_model, torch.float32)
         self._coeffs: dict = {}
@@ -92,6 +97,41 @@ class LanguageModel:
 
     def mach_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return self.head.apply(params["mach_head"], h)       # (..., R, B)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params: dict, batch: dict):
+        """batch: tokens (B, L+1) int; optional weights (B, L).  Returns
+        (loss, {"loss", "tokens"}): the weighted mean over tokens of the
+        summed R-head cross-entropy of each next token's hashed label,
+        through ``ops.mach_xent`` (kernel 3) on the head's logits, which
+        take the activations' dtype."""
+        cfg = self.cfg
+        for key in ("enc_feats", "prefix_feats"):
+            if batch.get(key) is not None:
+                raise NotImplementedError(
+                    f"batch[{key!r}] (enc-dec / vision training) is not "
+                    f"ported yet (see ROADMAP.md)")
+        if cfg.mach_fused_loss:
+            raise NotImplementedError(
+                "mach_fused_loss=True (the fused logit-free LM loss, kernels "
+                "4-6 on bf16 inputs) is not ported yet for training; the "
+                "port trains through mach_xent (see ROADMAP.md)")
+        if cfg.mach_bucket_select is not None:
+            raise NotImplementedError(
+                "mach_bucket_select (dynamic bucket selection) is not ported "
+                "yet for training (see ROADMAP.md)")
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones(labels.shape, dtype=torch.float32,
+                                 device=tokens.device)
+        h, _ = self.hidden_states(params, inputs)
+        hashed = cfg.mach.hash_labels(labels).movedim(0, -1)  # (B, L, R)
+        per_tok = ops.mach_xent(self.mach_logits(params, h), hashed)
+        total = torch.sum(weights)
+        loss = torch.sum(per_tok * weights) / torch.clamp(total, min=1.0)
+        return loss, {"loss": loss, "tokens": total}
 
     # --------------------------------------------------------------- serving
     def init_caches(self, batch_size: int, max_len: int,

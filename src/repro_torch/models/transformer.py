@@ -10,7 +10,11 @@ A model is a cycled ``block_pattern`` of block kinds.  The port has:
 ``NotImplementedError`` (ROADMAP.md).  The cycled pattern is factored
 into (pattern × n_periods) stacks whose parameters are stacked on a
 leading layer axis, as in the JAX package, so its params map across
-leaf for leaf; ``apply_stacks`` loops over that axis in Python.
+leaf for leaf; ``apply_stacks`` loops over that axis in Python.  With
+``remat="full"``, gradients on and no caches (training), each step of
+that loop — one period of the pattern, the JAX package's scan body — is
+recomputed in the backward pass (``torch.utils.checkpoint``), so only
+its input stays in memory; serving runs it as it is.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mach import MACHConfig
 from repro_torch.models import attention as attn_lib
@@ -137,8 +142,8 @@ class ModelConfig:
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; the port has "
-            f"{PORTED_KINDS} (see ROADMAP.md)")
+            f"block kind {kind!r} is not ported yet, for serving or "
+            f"training; the port has {PORTED_KINDS} (see ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -252,15 +257,29 @@ def init_stacks(generator, cfg: ModelConfig, layout: list, device) -> list:
     return params
 
 
+def _apply_period(layer_params: list, cfg: ModelConfig, period: tuple, x,
+                  positions):
+    """One period of the pattern without caches (the remat unit)."""
+    for lp, kind in zip(layer_params, period):
+        x, _ = apply_block(lp, cfg, kind, x, positions)
+    return x
+
+
 def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
                  caches: Optional[list] = None, per_slot: bool = False):
     """Run every layer in order; ``caches`` mirror the params nesting and
     are updated in place.  Returns (x, caches)."""
+    remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()
     for si, ((period, n), p_list) in enumerate(zip(plan_stacks(layout), params)):
         for li in range(n):
+            layer_params = [tree_map(lambda v: v[li], p) for p in p_list]
+            if remat:
+                x = checkpoint(_apply_period, layer_params, cfg, period, x,
+                               positions, use_reentrant=False)
+                continue
             for pi, kind in enumerate(period):
-                lp = tree_map(lambda v: v[li], p_list[pi])
                 lc = (tree_map(lambda v: v[li], caches[si][pi])
                       if caches is not None else None)
-                x, _ = apply_block(lp, cfg, kind, x, positions, lc, per_slot)
+                x, _ = apply_block(layer_params[pi], cfg, kind, x, positions,
+                                   lc, per_slot)
     return x, caches

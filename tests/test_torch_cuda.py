@@ -1,14 +1,25 @@
 """The CUDA kernels (decode; candidate decode; fused projection + CE,
-forward and backward; the RG-LRU scan; flash attention) against their
-plain versions, on the card, and one full-width recurrentgemma-2b
-request through the serving engine.  Gradients at rtol 1e-4 / atol
-1e-6: the kernels reduce dW, dh and dbias with float atomics, in another
-order than the plain version (and from run to run).  The RG-LRU scan
+forward and backward; the R-head CE on given logits, forward and
+backward; the RG-LRU scan and flash attention, forward and backward)
+against their plain versions, on the card, and one full-width
+recurrentgemma-2b request through the serving engine.  Gradients at
+rtol 1e-4 / atol 1e-6: the kernels reduce dW, dh and dbias with float
+atomics, in another order than the plain version (and from run to
+run).  The RG-LRU scan
 equals its plain version bit for bit; flash attention matches at rtol
 1e-5 / atol 1e-6 in float32 and, in bfloat16, within 2 bf16 ulps of
 each (query, head) row's largest output: the scores' float32 sums run
 in another order, so an e may round to the other bf16 neighbour, which
-moves the whole row by p·|v|·2^-8.
+moves the whole row by p·|v|·2^-8.  The R-head CE: loss and float32
+gradient at rtol 1e-5, a bf16 gradient within one bf16 ulp (float32
+results a few ulps apart may round to neighbouring bf16 values).  The
+scan's backward equals its plain reverse loop bit for bit; flash
+attention's backward matches its plain version at rtol 1e-4 / atol 1e-5
+in float32 (P recomputed from the saved lse, sums in other orders) and
+in bfloat16 within 2 bf16 ulps of each row's largest entry plus 2^-20 of
+the tensor's largest entry: a query row that sees one key has P = 1 and
+an exact dQ of zero, and what both compute there is float32 rounding
+noise of dP − D (1e-8 against entries of 0.1), which no row scale bounds.
 
 Marked ``cuda``: skips without a GPU.  Needs neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -26,6 +37,7 @@ from repro_torch.kernels import mach_candidates as mc
 from repro_torch.kernels import mach_decode as md
 from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import mach_topk as mt
+from repro_torch.kernels import mach_xent as mx
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
@@ -272,6 +284,91 @@ def test_flash_attention_kernel_matches_plain(dev, b, t, h, kv, hd, window,
     else:
         assert torch.all((got.float() - want.float()).abs()
                          <= 2 * _bf16_row_ulp(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,b", [(13, 4, 16), (5, 3, 37), (70, 8, 2048)])
+def test_mach_xent_kernels_equal_plain(dev, n, r, b, dtype):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    logits = (torch.randn((n, r, b), generator=gen, device=dev) * 3).to(dtype)
+    labels = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels[0], labels[-1] = 0, b - 1
+    g = torch.randn((n,), generator=gen, device=dev)
+    before = (mx.mach_xent_cuda_fwd.launches, mx.mach_xent_cuda_bwd.launches)
+    lg = logits.clone().requires_grad_(True)
+    loss = ops.mach_xent(lg, labels)
+    loss.backward(g)
+    assert (mx.mach_xent_cuda_fwd.launches, mx.mach_xent_cuda_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(loss, mx.mach_xent_plain(logits, labels),
+                               rtol=1e-5, atol=1e-5)
+    want = mx.mach_xent_grad_plain(logits, labels, g)
+    assert lg.grad.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(lg.grad, want, rtol=1e-5, atol=1e-7)
+    else:
+        assert torch.all((lg.grad.float() - want.float()).abs()
+                         <= _bf16_ulp(want))
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [(3, 37, 300), (4, 1, 2560), (1, 1000, 256)])
+def test_lru_scan_backward_kernel_equals_plain(dev, b, t, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(t + 1)
+    a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5).to(dtype)
+    x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    h0 = torch.randn((b, d), generator=gen, device=dev)
+    dh = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    leaves = [z.clone().requires_grad_(True) for z in (a, x, h0)]
+    before = ls.lru_scan_bwd_cuda.launches
+    h = ops.lru_scan(*leaves)
+    h.backward(dh)
+    assert ls.lru_scan_bwd_cuda.launches == before + 1
+    want = ls.lru_scan_bwd_plain(a, h.detach(), h0, dh)
+    for got, w in zip((z.grad for z in leaves), want):
+        assert got.dtype == w.dtype and torch.equal(got, w)
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,causal,window,dtype", [
+    (1, 1024, 10, 1, 256, True, 512, torch.bfloat16),
+    (2, 200, 8, 2, 128, True, None, torch.bfloat16),
+    (1, 130, 4, 4, 32, True, 50, torch.float32),
+    (2, 100, 4, 2, 64, True, None, torch.float32),
+    (1, 77, 10, 1, 16, True, 20, torch.float32),
+    (1, 90, 2, 1, 48, False, None, torch.float32),
+])
+def test_flash_attention_backward_kernel_matches_plain(dev, b, t, h, kv, hd,
+                                                       causal, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(t + 2)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, t, h, hd), (b, t, kv, hd),
+                                 (b, t, kv, hd), (b, t, h, hd)))
+    out0 = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    assert torch.equal(out, out0)          # the lse output changes no bit
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-5, atol=1e-5)
+    leaves = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    before = fa.flash_attention_bwd_cuda.launches
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(do)
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal,
+                                        window=window)
+    for got, w in zip((z.grad for z in leaves), want):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+        else:
+            tol = 2 * _bf16_row_ulp(w) + 2.0 ** -20 * w.float().abs().max()
+            assert torch.all((got.float() - w.float()).abs() <= tol)
 
 
 def test_lm_kernel_wrappers_reject_bad_operands(dev):

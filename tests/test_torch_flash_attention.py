@@ -6,8 +6,25 @@ Causal, windowed, GQA and MQA cases, and the bfloat16 cast points.  The TPU kern
 tiles and the plain version the CUDA kernel's 64-key tiles, so their
 running maxima differ; in float32 (no rounding of e) that changes only
 the order of the sums: rtol 1e-5 (atol 1e-6 for values near zero).
+
+The backward (``flash_attention_bwd_plain``, which the op's autograd
+Function runs on CPU tensors) is held against ``jax.vjp`` of the JAX
+oracle ``ref.flash_attention_ref`` (the model's dense attention, reached
+through ``jax_reference()``): float32 at rtol 1e-5 (atol 1e-5 of the
+tensor's largest entry, for entries that cancel).  bfloat16, from the
+same bf16 inputs: each of dQ, dK, dV is held to the float32 gradient
+(``jax.vjp`` in float32 of the same values) with at most twice the
+relative L2 error of JAX's bf16 gradient, plus 2^-9 (PR 14's rule for
+the model), and dK and dV also within 2 bf16 ulps of each row's largest
+entry of JAX's, PR 14's rule for the forward.  dQ is not held row by
+row to JAX's: JAX's bf16 backward rounds dP to bf16 (the cotangent of
+its cast of p to v's type) and the port keeps it in float32, and dQ =
+Σ dS·K cancels, so that rounding moves JAX's dQ rows by up to ~40 of
+their ulps — away from the float32 gradient (the port's relative error
+to it is the smaller, 0.0020–0.0024 against 0.0024–0.0032).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +33,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from torch_reference import jax_reference
 
 TOL = {"rtol": 1e-5, "atol": 1e-6}
 CASES = [
@@ -96,3 +114,79 @@ def test_operands_are_checked():
         ops.flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, k, v)
+
+
+BWD_CASES = [
+    # (B, T, H, KV, hd, window)
+    (1, 70, 4, 4, 16, None),        # MHA, causal
+    (2, 70, 4, 2, 32, 20),          # GQA, windowed
+    (1, 130, 10, 1, 32, 48),        # MQA, G = 10, windowed (recurrentgemma)
+]
+
+
+def _jax_vjp(q, k, v, do, window):
+    with jax_reference():
+        from repro.kernels import ref as jref
+        out, vjp = jax.vjp(
+            lambda *z: jref.flash_attention_ref(*z, causal=True,
+                                                window=window),
+            *(jnp.asarray(z) for z in (q, k, v)))
+        return out, vjp(jnp.asarray(do))
+
+
+def _port_grads(q, k, v, do, window):
+    leaves = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    ops.flash_attention(*leaves, window=window).backward(do)
+    return [z.grad for z in leaves]
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,window", BWD_CASES)
+def test_backward_matches_jax_vjp_float32(b, t, h, kv, hd, window):
+    q, k, v = _qkv(b, t, h, kv, hd, seed=t + kv)
+    do = np.random.default_rng(t).standard_normal(q.shape).astype(np.float32)
+    _, want = _jax_vjp(q, k, v, do, window)
+    got = _port_grads(*(torch.from_numpy(z) for z in (q, k, v, do)), window)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(w).max()))
+    # the port's oracle: autograd through its dense attention
+    for g, w in zip(got, ref.flash_attention_grad_ref(
+            *(torch.from_numpy(z) for z in (q, k, v, do)), window=window)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,window", BWD_CASES)
+def test_backward_matches_jax_vjp_bfloat16(b, t, h, kv, hd, window):
+    q, k, v = (torch.from_numpy(z).bfloat16()
+               for z in _qkv(b, t, h, kv, hd, seed=t + kv + 1))
+    do = torch.from_numpy(np.random.default_rng(t + 1).standard_normal(
+        q.shape).astype(np.float32)).bfloat16()
+    to_np = lambda z: z.float().numpy().astype(jnp.bfloat16)  # noqa: E731
+    _, want = _jax_vjp(*(to_np(z) for z in (q, k, v, do)), window)
+    _, truth = _jax_vjp(*(z.float().numpy() for z in (q, k, v, do)), window)
+    got = _port_grads(q, k, v, do, window)
+    for name, g, w, tr in zip("qkv", got, want, truth):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        w = torch.from_numpy(np.asarray(w).astype(np.float32))
+        tr = torch.from_numpy(np.array(tr))
+        e_port = float((g.float() - tr).norm() / tr.norm())
+        e_jax = float((w - tr).norm() / tr.norm())
+        assert e_port <= 2 * e_jax + 2.0 ** -9, (name, e_port, e_jax)
+        if name != "q":
+            assert torch.all(torch.abs(g.float() - w) <= 2 * bf16_row_ulp(w))
+
+
+def test_forward_with_lse_is_the_forward():
+    """Asking for the lse changes no bit of the output; lse = m + log l
+    equals the log-sum-exp of the masked scores."""
+    q, k, v = (torch.from_numpy(z) for z in _qkv(1, 100, 4, 2, 32, seed=9))
+    out, lse = fa.flash_attention_plain(q, k, v, window=30, return_lse=True)
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v, window=30))
+    s = torch.einsum("bthd,bshd->bhts", q / np.sqrt(32),
+                     k.repeat_interleave(2, 2))
+    rows, cols = torch.arange(100)[:, None], torch.arange(100)[None, :]
+    s = s.masked_fill(~((cols <= rows) & (cols > rows - 30)), -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)

@@ -136,3 +136,54 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
     q = torch.randn(1, 6, 4, 16)
     ops.flash_attention(q, torch.randn(1, 6, 2, 16), torch.randn(1, 6, 2, 16),
                         window=3)
+
+
+def test_training_kernel_sources_present():
+    """Kernel 3 forward and backward in one source; the backward kernels
+    of 9 and 10 in sources of their own, each naming the TPU kernel whose
+    gradient it is."""
+    expected = {
+        "mach_xent": ({"mach_xent_fwd_launch", "mach_xent_bwd_launch"},
+                      "src/repro/kernels/mach_xent.py::mach_xent_pallas"),
+        "lru_scan_bwd": ({"lru_scan_bwd_launch"},
+                         "src/repro/kernels/lru_scan.py::lru_scan_pallas"),
+        "flash_attention_bwd": (
+            {"flash_attention_bwd_launch"},
+            "src/repro/kernels/flash_attention.py::flash_attention_pallas"),
+    }
+    for name, (fns, replaces) in expected.items():
+        assert name in _build.SOURCES
+        assert set(_build.SIGNATURES[name]) == fns
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        for fn in fns:
+            assert f"int {fn}(" in source
+        assert replaces in source
+    assert ops.ORACLES["mach_xent"] == "mach_xent_ref"
+
+
+def test_training_paths_on_cpu_never_reach_the_build(monkeypatch):
+    """Kernel 3 and the backward of kernels 9 and 10 on CPU tensors, and
+    a smoke LM's loss and gradients, run their plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import value_and_grad
+
+    def refuse(*a, **kw):
+        raise AssertionError("CPU path tried to build or load a CUDA kernel")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build_all", refuse)
+    logits = torch.randn(2, 3, 4, 8, requires_grad=True)
+    ops.mach_xent(logits, torch.randint(0, 8, (2, 3, 4))).sum().backward()
+    leaves = [torch.rand(2, 5, 8, requires_grad=True),
+              torch.randn(2, 5, 8, requires_grad=True),
+              torch.zeros(2, 8, requires_grad=True)]
+    ops.lru_scan(*leaves).sum().backward()
+    q, k, v = (torch.randn(1, 6, h, 16, requires_grad=True) for h in (4, 2, 2))
+    ops.flash_attention(q, k, v, window=3).sum().backward()
+    assert all(z.grad is not None for z in [logits, *leaves, q, k, v])
+    model = LanguageModel(get_config("recurrentgemma-2b", smoke=True))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, 256, (2, 9), dtype=torch.int32)
+    (loss, _), grads = value_and_grad(model.loss, params, {"tokens": tokens},
+                                      has_aux=True)
+    assert torch.isfinite(loss) and grads["mach_head"]["kernel"].abs().sum() > 0

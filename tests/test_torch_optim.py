@@ -44,6 +44,14 @@ OPTIMIZERS = {
     "adamw_decay": (lambda m: m.adamw(1e-2, weight_decay=0.1), {}),
     "adamw_schedule": (lambda m: m.adamw(m.warmup_cosine(0.05, 2, 10),
                                          weight_decay=0.01), {}),
+    "adafactor": (lambda m: m.adafactor(1e-2), {}),
+    "adafactor_schedule": (lambda m: m.adafactor(
+        m.warmup_cosine(0.05, 2, 10), clip_threshold=0.5, decay_rate=0.6), {}),
+    "make_adafactor": (lambda m: m.make_optimizer("adafactor", 1e-2), {}),
+    "make_adamw_master": (lambda m: m.make_optimizer(
+        "adamw", 1e-2, master_weights=True, weight_decay=0.1), {}),
+    "make_sgd_master": (lambda m: m.make_optimizer(
+        "sgd", 0.1, master_weights=True, momentum=0.9), {}),
 }
 
 
@@ -132,3 +140,45 @@ def test_accumulate_grads_matches():
         np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL)
         np.testing.assert_allclose(float(tm["abs"]), float(jm["abs"]), rtol=RTOL)
         _close(tg, jg)
+
+
+@pytest.mark.parametrize("inner", ["adamw", "adafactor"])
+def test_master_weights_on_bfloat16_params_match(inner):
+    """bf16 params, float32 masters: the masters, the bf16 deltas
+    (cast(new master) − param) and the params equal JAX's after 3 steps
+    (rtol 1e-6 on the masters; the bf16 values exactly, as they come
+    from the same float32 masters)."""
+    kw = {"weight_decay": 0.1} if inner == "adamw" else {}
+    jopt = jo.make_optimizer(inner, 1e-2, master_weights=True, **kw)
+    topt = to.make_optimizer(inner, 1e-2, master_weights=True, **kw)
+    jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), _tree(3))
+    tp = jax.tree.map(lambda a: torch.from_numpy(
+        np.array(a.astype(jnp.float32))).bfloat16(), jp)
+    jstate, tstate = jopt.init(jp), topt.init(tp)
+    assert all(t.dtype == torch.float32
+               for t in jax.tree.leaves(tstate.master))
+    for step in range(3):
+        grads = _tree(200 + step)
+        g16 = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                           grads)
+        jupd, jstate = jopt.update(g16, jstate, jp)
+        tupd, tstate = topt.update(jax.tree.map(lambda a: torch.from_numpy(
+            np.array(a.astype(jnp.float32))).bfloat16(), g16), tstate, tp)
+        jp = jo.apply_updates(jp, jupd)
+        tp = to.apply_updates(tp, tupd)
+        _close(tstate.master, jstate.master)
+        for got, want in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want, np.float32))
+
+
+def test_adafactor_state_is_factored_float32():
+    """Row and column factors for >= 2-D leaves, the full v below."""
+    opt = to.adafactor(0.1)
+    state = opt.init(_to_torch(_tree(0)))
+    assert state.vr["w"].shape == (6,) and state.vc["w"].shape == (4,)
+    assert state.vr["nested"]["k"].shape == (3, 2)
+    assert state.vc["nested"]["k"].shape == (3, 2)
+    assert state.vr["b"].shape == (4,) and state.vc["b"].shape == (0,)
+    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(state.vr))
