@@ -31,8 +31,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    (nnz=120) through ``predict`` and ``estimators.predict_topk(k=10)``
    for each estimator, and ``ops.mach_top1``.  Launch counters are set
    to 0 just before and read just after; both kernels must have run.
-   Then ms per answer, kernel ms, plain ms, the ``torch.topk`` yardstick
-   and peak memory.
+   Then ms per answer, kernel ms, plain ms, the library yardstick — the
+   float32 GEMM against the (R·B, K) multi-hot matrix, then ``torch.max``
+   or ``torch.topk`` (the times over materialized sums kept apart, as a
+   labelled extra) — and peak memory.
 4b. Candidate main path at full width: ODP (phase 4's model and batch)
    and ImageNet-21k (K=21,841, d=6,144, B=512, R=20, dense features,
    N=256) through ``estimators.predict_topk(candidate_mode=(m, t))`` for
@@ -68,7 +70,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (4, 1, 2560) and a ragged (3, 37, 300) with nonzero h0 (and bfloat16
    at the ragged shape); flash attention (kernel 10) at (1, 4096, 10,
    256) / (1, 4096, 1, 256) bfloat16 with window 2048 and without, a
-   GQA case (KV=2, H=8, hd=128, ragged T) and a float32 one: float32 to
+   GQA case (KV=2, H=8, hd=128, ragged T), tinyllama's width (hd 64,
+   32 / 4 heads), phi3's (hd 96, padded to 128 in the kernel, 32 / 32
+   heads), a ragged windowed hd-256 case and a float32 one: float32 to
    rtol 1e-5 / atol 1e-6, bfloat16 within 2 bf16 ulps of each (query,
    head) row's largest output.  Then the MACH decode kernels (1 and 2)
    at the LM head's shape (R=8, B=2048, K=256,000, inline multiply-shift
@@ -95,9 +99,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    first attention layer's K/V and every cache's positions and index
    exactly; the last hidden states and every cache held to the model in
    float32 on the dense branch, with at most twice the bf16 dense
-   branch's relative L2 error there, plus 2^-9.  Then prefill ms, ms per pooled decode
-   step, tokens/s, peak memory, and kernel, plain, bound and library
-   times.
+   branch's relative L2 error there, plus 2^-9.  Then the same requests
+   through ``ServeConfig(candidate_mode=(2048, 8))`` (exact: tokens must
+   equal the streaming engine's bit for bit) and ``(16, 2)``
+   (approximate: greedy tokens reported), kernels 7-8 launch counts from
+   0 for each.  Then prefill ms, ms per pooled decode step, tokens/s,
+   peak memory, and kernel, plain, bound and library times.
 9. LM training kernels vs plain on the card: kernel 3 (the R-head CE
    on given logits), forward and backward, at ragged shapes (float32 and
    bfloat16, labels at 0 and B-1) and the training path's shape (8,192,
@@ -107,10 +114,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (1, 1, 16) and a ragged (3, 37, 300) in float32 and bf16, nonzero h0;
    kernel 10's backward at the training shape ((2, 4096, 10, 256) / KV=1,
    bf16, window 2048) and at small float32 shapes (causal, windowed,
-   unmasked; G = 1, 2, 10) and a ragged bf16 GQA one: dq, dk, dv to rtol
-   1e-4 / atol 1e-5 in float32, within 2 bf16 ulps of each row's largest
-   entry (past a 2^-20 float32 floor) in bf16; the forward with lse equal
-   to the forward without it, bit for bit.
+   unmasked; G = 1, 2, 10) and bf16 ones: a ragged GQA case, tinyllama's
+   and phi3's widths and head counts, a ragged windowed hd-256 case and
+   an unmasked hd 48: dq, dk, dv to rtol 1e-4 / atol 1e-5 in float32,
+   within 2 bf16 ulps of each row's largest entry (past a 2^-20 float32
+   floor) in bf16; the forward with lse equal to the forward without it,
+   bit for bit.
 10. LM training at full width: recurrentgemma-2b (26 layers, bf16 params,
    remat="full") with seeded random weights, trained through
    ``Trainer.step_fn`` (``make_train_step``) with launch/train.py's
@@ -460,10 +469,16 @@ def phase_main_path(dev) -> list[dict]:
     print(f"stage meta_probs (CSR densify + f32 projection + softmax): "
           f"{wall_ms(meta_nrb):.3f} ms/batch", flush=True)
 
-    # kernel, plain and library times on the main path's inputs
+    # kernel, plain and library times on the main path's inputs.  The
+    # library yardstick computes the whole function: a float32 GEMM
+    # against the (R·B, K) multi-hot matrix (a model constant, built
+    # outside the timed call; TF32 off), then torch.max / torch.topk.
     smi = _nvidia_smi()
     rows = []
     decode_kw = {"num_classes": K, "inline_coeffs": coeffs, "inline_shift": shift}
+    multihot = torch.nn.functional.one_hot(table.long(), B).permute(0, 2, 1) \
+        .reshape(R * B, K).float()
+    meta2d = meta.reshape(N_MAIN, R * B)
     t_bound, by = bound_ms(N_MAIN, R, B, K, 1, table=False)
     rows.append({
         "name": "mach_decode", "route": "cuda",
@@ -475,7 +490,9 @@ def phase_main_path(dev) -> list[dict]:
         "plain_ms": kernel_ms(lambda: md.mach_decode_plain(meta, **decode_kw),
                               iters=5),
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": kernel_ms(lambda: torch.max(sums, dim=-1)),
+        "library_ms": kernel_ms(lambda: torch.max(meta2d @ multihot, dim=-1)),
+        "library": "torch.max over meta2d @ multihot (f32 GEMM, TF32 off)",
+        "library_ms_materialized": kernel_ms(lambda: torch.max(sums, dim=-1)),
         "shape": f"N={N_MAIN} R={R} B={B} K={K} inline hash",
     })
     ms_est, plain_est = {}, {}
@@ -498,31 +515,31 @@ def phase_main_path(dev) -> list[dict]:
         "max_abs_err": errs["mach_topk"],
         "ms": ms_est["unbiased"], "plain_ms": plain_est["unbiased"],
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": kernel_ms(lambda: torch.topk(sums, K_MAIN, dim=-1)),
+        "library_ms": kernel_ms(lambda: torch.topk(meta2d @ multihot, K_MAIN,
+                                                   dim=-1)),
+        "library": "torch.topk over meta2d @ multihot (f32 GEMM, TF32 off)",
+        "library_ms_materialized": kernel_ms(
+            lambda: torch.topk(sums, K_MAIN, dim=-1)),
         "shape": f"N={N_MAIN} R={R} B={B} K={K} k={K_MAIN} table hash, unbiased",
         "ms_by_estimator": ms_est, "plain_ms_by_estimator": plain_est,
         "ms_unbiased_inline": ms_inline, "ms_unbiased_k100": ms_k100,
     })
-    # yardstick with the scores' materialization: a float32 GEMM against
-    # the (R·B, K) multi-hot matrix (a model constant), then torch.topk
-    multihot = torch.nn.functional.one_hot(table.long(), B).permute(0, 2, 1) \
-        .reshape(R * B, K).float()
-    meta2d = meta.reshape(N_MAIN, R * B)
-    gemm_topk = kernel_ms(lambda: torch.topk(meta2d @ multihot, K_MAIN, dim=-1))
+    gemm_ms = kernel_ms(lambda: meta2d @ multihot)
     del multihot
     for row in rows:
         print(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, torch.topk/max over materialized "
-              f"scores {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f}"
-              f" ms ({row['bound_by']}), launches {row['launches']} [{smi}]",
-              flush=True)
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+              f"({row['library']}; over materialized sums alone "
+              f"{row['library_ms_materialized']:.4f} ms), bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
+              f"{row['launches']} [{smi}]", flush=True)
     print(f"kernel mach_topk by estimator (k={K_MAIN}, table): "
           + ", ".join(f"{e} {ms_est[e]:.4f} ms (plain {plain_est[e]:.4f})"
                       for e in ESTIMATORS)
           + f"; unbiased inline {ms_inline:.4f} ms; unbiased k=100 "
             f"{ms_k100:.4f} ms [{smi}]", flush=True)
-    print(f"yardstick: multi-hot f32 GEMM + torch.topk (scores materialized) "
-          f"{gemm_topk:.4f} ms [{smi}]", flush=True)
+    print(f"yardstick: the multi-hot f32 GEMM alone {gemm_ms:.4f} ms [{smi}]",
+          flush=True)
     return rows, {"head": head, "params": params, "batch": batch,
                   "table": table}
 
@@ -1295,6 +1312,9 @@ FLASH_SHAPES = [
     ("recurrentgemma prefill", 1, 4096, 10, 1, 256, 2048, torch.bfloat16),
     ("recurrentgemma no window", 1, 4096, 10, 1, 256, None, torch.bfloat16),
     ("GQA ragged", 2, 1000, 8, 2, 128, None, torch.bfloat16),
+    ("tinyllama hd 64, 32/4 heads", 1, 2048, 32, 4, 64, None, torch.bfloat16),
+    ("phi3 hd 96, 32/32 heads", 1, 1000, 32, 32, 96, None, torch.bfloat16),
+    ("ragged windowed hd 256", 2, 1111, 10, 1, 256, 300, torch.bfloat16),
     ("float32 windowed", 1, 777, 4, 1, 64, 100, torch.float32),
 ]
 FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
@@ -1303,6 +1323,7 @@ LM_SAMPLED = 2                   # index of the request sampled at T = 0.8
 LM_MAX_NEW, LM_SLOTS, LM_MAX_LEN, LM_TOP_K = 16, 4, 4160, 50
 # the LM head's decode checks: N=1 (after a prefill) and the decode pool
 LM_HEAD_N, LM_HEAD_K = (1, LM_SLOTS), (1, LM_TOP_K)
+LM_CAND_APPROX = (16, 2)         # an approximate (m, t) on the LM engine
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1430,14 +1451,15 @@ def _lm_head_vs_plain(dev) -> tuple[int, float]:
 # phase 8: full-width recurrentgemma-2b served by the slot engine
 # ---------------------------------------------------------------------------
 
-def _serve(model, params, prompts, after_first_tick=None):
+def _serve(model, params, prompts, after_first_tick=None,
+           candidate_mode=None):
     """Serve the LM phase's requests on a fresh engine, one tick at a
     time.  Returns (tokens per request, ms per tick, seconds)."""
     from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                      ServingEngine)
     engine = ServingEngine(model, params, ServeConfig(
         max_len=LM_MAX_LEN, num_slots=LM_SLOTS, top_k=LM_TOP_K,
-        max_new_tokens=LM_MAX_NEW, seed=0))
+        max_new_tokens=LM_MAX_NEW, seed=0, candidate_mode=candidate_mode))
     for i, p in enumerate(prompts):
         sampling = SamplingParams(temperature=0.8) if i == LM_SAMPLED \
             else SamplingParams()
@@ -1457,6 +1479,51 @@ def _serve(model, params, prompts, after_first_tick=None):
         fail(f"lm serve: {len(results)} of {len(prompts)} requests finished")
     return ([r.tokens for r in sorted(results, key=lambda r: r.request_id)],
             tick_ms, run_s)
+
+
+def _lm_candidates(model, params, prompts, engine_tokens) -> dict:
+    """The engine's candidate-filtered decode at the LM head's shape
+    (R=8, B=2048, K=256,000, the model's inline hash): the same requests
+    through ServeConfig(candidate_mode=(B, R)), which keeps every class a
+    candidate and must give the streaming engine's tokens bit for bit,
+    and through an approximate (m, t), whose greedy tokens are reported.
+    Kernels 7 and 8 launch counts from 0 for each run."""
+    from repro_torch.kernels import mach_candidates as mc
+
+    mach = model.cfg.mach
+    exact = (mach.num_buckets, mach.num_repetitions)
+    res = {}
+    for mode in (exact, LM_CAND_APPROX):
+        mc.bucket_topm_cuda.launches = 0
+        mc.mach_candidate_topk_cuda.launches = 0
+        tokens, _, run_s = _serve(model, params, prompts, candidate_mode=mode)
+        launches = {
+            "bucket_topm": mc.bucket_topm_cuda.launches,
+            "mach_candidate_topk": mc.mach_candidate_topk_cuda.launches}
+        if min(launches.values()) < 1:
+            fail(f"lm serve candidate_mode={mode}: kernels 7-8 launches "
+                 f"{launches}")
+        res[mode] = {"tokens": tokens, "launches": launches,
+                     "run_ms": run_s * 1e3}
+    if res[exact]["tokens"] != engine_tokens:
+        fail(f"lm serve candidate_mode={exact}: tokens differ from the "
+             f"streaming engine's")
+    approx = res[LM_CAND_APPROX]["tokens"]
+    same = sum(a == b for i in range(len(prompts)) if i != LM_SAMPLED
+               for a, b in zip(approx[i], engine_tokens[i]))
+    n_greedy = (len(prompts) - 1) * LM_MAX_NEW
+    print(f"lm serve candidate_mode={exact} (exact): tokens == the streaming "
+          f"engine's, bit for bit; kernels 7-8 launches "
+          f"{res[exact]['launches']}, run {res[exact]['run_ms']:.1f} ms. "
+          f"candidate_mode={LM_CAND_APPROX}: launches "
+          f"{res[LM_CAND_APPROX]['launches']}, run "
+          f"{res[LM_CAND_APPROX]['run_ms']:.1f} ms, greedy tokens "
+          f"{[approx[i] for i in range(len(prompts)) if i != LM_SAMPLED]} "
+          f"({same}/{n_greedy} equal to streaming's at the same step; random "
+          f"weights)", flush=True)
+    return {"exact_launches": res[exact]["launches"],
+            "approx_launches": res[LM_CAND_APPROX]["launches"],
+            "approx_greedy_same": same}
 
 
 def _direct_greedy(model, params, prompts, engine_tokens, dev):
@@ -1562,6 +1629,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
           f"{list(engine_tokens[0])}", flush=True)
     head_err = _lm_head_on_path(model, params, prompts)
     _flash_vs_dense(model, params, prompts[0], rng)
+    cand = _lm_candidates(model, params, prompts, engine_tokens)
 
     # end-to-end times (host clock, synchronized): the same requests on a
     # fresh engine again, warm; then the decode step split into the model
@@ -1650,7 +1718,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
         "shape": (f"prefill q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, "
                   f"{hd}) bfloat16, causal, window {window}: {pairs:,} "
                   f"attended pairs a head, {flops / 1e9:.1f} GFLOP"),
-        "bound_ms_f32_cores": flops / F32_OPS_PER_S * 1e3})
+        "tflops_per_s": flops / ms10 / 1e9})
     for row in rows:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -1660,10 +1728,10 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
               f"{row['launches']} on the LM serve path; {row['shape']} "
               f"[{smi}]", flush=True)
     print(f"kernel lru_scan at decode ({LM_SLOTS}, 1, {d}): {ms9_decode:.4f} "
-          f"ms; kernel flash_attention bound outside the tensor cores "
-          f"{rows[1]['bound_ms_f32_cores']:.4f} ms [{smi}]", flush=True)
+          f"ms; kernel flash_attention {rows[1]['tflops_per_s']:.1f} TFLOP/s "
+          f"[{smi}]", flush=True)
     lm = {"launches_engine": served, "launches_direct_loop": in_loop,
-          "head_err": head_err, "prefill_ms": prefill_ms,
+          "candidates": cand, "head_err": head_err, "prefill_ms": prefill_ms,
           "decode_step_ms": decode_ms, "tokens_per_s": tokens / warm_s,
           "peak_gib": peak_gib}
     return rows, lm
@@ -1803,6 +1871,12 @@ FLASH_BWD_SHAPES = [
     ("windowed G=10", 1, 300, 10, 1, 64, True, 100, torch.float32),
     ("no mask G=2", 1, 97, 4, 2, 16, False, None, torch.float32),
     ("GQA ragged", 2, 333, 8, 2, 128, True, None, torch.bfloat16),
+    ("tinyllama hd 64, 32/4 heads", 1, 1024, 32, 4, 64, True, None,
+     torch.bfloat16),
+    ("phi3 hd 96, 32/32 heads", 1, 700, 32, 32, 96, True, None,
+     torch.bfloat16),
+    ("ragged windowed hd 256", 1, 333, 10, 1, 256, True, 100, torch.bfloat16),
+    ("no mask hd 48", 1, 97, 4, 2, 48, False, None, torch.bfloat16),
 ]
 FLASH_BWD_F32_TOL = {"rtol": 1e-4, "atol": 1e-5}
 
@@ -2221,7 +2295,7 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
                    "k/v expanded to 10 heads",
         "ms_forward_with_lse_at_this_shape": ms10_fwd,
         "library_ms_forward_at_this_shape": lib10_fwd,
-        "bound_ms_f32_cores": flops / F32_OPS_PER_S * 1e3})
+        "tflops_per_s": flops / ms10 / 1e9})
     for row in rows:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -2230,10 +2304,12 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
               f"{row['launches']} on the LM train path; {row['shape']} "
               f"[{smi}]", flush=True)
+    bwd = rows[-1]
     print(f"kernel lru_scan forward at ({b}, {t}, {d}): {ms9_fwd:.4f} ms; "
           f"kernel flash_attention forward with lse at the training shape: "
-          f"{ms10_fwd:.4f} ms (SDPA forward {lib10_fwd:.4f} ms) [{smi}]",
-          flush=True)
+          f"{ms10_fwd:.4f} ms (SDPA forward {lib10_fwd:.4f} ms); backward "
+          f"{bwd['tflops_per_s']:.1f} TFLOP/s of its 10·hd flops a pair "
+          f"[{smi}]", flush=True)
     return rows
 
 
@@ -2323,6 +2399,11 @@ def main() -> int:
                 lm["launches_direct_loop"][row["name"]]
             row["max_abs_err_lm_head"] = max(lm_checks["errs"]["lm_head"],
                                              lm["head_err"])
+        if row["name"] in ("bucket_topm", "mach_candidate_topk"):
+            row["launches_lm_serve_exact"] = \
+                lm["candidates"]["exact_launches"][row["name"]]
+            row["launches_lm_serve_approx"] = \
+                lm["candidates"]["approx_launches"][row["name"]]
     rows += lm_rows
 
     t0 = time.perf_counter()

@@ -73,8 +73,8 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "flash_attention_bwd": {
         "flash_attention_bwd_launch":
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _F, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _F, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -9,7 +9,10 @@ j > i - window (windowed).  It runs the ``torch.autograd.Function``
 ``csrc/flash_attention.cu`` (it replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas``), and its
 backward ``flash_attention_bwd_cuda``, the FlashAttention-2 recurrence of
-``csrc/flash_attention_bwd.cu``; on CPU tensors it runs
+``csrc/flash_attention_bwd.cu``; bfloat16 runs on the tensor cores
+(``flash_mma_kernel``; ``dq_mma_kernel`` then ``dkdv_mma_kernel``),
+float32 on float32 FMAs (``flash_kernel``; ``row_dot_kernel``,
+``dkdv_kernel``, ``dq_kernel``).  On CPU tensors it runs
 ``flash_attention_plain`` and ``flash_attention_bwd_plain``.  When a
 gradient is wanted the forward also returns the row log-sum-exp
 (B, H, T) float32, which the backward reads; otherwise it is not formed.
@@ -19,12 +22,14 @@ with the same cast points — q scaled in float32 and rounded to k's
 dtype, float32 scores, masked scores at float32's most negative value,
 the guarded correction of rows with no valid column yet, e rounded to
 v's dtype before P·V, acc / max(l, 1e-37) with l = 0 rows set to zero —
-over the kernel's 64-key tiles, so both round at the same points.  The
-backward is the exact gradient of softmax attention at float32 P (not of
-the forward's rounding of e): P = exp(S − lse) from the saved lse,
-dS = P ∘ (dP − D) with D = rowsum(dO ∘ O), dQ = dS·K·scale and
-dK = dSᵀ·Qs, where Qs is q·scale rounded to k's dtype as the forward
-forms it.
+over the kernels' 64-key tiles, so both round at the same points.  The
+backward is the gradient of softmax attention from the saved lse (not
+of the forward's rounding of e): P = exp(S − lse), dS = P ∘ (dP − D)
+with D = rowsum(dO ∘ O), in float32; then P is rounded to v's dtype
+before dV = Pᵀ·dO, and dS to k's dtype before dQ = dS·K·scale and
+dK = dSᵀ·Qs (Qs is q·scale rounded to k's dtype as the forward forms
+it).  Those are the bf16 operands of the tensor cores (FlashAttention-2's
+cast points); in float32 the roundings change nothing.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
-BLOCK_K = 64                 # key tile of the kernel (csrc kBK)
-MAX_HEAD_DIM = 256           # largest hd the kernel takes (csrc kMaxHd)
+BLOCK_K = 64                 # key tile of the kernels (csrc kBK)
+MAX_HEAD_DIM = 256           # largest hd the kernels take (csrc kMaxHd)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -122,8 +127,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = True,
                               window: Optional[int] = None):
     """Plain PyTorch: the FlashAttention-2 backward over 64-key tiles,
-    from the forward's output and lse.  Returns (dq, dk, dv) in q's, k's
-    and v's dtypes; dk and dv summed over each kv head's query heads."""
+    from the forward's output and lse, P rounded to v's dtype for dV and
+    dS to k's dtype for dQ and dK.  Returns (dq, dk, dv) in q's, k's and
+    v's dtypes; dk and dv summed over each kv head's query heads."""
     b, t, h, hd = q.shape
     s_len, kv = k.shape[1], k.shape[2]
     group = h // kv
@@ -144,7 +150,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         sc = qs @ kf[:, :, k0:k1].transpose(-1, -2)
         p = torch.where(ok, torch.exp(sc - lse[..., None]), 0.0)
         dp = do @ vf[:, :, k0:k1].transpose(-1, -2)
-        ds = p * (dp - dsum[..., None])
+        ds = (p * (dp - dsum[..., None])).to(k.dtype).to(torch.float32)
+        p = p.to(v.dtype).to(torch.float32)
         dq += ds @ kf[:, :, k0:k1]
         dk[:, :, k0:k1] = ds.transpose(-1, -2) @ qs
         dv[:, :, k0:k1] = p.transpose(-1, -2) @ do
@@ -170,14 +177,28 @@ def _check_cuda(q, k, v, window) -> None:
                          f"{MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    _check_aligned(q.dtype, q=q, k=k, v=v)
+
+
+def _check_aligned(dtype, **tensors) -> None:
+    """The bfloat16 kernels move rows in 16-byte ``cp.async`` and vector
+    stores, so each base pointer must be 16-byte aligned (a contiguous
+    view at an odd storage offset is not)."""
+    if dtype != torch.bfloat16:
+        return
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the bfloat16 kernels")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          return_lse: bool = False):
-    """Launch the kernel on ``q``'s stream.  q, k, v contiguous, one
-    dtype (float32 or bfloat16), hd a multiple of 16 up to 256.  With
+    """Launch the kernel on ``q``'s stream: bfloat16 on the tensor cores,
+    float32 on FMAs.  q, k, v contiguous, one dtype (float32 or
+    bfloat16), hd a multiple of 16 up to 256.  With
     ``return_lse`` returns (out, lse (B, H, T) float32).
     ``flash_attention_cuda.launches`` counts the launches."""
     _check_cuda(q, k, v, window)
@@ -207,31 +228,34 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True,
                              window: Optional[int] = None):
-    """Launch the backward kernels on ``q``'s stream: (dq, dk, dv) from
-    the forward's out and lse and the cotangent dout (contiguous, q's
-    shape and dtype).  ``flash_attention_bwd_cuda.launches`` counts the
-    launches."""
+    """Launch the backward kernels on ``q``'s stream (bfloat16 on the
+    tensor cores, float32 on FMAs): (dq, dk, dv) from the forward's out
+    and lse and the cotangent dout (contiguous, q's shape and dtype).
+    ``flash_attention_bwd_cuda.launches`` counts the launches."""
     _check_cuda(q, k, v, window)
     b, t, h, hd = q.shape
     for name, x, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype)):
         if x.shape != q.shape or x.dtype != dtype or x.device != q.device \
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous, q's shape and dtype")
+    _check_aligned(q.dtype, out=out, dout=dout)
     if tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32 or \
             lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(b, h, t)}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     dsum = torch.empty_like(lse)
+    bf16 = q.dtype == torch.bfloat16
+    qs = torch.empty_like(q) if bf16 else None    # Qs, from pass 1 to pass 2
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            None if qs is None else qs.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, t, k.shape[1], h, k.shape[2], hd,
             1.0 / math.sqrt(hd), int(causal),
-            window if window is not None else 0,
-            int(q.dtype == torch.bfloat16), stream)
+            window if window is not None else 0, int(bf16), stream)
     _build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv

@@ -266,6 +266,9 @@ def _bf16_row_ulp(x):
     (1, 1024, 10, 1, 256, 512, torch.bfloat16),
     (1, 300, 10, 1, 256, None, torch.bfloat16),
     (2, 200, 8, 2, 128, None, torch.bfloat16),
+    (1, 520, 32, 4, 64, None, torch.bfloat16),     # tinyllama: hd 64, G = 8
+    (1, 300, 32, 32, 96, None, torch.bfloat16),    # phi3: hd 96 padded to 128
+    (2, 77, 4, 1, 256, 20, torch.bfloat16),        # ragged T, windowed
     (1, 130, 4, 4, 32, 50, torch.float32),
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, t, h, kv, hd, window,
@@ -338,6 +341,10 @@ def test_lru_scan_backward_kernel_equals_plain(dev, b, t, d, dtype):
 @pytest.mark.parametrize("b,t,h,kv,hd,causal,window,dtype", [
     (1, 1024, 10, 1, 256, True, 512, torch.bfloat16),
     (2, 200, 8, 2, 128, True, None, torch.bfloat16),
+    (1, 260, 32, 4, 64, True, None, torch.bfloat16),     # tinyllama
+    (1, 200, 32, 32, 96, True, None, torch.bfloat16),    # phi3, ragged T
+    (2, 77, 10, 1, 256, True, 20, torch.bfloat16),       # ragged, windowed
+    (1, 90, 2, 1, 48, False, None, torch.bfloat16),      # unmasked, hd 48
     (1, 130, 4, 4, 32, True, 50, torch.float32),
     (2, 100, 4, 2, 64, True, None, torch.float32),
     (1, 77, 10, 1, 16, True, 20, torch.float32),
@@ -381,6 +388,30 @@ def test_lm_kernel_wrappers_reject_bad_operands(dev):
     a = torch.rand((2, 4, 8), device=dev)
     with pytest.raises(ValueError, match="float32"):
         ls.lru_scan_cuda(a, a, torch.zeros((2, 8), device=dev).double())
+
+
+def test_flash_attention_rejects_misaligned_bf16(dev):
+    """A contiguous bfloat16 view at an odd storage offset is refused
+    before the 16-byte loads of the tensor-core kernels can fault."""
+    shape = (1, 64, 2, 64)
+    n = 64 * 2 * 64
+    flat = torch.randn(2 * n + 1, device=dev).to(torch.bfloat16)
+    good = flat[:n].view(shape)
+    bad = flat[1:n + 1].view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    launches = (fa.flash_attention_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_cuda(*args)
+    out, lse = fa.flash_attention_cuda(good, good, good, return_lse=True)
+    for o, d in ((bad, good), (out, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_bwd_cuda(good, good, good, o, d, lse)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_bwd_cuda.launches) == \
+        (launches[0] + 1, launches[1])
+    torch.cuda.synchronize(dev)      # the context is still healthy
 
 
 @pytest.mark.parametrize("n", [1, 4])

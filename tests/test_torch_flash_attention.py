@@ -14,14 +14,19 @@ through ``jax_reference()``): float32 at rtol 1e-5 (atol 1e-5 of the
 tensor's largest entry, for entries that cancel).  bfloat16, from the
 same bf16 inputs: each of dQ, dK, dV is held to the float32 gradient
 (``jax.vjp`` in float32 of the same values) with at most twice the
-relative L2 error of JAX's bf16 gradient, plus 2^-9 (PR 14's rule for
-the model), and dK and dV also within 2 bf16 ulps of each row's largest
-entry of JAX's, PR 14's rule for the forward.  dQ is not held row by
-row to JAX's: JAX's bf16 backward rounds dP to bf16 (the cotangent of
-its cast of p to v's type) and the port keeps it in float32, and dQ =
-Σ dS·K cancels, so that rounding moves JAX's dQ rows by up to ~40 of
-their ulps — away from the float32 gradient (the port's relative error
-to it is the smaller, 0.0020–0.0024 against 0.0024–0.0032).
+relative L2 error of JAX's bf16 gradient, plus 2^-9 (the model's
+rule), and dK and dV also within 2 bf16 ulps of each row's largest entry
+of JAX's, the forward's rule.  The port rounds P to v's dtype before
+dV = Pᵀ·dO (as JAX's bf16 backward does: its dV equals JAX's here) and
+dS to k's dtype before dQ and dK (the bf16 operands of the tensor-core
+kernels), and keeps dP in float32.  dQ is not held row by row to JAX's:
+JAX's bf16 backward rounds dP to bf16 (the cotangent of its cast of p to
+v's type), and dQ = Σ dS·K cancels, so that rounding moves JAX's dQ rows
+by up to ~40 of their ulps.  Relative L2 errors to the float32 gradient,
+port / JAX, in these cases: dQ 0.0025–0.0030 / 0.0024–0.0032, dK
+0.0026–0.0034 / 0.0025–0.0032, dV equal.  A materializing computation
+with the same roundings holds the plain bf16 backward's cast points
+entry by entry.
 """
 
 import jax
@@ -190,3 +195,53 @@ def test_forward_with_lse_is_the_forward():
     s = s.masked_fill(~((cols <= rows) & (cols > rows - 30)), -torch.inf)
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
                                atol=1e-5)
+
+
+def _materialized_bwd(q, k, v, out, do, lse, window):
+    """The backward on whole (T, S) score matrices, with the plain
+    version's roundings: P to v's dtype before dV = Pᵀ·dO, dS to k's
+    dtype before dQ = dS·K·scale and dK = dSᵀ·Qs."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    g, scale = h // kv, 1.0 / np.sqrt(hd)
+    qs = (q.float() * scale).to(k.dtype).float().permute(0, 2, 1, 3)
+    kf, vf = (z.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+              for z in (k, v))
+    dof = do.float().permute(0, 2, 1, 3)
+    d = (dof * out.float().permute(0, 2, 1, 3)).sum(-1)
+    rows, cols = torch.arange(t)[:, None], torch.arange(t)[None, :]
+    ok = (cols <= rows) & (cols > rows - window)
+    p = torch.where(ok, torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None]),
+                    0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - d[..., None])
+    ds, p = ds.to(k.dtype).float(), p.to(v.dtype).float()
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qs).reshape(b, kv, g, t, hd).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, kv, g, t, hd).sum(2)
+    return [x.to(like.dtype).permute(0, 2, 1, 3)
+            for x, like in ((dq, q), (dk, k), (dv, v))]
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,window", [(1, 130, 4, 2, 32, 48),
+                                                 (2, 100, 10, 1, 16, 30)])
+def test_bf16_backward_cast_points(b, t, h, kv, hd, window):
+    """The plain bf16 backward rounds P and dS where the tensor-core
+    kernels do (their bf16 operands): against a materializing computation
+    with the same roundings, each entry within one bf16 ulp of itself
+    past a 2^-20 floor of the tensor's largest entry (the float32 sums
+    run over 64-key tiles there and whole rows here).  Without the
+    roundings entries move by hundreds of their ulps."""
+    rng = np.random.default_rng(t + h)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).bfloat16() for s in ((b, t, h, hd), (b, t, kv, hd),
+                                          (b, t, kv, hd), (b, t, h, hd)))
+    out, lse = fa.flash_attention_plain(q, k, v, window=window,
+                                        return_lse=True)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, window=window)
+    want = _materialized_bwd(q, k, v, out, do, lse, window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _, e = torch.frexp(w.float())
+        ulp = torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+        floor = 2.0 ** -20 * float(w.float().abs().max())
+        assert torch.all((g.float() - w.float()).abs() <= ulp + floor)
