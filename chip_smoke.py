@@ -55,7 +55,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    row at exactly nnz_max, short and empty rows, at nnz 120 and 1,024
    through both sparse families.  Loss and lse to rtol 1e-5, gradients
    to rtol 1e-4 / atol 1e-6 (float atomics reduce them across blocks);
-   each backward runs twice and the largest difference is printed.
+   each backward runs twice and the largest difference is printed.  The
+   dense kernel (3xTF32 on the tensor cores in float32) also runs each
+   dense shape with bf16 operands, and the LM head's shape (N=8,192,
+   d=2,560, R=8, B=2,048) in bf16 with and without bias, dh asked: loss
+   and lse to rtol 1e-5, each bf16 gradient's largest error within 2^-7
+   of its largest entry and its relative L2 error within 2^-8.  And at
+   the float32 card test's N(0, 1) features (32 cases a shape), the dense
+   kernel and cuBLAS's float32 plain version each against the plain
+   version in float64 at the same tolerances: the kernel may have no
+   violation; both sides' counts and largest errors are printed.
 6. Training main path at full width: ``MACHLinear(fused=True)`` with
    AdamW (lr 0.05) — ODP (K=105,033, d=422,713, B=32, R=25, CSR nnz=120,
    N=512) 5 steps through the ELL kernels; the same model 2 steps on
@@ -64,7 +73,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels.  Launch counters are set to 0 just before and read just
    after; all six launch functions must have run, every loss must be
    finite, and each first step's loss and gradients must equal the plain
-   version's.  Then ms per step, stage times, peak memory.
+   version's.  Then ms per step, stage times, peak memory.  Then kernel 4
+   at the LM head's shape in bf16 (the fused LM loss's call, not yet on
+   a path): forward and backward-with-dh ms, plain and library (bf16
+   torch.matmul + F.cross_entropy) ms, peak memory of each, bound,
+   ptxas registers and shared memory.
 7. LM kernels vs plain on the card: the RG-LRU scan (kernel 9) equal to
    its plain sequential loop bit for bit, float32 at (1, 4096, 2560),
    (4, 1, 2560) and a ragged (3, 37, 300) with nonzero h0 (and bfloat16
@@ -143,9 +156,11 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -157,6 +172,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM float32, outside the tensor cores
+TF32_OPS_PER_S = 494.7e12        # H100 SXM TF32 tensor cores, dense
+BF16_TOPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 ESTIMATORS = ("unbiased", "min", "median")
 N_MAIN, K_MAIN = 256, 10
 # kernel-vs-plain shapes: (label, N, R, B, K) — ragged N and K tails
@@ -915,6 +932,14 @@ GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
 XENT_DENSE_SHAPES = [("odp", 37, 2000, 25, 32),
                      ("imagenet21k", 37, 6144, 20, 512),
                      ("odd", 29, 333, 7, 37)]
+# the dense kernel with bf16 operands: each shape above and the LM head's
+# (recurrentgemma-2b's N = 2 x 4,096 tokens, d = 2,560, R = 8, B = 2,048).
+# The kernel rounds dlogits to bf16 before its products (the plain version
+# keeps them float32), so per gradient tensor the largest error is held to
+# 2^-7 of its largest entry and the relative L2 error to 2^-8; loss and
+# lse stay at LOSS_TOL (both sides sum exact bf16 products in float32).
+XENT_DENSE_LM = ("lm head", 8192, 2560, 8, 2048)
+BF16_GRAD_MAX, BF16_GRAD_L2 = 2.0 ** -7, 2.0 ** -8
 # sparse checks: (label, N, d, R, B, nnz_max)
 XENT_SPARSE_SHAPES = [("odp nnz=120", 37, 50000, 25, 32, 120),
                       ("odp nnz=1024", 11, 50000, 25, 32, 1024),
@@ -966,6 +991,89 @@ def _compare(tag, got, want, names) -> float:
     return err
 
 
+def _compare_bf16(tag, got, want, names) -> float:
+    """bf16 kernel (loss, lse, grads) vs plain; returns the max abs error."""
+    err = 0.0
+    for name, a, b in (("loss", got[0], want[0]), ("lse", got[1], want[1])):
+        if not torch.isfinite(a).all():
+            fail(f"{tag}: non-finite kernel {name}")
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, **LOSS_TOL):
+            fail(f"{tag}: kernel {name} differs from plain by up to "
+                 f"{float((a - b).abs().max())}")
+    for name, a, b in zip(names, got[2], want[2]):
+        if a.dtype != torch.bfloat16 or not torch.isfinite(a).all():
+            fail(f"{tag}: kernel d{name} is {a.dtype}, finite "
+                 f"{bool(torch.isfinite(a).all())}")
+        diff = a.float() - b.float()
+        e, top = float(diff.abs().max()), float(b.float().abs().max())
+        rel = float(diff.norm() / b.float().norm())
+        if e > BF16_GRAD_MAX * top or rel > BF16_GRAD_L2:
+            fail(f"{tag}: kernel d{name} max error {e} (largest entry {top}), "
+                 f"relative L2 {rel}")
+        err = max(err, e)
+    return err
+
+
+# the float32 card test's inputs (tests/test_torch_cuda.py): N(0, 1)
+# features, so dW entries of order 1 cancel to near 0 and float32 rounding
+# of either side shows at atol 1e-6; 16 seeds each, with and without bias
+XENT_F64_SHAPES = [(70, 200, 25, 32), (130, 256, 2, 300)]
+XENT_F64_SEEDS = 16
+
+
+def _dense_f64_yardstick(dev) -> dict:
+    """The float32 kernel and the float32 plain version (cuBLAS) each
+    against the plain version in float64, at GRAD_TOL / LOSS_TOL: the
+    kernel must have no violation.  Returns both sides' violations and
+    largest gradient errors."""
+    from repro_torch.kernels import mach_fused_xent as mfx
+    out = {"kernel_violations": 0, "plain_violations": 0,
+           "kernel_max_err": 0.0, "plain_max_err": 0.0}
+    for n, d, r, b in XENT_F64_SHAPES:
+        for seed in range(XENT_F64_SEEDS):
+            for bias in (True, False):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                w = torch.randn((d, r * b), generator=gen, device=dev) / d ** 0.5
+                bb = 0.1 * torch.randn((r * b,), generator=gen, device=dev) \
+                    if bias else None
+                y = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                                  dtype=torch.int32)
+                g = torch.rand((n,), generator=gen, device=dev) + 0.5
+                h = torch.randn((n, d), generator=gen, device=dev)
+                leaves = [t.requires_grad_(True) for t in (h, w, bb)
+                          if t is not None]
+                exact = [t.detach().double().requires_grad_(True)
+                         for t in leaves]
+                want = _loss_and_grads(lambda: mfx.fused_xent_dense_plain(
+                    *exact[:2], exact[2] if bias else None, y, b), exact,
+                    g.double())
+                for side, fn in (("kernel", mfx.mach_fused_xent_dense),
+                                 ("plain", mfx.fused_xent_dense_plain)):
+                    got = _loss_and_grads(lambda: fn(h, w, bb, y, b), leaves, g)
+                    for a, e, tol in ((got[0], want[0], LOSS_TOL),
+                                      (got[1], want[1], LOSS_TOL),
+                                      *((x, z, GRAD_TOL)
+                                        for x, z in zip(got[2], want[2]))):
+                        e = e.float()
+                        out[f"{side}_violations"] += int(
+                            (~torch.isclose(a, e, **tol)).sum())
+                    out[f"{side}_max_err"] = max(
+                        out[f"{side}_max_err"],
+                        *(float((x - z.float()).abs().max())
+                          for x, z in zip(got[2], want[2])))
+    if out["kernel_violations"]:
+        fail(f"dense float32 kernel vs the float64 plain version: "
+             f"{out['kernel_violations']} entries outside tolerance")
+    print(f"fused xent dense float32 against the float64 plain version at "
+          f"N(0, 1) features ({len(XENT_F64_SHAPES) * XENT_F64_SEEDS * 2} "
+          f"cases): kernel {out['kernel_violations']} entries outside "
+          f"LOSS_TOL / GRAD_TOL, largest gradient error "
+          f"{out['kernel_max_err']:.3e}; cuBLAS float32 plain "
+          f"{out['plain_violations']}, {out['plain_max_err']:.3e}", flush=True)
+    return out
+
+
 def _run_to_run(fn, leaves, g) -> float:
     """Largest difference between the gradients of two backward runs."""
     a = _loss_and_grads(fn, leaves, g)[2]
@@ -981,14 +1089,18 @@ def phase_xent_vs_plain(dev) -> dict:
     from repro_torch.kernels import ops
 
     stats = {f: {"max_abs_err": 0.0, "run_to_run": 0.0}
-             for f in ("dense", "ell", "gather")}
+             for f in ("dense", "dense_bf16", "dense_lm_bf16", "ell", "gather")}
 
     def record(family, err, r2r):
         s = stats[family]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["run_to_run"] = max(s["run_to_run"], r2r)
 
-    for label, n, d, r, b in XENT_DENSE_SHAPES:
+    dense_cases = [(shape, torch.float32, "dense") for shape in XENT_DENSE_SHAPES]
+    dense_cases += [(shape, torch.bfloat16, "dense_bf16")
+                    for shape in XENT_DENSE_SHAPES]
+    dense_cases.append((XENT_DENSE_LM, torch.bfloat16, "dense_lm_bf16"))
+    for (label, n, d, r, b), dtype, key in dense_cases:
         for bias in (True, False):
             gen = torch.Generator(device=dev).manual_seed(d + b)
             h = torch.nn.functional.normalize(
@@ -999,16 +1111,19 @@ def phase_xent_vs_plain(dev) -> dict:
             y = torch.randint(0, b, (n, r), generator=gen, device=dev,
                               dtype=torch.int32)
             g = torch.rand((n,), generator=gen, device=dev) + 0.5
+            h, w, bb = (None if t is None else t.to(dtype) for t in (h, w, bb))
             leaves = [t.requires_grad_(True) for t in (h, w, bb) if t is not None]
             names = ["h", "W"] + (["bias"] if bias else [])
             kern = lambda: mfx.mach_fused_xent_dense(h, w, bb, y, b)
-            err = _compare(f"dense {label} bias={bias}",
-                           _loss_and_grads(kern, leaves, g),
-                           _loss_and_grads(lambda: mfx.fused_xent_dense_plain(
-                               h, w, bb, y, b), leaves, g), names)
-            record("dense", err, _run_to_run(kern, leaves, g))
+            compare = _compare if dtype == torch.float32 else _compare_bf16
+            err = compare(f"dense {label} {dtype} bias={bias}",
+                          _loss_and_grads(kern, leaves, g),
+                          _loss_and_grads(lambda: mfx.fused_xent_dense_plain(
+                              h, w, bb, y, b), leaves, g), names)
+            record(key, err, _run_to_run(kern, leaves, g))
+            del leaves, h, w, bb
         print(f"fused xent vs plain: dense {label} (N={n}, d={d}, R={r}, "
-              f"B={b}) ok, with and without bias", flush=True)
+              f"B={b}) {dtype} ok, with and without bias", flush=True)
 
     for label, n, d, r, b, nnz_max in XENT_SPARSE_SHAPES:
         batch = _csr_check_batch(dev, n, d, nnz_max, seed=nnz_max)
@@ -1044,7 +1159,10 @@ def phase_xent_vs_plain(dev) -> dict:
         print(f"fused xent vs plain: ell and gather {label} (N={n}, d={d}, "
               f"R={r}, B={b}, nnz_max={nnz_max}, duplicates, empty and short "
               f"rows) ok, with and without bias", flush=True)
+    stats["dense_f64"] = _dense_f64_yardstick(dev)
     for family, s in stats.items():
+        if family == "dense_f64":
+            continue
         print(f"fused xent {family}: max abs error vs plain "
               f"{s['max_abs_err']:.3e}; largest backward difference between "
               f"two runs {s['run_to_run']:.3e} (float atomics)", flush=True)
@@ -1055,28 +1173,35 @@ def phase_xent_vs_plain(dev) -> dict:
 # phase 6: the training main path at full width
 # ---------------------------------------------------------------------------
 
-def _bound(family, n, d, r, b, nnz=0, unique=0, j=0):
+def _bound(family, n, d, r, b, nnz=0, unique=0, j=0, dtype=torch.float32,
+           need_dh=False):
     """Least time (ms) for the forward and the backward on this card, and
-    what bounds each.  Dense: 2·N·d·R·B operations forward, 6·N·d·R·B
-    backward (the logits again, then dW and dh).  Sparse: 2·nnz·R·B and
-    4·nnz·R·B over this batch's valid slots; bytes count the W rows this
-    batch touches once, the ELL batch, labels and lse, and every output
-    once — the dense dW (d·R·B) included.  The dense backward is timed
-    as the main path runs it, without dh (its input features need no
-    gradient): 4·N·d·R·B operations."""
+    what bounds each.  Dense: 2·N·d·R·B operations forward, 4·N·d·R·B
+    backward (the logits again, then dW; 6 with dh), on the tensor cores —
+    bf16 at the bf16 rate, float32 as 3xTF32, three TF32 products an
+    operation at the TF32 rate.  Sparse: 2·nnz·R·B and 4·nnz·R·B float32
+    operations over this batch's valid slots.  Bytes count each input
+    once (sparse: the W rows this batch touches, the ELL batch, labels and
+    lse) and every output once — the dense dW (d·R·B) included.  The main
+    path's dense backward runs without dh (its input features need no
+    gradient)."""
     c = r * b
     if family == "dense":
-        ops_f, ops_b = 2 * n * d * c, 4 * n * d * c
-        bytes_f = 4 * (n * d + d * c + c + n * r) + 4 * (n + n * r)
-        bytes_b = 4 * (n * d + d * c + c + 2 * n * r + n) + 4 * (d * c + c)
+        es = 2 if dtype == torch.bfloat16 else 4
+        ops_f, ops_b = 2 * n * d * c, (6 if need_dh else 4) * n * d * c
+        rate = BF16_TOPS_PER_S if es == 2 else TF32_OPS_PER_S / 3
+        bytes_f = es * (n * d + d * c + c) + 4 * n * r + 4 * (n + n * r)
+        bytes_b = (es * (n * d + d * c + c) + 4 * (2 * n * r + n)
+                   + es * (d * c + c + (n * d if need_dh else 0)))
     else:
         ops_f, ops_b = 2 * nnz * c, 4 * nnz * c
+        rate = F32_OPS_PER_S
         ell = 8 * n * j
         bytes_f = 4 * unique * c + ell + 4 * (c + n * r) + 4 * (n + n * r)
         bytes_b = 4 * unique * c + ell + 4 * (c + 2 * n * r + n) + 4 * (d * c + c)
     out = []
     for ops_, bytes_ in ((ops_f, bytes_f), (ops_b, bytes_b)):
-        t_ops = ops_ / F32_OPS_PER_S * 1e3
+        t_ops = ops_ / rate * 1e3
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         out.append((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
     return out
@@ -1265,6 +1390,7 @@ def phase_training(dev, checks: dict) -> list[dict]:
                       + (f" ELL J={j}, {nnz} valid slots, {unique} "
                          f"distinct features" if family != "dense" else "")
                       + ", with bias; forward + backward"),
+            "dtype": "float32",
             "train_step_ms": step_ms, "adamw_ms": ms_adamw,
             "peak_gib": res["peak_gib"],
             "check_max_abs_err": checks[family]["max_abs_err"],
@@ -1273,6 +1399,7 @@ def phase_training(dev, checks: dict) -> list[dict]:
             row["ms_bwd_with_dh"] = kernel_ms(lambda: bwd(
                 *inputs, w2.detach(), bias.detach(), labels, lse, g, b),
                 iters=10)
+            row["vs_float64_plain"] = checks["dense_f64"]
         rows.append(row)
         print(f"kernel {kname} ({name}): forward {ms_fwd:.4f} ms + backward "
               f"{ms_bwd:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -1300,11 +1427,120 @@ def _library_xent(family, x, w2, bias, labels, b, n, r, d):
     return torch.autograd.grad(loss / n, leaves)
 
 
+def _ptxas_registers(log: str) -> dict:
+    """Kernel entry -> 'N registers; spills' from an ``nvcc -Xptxas -v``
+    log, the mangled entry names shortened (``bwd_kernel<bf16, cp.async>``:
+    the dtype and whether tiles arrive by 16-byte cp.async or plain loads)."""
+    out, entry, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Lb([01])",
+                          entry)
+            if m:
+                entry = (f"{m[1]}<{'float32' if m[2] == 'f' else 'bf16'}, "
+                         f"{'cp.async' if m[3] == '1' else 'plain loads'}>")
+            else:
+                entry = (re.search(r"\d+([a-z_]+_kernel)", entry)
+                         or [entry, entry])[1]
+        elif entry and "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out[entry] = f"{regs}; {spill}"
+            entry = None
+    return out
+
+
+def _peak_mib(fn) -> float:
+    """Device memory a call allocates at its peak, above what was live."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _library_dense(leaves, labels, b, n, r):
+    """Yardstick (never used by the port): the bf16 logits by torch.matmul,
+    F.cross_entropy on the (N·R, B) view, autograd to h, W and bias."""
+    h, w, bias = leaves
+    logits = h @ w + bias
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(n * r, b), labels.reshape(-1).long(), reduction="sum")
+    return torch.autograd.grad(loss / n, leaves)
+
+
+def phase_dense_lm_head(dev, checks: dict, launches: int, smi: str) -> dict:
+    """Kernel 4 at the LM head's shape in bf16 (the fused LM loss's call:
+    forward, then the backward with dh): times, plain and library times,
+    peak memory of each, bound, ptxas registers and shared memory.
+    ``launches`` is the main path's count (the
+    ImageNet-21k training run); the LM path does not run kernel 4 yet."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mach_fused_xent as mfx
+
+    label, n, d, r, b = XENT_DENSE_LM
+    gen = torch.Generator(device=dev).manual_seed(17)
+    h = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=gen, device=dev), dim=1).bfloat16()
+    w = (torch.randn((d, r * b), generator=gen, device=dev) / d ** 0.5).bfloat16()
+    bias = torch.randn((r * b,), generator=gen, device=dev).bfloat16()
+    y = torch.randint(0, b, (n, r), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.full((n,), 1.0 / n, device=dev)
+    _, lse = mfx.dense_fwd_cuda(h, w, bias, y, b)
+    ms_fwd = kernel_ms(lambda: mfx.dense_fwd_cuda(h, w, bias, y, b), iters=10)
+    ms_bwd = kernel_ms(lambda: mfx.dense_bwd_cuda(h, w, bias, y, lse, g, b,
+                                                  need_dh=True), iters=10)
+    leaves = [t.detach().requires_grad_(True) for t in (h, w, bias)]
+    plain = lambda: _loss_and_grads(
+        lambda: mfx.fused_xent_dense_plain(*leaves, y, b), leaves, g)
+    kern = lambda: _loss_and_grads(
+        lambda: mfx.mach_fused_xent_dense(*leaves, y, b), leaves, g)
+    library = lambda: _library_dense(leaves, y, b, n, r)
+    plain_ms = kernel_ms(plain, iters=3, warmup=1)
+    library_ms = kernel_ms(library, iters=3, warmup=1)
+    peaks = {"kernel": _peak_mib(kern), "plain": _peak_mib(plain),
+             "library": _peak_mib(library)}
+    (bf, byf), (bb_, byb) = _bound("dense", n, d, r, b, dtype=torch.bfloat16,
+                                   need_dh=True)
+    smem = _build.load("mach_fused_xent_dense").fused_xent_dense_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    row = {
+        "name": "mach_fused_xent_dense", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mach_fused_xent_dense.cu",
+        "replaces": "src/repro/kernels/mach_fused_xent.py:724",
+        "launches": launches, "launches_lm_path": 0,
+        "max_abs_err": checks["dense_lm_bf16"]["max_abs_err"],
+        "ms": ms_fwd + ms_bwd, "ms_fwd": ms_fwd, "ms_bwd_with_dh": ms_bwd,
+        "plain_ms": plain_ms, "bound_ms": bf + bb_,
+        "bound_by": byf if bf >= bb_ else byb,
+        "bound_ms_fwd": bf, "bound_by_fwd": byf,
+        "bound_ms_bwd": bb_, "bound_by_bwd": byb,
+        "library_ms": library_ms, "dtype": "bfloat16",
+        "shape": (f"{label}: N={n} d={d} R={r} B={b}, bf16, with bias; "
+                  f"forward + backward with dh"),
+        "peak_mib_kernel": peaks["kernel"], "peak_mib_plain": peaks["plain"],
+        "peak_mib_library": peaks["library"],
+        "smem_bytes_fwd": smem(1, 0), "smem_bytes_bwd": smem(1, 1),
+        "ptxas": _ptxas_registers(_build.build_log("mach_fused_xent_dense")),
+        "run_to_run_max_diff": checks["dense_lm_bf16"]["run_to_run"]}
+    print(f"kernel mach_fused_xent_dense ({label}, bf16): forward "
+          f"{ms_fwd:.4f} ms + backward with dh {ms_bwd:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bf:.4f} "
+          f"({byf}) + {bb_:.4f} ({byb}) ms; peak MiB kernel "
+          f"{peaks['kernel']:.1f}, plain {peaks['plain']:.1f}, library "
+          f"{peaks['library']:.1f}; "
+          f"shared memory {row['smem_bytes_fwd']} / {row['smem_bytes_bwd']} "
+          f"bytes [{smi}]", flush=True)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the LM substrate kernels (9 and 10) vs their plain versions
 # ---------------------------------------------------------------------------
 
-BF16_TOPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 LRU_SHAPES = [(1, 4096, 2560), (4, 1, 2560), (3, 37, 300)]
 # flash checks: (label, B, T, H, KV, hd, window, dtype) — the prefill
 # shape of recurrentgemma-2b with and without its window, GQA, float32
@@ -2383,6 +2619,9 @@ def main() -> int:
     print(f"fused xent vs plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     rows += phase_training(dev, checks)
+    dense_launches = next(row["launches"] for row in rows
+                          if row["name"] == "mach_fused_xent_dense")
+    rows.append(phase_dense_lm_head(dev, checks, dense_launches, smi))
 
     t0 = time.perf_counter()
     lm_checks = phase_lm_kernels_vs_plain(dev)

@@ -47,9 +47,10 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "mach_fused_xent_dense": {
         "fused_xent_dense_fwd_launch":
-            [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "fused_xent_dense_bwd_launch":
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]},
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+             _P, _P]},
     "mach_fused_xent_ell": {
         "fused_xent_ell_fwd_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -122,6 +123,7 @@ def _finish(name: str, job) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)         # atomic: concurrent builds agree
+    Path(f"{out}.log").write_text(log)
     return log
 
 
@@ -141,6 +143,13 @@ def build_all() -> dict[str, str]:
                 job[0].kill()
                 job[0].wait()
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output (``-Xptxas -v``) of ``name``'s built library,
+    or "" if it was built by an older checkout."""
+    path = Path(f"{library_path(name)}.log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

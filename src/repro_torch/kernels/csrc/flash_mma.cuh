@@ -2,11 +2,12 @@
 // (flash_attention.cu) and backward (flash_attention_bwd.cu) on Hopper.
 //
 // The products run as mma.sync.m16n8k16 (bf16 in, float32 accumulate)
-// with operands read from shared memory by ldmatrix; tiles arrive by
-// cp.async (16 bytes a thread, zero-filled past the tensor's edge and
-// past hd, so a zero-padded width leaves every score unchanged).  Rows
-// in shared memory are padded by 8 bf16 (16 bytes): the 8 row addresses
-// of one ldmatrix then fall on distinct bank groups.
+// with operands read from shared memory by ldmatrix (the warp-level
+// helpers live in mma_sync.cuh).  Tiles arrive by cp.async, 16 bytes a
+// thread, zero-filled past the tensor's edge and past hd, so a
+// zero-padded width leaves every score unchanged.  Rows in shared memory
+// are padded by 8 bf16 (16 bytes): the 8 row addresses of one ldmatrix
+// then fall on distinct bank groups.
 //
 // warp_scores is the one function that forms scores S = Qs·Kᵀ, for the
 // forward and for both backward passes: an element's value depends only
@@ -18,9 +19,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace flash_mma {
 
 using bf16 = __nv_bfloat16;
+using mma_sync::cp_async16;
+using mma_sync::cp_async_commit;
+using mma_sync::cp_async_wait;
+using mma_sync::ldsm_x4;
+using mma_sync::ldsm_x4_t;
+using mma_sync::mma;
+using mma_sync::pack_bf16;
+using mma_sync::smem_u32;
 
 constexpr int kBK = 64;    // keys a tile, the plain version's
 constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(float32).min
@@ -28,56 +39,6 @@ constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(float32).min
 // the padded width a head dim runs at: 64, 128 or 256
 __host__ __device__ constexpr int padded_hd(int hd) {
   return hd <= 64 ? 64 : (hd <= 128 ? 128 : 256);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a · b for one 16 x 8 x 16 tile
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // rows [r0, r0 + kRows) of one head of a (B, len, heads, hd) tensor

@@ -6,7 +6,7 @@ weights W (d, R·B), an optional bias (R·B,) and hashed labels y (N, R):
     logits = a @ W + bias,  loss_n = Σ_r [lse(logits[n, r]) − logits[n, r, y_nr]]
 
 * ``mach_fused_xent_dense``  — a is a dense (N, d) tensor; kernel
-  ``csrc/mach_fused_xent_dense.cu`` (replaces
+  ``csrc/mach_fused_xent_dense.cu`` on the tensor cores (replaces
   ``repro/kernels/mach_fused_xent.py::mach_fused_xent_pallas``).
 * ``mach_fused_xent_ell``    — a is a padded-ELL batch cols/vals (N, J),
   padded slots carrying col id d and val 0; kernel
@@ -26,8 +26,12 @@ device memory.  On CPU tensors the family's plain PyTorch version runs
 and autograd differentiates it.  Gradients flow to W, the bias and (dense
 family) a; ELL ``vals`` are data and get none on either device.
 
-Inputs are float32 (other dtypes raise ``ValueError``), labels int32.
-The kernels choose their own tiles; there are no block-size knobs.
+Dense inputs h, W (and the bias) are all float32 or all bfloat16, as the
+JAX kernel takes them: products are formed from float32 values (bf16
+upcast, exactly), loss and lse are float32, and the gradients come back
+in the inputs' dtype.  The ELL and gather families take float32.  Other
+dtypes raise ``ValueError``; labels are int32.  The kernels choose their
+own tiles; there are no block-size knobs.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mach_decode import _SMEM_OPTIN
 
 GATHER_NNZ_THRESHOLD = 512    # nnz_max at which CSR batches take the gather family
+DENSE_DTYPES = (torch.float32, torch.bfloat16)
+# logits columns a dense block owns (csrc Lay<T>)
+_DENSE_COLS = {torch.float32: 128, torch.bfloat16: 256}
 
 _ELL_MAX_ROWS = 16            # rows an ELL block stages (csrc kMaxRows)
 _ELL_FIXED_SMEM = 4 * (16 * 129 + 3 * 16 * 8)   # its logits tile + statistics
@@ -63,9 +70,6 @@ def _check_head(w, bias, labels, num_buckets, n, d, device):
         raise ValueError(f"bias {tuple(bias.shape)} != ({r}*{num_buckets},)")
     if labels.dtype != torch.int32:
         raise ValueError(f"labels must be int32, got {labels.dtype}")
-    for name, t in (("w", w), ("bias", bias)):
-        if t is not None and t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
     for t in (w, bias, labels):
         if t is not None and t.device != device:
             raise ValueError("fused xent operands are on different devices")
@@ -74,8 +78,12 @@ def _check_head(w, bias, labels, num_buckets, n, d, device):
 def check_dense(h, w, bias, labels, num_buckets):
     if h.dim() != 2:
         raise ValueError(f"h must be (N, d), got {tuple(h.shape)}")
-    if h.dtype != torch.float32:
-        raise ValueError(f"h must be float32, got {h.dtype}")
+    if h.dtype not in DENSE_DTYPES:
+        raise ValueError(f"h must be float32 or bfloat16, got {h.dtype}")
+    for name, t in (("w", w), ("bias", bias)):
+        if t is not None and t.dtype != h.dtype:
+            raise ValueError(f"h and {name} must share a dtype (float32 or "
+                             f"bfloat16), got {h.dtype} and {t.dtype}")
     _check_head(w, bias, labels, num_buckets, h.shape[0], h.shape[1], h.device)
 
 
@@ -85,8 +93,9 @@ def check_ell(cols, vals, w, bias, labels, num_buckets):
                          f"{tuple(cols.shape)} and {tuple(vals.shape)}")
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
-    if vals.dtype != torch.float32:
-        raise ValueError(f"vals must be float32, got {vals.dtype}")
+    for name, t in (("vals", vals), ("w", w), ("bias", bias)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
     if vals.device != cols.device or cols.shape[1] < 1:
         raise ValueError("cols/vals must share a device and have J >= 1")
     _check_head(w, bias, labels, num_buckets, cols.shape[0], w.shape[0],
@@ -105,10 +114,14 @@ def _xent_plain(logits, labels, num_buckets):
 
 
 def fused_xent_dense_plain(h, w, bias, labels, num_buckets):
-    """Plain PyTorch: materialize the (N, R·B) logits, then the CE."""
-    logits = h @ w
+    """Plain PyTorch: materialize the (N, R·B) logits from operands upcast
+    to at least float32 (bf16 as ``ref.mach_fused_xent_ref`` does; float64
+    stays float64, the exact yardstick of the tests), then the CE; autograd
+    casts the gradients back to the inputs' dtypes."""
+    up = torch.promote_types(h.dtype, torch.float32)
+    logits = h.to(up) @ w.to(up)
     if bias is not None:
-        logits = logits + bias
+        logits = logits + bias.to(up)
     return _xent_plain(logits, labels, num_buckets)
 
 
@@ -155,30 +168,47 @@ def _ell_rows_per_block(j: int) -> int:
     return min(_ELL_MAX_ROWS, rows)
 
 
+def dense_span(num_buckets: int, dtype: torch.dtype) -> int:
+    """Most column tiles one head of B buckets can touch: the forward's
+    per-(row, head) partial slots."""
+    cols = _DENSE_COLS[dtype]
+    return (num_buckets + cols - 2) // cols + 1
+
+
 def dense_fwd_cuda(h, w, bias, labels, num_buckets):
     """Forward kernel on contiguous CUDA operands -> (loss, lse)."""
     (n, d), r = h.shape, labels.shape[1]
     lse, nll, loss = _forward_outputs(n, r, h.device)
+    span = dense_span(num_buckets, h.dtype)
+    part = torch.empty((3, n * r * span), dtype=torch.float32, device=h.device)
     _launch("mach_fused_xent_dense", "fused_xent_dense_fwd_launch", h.device,
             h.data_ptr(), w.data_ptr(), _ptr(bias), labels.data_ptr(), n, d, r,
-            num_buckets, lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
+            num_buckets, int(h.dtype == torch.bfloat16), span, part.data_ptr(),
+            lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
     dense_fwd_cuda.launches += 1
     return loss, lse
 
 
 def dense_bwd_cuda(h, w, bias, labels, lse, g, num_buckets, need_dh=True):
-    """Backward kernel -> (dh or None, dW, dbias or None), from the saved
-    lse and the (N,) cotangent g."""
+    """Backward kernel -> (dh or None, dW, dbias or None) in the inputs'
+    dtype, from the saved lse and the (N,) cotangent g.  The kernel adds
+    into zero-filled float32 accumulators; for bfloat16 inputs those are
+    scratch, cast into the outputs at the end."""
     (n, d), r = h.shape, labels.shape[1]
-    dh = torch.zeros_like(h) if need_dh else None
-    dw = torch.zeros_like(w)
-    db = None if bias is None else torch.zeros_like(bias)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh = torch.zeros((n, d), **f32) if need_dh else None
+    dw = torch.zeros(tuple(w.shape), **f32)
+    db = None if bias is None else torch.zeros(tuple(bias.shape), **f32)
+    is_bf16 = h.dtype == torch.bfloat16
+    outs = [None if t is None else (torch.empty_like(t, dtype=torch.bfloat16)
+                                    if is_bf16 else t) for t in (dh, dw, db)]
     _launch("mach_fused_xent_dense", "fused_xent_dense_bwd_launch", h.device,
             h.data_ptr(), w.data_ptr(), _ptr(bias), labels.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), n, d, r, num_buckets, _ptr(dh),
-            dw.data_ptr(), _ptr(db))
+            lse.data_ptr(), g.data_ptr(), n, d, r, num_buckets, int(is_bf16),
+            _ptr(dh), dw.data_ptr(), _ptr(db),
+            *[_ptr(t) if is_bf16 else None for t in outs])
     dense_bwd_cuda.launches += 1
-    return dh, dw, db
+    return tuple(outs)
 
 
 def ell_fwd_cuda(cols, vals, w, bias, labels, num_buckets):
@@ -293,8 +323,9 @@ def mach_fused_xent_dense(h: torch.Tensor, w: torch.Tensor,
                           bias: Optional[torch.Tensor], labels: torch.Tensor,
                           num_buckets: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """h (N, d), w (d, R·B), bias (R·B,) or None, labels (N, R) int32 ->
-    (loss (N,), lse (N, R)).  Differentiable wrt h, w and bias."""
+    """h (N, d), w (d, R·B), bias (R·B,) or None — all float32 or all
+    bfloat16 — and labels (N, R) int32 -> (loss (N,), lse (N, R)) float32.
+    Differentiable wrt h, w and bias; gradients in the inputs' dtype."""
     check_dense(h, w, bias, labels, num_buckets)
     if h.device.type == "cuda":
         return _DenseXent.apply(*_contig(h, w, bias, labels), num_buckets)

@@ -253,11 +253,13 @@ def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
                     ) -> torch.Tensor:
     """Logit-free fused projection + R-head CE on dense inputs.
 
-    h (..., d) f32; w (d, R·B) f32; hashed_labels (..., R) bucket ids;
-    optional bias (R·B,) -> (...,) f32 per-example loss.  On CUDA the
-    dense kernel runs both passes and the (…, R·B) logits never exist in
-    device memory; on the CPU the plain version runs.  Differentiable
-    wrt h, w and bias.  The kernels choose their own tiles: the TPU
+    h (..., d), w (d, R·B) and optional bias (R·B,), all float32 or all
+    bfloat16; hashed_labels (..., R) bucket ids -> (...,) float32
+    per-example loss.  On CUDA the dense kernel runs both passes on the
+    tensor cores and the (…, R·B) logits never exist in device memory;
+    on the CPU the plain version runs (bf16 operands upcast to float32
+    before the product, as the JAX kernel does).  Differentiable wrt h,
+    w and bias, gradients in the inputs' dtype.  The kernels choose their own tiles: the TPU
     knobs ``block_n/block_c/block_d`` have no counterpart.
     ``bucket_select`` / ``bucket_proxy`` raise ``NotImplementedError``.
     """

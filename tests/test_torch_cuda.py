@@ -5,7 +5,12 @@ against their plain versions, on the card, and one full-width
 recurrentgemma-2b request through the serving engine.  Gradients at
 rtol 1e-4 / atol 1e-6: the kernels reduce dW, dh and dbias with float
 atomics, in another order than the plain version (and from run to
-run).  The RG-LRU scan
+run).  The dense kernel's float32 case is held to the plain version run
+in float64 (at N(0, 1) features cuBLAS's float32 plain version is itself
+outside atol 1e-6); its bf16 case keeps loss and lse at rtol 1e-5 and
+holds each gradient tensor's largest error to 2^-7 of its largest entry
+and its relative L2 error to 2^-8 (the kernel rounds dlogits to bf16
+before its products).  The RG-LRU scan
 equals its plain version bit for bit; flash attention matches at rtol
 1e-5 / atol 1e-6 in float32 and, in bfloat16, within 2 bf16 ulps of
 each (query, head) row's largest output: the scores' float32 sums run
@@ -194,19 +199,68 @@ def _assert_xent_close(got, want):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
 
 
+def _assert_bf16_grads_close(got, want):
+    """bf16 gradients: the kernel rounds dlogits to bf16 before its
+    products (the plain version keeps them float32), so per tensor the
+    largest error is at most 2^-7 of the largest entry and the relative L2
+    error at most 2^-8."""
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype == torch.bfloat16
+        err = (a.float() - c.float())
+        assert float(err.abs().max()) <= 2.0 ** -7 * float(c.float().abs().max())
+        assert float(err.norm()) <= 2.0 ** -8 * float(c.float().norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("n,d,r,b", [(70, 200, 25, 32), (9, 130, 3, 512),
-                                     (33, 77, 7, 37)])
-def test_dense_xent_kernel_equals_plain(dev, n, d, r, b, bias):
+                                     (33, 77, 7, 37), (29, 333, 7, 37),
+                                     (130, 256, 2, 300)])
+def test_dense_xent_kernel_equals_plain(dev, n, d, r, b, bias, dtype):
+    """Float32 runs 3xTF32, bf16 the bf16 tensor cores; d = 77 and 333 and
+    R·B = 259 and 600 put rows off 16-byte alignment (plain loads)."""
     w, bb, y, g = _xent_case(dev, n, d, r, b, bias)
     h = torch.randn((n, d), device=dev)
+    h, w, bb = (None if t is None else t.to(dtype) for t in (h, w, bb))
     leaves = [t.requires_grad_(True) for t in (h, w, bb) if t is not None]
     before = (mfx.dense_fwd_cuda.launches, mfx.dense_bwd_cuda.launches)
     got = _grads(lambda: mfx.mach_fused_xent_dense(h, w, bb, y, b), leaves, g)
     assert (mfx.dense_fwd_cuda.launches, mfx.dense_bwd_cuda.launches) == \
         (before[0] + 1, before[1] + 1)
+    if dtype == torch.float32:
+        # the plain version in float64, rounded once: cuBLAS's float32
+        # dW over N(0, 1) features is itself up to 4e-6 off (above atol
+        # 1e-6 at entries that cancel), and 3xTF32 is no further off
+        exact = [t.detach().double().requires_grad_(True) for t in leaves]
+        want = _grads(lambda: mfx.fused_xent_dense_plain(
+            *exact[:2], exact[2] if bias else None, y, b), exact, g.double())
+        want = [want[0].float(), want[1].float(), [t.float() for t in want[2]]]
+        _assert_xent_close(got, want)
+    else:
+        want = _grads(lambda: mfx.fused_xent_dense_plain(h, w, bb, y, b),
+                      leaves, g)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        _assert_bf16_grads_close(got[2], want[2])
+
+
+def test_dense_xent_kernel_misaligned_view(dev):
+    """A bf16 h and W at odd storage offsets (rows off 16-byte alignment)
+    run the plain-load path and still equal the plain version."""
+    n, d, r, b = 40, 64, 3, 48
+    w, bb, y, g = _xent_case(dev, n, d, r, b, True)
+    flat = torch.randn(n * d + 1, device=dev).to(torch.bfloat16)
+    h = flat[1:].view(n, d)
+    wflat = torch.empty(d * r * b + 1, device=dev, dtype=torch.bfloat16)
+    wflat[1:].copy_(w.reshape(-1))
+    w = wflat[1:].view(d, r * b)
+    assert h.data_ptr() % 16 and w.data_ptr() % 16
+    bb = bb.to(torch.bfloat16)
+    leaves = [t.requires_grad_(True) for t in (h, w, bb)]
+    got = _grads(lambda: mfx.mach_fused_xent_dense(h, w, bb, y, b), leaves, g)
     want = _grads(lambda: mfx.fused_xent_dense_plain(h, w, bb, y, b), leaves, g)
-    _assert_xent_close(got, want)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    _assert_bf16_grads_close(got[2], want[2])
 
 
 @pytest.mark.parametrize("family", ["ell", "gather"])
@@ -232,6 +286,8 @@ def test_fused_xent_wrappers_reject_bad_operands(dev):
     h = torch.randn((4, 16), device=dev)
     with pytest.raises(ValueError, match="float32"):
         mfx.mach_fused_xent_dense(h.half(), w, None, y, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mfx.mach_fused_xent_dense(h.bfloat16(), w, None, y, 8)
     with pytest.raises(ValueError, match="int32"):
         mfx.mach_fused_xent_dense(h, w, None, y.long(), 8)
     with pytest.raises(ValueError, match="different devices"):

@@ -260,3 +260,105 @@ def test_padded_slots_are_never_read():
     dense[0, 3] = 0.5
     want = ref.mach_fused_xent_ref(dense, *_t(w), y, 4, torch.from_numpy(bb))
     np.testing.assert_allclose(loss.numpy(), want.numpy(), rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 operands: the JAX kernel upcasts h, W and bias to float32 before
+# the product, sums in float32 and casts the gradients back; so do the
+# port's plain version and its kernel.  Both sides here sum the same exact
+# bf16 products in float32: loss and lse at rtol 1e-5, and each gradient
+# entry, rounded from float32 sums a few ulps apart, within one bf16 ulp.
+# ---------------------------------------------------------------------------
+
+def _bf16(*arrays):
+    """Round float32 numpy arrays to bf16 once: torch tensors, and the same
+    values as jnp bfloat16 arrays."""
+    ts = [None if a is None else torch.from_numpy(a).to(torch.bfloat16)
+          for a in arrays]
+    js = [None if t is None else jnp.asarray(t.float().numpy(), jnp.bfloat16)
+          for t in ts]
+    return ts, js
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _within_one_bf16_ulp(got, want):
+    assert got.dtype == torch.bfloat16
+    want = torch.from_numpy(np.array(want, np.float32))
+    assert torch.all((got.float() - want).abs() <= _bf16_ulp(want))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("n,d,r,b", [(13, 40, 5, 16), (7, 24, 2, 300),
+                                     (9, 33, 3, 37)])
+def test_dense_bf16_loss_and_grads_match_ref(n, d, r, b, bias):
+    rng = np.random.default_rng(n * d + b + 1)
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    w, bb = _head(rng, d, r, b, bias)
+    y = _labels(rng, n, r, b)
+    g = rng.uniform(0.5, 1.5, size=(n,)).astype(np.float32)
+    (th, tw, tb), (jh, jw, jb) = _bf16(h, w, bb)
+
+    def jloss(h_, w_, b_):
+        return jnp.sum(jref.mach_fused_xent_ref(h_, w_, jnp.asarray(y), b, b_)
+                       * g)
+
+    want = jref.mach_fused_xent_ref(jh, jw, jnp.asarray(y), b, jb)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2) if bias else (0, 1))(jh, jw, jb)
+    leaves = [th, tw] + ([tb] if bias else [])
+    for t in leaves:
+        t.requires_grad_(True)
+    for fn in (lambda: ops.mach_fused_xent(th, tw, torch.from_numpy(y),
+                                           num_buckets=b, bias=tb),
+               lambda: mfx.fused_xent_dense_plain(th, tw, tb,
+                                                  torch.from_numpy(y), b)[0]):
+        got = fn()
+        assert got.dtype == torch.float32
+        _close(got, want)
+        tgrads = torch.autograd.grad((got * torch.from_numpy(g)).sum(), leaves)
+        for tg, jg in zip(tgrads, jgrads):
+            _within_one_bf16_ulp(tg, jg.astype(jnp.float32))
+    _, lse = mfx.mach_fused_xent_dense(th, tw, tb, torch.from_numpy(y), b)
+    logits = jh.astype(jnp.float32) @ jw.astype(jnp.float32)
+    if bias:
+        logits = logits + jb.astype(jnp.float32)
+    _close(lse, jax.nn.logsumexp(logits.reshape(n, r, b), axis=-1))
+
+
+def test_dense_bf16_upcasts_before_the_product():
+    """At d = 1024 logits formed in bf16 miss the float32 reference by more
+    than 10x rtol 1e-5; the port's upcast product does not."""
+    rng = np.random.default_rng(11)
+    n, d, r, b = 16, 1024, 4, 64
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    w, bb = _head(rng, d, r, b, True)
+    y = _labels(rng, n, r, b)
+    (th, tw, tb), (jh, jw, jb) = _bf16(h, w, bb)
+    want = np.asarray(jref.mach_fused_xent_ref(jh, jw, jnp.asarray(y), b, jb))
+    ty = torch.from_numpy(y)
+    got = ops.mach_fused_xent(th, tw, ty, num_buckets=b, bias=tb)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    bf16_logits = (th @ tw + tb).float()          # what the upcast avoids
+    lg = bf16_logits.reshape(n, r, b)
+    missed = (torch.logsumexp(lg, -1) - torch.gather(
+        lg, -1, ty.long()[..., None])[..., 0]).sum(-1)
+    assert np.max(np.abs(missed.numpy() - want) / np.abs(want)) > 10 * RTOL
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16, torch.float16, torch.float16),      # float16
+    (torch.bfloat16, torch.float32, None),             # h bf16, W f32
+    (torch.float32, torch.bfloat16, None),             # h f32, W bf16
+    (torch.bfloat16, torch.bfloat16, torch.float32)])  # bias f32
+def test_dense_float16_and_mixed_dtypes_raise(dtypes):
+    rng = np.random.default_rng(12)
+    h = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    w, bb = _t(*_head(rng, 8, 2, 4, True))
+    y = torch.from_numpy(_labels(rng, 3, 2, 4))
+    hd, wd, bd = dtypes
+    bias = None if bd is None else bb.to(bd)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.mach_fused_xent(h.to(hd), w.to(wd), y, num_buckets=4, bias=bias)
