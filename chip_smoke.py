@@ -12,15 +12,23 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: requires CUDA, prints the card's name and power limit as
    ``nvidia-smi`` gives them, turns TF32 off.
 2. Build: compiles every kernel from ``src/repro_torch/kernels/csrc``.
-3. Kernels vs plain on the card: the top-1 and streaming top-k kernels
-   against their plain PyTorch versions — table and inline hashing, the
+3. Kernels vs plain on the card: first kernel 1 (top-1) at ODP's shape
+   for N in {256, 64, 37, 33, 31, 1}, so that both of its mappings (query
+   per lane from N = 32, class per thread below) and the threshold
+   between them run, and on rows whose maximum two classes in different
+   K-splits share (the lowest id must win); then the top-1 and streaming
+   top-k kernels against their plain PyTorch versions — table and inline
+   hashing, the
    three estimators, k in {1, 10, 100}, the ODP shape (R=25, B=32), the
    ImageNet-21k shape (R=20, B=512, even-R median) and a tiny-B, tiny-R
    shape where classes collide in bulk, with ragged N and K.  Dyadic
    inputs (multiples of 2^-10) must agree exactly, values and indices;
    random inputs to rtol 1e-6, indices equal except on near-ties.
 3b. Candidate kernels vs plain on the card: bucket top-m (kernel 7)
-   exactly, at N=37, m in {1, 3, B}; the candidate filter (kernel 8) at
+   exactly (tau bit for bit, ids), at B in {4, 32, 37, 512, 1,000, 2,048,
+   8,192} with m in {1, 2, 3, 12, 16, 32, 33, B-1, B} up to B, on dyadic,
+   random, all-equal and signed-zero rows, every path of its wrapper
+   counted as launched; the candidate filter (kernel 8) at
    N <= 5, both hash sources, the three estimators, (m, t) in {(1, 1),
    (2, 2), (B, R)} and a flat-random (1, R) that exercises the backfill
    slot, k in {1, 10, 100}: values, bands and ids equal, dyadic and
@@ -34,7 +42,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    Then ms per answer, kernel ms, plain ms, the library yardstick — the
    float32 GEMM against the (R·B, K) multi-hot matrix, then ``torch.max``
    or ``torch.topk`` (the times over materialized sums kept apart, as a
-   labelled extra) — and peak memory.
+   labelled extra) — and peak memory; kernel 1 also with the table hash,
+   its layout and ptxas's registers and spills.
 4b. Candidate main path at full width: ODP (phase 4's model and batch)
    and ImageNet-21k (K=21,841, d=6,144, B=512, R=20, dense features,
    N=256) through ``estimators.predict_topk(candidate_mode=(m, t))`` for
@@ -47,6 +56,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel, plain, ``torch.topk`` and streaming-kernel times, bounds,
    peak memory, and the JAX gate shape (N=8, m=12, planted-signal
    batch): candidate kernels vs the plain streaming top-k, recall@10.
+   Kernel 7 is timed in each setting beside ``torch.topk``, and at the LM
+   engine's (2048, 8) and (16, 2) and the gate's shape.
 5. Fused-xent kernels vs plain on the card, forward and backward: the
    dense, ELL and gather families against their plain PyTorch versions
    (loss, lse, dW, dbias, dh) at the ODP shape (R=25, B=32), the
@@ -92,7 +103,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    hash; N=1 as after a prefill, N=4 as in the pooled decode, where a
    block holds 3 queries and the last block 1): top-1 and top-k (k 1 and
    50, the three estimators) against their plain versions, dyadic inputs
-   exactly, random ones as in phase 3.
+   exactly, random ones as in phase 3; kernel 1's time there beside its
+   plain version and a sparse multi-hot product + ``torch.max``.
 8. LM serving at full width: recurrentgemma-2b (26 layers, bf16, MACH
    head B=2048, R=8 over V=256,000) with seeded random weights on the
    card, served by ``ServingEngine`` (4 slots, max_len 4,160, top_k 50,
@@ -183,6 +195,21 @@ CHECK_SHAPES = [("odp", 37, 25, 32, 105033), ("imagenet21k", 37, 20, 512, 21841)
 # kernel 7 at N=37; the gate shape's R·B is beyond the streaming kernel
 CAND_SHAPES = [("odp", 5, 25, 32, 105033), ("imagenet21k", 5, 20, 512, 21841),
                ("gate", 3, 16, 8192, 1048576), ("collide", 5, 4, 4, 5003)]
+# kernel 1's two mappings at ODP's shape: N >= 32 query per lane (33 and 37
+# one ragged 64-query tile, 64 and 256 full ones), 31 and 1 class per thread
+TOP1_N = (256, 64, 37, 33, 31, 1)
+# kernel 7 checks on 37 queries x 3 repetitions: each B with each m of
+# TOPM_M up to B, and B - 1 and B, so every path of ``topm_layout`` runs
+# (select: m <= 32 above B = 1,024, and below where next_pow2(m) <=
+# next_pow2(B) / 32 >= 2; warp: B <= 1,024 otherwise; block: the rest)
+TOPM_B = (4, 32, 37, 512, 1000, 2048, 8192)
+TOPM_M = (1, 2, 3, 12, 16, 32, 33)
+TOPM_ROWS = ("dyadic", "random", "all-equal", "signed zeros")
+# kernel 7 timed beside torch.topk at the LM engine's settings (its 4-slot
+# pool) and the JAX gate's: (label, N, R, B, m)
+TOPM_TIMED = [("lm exact (2048, 8)", 4, 8, 2048, 2048),
+              ("lm approx (16, 2)", 4, 8, 2048, 16),
+              ("gate", 8, 16, 8192, 12)]
 # the JAX benchmark's decode gate: K, R, B, N, k, m; t per estimator
 GATE = {"K": 1048576, "R": 16, "B": 8192, "N": 8, "k": 10, "m": 12}
 GATE_T = {"unbiased": 1, "min": 2, "median": 2}
@@ -205,6 +232,40 @@ def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``iters`` back-to-back calls replayed from
+    a CUDA graph (CUDA events around one replay): the host's dispatch
+    through a Python wrapper then hides no kernel that is shorter than
+    it, as it does under ``kernel_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+# how rows 1 and 7 of the kernel report are timed
+TIMING = ("ms, plain_ms and library_ms by kernel_ms (CUDA events around "
+          "back-to-back calls, as every row); *_graph by graph_ms (device "
+          "time, CUDA-graph replay)")
 
 
 def wall_ms(fn, runs: int = 7, warmup: int = 2) -> float:
@@ -267,12 +328,73 @@ def _check_same(name, kv, ki, pv, pi, scores, exact) -> float:
     return err
 
 
-def phase_kernels_vs_plain(dev) -> int:
+def _top1_mappings(dev) -> dict:
+    """Kernel 1 vs plain at ODP's shape (R=25, B=32, K=105,033) for each
+    N of TOP1_N, both hash sources, dyadic inputs exactly and random ones
+    as ``_check_same`` holds them; then rows whose maximum two classes in
+    different K-splits share (256 rows in four 64-query tiles, and 31 rows
+    class per thread): the lowest id must win.  Returns the comparisons
+    made in each mapping."""
+    from repro_torch.core.hashing import MultShiftFamily
+    from repro_torch.kernels import mach_decode as md
+
+    r, b, num_classes = 25, 32, 105033
+    fam = MultShiftFamily(b, r, seed=1)
+    table = fam.table(num_classes, dev)
+    hashes = {"table": {"table": table},
+              "inline": {"inline_coeffs": fam.coeffs_tensor(dev),
+                         "inline_shift": fam.shift}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_mapping = dict.fromkeys(md.MAPPINGS, 0)
+
+    def check(tag, meta, exact):
+        n = meta.shape[0]
+        mapping = md.decode_layout(n, r, b, num_classes, sms).mapping
+        sums = md.summed_scores(meta, table)
+        for mode, hash_kw in hashes.items():
+            before = md.mach_decode_cuda.launches
+            kv, ki = md.mach_decode_cuda(meta, num_classes=num_classes,
+                                         **hash_kw)
+            pv, pi = md.mach_decode_plain(meta, num_classes=num_classes,
+                                          **hash_kw)
+            torch.cuda.synchronize()
+            if md.mach_decode_cuda.launches != before + 1:
+                fail("mach_decode_cuda did not count its launch")
+            _check_same(f"top1 odp n={n} {tag} {mode} ({mapping})", kv, ki,
+                        pv, pi, sums, exact)
+            by_mapping[mapping] += 1
+        return pi
+
+    for n in TOP1_N:
+        for dyadic in (True, False):
+            check("dyadic" if dyadic else "random",
+                  _inputs(n, r, b, dyadic, seed=n, dev=dev), dyadic)
+    reps = torch.arange(r, device=dev)[None, :]
+    for n in (256, 31):
+        q = torch.arange(n, device=dev)
+        low = 1000 + 211 * q                     # early K-splits
+        high = num_classes - 1 - 97 * q          # the last ones
+        meta = torch.zeros((n, r, b), device=dev)
+        for k in (low, high):
+            meta[q[:, None], reps, table[:, k].T.long()] = 0.5
+        if not torch.equal(check("tied across K-splits", meta, True).long(),
+                           low):
+            fail(f"top1 n={n}: the tie does not go to the lowest class id")
+    for mapping, count in by_mapping.items():
+        if count < 1:
+            fail(f"top1 mapping {mapping} never ran")
+    print(f"top1 mappings vs plain at odp, N in {TOP1_N} and two tie "
+          f"batches: {by_mapping} comparisons ok", flush=True)
+    return by_mapping
+
+
+def phase_kernels_vs_plain(dev) -> tuple[int, dict]:
     from repro_torch.core.hashing import MultShiftFamily
     from repro_torch.kernels import mach_decode as md
     from repro_torch.kernels import mach_topk as mt
 
-    checked = 0
+    by_mapping = _top1_mappings(dev)
+    checked = sum(by_mapping.values())
     for label, n, r, b, num_classes in CHECK_SHAPES:
         fam = MultShiftFamily(b, r, seed=1)
         table = fam.table(num_classes, dev)
@@ -304,7 +426,7 @@ def phase_kernels_vs_plain(dev) -> int:
                         checked += 1
         print(f"kernels vs plain: {label} (N={n}, R={r}, B={b}, K={num_classes})"
               f" ok", flush=True)
-    return checked
+    return checked, by_mapping
 
 
 # ---------------------------------------------------------------------------
@@ -334,12 +456,67 @@ def _check_candidates(name, got, want) -> float:
     return err
 
 
+def _topm_inputs(kind, n, r, b, dev):
+    """Kernel 7's rows: dyadic (ties in bulk), random softmax, all equal,
+    or signed zeros — dyadic values >= 0.75 among -0.0 and +0.0, which
+    the plain version's sort counts equal and orders by id."""
+    if kind in ("dyadic", "random"):
+        return _inputs(n, r, b, kind == "dyadic", seed=b, dev=dev)
+    if kind == "all-equal":
+        return torch.full((n, r, b), 0.25, device=dev)
+    x = _inputs(n, r, b, True, seed=b + 1, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    neg = torch.rand((n, r, b), generator=gen, device=dev) < 0.5
+    zero = torch.where(neg, torch.full_like(x, -0.0), torch.zeros_like(x))
+    return torch.where(x >= 0.75, x, zero)
+
+
+def _topm_sweep(dev) -> dict:
+    """Kernel 7 vs its plain version (on a host copy of the same rows),
+    exactly — tau bit for bit, ids — at every (B, m) of TOPM_B / TOPM_M
+    and each kind of TOPM_ROWS; each launch counted, and every path of
+    ``topm_layout`` must run.  Returns the comparisons by path, their
+    count and the largest tau error."""
+    from repro_torch.kernels import mach_candidates as mc
+
+    n, r = 37, 3
+    by_path = dict.fromkeys(mc.TOPM_PATHS, 0)
+    err = 0.0
+    for b in TOPM_B:
+        for kind in TOPM_ROWS:
+            meta = _topm_inputs(kind, n, r, b, dev)
+            host = meta.cpu()
+            for m in sorted({m for m in TOPM_M if m <= b} | {max(1, b - 1), b}):
+                path = mc.topm_layout(b, m).path
+                before = mc.bucket_topm_cuda.launches
+                kt, ki = mc.bucket_topm_cuda(meta, m)
+                torch.cuda.synchronize()
+                if mc.bucket_topm_cuda.launches != before + 1:
+                    fail("bucket_topm_cuda did not count its launch")
+                pt, pi = mc.bucket_topm(host, m)
+                kt, ki = kt.cpu(), ki.cpu()
+                if not (torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+                        and torch.equal(ki, pi)):
+                    bad = (ki != pi).any(-1).flatten().nonzero()[:3].tolist()
+                    fail(f"bucket_topm B={b} m={m} {kind} ({path}): kernel != "
+                         f"plain (rows {bad})")
+                err = max(err, float((kt - pt).abs().max()))
+                by_path[path] += 1
+    for path, count in by_path.items():
+        if count < 1:
+            fail(f"bucket_topm path {path} never ran")
+    print(f"bucket_topm vs plain: {by_path} comparisons ok (B in {TOPM_B}, "
+          f"rows {TOPM_ROWS})", flush=True)
+    return {"bucket_topm": sum(by_path.values()), "topm_by_path": by_path,
+            "topm_max_abs_err": err}
+
+
 def phase_candidates_vs_plain(dev) -> dict:
     from repro_torch.core.hashing import MultShiftFamily, inverted_table
     from repro_torch.kernels import mach_candidates as mc
 
-    stats = {"bucket_topm": 0, "mach_candidate_topk": 0, "max_abs_err": 0.0,
-             "topm_max_abs_err": 0.0, "backfill_rows": 0}
+    stats = {"mach_candidate_topk": 0, "max_abs_err": 0.0, "backfill_rows": 0}
+    stats.update(_topm_sweep(dev))
     for label, n, r, b, num_classes in CAND_SHAPES:
         fam = MultShiftFamily(b, r, seed=1)
         table = fam.table(num_classes, dev)
@@ -349,16 +526,6 @@ def phase_candidates_vs_plain(dev) -> dict:
                              "inline_shift": fam.shift}}
         for dyadic in (True, False):
             kind = "dyadic" if dyadic else "random"
-            meta7 = _inputs(37, r, b, dyadic, seed=b + r, dev=dev)
-            for m in sorted({1, 3, b}):
-                kt, ki = mc.bucket_topm_cuda(meta7, m)
-                pt, pi = mc.bucket_topm(meta7, m)
-                torch.cuda.synchronize()
-                if not (torch.equal(kt, pt) and torch.equal(ki, pi)):
-                    fail(f"bucket_topm {label} {kind} m={m}: kernel != plain")
-                stats["topm_max_abs_err"] = max(stats["topm_max_abs_err"],
-                                                float((kt - pt).abs().max()))
-                stats["bucket_topm"] += 1
             meta = _inputs(n, r, b, dyadic, seed=r * b + 1, dev=dev)
             settings = [(1, 1), (2, 2), (b, r)] + ([] if dyadic else [(1, r)])
             for m, t in settings:
@@ -396,6 +563,7 @@ def phase_main_path(dev) -> list[dict]:
     from repro_torch.core import estimators as est
     from repro_torch.core.mach import MACHLinear
     from repro_torch.data.extreme import SparseExtremeDataset
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mach_decode as md
     from repro_torch.kernels import mach_topk as mt
     from repro_torch.kernels import ops
@@ -497,6 +665,7 @@ def phase_main_path(dev) -> list[dict]:
         .reshape(R * B, K).float()
     meta2d = meta.reshape(N_MAIN, R * B)
     t_bound, by = bound_ms(N_MAIN, R, B, K, 1, table=False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows.append({
         "name": "mach_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mach_decode.cu",
@@ -504,13 +673,23 @@ def phase_main_path(dev) -> list[dict]:
         "launches": launches["mach_decode"],
         "max_abs_err": errs["mach_decode"],
         "ms": kernel_ms(lambda: md.mach_decode_cuda(meta, **decode_kw)),
+        "ms_graph": graph_ms(lambda: md.mach_decode_cuda(meta, **decode_kw)),
         "plain_ms": kernel_ms(lambda: md.mach_decode_plain(meta, **decode_kw),
                               iters=5),
         "bound_ms": t_bound, "bound_by": by,
         "library_ms": kernel_ms(lambda: torch.max(meta2d @ multihot, dim=-1)),
+        "library_ms_graph": graph_ms(
+            lambda: torch.max(meta2d @ multihot, dim=-1)),
         "library": "torch.max over meta2d @ multihot (f32 GEMM, TF32 off)",
         "library_ms_materialized": kernel_ms(lambda: torch.max(sums, dim=-1)),
         "shape": f"N={N_MAIN} R={R} B={B} K={K} inline hash",
+        "timing": TIMING,
+        "ms_table": kernel_ms(lambda: md.mach_decode_cuda(meta, table,
+                                                          num_classes=K)),
+        "ms_table_graph": graph_ms(lambda: md.mach_decode_cuda(
+            meta, table, num_classes=K)),
+        "layout": md.decode_layout(N_MAIN, R, B, K, sms)._asdict(),
+        "ptxas": _ptxas_registers(_build.build_log("mach_decode")),
     })
     ms_est, plain_est = {}, {}
     for e in ESTIMATORS:
@@ -543,6 +722,12 @@ def phase_main_path(dev) -> list[dict]:
     })
     gemm_ms = kernel_ms(lambda: meta2d @ multihot)
     del multihot
+    print(f"kernel mach_decode: graph {rows[0]['ms_graph']:.4f} ms (library "
+          f"{rows[0]['library_ms_graph']:.4f}), table hash "
+          f"{rows[0]['ms_table']:.4f} ms (graph "
+          f"{rows[0]['ms_table_graph']:.4f}); "
+          f"layout {rows[0]['layout']}; ptxas {rows[0]['ptxas']} [{smi}]",
+          flush=True)
     for row in rows:
         print(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
@@ -587,10 +772,43 @@ def _candidate_bounds(meta, ids, inv, table, n, r, b, k, num_classes,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = gathers / F32_OPS_PER_S * 1e3
     k8 = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    t7_bytes = (4 * n * r * b + 4 * n * r * (1 + m)) / HBM_BYTES_PER_S * 1e3
-    t7_ops = n * r * b / F32_OPS_PER_S * 1e3
-    k7 = (t7_ops, "operations") if t7_ops >= t7_bytes else (t7_bytes, "bytes")
-    return k8, k7
+    return k8, _topm_bound(n, r, b, m)
+
+
+def _topm_bound(n, r, b, m) -> tuple[float, str]:
+    """Least time (ms) for kernel 7: N·R·B comparisons vs the
+    probabilities read and tau and ids written."""
+    t_bytes = (4 * n * r * b + 4 * n * r * (1 + m)) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * r * b / F32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _topm_timed(dev) -> dict:
+    """Kernel 7 beside its plain version and ``torch.topk`` at the
+    TOPM_TIMED shapes, on random softmax rows."""
+    from repro_torch.kernels import mach_candidates as mc
+
+    smi = _nvidia_smi()
+    out = {}
+    for label, n, r, b, m in TOPM_TIMED:
+        meta = _inputs(n, r, b, False, seed=b + m, dev=dev)
+        row = {"shape": f"N={n} R={r} B={b} m={m}",
+               "path": mc.topm_layout(b, m).path,
+               "ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, m)),
+               "ms_graph": graph_ms(lambda: mc.bucket_topm_cuda(meta, m)),
+               "plain_ms": kernel_ms(lambda: mc.bucket_topm(meta, m)),
+               "library_ms": kernel_ms(lambda: torch.topk(meta, m, dim=-1)),
+               "library_ms_graph": graph_ms(
+                   lambda: torch.topk(meta, m, dim=-1))}
+        row["bound_ms"], row["bound_by"] = _topm_bound(n, r, b, m)
+        out[label] = row
+        print(f"kernel bucket_topm {label} ({row['shape']}, {row['path']}): "
+              f"{row['ms']:.4f} ms (graph {row['ms_graph']:.4f}), plain "
+              f"{row['plain_ms']:.4f}, torch.topk "
+              f"{row['library_ms']:.4f} (graph "
+              f"{row['library_ms_graph']:.4f}), bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}) [{smi}]", flush=True)
+    return out
 
 
 def _planted_probs(dev, n, r, b, coeffs, shift, num_classes, seed,
@@ -644,6 +862,7 @@ def _imagenet_serving(dev):
 
 def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
     from repro_torch.core import estimators as est
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mach_candidates as mc
     from repro_torch.kernels import mach_decode as md
     from repro_torch.kernels import mach_topk as mt
@@ -784,9 +1003,14 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
                     "streaming_ms": kernel_ms(lambda: mt.mach_topk_cuda(
                         meta, table, num_classes=K, k=K_MAIN, estimator=e)),
                     "topm_ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, m)),
+                    "topm_ms_graph": graph_ms(
+                        lambda: mc.bucket_topm_cuda(meta, m)),
                     "topm_plain_ms": kernel_ms(lambda: mc.bucket_topm(meta, m)),
                     "topm_library_ms": kernel_ms(
                         lambda: torch.topk(meta, m, dim=-1)),
+                    "topm_library_ms_graph": graph_ms(
+                        lambda: torch.topk(meta, m, dim=-1)),
+                    "topm_path": mc.topm_layout(B, m).path,
                 }
                 if (name, m) not in gathers:
                     gathers[name, m] = mc.pool_gathers(meta, tau, ids, inv,
@@ -804,9 +1028,12 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
                       f"filter), streaming kernel 2 {row['streaming_ms']:.4f} "
                       f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
                       f"{row['gathers']} gathers); "
-                      f"bucket_topm {row['topm_ms']:.4f} ms, plain "
+                      f"bucket_topm ({row['topm_path']}) "
+                      f"{row['topm_ms']:.4f} ms (graph "
+                      f"{row['topm_ms_graph']:.4f}), plain "
                       f"{row['topm_plain_ms']:.4f}, torch.topk "
-                      f"{row['topm_library_ms']:.4f}, bound "
+                      f"{row['topm_library_ms']:.4f} (graph "
+                      f"{row['topm_library_ms_graph']:.4f}), bound "
                       f"{row['topm_bound_ms']:.5f} ({row['topm_bound_by']}) "
                       f"[{smi}]", flush=True)
 
@@ -822,17 +1049,26 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
         "launches": launches["bucket_topm"],
         "max_abs_err": checks["topm_max_abs_err"],
         "ms": primary["topm_ms"], "plain_ms": primary["topm_plain_ms"],
+        "ms_graph": primary["topm_ms_graph"],
+        "library_ms_graph": primary["topm_library_ms_graph"],
+        "timing": TIMING,
         "bound_ms": primary["topm_bound_ms"],
         "bound_by": primary["topm_bound_by"],
         "library_ms": primary["topm_library_ms"],
         "shape": f"N={N_MAIN} R={odp['R']} B={odp['B']} m={odp['B']} (odp "
                  f"exact mode)",
-        "ms_by_setting": {key: {f: v[f] for f in ("m", "topm_ms",
+        "ms_by_setting": {key: {f: v[f] for f in ("m", "topm_path", "topm_ms",
+                                                   "topm_ms_graph",
                                                    "topm_plain_ms",
                                                    "topm_library_ms",
+                                                   "topm_library_ms_graph",
                                                    "topm_bound_ms")}
                           for key, v in by_setting.items()},
-        "gate_ms": gate["topm_ms"],
+        "gate_ms": gate["topm_ms"], "gate_ms_graph": gate["topm_ms_graph"],
+        "ms_lm_and_gate": _topm_timed(dev),
+        "checks_by_path": checks["topm_by_path"],
+        "ptxas": _ptxas_registers(_build.build_log("mach_candidates"),
+                                  "topm_"),
     }, {
         "name": "mach_candidate_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mach_candidates.cu",
@@ -873,7 +1109,9 @@ def phase_candidate_gate(dev) -> dict:
     smi = _nvidia_smi()
     res = {"shape": f"N={g['N']} R={g['R']} B={g['B']} K={g['K']} "
                     f"L={inv.shape[1]} k={g['k']} m={g['m']} inline hash",
-           "topm_ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, g["m"]))}
+           "topm_ms": kernel_ms(lambda: mc.bucket_topm_cuda(meta, g["m"])),
+           "topm_ms_graph": graph_ms(
+               lambda: mc.bucket_topm_cuda(meta, g["m"]))}
     tau, ids = mc.bucket_topm_cuda(meta, g["m"])
     res["gathers"] = mc.pool_gathers(meta, tau, ids, inv, num_classes=g["K"],
                                      **hash_kw)
@@ -1427,22 +1665,34 @@ def _library_xent(family, x, w2, bias, labels, b, n, r, d):
     return torch.autograd.grad(loss / n, leaves)
 
 
-def _ptxas_registers(log: str) -> dict:
+def _kernel_label(mangled: str) -> str:
+    """A mangled kernel entry shortened to its name and template values:
+    ``top1_lane_kernel<1, 2>``; kernel 4's as ``bwd_kernel<bf16,
+    cp.async>`` (the dtype and whether tiles arrive by 16-byte cp.async
+    or plain loads)."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Lb([01])", mangled)
+    if m:
+        return (f"{m[1]}<{'float32' if m[2] == 'f' else 'bf16'}, "
+                f"{'cp.async' if m[3] == '1' else 'plain loads'}>")
+    for m in re.finditer(r"\d+", mangled):      # <length><identifier>
+        name = mangled[m.end():m.end() + int(m[0])]
+        if name.endswith("_kernel"):
+            rest = mangled[m.end() + len(name):]
+            args = (re.findall(r"L[a-z]+(\d+)E", rest[:rest.find("Ev")])
+                    if rest.startswith("I") else [])
+            return f"{name}<{', '.join(args)}>" if args else name
+    return mangled
+
+
+def _ptxas_registers(log: str, prefix: str = "") -> dict:
     """Kernel entry -> 'N registers; spills' from an ``nvcc -Xptxas -v``
-    log, the mangled entry names shortened (``bwd_kernel<bf16, cp.async>``:
-    the dtype and whether tiles arrive by 16-byte cp.async or plain loads)."""
+    log, for the entries whose label starts with ``prefix``."""
     out, entry, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Lb([01])",
-                          entry)
-            if m:
-                entry = (f"{m[1]}<{'float32' if m[2] == 'f' else 'bf16'}, "
-                         f"{'cp.async' if m[3] == '1' else 'plain loads'}>")
-            else:
-                entry = (re.search(r"\d+([a-z_]+_kernel)", entry)
-                         or [entry, entry])[1]
+            entry = _kernel_label(line.split("'")[1])
+            if not entry.startswith(prefix):
+                entry = None
         elif entry and "spill" in line:
             spill = line.split(":")[-1].strip()
         elif entry and "Used" in line and "registers" in line:
@@ -1636,8 +1886,9 @@ def phase_lm_kernels_vs_plain(dev) -> dict:
             fail(f"flash_attention {label}: kernel vs plain max abs err {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         cases += 1
-    head_cases, errs["lm_head"] = _lm_head_vs_plain(dev)
-    return {"cases": cases, "head_cases": head_cases, "errs": errs}
+    head_cases, errs["lm_head"], head_ms = _lm_head_vs_plain(dev)
+    return {"cases": cases, "head_cases": head_cases, "errs": errs,
+            "lm_head_top1": head_ms}
 
 
 def _lm_head_vs_plain(dev) -> tuple[int, float]:
@@ -1680,7 +1931,47 @@ def _lm_head_vs_plain(dev) -> tuple[int, float]:
     print(f"LM head decode kernels vs plain: {cases} comparisons ok (R={r}, "
           f"B={b}, K={num_classes}, N in {LM_HEAD_N}, k in {LM_HEAD_K})",
           flush=True)
-    return cases, err
+    return cases, err, _lm_head_top1_times(dev, table, hash_kw, b)
+
+
+def _lm_head_top1_times(dev, table, hash_kw, b) -> dict:
+    """Kernel 1 at the LM head's shape, N in LM_HEAD_N: kernel, plain and
+    library ms.  The library call is the multi-hot product as a sparse
+    (K, R·B) CSR matrix (R ones a row; a dense one would take 16.8 GB)
+    against the probabilities, then ``torch.max``."""
+    from repro_torch.kernels import mach_decode as md
+
+    r, k = table.shape
+    cols = (torch.arange(r, device=dev)[:, None] * b + table.long()).T
+    multihot = torch.sparse_csr_tensor(
+        torch.arange(0, k * r + 1, r, device=dev), cols.reshape(-1),
+        torch.ones(k * r, device=dev), size=(k, r * b))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = _nvidia_smi()
+    out = {}
+    for n in LM_HEAD_N:
+        meta = _inputs(n, r, b, False, seed=n, dev=dev)
+        meta2d_t = meta.reshape(n, r * b).T.contiguous()
+        row = {"mapping": md.decode_layout(n, r, b, k, sms).mapping,
+               "ms": kernel_ms(lambda: md.mach_decode_cuda(
+                   meta, num_classes=k, **hash_kw)),
+               "ms_graph": graph_ms(lambda: md.mach_decode_cuda(
+                   meta, num_classes=k, **hash_kw)),
+               "plain_ms": kernel_ms(lambda: md.mach_decode_plain(
+                   meta, num_classes=k, **hash_kw), iters=5),
+               "library_ms": kernel_ms(lambda: torch.max(
+                   torch.sparse.mm(multihot, meta2d_t), dim=0)),
+               "library_ms_graph": graph_ms(lambda: torch.max(
+                   torch.sparse.mm(multihot, meta2d_t), dim=0))}
+        out[f"N={n}"] = row
+        print(f"kernel mach_decode at the LM head (N={n}, R={r}, B={b}, "
+              f"K={k}, inline hash, {row['mapping']}): {row['ms']:.4f} ms "
+              f"(graph {row['ms_graph']:.4f}), "
+              f"plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f} "
+              f"(graph {row['library_ms_graph']:.4f}; torch.max over a "
+              f"sparse multi-hot product) [{smi}]",
+              flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2595,7 +2886,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    checked = phase_kernels_vs_plain(dev)
+    checked, top1_mappings = phase_kernels_vs_plain(dev)
     print(f"kernels vs plain: {checked} comparisons ok in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2608,6 +2899,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows, odp = phase_main_path(dev)
+    rows[0]["checks_by_mapping"] = top1_mappings
     t0 = time.perf_counter()
     rows += phase_candidate_main_path(dev, odp, cand_checks)
     print(f"candidate main path: ok in {time.perf_counter() - t0:.1f} s",
@@ -2638,6 +2930,8 @@ def main() -> int:
                 lm["launches_direct_loop"][row["name"]]
             row["max_abs_err_lm_head"] = max(lm_checks["errs"]["lm_head"],
                                              lm["head_err"])
+            if row["name"] == "mach_decode":
+                row["lm_head"] = lm_checks["lm_head_top1"]
         if row["name"] in ("bucket_topm", "mach_candidate_topk"):
             row["launches_lm_serve_exact"] = \
                 lm["candidates"]["exact_launches"][row["name"]]

@@ -35,13 +35,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mach_decode": {
         "mach_top1_launch":
-            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]},
+            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "mach_topk": {
         "mach_topk_launch":
             [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _P, _P]},
     "mach_candidates": {
-        "bucket_topm_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "bucket_topm_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         "mach_candidate_topk_launch":
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]},

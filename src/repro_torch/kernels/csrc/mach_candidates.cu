@@ -1,12 +1,32 @@
 // Count-min candidate-filtered MACH top-k decode for Hopper (sm_90a).
 //
-// Kernel 7, bucket_topm_kernel, replaces
-// src/repro/kernels/mach_candidates.py::bucket_topm_pallas (m rounds of
-// max / argmax / mask over a VMEM-resident row): one block per (query,
-// repetition) bitonic-sorts the B bucket values in shared memory on the key
-// (value descending, bucket id ascending) — lax.top_k's tie order — and
-// writes the first m ids and tau, the m-th value.  Bound by the bytes of the
-// probabilities (read once); B <= 27k fits a block's shared memory.
+// Kernel 7 (topm_select_kernel, topm_warp_kernel, topm_block_kernel)
+// replaces src/repro/kernels/mach_candidates.py::bucket_topm_pallas (m
+// rounds of max / argmax / mask over a VMEM-resident row): per (query,
+// repetition) row of B values, the first m bucket ids on the key (value
+// descending, bucket id ascending) — lax.top_k's tie order — and tau, the
+// m-th value.  What bounds it on this card is not the bytes (0.8 MB at ODP,
+// 5 MB at ImageNet-21k, read once) but the latency of short sorts: a block
+// per row with a __syncthreads a sorting stage ran 15 stages over 32
+// values at ODP with 16 of 256 threads busy.  So a value and its id travel
+// as one 64-bit key (one unsigned compare ranks a pair), a row is held by
+// one warp wherever it fits, and the kernel that runs is chosen from (B, m)
+// by the wrapper (mach_candidates.topm_layout):
+// - select: each lane keeps a sorted list of its best next_pow2(m) keys in
+//   registers while it streams its part of the row, then m rounds of a warp
+//   arg-max across the 32 lists; no sort.  For m <= 32 above B = 1,024
+//   (the LM engine's B = 2,048, the gate's 8,192: few rows, so a block's 8
+//   warps share a row and their lists merge the same way), and at B <=
+//   1,024 where the list is no longer than the keys a lane would sort
+//   (approximate modes at ImageNet-21k; measured on an H100, the arg-max
+//   rounds cost more than a short sort at ODP's B = 32);
+// - warp, B <= 1024 otherwise (exact mode at ODP and ImageNet-21k, every m
+//   at B <= 32): a bitonic sort held in the warp's registers, V = B/32 keys
+//   a lane rounded up to a power of two; strides below V inside a lane,
+//   larger ones by shuffles;
+// - block, B > 1024 with m > 32: the keys in shared memory, sorted by the
+//   block.
+// Rows are read with 16-byte loads wherever B % 4 == 0.
 //
 // Kernel 8, cand_partial_kernel + cand_merge_kernel, replaces
 // ::mach_candidate_topk_pallas, which walked a sequential grid of chunks
@@ -62,25 +82,294 @@ using Key = unsigned long long;
 // Kernel 7: bucket top-m.
 // ---------------------------------------------------------------------------
 
-// One block per (query, repetition) row of B values; `width` is B rounded
-// up to a power of two, the pads sorting last.
-__global__ void __launch_bounds__(kThreads)
-bucket_topm_kernel(const float* __restrict__ meta, int b, int m, int width,
+constexpr int kTopmWarps = 8;            // rows a block, one a warp
+constexpr int kTopmBlockThreads = 1024;  // the block sort's threads
+constexpr int kTopmWarpRow = 1024;       // longest row one warp selects from
+enum TopmPath : int { kTopmSelect = 0, kTopmWarp = 1, kTopmBlock = 2 };
+
+// Bitonic sort of n (a power of two) keys in shared memory, largest first.
+// All threads of the block take part; ends synchronised.
+__device__ __forceinline__ void sort_keys_desc(Key* key, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const Key a = key[lo], c = key[hi];
+        if (((lo & size) == 0) ? c > a : a > c) {
+          key[lo] = c;
+          key[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// (value, bucket id) as one key, larger ranking first: the value's
+// order-preserving bits above (-0.0 folded into +0.0, which torch.sort
+// counts equal and orders by id), 2^32 - 1 - id below.  Every real key is
+// nonzero; pads are 0 and sort last.
+__device__ __forceinline__ Key topm_key(float v, int id) {
+  uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<Key>(u) << 32) |
+         static_cast<Key>(0xffffffffu - static_cast<uint32_t>(id));
+}
+
+__device__ __forceinline__ int topm_id(Key key) {
+  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
+}
+
+// Rows can be read as float4 when B % 4 == 0 and the base is aligned.
+__device__ __forceinline__ bool rows_vectorizable(const float* meta, int b) {
+  return (b & 3) == 0 && (reinterpret_cast<uintptr_t>(meta) & 15) == 0;
+}
+
+// Insert x into a lane's list, best first, keeping its kLen best keys.
+template <int kLen>
+__device__ __forceinline__ void keep_best(Key (&list)[kLen], Key x) {
+  if (x > list[kLen - 1]) {
+#pragma unroll
+    for (int i = kLen - 1; i > 0; --i) {
+      list[i] = x > list[i - 1] ? list[i - 1] : (x > list[i] ? x : list[i]);
+    }
+    list[0] = x > list[0] ? x : list[0];
+  }
+}
+
+// m rounds of a warp arg-max over the lanes' list heads; the winner's
+// lane pops its head.  Returns, in lane t < m, the t-th best key.
+template <int kLen>
+__device__ __forceinline__ Key pop_best(Key (&list)[kLen], int m, int lane) {
+  Key mine = 0ull;
+  for (int t = 0; t < m; ++t) {
+    Key best = list[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const Key other = __shfl_xor_sync(0xffffffffu, best, off);
+      best = other > best ? other : best;
+    }
+    if (list[0] == best) {   // keys are unique: one lane pops
+#pragma unroll
+      for (int i = 0; i + 1 < kLen; ++i) list[i] = list[i + 1];
+      list[kLen - 1] = 0ull;
+    }
+    if (lane == t) mine = best;
+  }
+  return mine;
+}
+
+// m <= kLen <= 32: each lane keeps its best kLen keys of the values it
+// streams (float4s, four loads in flight), then pop_best.  kRowWarps > 1
+// warps share a long row, a slice each; their top-m lists meet in shared
+// memory and the first warp pops the row's top m from them.  Lane t
+// writes the t-th id, so the ids go out coalesced.
+template <int kLen, int kRowWarps>
+__global__ void __launch_bounds__(kTopmWarps * 32)
+topm_select_kernel(const float* __restrict__ meta, int rows, int b, int m,
                    float* __restrict__ tau, int* __restrict__ ids) {
+  __shared__ Key heads[kRowWarps > 1 ? kRowWarps : 1][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = kRowWarps > 1 ? blockIdx.x
+                                : blockIdx.x * kTopmWarps + warp;
+  if (row >= rows) return;   // a whole warp, or the whole block
+  const float* src = meta + static_cast<size_t>(row) * b;
+  const int slice = kRowWarps > 1 ? ((b + 4 * kRowWarps - 1) /
+                                     (4 * kRowWarps)) * 4 : b;
+  const int lo = kRowWarps > 1 ? warp * slice : 0;
+  const int hi = min(b, lo + slice);
+  Key list[kLen];
+#pragma unroll
+  for (int i = 0; i < kLen; ++i) list[i] = 0ull;
+  if (rows_vectorizable(meta, b)) {
+    for (int i0 = lo + 4 * lane; i0 < hi; i0 += 4 * 128) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 128 * u;
+        if (i < hi) v[u] = *reinterpret_cast<const float4*>(src + i);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 128 * u;
+        if (i < hi) {
+          keep_best(list, topm_key(v[u].x, i));
+          keep_best(list, topm_key(v[u].y, i + 1));
+          keep_best(list, topm_key(v[u].z, i + 2));
+          keep_best(list, topm_key(v[u].w, i + 3));
+        }
+      }
+    }
+  } else {
+    for (int i = lo + lane; i < hi; i += 32) {
+      keep_best(list, topm_key(src[i], i));
+    }
+  }
+  Key mine = pop_best(list, m, lane);
+  if constexpr (kRowWarps > 1) {
+    heads[warp][lane] = lane < m ? mine : 0ull;
+    __syncthreads();
+    if (warp != 0) return;
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) list[i] = 0ull;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) keep_best(list, heads[w][lane]);
+    mine = pop_best(list, m, lane);
+  }
+  if (lane < m) ids[static_cast<size_t>(row) * m + lane] = topm_id(mine);
+  if (lane == m - 1) tau[row] = src[topm_id(mine)];
+}
+
+// Bitonic sort, best first, of the 32 * kV keys a warp holds, key[j] of
+// lane l at position p = l * kV + j: a stride below kV pairs two registers
+// of one lane, a larger one the same register of lanes l and l ^ (stride /
+// kV).  Every index is a compile-time constant once unrolled, so the keys
+// stay in registers.
+template <int kV>
+__device__ __forceinline__ void warp_sort_desc(Key (&key)[kV], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * kV; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= kV) {
+        const int lanes = stride / kV;
+        const bool lower = (lane & lanes) == 0;
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const Key other = __shfl_xor_sync(0xffffffffu, key[j], lanes);
+          const bool best_first = ((lane * kV + j) & size) == 0;
+          const bool keep_larger = lower == best_first;
+          key[j] = (other > key[j]) == keep_larger ? other : key[j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const int jj = j ^ stride;
+          if (jj > j) {
+            const bool best_first = ((lane * kV + j) & size) == 0;
+            const Key x = key[j], y = key[jj];
+            const bool swap = best_first ? y > x : x > y;
+            key[j] = swap ? y : x;
+            key[jj] = swap ? x : y;
+          }
+        }
+      }
+    }
+  }
+}
+
+// B <= 32 * kV <= 1024: one warp sorts a row in registers and writes its
+// first m ids (16-byte stores where m % 4 == 0).
+template <int kV>
+__global__ void __launch_bounds__(kTopmWarps * 32)
+topm_warp_kernel(const float* __restrict__ meta, int rows, int b, int m,
+                 float* __restrict__ tau, int* __restrict__ ids) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kTopmWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* src = meta + static_cast<size_t>(row) * b;
+  const int p0 = lane * kV;
+  Key key[kV];
+  bool loaded = false;
+  if constexpr (kV >= 4) {
+    if (rows_vectorizable(meta, b)) {
+#pragma unroll
+      for (int j = 0; j < kV; j += 4) {
+        const int p = p0 + j;        // p < b implies p + 3 < b
+        const float4 v = p < b ? *reinterpret_cast<const float4*>(src + p)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        key[j] = p < b ? topm_key(v.x, p) : 0ull;
+        key[j + 1] = p < b ? topm_key(v.y, p + 1) : 0ull;
+        key[j + 2] = p < b ? topm_key(v.z, p + 2) : 0ull;
+        key[j + 3] = p < b ? topm_key(v.w, p + 3) : 0ull;
+      }
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      key[j] = p0 + j < b ? topm_key(src[p0 + j], p0 + j) : 0ull;
+    }
+  }
+  warp_sort_desc<kV>(key, lane);
+  int* out = ids + static_cast<size_t>(row) * m;
+  bool stored = false;
+  if constexpr (kV >= 4) {
+    if ((m & 3) == 0) {
+#pragma unroll
+      for (int j = 0; j < kV; j += 4) {
+        if (p0 + j < m) {
+          *reinterpret_cast<int4*>(out + p0 + j) =
+              make_int4(topm_id(key[j]), topm_id(key[j + 1]),
+                        topm_id(key[j + 2]), topm_id(key[j + 3]));
+        }
+      }
+      stored = true;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int p = p0 + j;
+    if (!stored && p < m) out[p] = topm_id(key[j]);
+    if (p == m - 1) tau[row] = src[topm_id(key[j])];
+  }
+}
+
+// B > 1024 with m > 32: one block per row sorts its keys, padded to
+// `width`, in shared memory.
+__global__ void __launch_bounds__(kTopmBlockThreads)
+topm_block_kernel(const float* __restrict__ meta, int b, int m, int width,
+                  float* __restrict__ tau, int* __restrict__ ids) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* v = reinterpret_cast<float*>(smem);
-  int* idx = reinterpret_cast<int*>(v + width);
+  Key* key = reinterpret_cast<Key*>(smem);
   const size_t row = blockIdx.x;
+  const float* src = meta + row * b;
   for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const bool real = i < b;
-    v[i] = real ? meta[row * b + i] : -CUDART_INF_F;
-    idx[i] = real ? i : kWorstIdx;
+    key[i] = i < b ? topm_key(src[i], i) : 0ull;
   }
   __syncthreads();
-  bitonic_sort_best_first(v, idx, width);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) ids[row * m + i] = idx[i];
-  if (threadIdx.x == 0) tau[row] = v[m - 1];
+  sort_keys_desc(key, width);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    ids[row * m + i] = topm_id(key[i]);
+  }
+  if (threadIdx.x == 0) tau[row] = src[topm_id(key[m - 1])];
 }
+
+// A row longer than kTopmWarpRow is shared by a block's warps.
+template <int kLen>
+cudaError_t launch_topm_select(const float* meta, int rows, int b, int m,
+                               float* tau, int* ids, cudaStream_t stream) {
+  if (b > kTopmWarpRow) {
+    topm_select_kernel<kLen, kTopmWarps>
+        <<<rows, kTopmWarps * 32, 0, stream>>>(meta, rows, b, m, tau, ids);
+  } else {
+    topm_select_kernel<kLen, 1>
+        <<<(rows + kTopmWarps - 1) / kTopmWarps, kTopmWarps * 32, 0, stream>>>(
+            meta, rows, b, m, tau, ids);
+  }
+  return cudaGetLastError();
+}
+
+template <int kV>
+cudaError_t launch_topm_warp(const float* meta, int rows, int b, int m,
+                             float* tau, int* ids, cudaStream_t stream) {
+  topm_warp_kernel<kV>
+      <<<(rows + kTopmWarps - 1) / kTopmWarps, kTopmWarps * 32, 0, stream>>>(
+          meta, rows, b, m, tau, ids);
+  return cudaGetLastError();
+}
+
+using TopmLaunch = cudaError_t (*)(const float*, int, int, int, float*, int*,
+                                   cudaStream_t);
+// indexed by log2 of the list length / the keys a lane
+constexpr TopmLaunch kTopmSelectLaunch[] = {
+    launch_topm_select<1>, launch_topm_select<2>, launch_topm_select<4>,
+    launch_topm_select<8>, launch_topm_select<16>, launch_topm_select<32>};
+constexpr TopmLaunch kTopmWarpLaunch[] = {
+    launch_topm_warp<1>, launch_topm_warp<2>, launch_topm_warp<4>,
+    launch_topm_warp<8>, launch_topm_warp<16>, launch_topm_warp<32>};
 
 // ---------------------------------------------------------------------------
 // Kernel 8: filtered gather + score + top-k.
@@ -105,25 +394,6 @@ __device__ __forceinline__ void split_key(Key key, float& v, int& band,
   u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
   v = __uint_as_float(u);
   cls = static_cast<int>(kIdMask - static_cast<unsigned>(key & kIdMask));
-}
-
-// Bitonic sort of n (a power of two) keys in shared memory, largest first.
-// All threads of the block take part; ends synchronised.
-__device__ __forceinline__ void sort_keys_desc(Key* key, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const Key a = key[lo], c = key[hi];
-        if (((lo & size) == 0) ? c > a : a > c) {
-          key[lo] = c;
-          key[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 struct CandArgs {
@@ -308,23 +578,40 @@ bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 extern "C" {
 
-// meta (n, R, B) f32 -> tau (n, R) f32, ids (n, R, m) int32; width is a
-// power of two >= B.  Returns a cudaError_t code.
+// meta (n, R, B) f32 -> tau (n, R) f32, ids (n, R, m) int32, by `path`
+// (TopmPath) with `keys`: the list length a lane keeps (select, a power of
+// two in [m, 32]), the keys a lane sorts (warp, a power of two with 32 *
+// keys >= B) or the keys the block sorts (block, a power of two >= B).
+// Returns a cudaError_t code.
 int bucket_topm_launch(const void* meta, int n, int r_count, int b, int m,
-                       int width, void* tau, void* ids, void* stream) {
+                       int path, int keys, void* tau, void* ids,
+                       void* stream) {
   using namespace mach;
-  if (n < 1 || r_count < 1 || b < 1 || m < 1 || m > b || !is_pow2(width) ||
-      width < b) {
+  if (n < 1 || r_count < 1 || b < 1 || m < 1 || m > b || !is_pow2(keys) ||
+      static_cast<long long>(n) * r_count >= (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(width) * (sizeof(float) + sizeof(int));
-  cudaError_t err = allow_smem(bucket_topm_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bucket_topm_kernel<<<n * r_count, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(meta), b, m, width, static_cast<float*>(tau),
-      static_cast<int*>(ids));
-  return static_cast<int>(cudaGetLastError());
+  const int rows = n * r_count;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto src = static_cast<const float*>(meta);
+  auto t = static_cast<float*>(tau);
+  auto o = static_cast<int*>(ids);
+  const int lg = __builtin_ctz(static_cast<unsigned>(keys));
+  if (path == kTopmSelect && m <= keys && keys <= 32) {
+    return static_cast<int>(kTopmSelectLaunch[lg](src, rows, b, m, t, o, s));
+  }
+  if (path == kTopmWarp && b <= 32 * keys && keys <= 32) {
+    return static_cast<int>(kTopmWarpLaunch[lg](src, rows, b, m, t, o, s));
+  }
+  if (path == kTopmBlock && keys >= b) {
+    const size_t smem = static_cast<size_t>(keys) * sizeof(Key);
+    cudaError_t err = allow_smem(topm_block_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topm_block_kernel<<<rows, kTopmBlockThreads, smem, s>>>(src, b, m, keys,
+                                                             t, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // meta (n, R, B) f32, tau (n, R) f32, ids (n, R, m) int32, inverted

@@ -48,7 +48,7 @@ multiply-shift.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -124,29 +124,65 @@ def bucket_topm(meta_probs: torch.Tensor, m: int
             idx[..., :m].to(torch.int32).contiguous())
 
 
+TOPM_PATHS = ("select", "warp", "block")        # csrc TopmPath
+
+
+class TopmLayout(NamedTuple):
+    path: str          # one of TOPM_PATHS
+    keys: int          # keys a lane keeps (select) or sorts (warp), or the
+                       # block sorts (block); a power of two
+
+
+def topm_layout(b: int, m: int) -> TopmLayout:
+    """Which kernel 7 runs a row of B values with m kept.
+
+    "select" (each lane keeps its best next_pow2(m) keys of the values it
+    streams, then m warp arg-max rounds; the kernel shares a row of more
+    than 1,024 values among a block's warps) for m <= 32 wherever B >
+    1,024, and for B <= 1,024 where a lane's list is no longer than the
+    keys it would sort, next_pow2(B) / 32, and that is at least 2: the
+    cut that tools/time_top1_topm.py --sweep measured on an H100.  Else,
+    B <= 1,024: "warp", a bitonic sort in one warp's registers,
+    next_pow2(B) / 32 keys a lane (at least 1).  Else "block", the
+    next_pow2(B) keys sorted in shared memory (8 bytes a key), which must
+    fit."""
+    if not 1 <= m <= b:
+        raise ValueError(f"need 1 <= m <= B, got m={m}, B={b}")
+    if b <= 1024:
+        lane_keys = max(1, _next_pow2(b) // 32)
+        if 2 <= lane_keys and _next_pow2(m) <= lane_keys:
+            return TopmLayout("select", _next_pow2(m))
+        return TopmLayout("warp", lane_keys)
+    if m <= 32:
+        return TopmLayout("select", _next_pow2(m))
+    width = _next_pow2(b)
+    if 8 * width > _SMEM_OPTIN:
+        raise ValueError(f"B={b} buckets do not fit in shared memory for "
+                         f"m={m} > 32")
+    return TopmLayout("block", width)
+
+
 def bucket_topm_cuda(meta_probs: torch.Tensor, m: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel 7 on ``meta_probs``' stream: one block per (n, r)
-    sorts the B values in shared memory.  ``bucket_topm_cuda.launches``
-    counts the launches."""
+    """Launch kernel 7 on ``meta_probs``' stream, on the path
+    ``topm_layout`` picks.  ``bucket_topm_cuda.launches`` counts the
+    launches."""
     if meta_probs.dim() != 3 or meta_probs.device.type != "cuda":
         raise ValueError("bucket_topm_cuda needs CUDA meta_probs (N, R, B)")
     if meta_probs.dtype != torch.float32 or not meta_probs.is_contiguous():
         raise ValueError("meta_probs must be contiguous float32")
     n, r, b = meta_probs.shape
-    if not 1 <= m <= b:
-        raise ValueError(f"need 1 <= m <= B, got m={m}, B={b}")
-    width = _next_pow2(b)
-    if 8 * width > _SMEM_OPTIN:
-        raise ValueError(f"B={b} buckets do not fit in shared memory")
+    layout = topm_layout(b, m)
     dev = meta_probs.device
     tau = torch.empty((n, r), dtype=torch.float32, device=dev)
     ids = torch.empty((n, r, m), dtype=torch.int32, device=dev)
     lib = _build.load("mach_candidates")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.bucket_topm_launch(meta_probs.data_ptr(), n, r, b, m, width,
-                                      tau.data_ptr(), ids.data_ptr(), stream)
+        code = lib.bucket_topm_launch(meta_probs.data_ptr(), n, r, b, m,
+                                      TOPM_PATHS.index(layout.path),
+                                      layout.keys, tau.data_ptr(),
+                                      ids.data_ptr(), stream)
     _build.check(lib, code, "bucket_topm")
     bucket_topm_cuda.launches += 1
     return tau, ids

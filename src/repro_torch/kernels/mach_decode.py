@@ -16,15 +16,17 @@ Two hash sources, as on the TPU: the (R, K) int32 table (any
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 MAX_R = 32               # largest R the CUDA kernels take
-_MAX_QUERIES = 8         # queries per block (csrc kMaxQueries)
+_MAX_QUERIES = 8         # class per thread: queries a block (kMaxQueries)
+_LANE_WARPS = 16         # query per lane: warps a block (kLaneThreads / 32)
 _SMEM_OPTIN = 232448     # Hopper: dynamic shared memory a block may opt into
+MAPPINGS = ("class_per_thread", "query_per_lane")   # csrc Mapping
 
 
 def table_from_inline(inline_coeffs: torch.Tensor, inline_shift: int,
@@ -128,12 +130,49 @@ def mach_decode_plain(meta_probs: torch.Tensor,
     return val, idx.to(torch.int32)
 
 
-def _num_splits(num_tiles: int, num_classes: int, device: torch.device) -> int:
-    """K splits per query tile: about two waves of blocks over the SMs,
-    and at least 1024 classes a split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // num_tiles)
+def _num_splits(num_tiles: int, num_classes: int, sms: int,
+                waves: int = 2) -> int:
+    """K splits per query tile: about ``waves`` waves of blocks over
+    ``sms`` SMs, and at least 1024 classes a split."""
+    want = -(-waves * sms // num_tiles)
     return max(1, min(want, -(-num_classes // 1024)))
+
+
+class DecodeLayout(NamedTuple):
+    mapping: str          # one of MAPPINGS
+    queries: int          # queries a block
+    splits: int           # K splits a query tile
+    smem_bytes: int       # dynamic shared memory a block
+
+
+def decode_layout(n: int, r: int, b: int, num_classes: int,
+                  sms: int) -> DecodeLayout:
+    """How the top-1 kernel covers N queries on a card of ``sms`` SMs.
+
+    Query per lane wherever N fills a warp of queries (N >= 32) and 32
+    queries' R·B values fit in shared memory transposed, with a pad
+    column and a zero row: 64 queries a block (8-byte gathers) when
+    N > 32 and they fit, else 32; one block an SM, K split for one wave,
+    so each SM stages its tile once.  Otherwise (the LM head's N = 1 and
+    4; ImageNet-21k's and the LM head's R·B) class per thread, up to 8
+    queries a block, K split for two waves.  Raises if not even one
+    query's R·B values fit."""
+    rb = r * b
+    if n >= 32:
+        for q in ((64, 32) if n > 32 else (32,)):
+            vec = q // 32
+            smem = 4 * max((rb + 1) * (q + vec), 2 * _LANE_WARPS * q)
+            if smem <= _SMEM_OPTIN:
+                return DecodeLayout("query_per_lane", q,
+                                    _num_splits(-(-n // q), num_classes, sms,
+                                                waves=1),
+                                    smem)
+    qpb = min(_MAX_QUERIES, n, _SMEM_OPTIN // (4 * rb))
+    if qpb < 1:
+        raise ValueError(f"R*B={rb} probabilities do not fit in shared memory")
+    return DecodeLayout("class_per_thread", qpb,
+                        _num_splits(-(-n // qpb), num_classes, sms),
+                        4 * qpb * rb)
 
 
 def mach_decode_cuda(meta_probs: torch.Tensor,
@@ -142,20 +181,19 @@ def mach_decode_cuda(meta_probs: torch.Tensor,
                      inline_coeffs: Optional[torch.Tensor] = None,
                      inline_shift: Optional[int] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the top-1 kernel on ``meta_probs``' stream.  Inputs: meta
-    (N, R, B) f32 contiguous; table (R, K) int32 contiguous, or
-    inline_coeffs (R,) int64 contiguous.  Returns ((N,) f32, (N,) int32).
-    ``mach_decode_cuda.launches`` counts the launches."""
+    """Launch the top-1 kernel on ``meta_probs``' stream, in the mapping
+    ``decode_layout`` picks.  Inputs: meta (N, R, B) f32 contiguous; table
+    (R, K) int32 contiguous, or inline_coeffs (R,) int64 contiguous.
+    Returns ((N,) f32, (N,) int32).  ``mach_decode_cuda.launches`` counts
+    the launches, of either mapping."""
     check_cuda_operands(meta_probs, table, num_classes, inline_coeffs,
                         inline_shift)
     n, r, b = meta_probs.shape
-    qpb = min(_MAX_QUERIES, n, _SMEM_OPTIN // (4 * r * b))
-    if qpb < 1:
-        raise ValueError(f"R*B={r * b} probabilities do not fit in shared memory")
     dev = meta_probs.device
-    splits = _num_splits(-(-n // qpb), num_classes, dev)
-    part_val = torch.empty((n, splits), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((n, splits), dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layout = decode_layout(n, r, b, num_classes, sms)
+    part_val = torch.empty((n, layout.splits), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((n, layout.splits), dtype=torch.int32, device=dev)
     val = torch.empty((n,), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = _build.load("mach_decode")
@@ -166,7 +204,8 @@ def mach_decode_cuda(meta_probs: torch.Tensor,
             table.data_ptr() if table is not None else None,
             inline_coeffs.data_ptr() if table is None else None,
             inline_shift if table is None else 0,
-            qpb, splits, part_val.data_ptr(), part_idx.data_ptr(),
+            MAPPINGS.index(layout.mapping), layout.queries, layout.splits,
+            part_val.data_ptr(), part_idx.data_ptr(),
             val.data_ptr(), idx.data_ptr(), stream)
     _build.check(lib, code, "mach_top1")
     mach_decode_cuda.launches += 1

@@ -106,7 +106,8 @@ def mach_topk_cuda(meta_probs: torch.Tensor,
     if qpb < 1:
         raise ValueError(f"R*B={r * b} probabilities do not fit in shared memory")
     dev = meta_probs.device
-    splits = min(_num_splits(-(-n // qpb), num_classes, dev),
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = min(_num_splits(-(-n // qpb), num_classes, sms),
                  _MERGE_MAX // kcap)
     width = _next_pow2(splits * kcap)
     part_val = torch.empty((n, splits, kcap), dtype=torch.float32, device=dev)

@@ -1,4 +1,5 @@
-"""The CUDA kernels (decode; candidate decode; fused projection + CE,
+"""The CUDA kernels (decode, both mappings of the top-1 kernel; candidate
+decode, every path of bucket top-m; fused projection + CE,
 forward and backward; the R-head CE on given logits, forward and
 backward; the RG-LRU scan and flash attention, forward and backward)
 against their plain versions, on the card, and one full-width
@@ -114,6 +115,87 @@ def test_bucket_topm_kernel_equals_plain(dev, m):
     assert mc.bucket_topm_cuda.launches == before + 1
     pt, pi = mc.bucket_topm(meta, m)
     assert torch.equal(kt, pt) and torch.equal(ki, pi)
+
+
+ODP_R, ODP_B, ODP_K = 25, 32, 105033
+
+
+def _odp_hashes(dev):
+    fam = MultShiftFamily(ODP_B, ODP_R, 1)
+    table = fam.table(ODP_K, dev)
+    return table, {"table": {"table": table},
+                   "inline": {"inline_coeffs": fam.coeffs_tensor(dev),
+                              "inline_shift": fam.shift}}
+
+
+@pytest.mark.parametrize("mode", ["table", "inline"])
+@pytest.mark.parametrize("n", [256, 64, 37, 33, 31, 1])
+def test_top1_mappings_equal_plain(dev, n, mode):
+    """Both mappings of kernel 1 (query per lane from N = 32, class per
+    thread below) at ODP's shape: dyadic inputs exactly, random ones at
+    rtol 1e-6 with indices equal except on near-ties."""
+    table, hashes = _odp_hashes(dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    random = torch.softmax(torch.randn((n, ODP_R, ODP_B), generator=gen,
+                                       device=dev), -1)
+    for meta in (_dyadic(n, ODP_R, ODP_B, dev, seed=n), random):
+        before = md.mach_decode_cuda.launches
+        kv, ki = md.mach_decode_cuda(meta, num_classes=ODP_K, **hashes[mode])
+        assert md.mach_decode_cuda.launches == before + 1
+        pv, pi = md.mach_decode_plain(meta, num_classes=ODP_K, **hashes[mode])
+        if meta is not random:
+            assert torch.equal(kv, pv) and torch.equal(ki, pi)
+            continue
+        torch.testing.assert_close(kv, pv, rtol=1e-6, atol=1e-7)
+        at_kernel = md.summed_scores(meta, table).gather(1, ki.long()[:, None])
+        torch.testing.assert_close(at_kernel[:, 0], pv, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [256, 31])
+def test_top1_tie_across_splits_goes_to_lowest_id(dev, n):
+    """Each row's maximum is shared by a class in an early K-split and
+    one in the last ones (four query tiles at N = 256)."""
+    table, hashes = _odp_hashes(dev)
+    q = torch.arange(n, device=dev)
+    low, high = 1000 + 211 * q, ODP_K - 1 - 97 * q
+    meta = torch.zeros((n, ODP_R, ODP_B), device=dev)
+    for k in (low, high):
+        meta[q[:, None], torch.arange(ODP_R, device=dev)[None, :],
+             table[:, k].T.long()] = 0.5
+    for hash_kw in hashes.values():
+        kv, ki = md.mach_decode_cuda(meta, num_classes=ODP_K, **hash_kw)
+        assert torch.equal(ki.long(), low)
+        assert torch.equal(kv, torch.full_like(kv, 0.5 * ODP_R))
+
+
+TOPM_CASES = [(b, m) for b in (4, 32, 37, 512, 1000, 2048, 8192)
+              for m in sorted({m for m in (1, 2, 3, 12, 16, 32, 33) if m <= b}
+                              | {max(1, b - 1), b})]
+
+
+def _topm_rows(dev, b):
+    """Dyadic rows (ties in bulk), all-equal rows, and rows of dyadic
+    values >= 0.75 among -0.0 and +0.0 (equal to the plain sort)."""
+    dyadic = _dyadic(37, 3, b, dev, seed=b)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    neg = torch.rand(dyadic.shape, generator=gen, device=dev) < 0.5
+    zero = torch.where(neg, torch.full_like(dyadic, -0.0),
+                       torch.zeros_like(dyadic))
+    return (dyadic, torch.full_like(dyadic, 0.25),
+            torch.where(dyadic >= 0.75, dyadic, zero))
+
+
+@pytest.mark.parametrize("b,m", TOPM_CASES, ids=str)
+def test_bucket_topm_paths_equal_plain(dev, b, m):
+    """Every path of kernel 7 against the plain version on a host copy:
+    tau bit for bit, ids equal."""
+    for meta in _topm_rows(dev, b):
+        before = mc.bucket_topm_cuda.launches
+        kt, ki = mc.bucket_topm_cuda(meta, m)
+        assert mc.bucket_topm_cuda.launches == before + 1
+        pt, pi = mc.bucket_topm(meta.cpu(), m)
+        assert torch.equal(kt.cpu().view(torch.int32), pt.view(torch.int32))
+        assert torch.equal(ki.cpu(), pi)
 
 
 @pytest.mark.parametrize("estimator", ["unbiased", "min", "median"])
