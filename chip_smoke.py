@@ -65,8 +65,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ragged N), with and without bias; CSR batches with duplicate ids, a
    row at exactly nnz_max, short and empty rows, at nnz 120 and 1,024
    through both sparse families.  Loss and lse to rtol 1e-5, gradients
-   to rtol 1e-4 / atol 1e-6 (float atomics reduce them across blocks);
-   each backward runs twice and the largest difference is printed.  The
+   to rtol 1e-4 / atol 1e-6 (sums in another order; the dense and ELL
+   kernels reduce across blocks with float atomics); each backward runs
+   twice and the largest difference is printed, and the gather family's,
+   which uses no float atomics, must be 0.  The
    dense kernel (3xTF32 on the tensor cores in float32) also runs each
    dense shape with bf16 operands, and the LM head's shape (N=8,192,
    d=2,560, R=8, B=2,048) in bf16 with and without bias, dh asked: loss
@@ -84,15 +86,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels.  Launch counters are set to 0 just before and read just
    after; all six launch functions must have run, every loss must be
    finite, and each first step's loss and gradients must equal the plain
-   version's.  Then ms per step, stage times, peak memory.  Then kernel 4
+   version's.  Then ms per step, stage times (the fused-xent kernels by
+   CUDA events and by CUDA-graph replay), peak memory.  Then kernel 4
    at the LM head's shape in bf16 (the fused LM loss's call, not yet on
    a path): forward and backward-with-dh ms, plain and library (bf16
    torch.matmul + F.cross_entropy) ms, peak memory of each, bound,
    ptxas registers and shared memory.
 7. LM kernels vs plain on the card: the RG-LRU scan (kernel 9) equal to
    its plain sequential loop bit for bit, float32 at (1, 4096, 2560),
-   (4, 1, 2560) and a ragged (3, 37, 300) with nonzero h0 (and bfloat16
-   at the ragged shape); flash attention (kernel 10) at (1, 4096, 10,
+   (4, 1, 2560), a ragged (3, 37, 300) with nonzero h0 (and bfloat16
+   there) and a ragged (2, 4097, 2570) (T and D past whole stages and
+   channel tiles); flash attention (kernel 10) at (1, 4096, 10,
    256) / (1, 4096, 1, 256) bfloat16 with window 2048 and without, a
    GQA case (KV=2, H=8, hd=128, ragged T), tinyllama's width (hd 64,
    32 / 4 heads), phi3's (hd 96, padded to 128 in the kernel, 32 / 32
@@ -129,14 +133,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal the streaming engine's bit for bit) and ``(16, 2)``
    (approximate: greedy tokens reported), kernels 7-8 launch counts from
    0 for each.  Then prefill ms, ms per pooled decode step, tokens/s,
-   peak memory, and kernel, plain, bound and library times.
+   peak memory, and kernel, plain, bound and library times (kernel 9's
+   prefill and decode calls also by CUDA-graph replay).
 9. LM training kernels vs plain on the card: kernel 3 (the R-head CE
    on given logits), forward and backward, at ragged shapes (float32 and
    bfloat16, labels at 0 and B-1) and the training path's shape (8,192,
    8, 2048) in bf16 — loss to rtol 1e-5, gradient to rtol 1e-5 in
    float32 and within one bf16 ulp in bf16; kernel 9's backward bit for
    bit against its plain reverse loop at (2, 4096, 2560), (4, 1, 2560),
-   (1, 1, 16) and a ragged (3, 37, 300) in float32 and bf16, nonzero h0;
+   (1, 1, 16), a ragged (3, 37, 300) in float32 and bf16 and a ragged
+   (2, 4097, 2570) in float32, nonzero h0;
    kernel 10's backward at the training shape ((2, 4096, 10, 256) / KV=1,
    bf16, window 2048) and at small float32 shapes (causal, windowed,
    unmasked; G = 1, 2, 10) and bf16 ones: a ragged GQA case, tinyllama's
@@ -160,7 +166,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    loss after the 6 steps below its loss at step 0.  Then ms per step,
    tokens/s, peak memory, the split into forward + backward and clip +
    AdamW + apply, and kernel, plain, bound and library times at the
-   path's shapes (``F.cross_entropy`` and SDPA's backward as yardsticks).
+   path's shapes (``F.cross_entropy`` and SDPA's backward as yardsticks;
+   kernel 9 forward and backward also by CUDA-graph replay).
 11. The kernel report (one JSON line), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -1156,9 +1163,10 @@ def phase_candidate_gate(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # loss and lse: rtol 1e-5 (f32 products and sums in another order than
-# cuBLAS / torch.logsumexp); gradients rtol 1e-4, atol 1e-6 (the kernels
-# reduce dW, dh and dbias with float atomics across blocks, in an order
-# that changes from run to run).  Inputs at the model's own scales: unit
+# cuBLAS / torch.logsumexp); gradients rtol 1e-4, atol 1e-6 (the dense and
+# ELL kernels reduce dW, dh and dbias with float atomics across blocks, in
+# an order that changes from run to run; the gather kernels sum each dW
+# row and dbias in a fixed order of their own).  Inputs at the model's own scales: unit
 # L2 rows of features (as the data generators make them), dense W at its
 # init scale 1/sqrt(d), and a N(0, 1) bias so each head's softmax is far
 # from uniform; at those scales the f32 order noise of a d-long product
@@ -1401,9 +1409,14 @@ def phase_xent_vs_plain(dev) -> dict:
     for family, s in stats.items():
         if family == "dense_f64":
             continue
+        how = ("no float atomics: must be 0" if family == "gather"
+               else "float atomics")
         print(f"fused xent {family}: max abs error vs plain "
               f"{s['max_abs_err']:.3e}; largest backward difference between "
-              f"two runs {s['run_to_run']:.3e} (float atomics)", flush=True)
+              f"two runs {s['run_to_run']:.3e} ({how})", flush=True)
+    if stats["gather"]["run_to_run"] != 0.0:
+        fail(f"gather backward: two runs differ by up to "
+             f"{stats['gather']['run_to_run']} (it has no float atomics)")
     return stats
 
 
@@ -1593,6 +1606,12 @@ def phase_training(dev, checks: dict) -> list[dict]:
         bwd_kw = {"need_dh": False} if family == "dense" else {}
         ms_bwd = kernel_ms(lambda: bwd(*inputs, w2.detach(), bias.detach(),
                                        labels, lse, g, b, **bwd_kw), iters=10)
+        ms_fwd_graph = graph_ms(lambda: fwd(*inputs, w2.detach(),
+                                            bias.detach(), labels, b),
+                                iters=10)
+        ms_bwd_graph = graph_ms(lambda: bwd(*inputs, w2.detach(),
+                                            bias.detach(), labels, lse, g, b,
+                                            **bwd_kw), iters=10)
         state = res["state"]
         ms_adamw = kernel_ms(lambda: opt.update(grads0, state, params0),
                              iters=5, warmup=1)
@@ -1605,8 +1624,10 @@ def phase_training(dev, checks: dict) -> list[dict]:
         (bf, byf), (bb_, byb) = _bound(family, n, d, r, b, nnz, unique, j)
         print(f"train {name}: {step_ms:.3f} ms/step (host clock, median of "
               f"steps 2..{len(res['times'])}); stages: forward kernel "
-              f"{ms_fwd:.3f} ms, backward kernel {ms_bwd:.3f} ms (dW zero-fill "
-              f"included), AdamW {ms_adamw:.3f} ms; peak "
+              f"{ms_fwd:.3f} ms, backward kernel {ms_bwd:.3f} ms (graph "
+              f"{ms_fwd_graph:.3f} + {ms_bwd_graph:.3f}; the dense and ELL "
+              f"backward's dW zero-fill included), AdamW {ms_adamw:.3f} ms; "
+              f"peak "
               f"{res['peak_gib']:.2f} GiB [{smi}]", flush=True)
         kname, replaces = kernel_names[family]
         row = {
@@ -1617,8 +1638,14 @@ def phase_training(dev, checks: dict) -> list[dict]:
             + launches[f"{family}_bwd_cuda"],
             "launches_fwd": launches[f"{family}_fwd_cuda"],
             "launches_bwd": launches[f"{family}_bwd_cuda"],
+            "launches_bwd_pieces": (
+                {k: launches[f"gather_{k}_cuda"]
+                 for k in ("dlogits", "column_order", "dw")}
+                if family == "gather" else None),
             "max_abs_err": err,
             "ms": ms_fwd + ms_bwd, "ms_fwd": ms_fwd, "ms_bwd": ms_bwd,
+            "ms_graph": ms_fwd_graph + ms_bwd_graph,
+            "ms_fwd_graph": ms_fwd_graph, "ms_bwd_graph": ms_bwd_graph,
             "plain_ms": plain_ms, "bound_ms": bf + bb_,
             "bound_by": byf if bf >= bb_ else byb,
             "bound_ms_fwd": bf, "bound_by_fwd": byf,
@@ -1667,9 +1694,9 @@ def _library_xent(family, x, w2, bias, labels, b, n, r, d):
 
 def _kernel_label(mangled: str) -> str:
     """A mangled kernel entry shortened to its name and template values:
-    ``top1_lane_kernel<1, 2>``; kernel 4's as ``bwd_kernel<bf16,
-    cp.async>`` (the dtype and whether tiles arrive by 16-byte cp.async
-    or plain loads)."""
+    ``top1_lane_kernel<1, 2>``, ``lru_scan_kernel<float32, 16, 32>``;
+    kernel 4's as ``bwd_kernel<bf16, cp.async>`` (the dtype and whether
+    tiles arrive by 16-byte cp.async or plain loads)."""
     m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Lb([01])", mangled)
     if m:
         return (f"{m[1]}<{'float32' if m[2] == 'f' else 'bf16'}, "
@@ -1680,6 +1707,10 @@ def _kernel_label(mangled: str) -> str:
             rest = mangled[m.end() + len(name):]
             args = (re.findall(r"L[a-z]+(\d+)E", rest[:rest.find("Ev")])
                     if rest.startswith("I") else [])
+            for code, dtype in (("If", "float32"),
+                                ("I13__nv_bfloat16", "bf16")):
+                if rest.startswith(code):         # a type argument first
+                    args.insert(0, dtype)
             return f"{name}<{', '.join(args)}>" if args else name
     return mangled
 
@@ -1791,7 +1822,8 @@ def phase_dense_lm_head(dev, checks: dict, launches: int, smi: str) -> dict:
 # phase 7: the LM substrate kernels (9 and 10) vs their plain versions
 # ---------------------------------------------------------------------------
 
-LRU_SHAPES = [(1, 4096, 2560), (4, 1, 2560), (3, 37, 300)]
+LRU_SHAPES = [(1, 4096, 2560), (2, 4096, 2560), (4, 1, 2560), (3, 37, 300),
+              (2, 4097, 2570)]
 # flash checks: (label, B, T, H, KV, hd, window, dtype) — the prefill
 # shape of recurrentgemma-2b with and without its window, GQA, float32
 FLASH_SHAPES = [
@@ -2082,6 +2114,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lru_scan as ls
     from repro_torch.kernels import mach_decode as md
@@ -2195,10 +2228,12 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
     x = torch.randn((b, t, d), generator=gen, device=dev)
     h0 = torch.zeros((b, d), device=dev)
     ms9 = kernel_ms(lambda: ls.lru_scan_cuda(a, x, h0))
+    ms9_graph = graph_ms(lambda: ls.lru_scan_cuda(a, x, h0))
     a4, x4 = a[:, :1].expand(LM_SLOTS, 1, d).contiguous(), \
         x[:, :1].expand(LM_SLOTS, 1, d).contiguous()
-    ms9_decode = kernel_ms(lambda: ls.lru_scan_cuda(
-        a4, x4, torch.zeros((LM_SLOTS, d), device=dev)))
+    h04 = torch.zeros((LM_SLOTS, d), device=dev)
+    ms9_decode = kernel_ms(lambda: ls.lru_scan_cuda(a4, x4, h04))
+    ms9_decode_graph = graph_ms(lambda: ls.lru_scan_cuda(a4, x4, h04))
     plain9 = kernel_ms(lambda: ls.lru_scan_plain(a, x, h0), iters=3, warmup=1)
     bytes9 = 3 * b * t * d * 4 + b * d * 4
     rows.append({
@@ -2207,12 +2242,15 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
         "replaces": "src/repro/kernels/lru_scan.py:46",
         "launches": served["lru_scan"],
         "max_abs_err": checks["errs"]["lru_scan"],
-        "ms": ms9, "plain_ms": plain9,
+        "ms": ms9, "ms_graph": ms9_graph, "plain_ms": plain9,
         "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "shape": f"prefill (B, T, D)=({b}, {t}, {d}) float32",
-        "ms_decode": ms9_decode,
-        "shape_decode": f"decode ({LM_SLOTS}, 1, {d}) float32"})
+        "ms_decode": ms9_decode, "ms_decode_graph": ms9_decode_graph,
+        "shape_decode": f"decode ({LM_SLOTS}, 1, {d}) float32",
+        "ptxas": _ptxas_registers(_build.build_log("lru_scan")),
+        "timing": "ms by kernel_ms (CUDA events); *_graph by graph_ms "
+                  "(CUDA-graph replay, device time)"})
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     window = cfg.local_window
     q, k, v = _flash_inputs(dev, b, t, h, kv, hd, cfg.dtype, seed=2)
@@ -2254,9 +2292,12 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
               f"{row['launches']} on the LM serve path; {row['shape']} "
               f"[{smi}]", flush=True)
-    print(f"kernel lru_scan at decode ({LM_SLOTS}, 1, {d}): {ms9_decode:.4f} "
-          f"ms; kernel flash_attention {rows[1]['tflops_per_s']:.1f} TFLOP/s "
+    print(f"kernel lru_scan: graph {ms9_graph:.4f} ms at the prefill; at "
+          f"decode ({LM_SLOTS}, 1, {d}): {ms9_decode:.4f} ms, graph "
+          f"{ms9_decode_graph:.4f} ms; kernel flash_attention {rows[1]['tflops_per_s']:.1f} TFLOP/s "
           f"[{smi}]", flush=True)
+    print(f"kernel lru_scan ptxas (registers; spills): {rows[0]['ptxas']}",
+          flush=True)
     lm = {"launches_engine": served, "launches_direct_loop": in_loop,
           "candidates": cand, "head_err": head_err, "prefill_ms": prefill_ms,
           "decode_step_ms": decode_ms, "tokens_per_s": tokens / warm_s,
@@ -2388,7 +2429,8 @@ XENT_TOL = {"rtol": 1e-5, "atol": 1e-5}
 # kernel 9 backward checks: (B, T, D, dtype), nonzero h0
 LRU_BWD_SHAPES = [(TRAIN_BATCH, TRAIN_SEQ, 2560, torch.float32),
                   (4, 1, 2560, torch.float32), (3, 37, 300, torch.float32),
-                  (3, 37, 300, torch.bfloat16), (1, 1, 16, torch.float32)]
+                  (3, 37, 300, torch.bfloat16), (1, 1, 16, torch.float32),
+                  (2, 4097, 2570, torch.float32)]
 # kernel 10 backward checks: (label, B, T, H, KV, hd, causal, window, dtype)
 FLASH_BWD_SHAPES = [
     ("recurrentgemma train", TRAIN_BATCH, TRAIN_SEQ, 10, 1, 256, True, 2048,
@@ -2469,6 +2511,9 @@ def phase_lm_train_kernels_vs_plain(dev) -> dict:
         got = ls.lru_scan_bwd_cuda(a, h, h0, dh)
         want = ls.lru_scan_bwd_plain(a, h, h0, dh)
         torch.cuda.synchronize()
+        if not torch.equal(h, ls.lru_scan_plain(a, x, h0)):
+            fail(f"lru_scan {(b, t, d)} {dtype}: the forward feeding the "
+                 f"backward check != plain")
         for name, gv, wv in zip(("da", "dx", "dh0"), got, want):
             if gv.dtype != wv.dtype or not torch.equal(gv, wv):
                 fail(f"lru_scan backward {(b, t, d)} {dtype}: {name} kernel "
@@ -2706,6 +2751,7 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     their bounds, plain versions and library yardsticks."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lru_scan as ls
     from repro_torch.kernels import mach_xent as mx
@@ -2760,7 +2806,9 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     dh = torch.randn((b, t, d), generator=gen, device=dev)
     h = ls.lru_scan_cuda(a, x, h0)
     ms9 = kernel_ms(lambda: ls.lru_scan_bwd_cuda(a, h, h0, dh))
+    ms9_graph = graph_ms(lambda: ls.lru_scan_bwd_cuda(a, h, h0, dh))
     ms9_fwd = kernel_ms(lambda: ls.lru_scan_cuda(a, x, h0))
+    ms9_fwd_graph = graph_ms(lambda: ls.lru_scan_cuda(a, x, h0))
     plain9 = kernel_ms(lambda: ls.lru_scan_bwd_plain(a, h, h0, dh), iters=2,
                        warmup=1)
     bytes9 = 5 * b * t * d * 4 + 2 * b * d * 4
@@ -2770,11 +2818,17 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
         "replaces": "src/repro/kernels/lru_scan.py:46",
         "launches": launches["lru_scan_bwd"],
         "max_abs_err": errs["lru_scan_bwd"],
-        "ms": ms9, "plain_ms": plain9,
+        "ms": ms9, "ms_graph": ms9_graph, "plain_ms": plain9,
         "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "shape": f"training (B, T, D)=({b}, {t}, {d}) float32",
-        "ms_forward_at_this_shape": ms9_fwd})
+        "ms_forward_at_this_shape": ms9_fwd,
+        "ms_forward_at_this_shape_graph": ms9_fwd_graph,
+        "bound_ms_forward_at_this_shape":
+            (3 * b * t * d * 4 + b * d * 4) / HBM_BYTES_PER_S * 1e3,
+        "ptxas": _ptxas_registers(_build.build_log("lru_scan_bwd")),
+        "timing": "ms by kernel_ms (CUDA events); *_graph by graph_ms "
+                  "(CUDA-graph replay, device time)"})
     del a, x, h, dh
 
     h_, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -2832,11 +2886,15 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
               f"{row['launches']} on the LM train path; {row['shape']} "
               f"[{smi}]", flush=True)
     bwd = rows[-1]
-    print(f"kernel lru_scan forward at ({b}, {t}, {d}): {ms9_fwd:.4f} ms; "
+    print(f"kernel lru_scan forward at ({b}, {t}, {d}): {ms9_fwd:.4f} ms "
+          f"(graph {ms9_fwd_graph:.4f}), backward graph {ms9_graph:.4f} ms; "
           f"kernel flash_attention forward with lse at the training shape: "
           f"{ms10_fwd:.4f} ms (SDPA forward {lib10_fwd:.4f} ms); backward "
           f"{bwd['tflops_per_s']:.1f} TFLOP/s of its 10·hd flops a pair "
           f"[{smi}]", flush=True)
+    ptxas = next(r["ptxas"] for r in rows if r["name"] == "lru_scan_bwd")
+    print(f"kernel lru_scan_bwd ptxas (registers; spills): {ptxas}",
+          flush=True)
     return rows
 
 

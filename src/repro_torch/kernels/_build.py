@@ -59,10 +59,14 @@ SIGNATURES = {
     "mach_fused_xent_gather": {
         "fused_xent_gather_fwd_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-        "fused_xent_gather_bwd_launch":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]},
+        "fused_xent_gather_dlogits_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "fused_xent_gather_order_launch":
+            [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "fused_xent_gather_dw_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]},
     "lru_scan": {
-        "lru_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+        "lru_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "flash_attention": {
         "flash_attention_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
@@ -71,7 +75,7 @@ SIGNATURES = {
         "mach_xent_bwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "lru_scan_bwd": {
         "lru_scan_bwd_launch":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "flash_attention_bwd": {
         "flash_attention_bwd_launch":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -14,10 +14,11 @@
 //
 // The backward pass turns a recomputed logits tile into
 //   dlogits[n, c] = g[n] * (softmax[n, c] - 1[c = label column])
-// in shared memory (from the saved per-head logsumexp, not recomputed),
-// then reduces it into dW, dh and dbias with float atomicAdd into
-// zero-filled outputs: those sums run across blocks, in an order that
-// changes from run to run.
+// in shared memory (from the saved per-head logsumexp, not recomputed).
+// The dense and ELL kernels then reduce it into dW, dh and dbias with
+// float atomicAdd into zero-filled outputs: those sums run across blocks,
+// in an order that changes from run to run.  The gather kernel writes the
+// dlogits out and sums dW and dbias from them in a fixed order.
 #pragma once
 
 #include "mach_common.cuh"

@@ -11,15 +11,96 @@ on CPU tensors it runs ``lru_scan_plain`` and ``lru_scan_bwd_plain``,
 the same sequential loops in plain PyTorch.  Each pair rounds a product
 and then a sum separately, so kernel and plain version agree bit for
 bit.  The backward reads the forward's output h, not a recomputation.
+
+Both kernels give a block to a walker group of ``CHANNELS`` channels of
+one batch row: one warp walks, two fill a ring of stages in shared
+memory and one drains it (``csrc/lru_ring.cuh``); ``scan_layout`` picks
+the ring's depth and the width of its copies from the shape, the
+operands' alignment and the card's SM count and shared memory.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# copies of csrc/lru_ring.cuh's constants (tests read them against it)
+CHANNELS = 16          # kChannels: channels a walker group owns
+STEPS_LONG = 32        # kStepsLong: steps a stage holds in float32 (x2 in bf16)
+STEPS_SHORT = 16       # kStepsShort: the same, when an SM holds > 2 groups
+MAX_STAGES = 24        # kMaxStages: ring slots at most
+UNITS = (16, 4, 2)     # Unit: bytes a copy moves
+
+
+class Card(NamedTuple):
+    sms: int           # streaming multiprocessors
+    smem_per_sm: int   # shared memory an SM shares among its blocks
+    block_reserved: int  # of it, held back by the system for each block
+
+
+class ScanLayout(NamedTuple):
+    unit: int          # bytes a copy or store moves
+    steps_f32: int     # STEPS_LONG or STEPS_SHORT, the kernels' SF
+    stages: int        # ring slots
+
+
+def scan_layout(b: int, t: int, d: int, dtype: torch.dtype, backward: bool,
+                aligned: int, card: Card) -> ScanLayout:
+    """The kernels' launch for a (b, t, d) scan of ``dtype`` operands
+    whose pointers are all ``aligned``-byte aligned, on ``card``: the
+    widest copy unit (16, 4 or 2 bytes) that the pointers and a row of d
+    elements allow; long stages while each SM holds at most two groups
+    (all groups in one wave), short ones beyond (measured on an H100:
+    long stages are the faster at the prefill's 160 groups, short ones at
+    training's 320); and as many ring slots (each a stage's steps of a
+    and x; backward: a, dh and h) as T has stages, MAX_STAGES and the
+    shared memory of an SM split among its groups allow — at least 2 when
+    T spans two stages."""
+    esize = dtype.itemsize
+    unit = next(u for u in UNITS
+                if u >= esize and aligned % u == 0 and (d * esize) % u == 0)
+    groups = b * -(-d // CHANNELS)           # walker groups (blocks)
+    per_sm = -(-groups // card.sms)
+    steps_f32 = STEPS_LONG if per_sm <= 2 else STEPS_SHORT
+    steps = steps_f32 * 4 // esize
+    slot = (3 if backward else 2) * steps * CHANNELS * esize
+    fit = (card.smem_per_sm // per_sm - card.block_reserved
+           - _barrier_bytes(MAX_STAGES)) // slot
+    stages = min(-(-t // steps), max(2, min(MAX_STAGES, fit)))
+    return ScanLayout(unit, steps_f32, stages)
+
+
+def _barrier_bytes(stages: int) -> int:
+    """csrc barrier_bytes: a ring's three mbarriers a slot, 16-byte
+    aligned, ahead of its slots."""
+    return -(-3 * 8 * stages // 16) * 16
+
+
+# (b, t, d, dtype, backward, pointer bits mod 16, device) -> ScanLayout:
+# a wrapper call looks its launch up here, and reads the card's
+# properties only on a miss
+_LAYOUTS: dict = {}
+
+
+def _layout(shape, dtype: torch.dtype, backward: bool, bits: int,
+            device: torch.device) -> ScanLayout:
+    key = (*shape, dtype, backward, bits & 15, device)
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        props = torch.cuda.get_device_properties(device)
+        card = Card(props.multi_processor_count,
+                    props.shared_memory_per_multiprocessor,
+                    props.shared_memory_per_multiprocessor
+                    - props.shared_memory_per_block_optin)
+        aligned = next(u for u in UNITS if bits % u == 0)
+        lay = _LAYOUTS[key] = scan_layout(*shape, dtype, backward, aligned,
+                                          card)
+    return lay
 
 
 def check_operands(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> None:
@@ -62,12 +143,15 @@ def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
         raise ValueError("a, x and h0 must be contiguous")
     b, t, d = x.shape
     out = torch.empty_like(x)
+    lay = _layout(x.shape, x.dtype, False,
+                  a.data_ptr() | x.data_ptr() | out.data_ptr(), x.device)
     lib = _build.load("lru_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.lru_scan_launch(a.data_ptr(), x.data_ptr(), h0.data_ptr(),
                                    out.data_ptr(), b, t, d,
-                                   int(x.dtype == torch.bfloat16), stream)
+                                   int(x.dtype == torch.bfloat16), lay.unit,
+                                   lay.steps_f32, lay.stages, stream)
     _build.check(lib, code, "lru_scan")
     lru_scan_cuda.launches += 1
     return out
@@ -119,13 +203,17 @@ def lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
     b, t, d = h.shape
     da, dx = torch.empty_like(a), torch.empty_like(h)
     dh0 = torch.empty_like(h0)
+    lay = _layout(h.shape, h.dtype, True,
+                  a.data_ptr() | h.data_ptr() | dh.data_ptr() | da.data_ptr()
+                  | dx.data_ptr(), h.device)
     lib = _build.load("lru_scan_bwd")
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         code = lib.lru_scan_bwd_launch(
             a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
             da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), b, t, d,
-            int(h.dtype == torch.bfloat16), stream)
+            int(h.dtype == torch.bfloat16), lay.unit, lay.steps_f32,
+            lay.stages, stream)
     _build.check(lib, code, "lru_scan_bwd")
     lru_scan_bwd_cuda.launches += 1
     return da, dx, dh0

@@ -15,7 +15,9 @@ weights W (d, R·B), an optional bias (R·B,) and hashed labels y (N, R):
   ``GATHER_NNZ_THRESHOLD`` nonzeros a row).
 * ``mach_fused_xent_gather`` — the same ELL function, one row a block
   (replaces ``mach_fused_xent_gather_pallas``, for nnz at or above the
-  threshold).
+  threshold).  Its backward puts the batch in column order (for each
+  feature, its (row, val) pairs) and writes each dW row once from the
+  dlogits, with no float atomics: the same bits from run to run.
 
 Each returns (loss (N,), lse (N, R)).  On CUDA tensors it runs a
 ``torch.autograd.Function`` whose forward and backward are the kernels:
@@ -23,8 +25,10 @@ the forward keeps the per-head logsumexp as its residual and the
 backward uses it, forming dlogits = g·(softmax − onehot(y)) from one
 recomputation of each logits tile.  The (N, R·B) logits never reach
 device memory.  On CPU tensors the family's plain PyTorch version runs
-and autograd differentiates it.  Gradients flow to W, the bias and (dense
-family) a; ELL ``vals`` are data and get none on either device.
+and autograd differentiates it; the gather family's CPU backward is
+``gather_bwd_plain``, the plain versions of its kernel's three steps.
+Gradients flow to W, the bias and (dense family) a; ELL ``vals`` are
+data and get none on either device.
 
 Dense inputs h, W (and the bias) are all float32 or all bfloat16, as the
 JAX kernel takes them: products are formed from float32 values (bf16
@@ -50,6 +54,8 @@ _DENSE_COLS = {torch.float32: 128, torch.bfloat16: 256}
 
 _ELL_MAX_ROWS = 16            # rows an ELL block stages (csrc kMaxRows)
 _ELL_FIXED_SMEM = 4 * (16 * 129 + 3 * 16 * 8)   # its logits tile + statistics
+_HEAVY_TERMS = 64             # pairs over which a block shares a dW row
+#                               (csrc kHeavyTerms)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +142,61 @@ def fused_xent_ell_plain(cols, vals, w, bias, labels, num_buckets):
     if bias is not None:
         logits = logits + bias
     return _xent_plain(logits, labels, num_buckets)
+
+
+def gather_dlogits_plain(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """Plain PyTorch: dlogits = g·(softmax − onehot(y)) (N, R·B) float32
+    of the ELL logits, from the forward's lse — the gather backward's
+    first step."""
+    valid = (cols >= 0) & (cols < w.shape[0])
+    rows = w[torch.where(valid, cols, 0).long()]
+    logits = torch.bmm(torch.where(valid, vals, 0.0)[:, None, :], rows)[:, 0]
+    if bias is not None:
+        logits = logits + bias
+    n, r = labels.shape
+    lg = logits.reshape(n, r, num_buckets)
+    onehot = torch.nn.functional.one_hot(labels.long(), num_buckets)
+    soft = torch.exp(lg - lse[..., None])
+    return (g[:, None, None] * (soft - onehot)).reshape(n, -1)
+
+
+def gather_column_order_plain(cols, vals, d):
+    """Plain PyTorch: the ELL batch (N, J) in column order — colptr
+    (d + 1,) int32 and, for each feature f in turn, its pairs'
+    example rows (int32) and vals at positions [colptr[f], colptr[f+1]),
+    in ascending (row, slot) order; duplicate ids kept, padding (ids
+    outside [0, d)) dropped."""
+    j = cols.shape[1]
+    key = torch.where((cols >= 0) & (cols < d), cols, d).reshape(-1).long()
+    slots = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=d + 1)[:d]
+    colptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    slots = slots[:int(colptr[-1])]
+    return (colptr.to(torch.int32), (slots // j).to(torch.int32),
+            vals.reshape(-1)[slots])
+
+
+def gather_dw_plain(colptr, term_row, term_val, dlogits):
+    """Plain PyTorch: dW (d, R·B) with row f = Σ over f's pairs of
+    val·dlogits[row] (rows the batch does not touch are zero), and dbias,
+    the column sums of dlogits."""
+    d = colptr.shape[0] - 1
+    feature = torch.repeat_interleave(
+        torch.arange(d, device=dlogits.device), torch.diff(colptr.long()))
+    dw = torch.zeros((d, dlogits.shape[1]), dtype=dlogits.dtype,
+                     device=dlogits.device)
+    dw.index_add_(0, feature, term_val[:, None] * dlogits[term_row.long()])
+    return dw, dlogits.sum(dim=0)
+
+
+def gather_bwd_plain(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """Plain PyTorch: the gather family's backward in its kernel's three
+    steps (dlogits, column order, dW row by row) -> (dW, dbias or None)."""
+    dlogits = gather_dlogits_plain(cols, vals, w, bias, labels, lse, g,
+                                   num_buckets)
+    dw, db = gather_dw_plain(*gather_column_order_plain(cols, vals,
+                                                        w.shape[0]), dlogits)
+    return dw, (None if bias is None else db)
 
 
 # ---------------------------------------------------------------------------
@@ -245,20 +306,75 @@ def gather_fwd_cuda(cols, vals, w, bias, labels, num_buckets):
     return loss, lse
 
 
-def gather_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+def gather_dlogits_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """The backward's first launch -> (dlogits (N, R·B) float32, the
+    slots' sort keys (N·J,) int32: col id, d for padding, dbias or None)."""
     (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
-    dw = torch.zeros_like(w)
-    db = None if bias is None else torch.zeros_like(bias)
-    _launch("mach_fused_xent_gather", "fused_xent_gather_bwd_launch",
+    f32 = dict(dtype=torch.float32, device=cols.device)
+    dlogits = torch.empty((n, r * num_buckets), **f32)
+    keys = torch.empty((n * j,), dtype=torch.int32, device=cols.device)
+    db = None if bias is None else torch.empty(tuple(bias.shape), **f32)
+    _launch("mach_fused_xent_gather", "fused_xent_gather_dlogits_launch",
             cols.device, cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
             _ptr(bias), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, j,
-            d, r, num_buckets, dw.data_ptr(), _ptr(db))
+            d, r, num_buckets, dlogits.data_ptr(), keys.data_ptr(), _ptr(db))
+    gather_dlogits_cuda.launches += 1
+    return dlogits, keys, db
+
+
+def gather_column_order_cuda(keys, vals, d):
+    """The backward's column order on the card: the keys sorted stably
+    (``torch.sort``, index bookkeeping), then one launch -> (colptr
+    (d + 1,) int32, term_row, term_val) as ``gather_column_order_plain``
+    returns them, but padded to N·J entries (the first colptr[d] valid)."""
+    m, j = keys.shape[0], vals.shape[1]
+    sorted_keys, slots = torch.sort(keys, stable=True)
+    colptr = torch.empty((d + 1,), dtype=torch.int32, device=keys.device)
+    term_row = torch.empty((m,), dtype=torch.int32, device=keys.device)
+    term_val = torch.empty((m,), dtype=torch.float32, device=keys.device)
+    _launch("mach_fused_xent_gather", "fused_xent_gather_order_launch",
+            keys.device, sorted_keys.data_ptr(), slots.data_ptr(),
+            vals.data_ptr(), m, j, d, colptr.data_ptr(), term_row.data_ptr(),
+            term_val.data_ptr())
+    gather_column_order_cuda.launches += 1
+    return colptr, term_row, term_val
+
+
+def gather_dw_cuda(colptr, term_row, term_val, dlogits):
+    """The backward's dW launch: every row of dW (d, R·B) written once,
+    from the column order and the dlogits."""
+    d, c = colptr.shape[0] - 1, dlogits.shape[1]
+    dw = torch.empty((d, c), dtype=torch.float32, device=dlogits.device)
+    # the heavy-row count, then the list: a heavy row has more than
+    # _HEAVY_TERMS of the (at most N·J) pairs
+    heavy = torch.empty((2 + min(d, term_row.shape[0] // (_HEAVY_TERMS + 1)),),
+                        dtype=torch.int32, device=dlogits.device)
+    _launch("mach_fused_xent_gather", "fused_xent_gather_dw_launch",
+            dlogits.device, colptr.data_ptr(), term_row.data_ptr(),
+            term_val.data_ptr(), dlogits.data_ptr(), d, c, int(c % 4 == 0),
+            dw.data_ptr(), heavy[1:].data_ptr(), heavy.data_ptr())
+    gather_dw_cuda.launches += 1
+    return dw
+
+
+def gather_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """The gather backward on the card -> (dW, dbias or None), the same
+    bits from run to run: dlogits, the column order, dW row by row.
+    Its counter counts these composed calls; each of the three launching
+    wrappers counts its own launches."""
+    if cols.shape[0] * cols.shape[1] >= 2 ** 31:
+        raise ValueError("the gather backward takes fewer than 2^31 slots")
+    dlogits, keys, db = gather_dlogits_cuda(cols, vals, w, bias, labels, lse,
+                                            g, num_buckets)
+    dw = gather_dw_cuda(*gather_column_order_cuda(keys, vals, w.shape[0]),
+                        dlogits)
     gather_bwd_cuda.launches += 1
     return dw, db
 
 
 CUDA_WRAPPERS = (dense_fwd_cuda, dense_bwd_cuda, ell_fwd_cuda, ell_bwd_cuda,
-                 gather_fwd_cuda, gather_bwd_cuda)
+                 gather_fwd_cuda, gather_bwd_cuda, gather_dlogits_cuda,
+                 gather_column_order_cuda, gather_dw_cuda)
 for _fn in CUDA_WRAPPERS:
     _fn.launches = 0
 
@@ -283,15 +399,19 @@ class _DenseXent(torch.autograd.Function):
         return dh, dw, db, None, None
 
 
-_SPARSE_KERNELS = {"ell": (ell_fwd_cuda, ell_bwd_cuda),
-                   "gather": (gather_fwd_cuda, gather_bwd_cuda)}
+# (family, device type) -> (forward, backward) of ``_SparseXent``: the
+# kernels on the card; on the CPU the gather family's plain versions
+# (the ELL family's CPU path is autograd through its plain version)
+_SPARSE_PATHS = {("ell", "cuda"): (ell_fwd_cuda, ell_bwd_cuda),
+                 ("gather", "cuda"): (gather_fwd_cuda, gather_bwd_cuda),
+                 ("gather", "cpu"): (fused_xent_ell_plain, gather_bwd_plain)}
 
 
 class _SparseXent(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cols, vals, w, bias, labels, num_buckets, family):
-        fwd, _ = _SPARSE_KERNELS[family]
+        fwd, _ = _SPARSE_PATHS[family, cols.device.type]
         loss, lse = fwd(cols, vals, w, bias, labels, num_buckets)
         ctx.save_for_backward(cols, vals, w, bias, labels, lse)
         ctx.num_buckets, ctx.family = num_buckets, family
@@ -301,7 +421,7 @@ class _SparseXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         cols, vals, w, bias, labels, lse = ctx.saved_tensors
-        _, bwd = _SPARSE_KERNELS[ctx.family]
+        _, bwd = _SPARSE_PATHS[ctx.family, cols.device.type]
         dw, db = bwd(cols, vals, w, bias, labels, lse,
                      g.to(torch.float32).contiguous(), ctx.num_buckets)
         return None, None, dw, db, None, None, None
@@ -336,7 +456,7 @@ def mach_fused_xent_dense(h: torch.Tensor, w: torch.Tensor,
 
 def _sparse(family, cols, vals, w, bias, labels, num_buckets):
     check_ell(cols, vals, w, bias, labels, num_buckets)
-    if cols.device.type == "cuda":
+    if (family, cols.device.type) in _SPARSE_PATHS:
         return _SparseXent.apply(*_contig(cols, vals.detach(), w, bias, labels),
                                  num_buckets, family)
     if cols.device.type == "cpu":

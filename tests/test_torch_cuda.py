@@ -4,15 +4,20 @@ forward and backward; the R-head CE on given logits, forward and
 backward; the RG-LRU scan and flash attention, forward and backward)
 against their plain versions, on the card, and one full-width
 recurrentgemma-2b request through the serving engine.  Gradients at
-rtol 1e-4 / atol 1e-6: the kernels reduce dW, dh and dbias with float
-atomics, in another order than the plain version (and from run to
-run).  The dense kernel's float32 case is held to the plain version run
-in float64 (at N(0, 1) features cuBLAS's float32 plain version is itself
-outside atol 1e-6); its bf16 case keeps loss and lse at rtol 1e-5 and
+rtol 1e-4 / atol 1e-6: the dense and ELL kernels reduce dW, dh and dbias
+with float atomics, in another order than the plain version (and from
+run to run); the gather backward sums each dW row and dbias in a fixed
+order of its own, so two runs return the same bits, and rows the batch
+does not touch are written as zeros (dW comes from torch.empty).  The
+dense kernel's float32 case is held to the plain version run in float64
+(at N(0, 1) features cuBLAS's float32 plain version is itself outside
+atol 1e-6); its bf16 case keeps loss and lse at rtol 1e-5 and
 holds each gradient tensor's largest error to 2^-7 of its largest entry
 and its relative L2 error to 2^-8 (the kernel rounds dlogits to bf16
 before its products).  The RG-LRU scan
-equals its plain version bit for bit; flash attention matches at rtol
+equals its plain version bit for bit (forward and backward, at the
+prefill's and training's full widths, ragged T and D, every copy unit of
+its layout, both stage lengths); flash attention matches at rtol
 1e-5 / atol 1e-6 in float32 and, in bfloat16, within 2 bf16 ulps of
 each (query, head) row's largest output: the scores' float32 sums run
 in another order, so an e may round to the other bf16 neighbour, which
@@ -361,6 +366,119 @@ def test_sparse_xent_kernels_equal_plain(dev, family, n, d, r, b, j, bias):
     want = _grads(lambda: mfx.fused_xent_ell_plain(cols, vals, w, bb, y, b),
                   leaves, g)
     _assert_xent_close(got, want)
+
+
+def _heavy_ell(dev, n, d, j, seed=0):
+    """``_ell`` with feature 7 in a third of every row's slots (a dW row
+    of hundreds of pairs, split across warps) and feature 11 in 70 of
+    them (just past kHeavyTerms = 64), the rest spread over d."""
+    cols, vals = _ell(dev, n, d, j, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    pick = torch.rand((n, j), generator=gen, device=dev) < 1 / 3
+    cols = torch.where(pick & (cols < d), 7, cols)
+    valid = torch.nonzero((cols < d) & (cols != 7))
+    rows, slots = valid[:70, 0], valid[:70, 1]
+    cols[rows, slots] = 11
+    return cols, vals
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("n,d,r,b,j", [(37, 5000, 25, 32, 1024),
+                                       (6, 3000, 3, 37, 600),
+                                       (512, 20000, 25, 32, 1024),
+                                       (1000, 3000, 3, 37, 64)])
+def test_gather_backward_same_bits_twice(dev, n, d, r, b, j, bias):
+    """No float atomics touch dW or dbias: two backward runs return the
+    same bits, with heavy dW rows (kHeavyTerms) in the batch, at N up to
+    1,000; and equal the plain version run in float64 at the sparse
+    tolerance, under the mean loss's cotangent g / N (the training path's;
+    a dW row of thousands of pairs carries float32 rounding of its partial
+    sums)."""
+    w, bb, y, g = _xent_case(dev, n, d, r, b, bias, seed=j + n)
+    g = g / n
+    cols, vals = _heavy_ell(dev, n, d, j, seed=j + n)
+    _, lse = mfx.gather_fwd_cuda(cols, vals, w, bb, y, b)
+    first = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
+    second = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
+    for got, again in zip(first, second):
+        if got is not None:
+            assert torch.equal(got, again)
+    want = mfx.gather_bwd_plain(cols, vals.double(), w.double(),
+                                None if bb is None else bb.double(), y,
+                                lse.double(), g.double(), b)
+    for got, ref in zip(first, want):
+        if ref is not None:
+            torch.testing.assert_close(got, ref.float(), rtol=1e-4, atol=1e-6)
+
+
+def test_gather_backward_pieces_equal_plain(dev):
+    """The backward's steps on the card against their plain versions:
+    dlogits (rtol 1e-5: the logits' f32 sums run in another order), the
+    column order exactly, and dW from the same dlogits against the plain
+    version in float64 (rtol 1e-5), under the mean loss's g / N.  Each
+    step's wrapper counts its own launch."""
+    n, d, r, b, j = 64, 4000, 5, 32, 700
+    w, bb, y, g = _xent_case(dev, n, d, r, b, True, seed=3)
+    g = g / n
+    cols, vals = _heavy_ell(dev, n, d, j, seed=3)
+    _, lse = mfx.gather_fwd_cuda(cols, vals, w, bb, y, b)
+    pieces = (mfx.gather_dlogits_cuda, mfx.gather_column_order_cuda,
+              mfx.gather_dw_cuda)
+    before = [fn.launches for fn in pieces]
+    dlogits, keys, _ = mfx.gather_dlogits_cuda(cols, vals, w, bb, y, lse, g, b)
+    torch.testing.assert_close(dlogits, mfx.gather_dlogits_plain(
+        cols, vals, w, bb, y, lse, g, b), rtol=1e-5, atol=1e-6)
+    colptr, rows, tvals = mfx.gather_column_order_cuda(keys, vals, d)
+    want = mfx.gather_column_order_plain(cols, vals, d)
+    m = int(want[0][-1])
+    assert torch.equal(colptr, want[0])
+    assert torch.equal(rows[:m], want[1]) and torch.equal(tvals[:m], want[2])
+    dw = mfx.gather_dw_cuda(colptr, rows, tvals, dlogits)
+    want_dw = mfx.gather_dw_plain(want[0], want[1], want[2].double(),
+                                  dlogits.double())[0]
+    torch.testing.assert_close(dw, want_dw.float(), rtol=1e-5, atol=1e-6)
+    assert [fn.launches for fn in pieces] == [k + 1 for k in before]
+
+
+def test_gather_backward_untouched_rows_are_zero_on_nan_memory(dev):
+    """dW comes from torch.empty: rows the batch does not touch read
+    exactly 0 even when the allocator hands back memory just filled with
+    NaN, and the touched rows are finite."""
+    n, d, r, b, j = 16, 6000, 25, 32, 600
+    w, bb, y, g = _xent_case(dev, n, d, r, b, True, seed=5)
+    cols, vals = _ell(dev, n, d, j, seed=5)
+    _, lse = mfx.gather_fwd_cuda(cols, vals, w, bb, y, b)
+    junk = torch.full((d, r * b), float("nan"), device=dev)
+    junk_ptr = junk.data_ptr()
+    del junk
+    dw, db = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
+    assert dw.data_ptr() == junk_ptr      # the NaN block came back as dW
+    touched = torch.zeros(d, dtype=torch.bool, device=dev)
+    touched[cols[cols < d].long()] = True
+    assert torch.equal(dw[~touched], torch.zeros_like(dw[~touched]))
+    assert bool(torch.isfinite(dw[touched]).all()) and bool(touched.any())
+    assert bool(torch.isfinite(db).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [(1, 4096, 2560), (2, 4096, 2560),
+                                   (2, 4097, 2570), (3, 37, 300),
+                                   (4, 1, 2560), (2, 130, 301)])
+def test_lru_scan_forward_and_backward_bit_for_bit(dev, b, t, d, dtype):
+    """Kernel 9 at the prefill's and training's shapes, ragged T and D
+    (every copy unit of ``scan_layout``: 16 bytes at D = 2560, 4 at 2570 in
+    float32 and 300 in bf16, 2 at D = 301 in bf16) and a decode step:
+    forward and backward equal their plain loops bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.5 + 0.5).to(dtype)
+    x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    h0 = torch.randn((b, d), generator=gen, device=dev)
+    dh = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    h = ls.lru_scan_cuda(a, x, h0)
+    assert torch.equal(h, ls.lru_scan_plain(a, x, h0))
+    got = ls.lru_scan_bwd_cuda(a, h, h0, dh)
+    for gv, wv in zip(got, ls.lru_scan_bwd_plain(a, h, h0, dh)):
+        assert gv.dtype == wv.dtype and torch.equal(gv, wv)
 
 
 def test_fused_xent_wrappers_reject_bad_operands(dev):

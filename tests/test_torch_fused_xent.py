@@ -8,8 +8,14 @@ Same numpy inputs to both; loss and gradients agree at rtol 1e-5 (atol
 1e-6 for gradient entries near zero: f32 sums in another order).  Cases
 mirror the JAX suite's: bias and none, a head wider than a kernel tile,
 B not a multiple of 32, duplicate ids, ragged and empty rows, nnz on
-both sides of GATHER_NNZ_THRESHOLD.
+both sides of GATHER_NNZ_THRESHOLD.  The gather family's backward is
+also held step by step: its column order (the batch's pairs for each
+feature in (row, slot) order) against a numpy walk, exactly, and the dW
+and dbias it sums from the dlogits against ``jax.grad``.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -362,3 +368,93 @@ def test_dense_float16_and_mixed_dtypes_raise(dtypes):
     bias = None if bd is None else bb.to(bd)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.mach_fused_xent(h.to(hd), w.to(wd), y, num_buckets=4, bias=bias)
+
+
+# ---------------------------------------------------------------------------
+# the gather family's backward in its kernel's three steps (plain versions,
+# which its CPU path runs): dlogits, the batch in column order, dW row by
+# row from the dlogits
+# ---------------------------------------------------------------------------
+
+def _column_walk(cols, vals, d):
+    """Numpy: for each feature f in turn, its (row, val) pairs in
+    ascending (row, slot) order; ids outside [0, d) dropped."""
+    colptr, rows, out = [0], [], []
+    for f in range(d):
+        for n in range(cols.shape[0]):
+            for t in range(cols.shape[1]):
+                if cols[n, t] == f:
+                    rows.append(n)
+                    out.append(vals[n, t])
+        colptr.append(len(rows))
+    return (np.array(colptr, np.int32), np.array(rows, np.int32),
+            np.array(out, np.float32))
+
+
+@pytest.mark.parametrize("n,d,j", [(7, 12, 9), (5, 40, 30), (1, 3, 4)])
+def test_column_order_matches_a_numpy_walk(n, d, j):
+    """Duplicate ids in a row, ragged and empty rows, padding (id d, and
+    a negative id), a column touched by every row and columns by one."""
+    rng = np.random.default_rng(n * d + j)
+    cols = rng.integers(0, d, size=(n, j)).astype(np.int32)
+    vals = rng.uniform(0.05, 1.0, size=(n, j)).astype(np.float32)
+    lengths = rng.integers(0, j + 1, size=n)
+    lengths[0] = j
+    if n > 2:
+        lengths[1], lengths[2] = 0, 1
+    cols[:, 0] = 0                                 # touched by every row
+    cols[0, 1:3] = cols[0, 0]                      # duplicates in row 0
+    pad = np.arange(j)[None, :] >= lengths[:, None]
+    cols[pad], vals[pad] = d, 0.0
+    if n > 3:
+        cols[3, 0] = -1                            # outside [0, d): padding
+    colptr, rows, tvals = mfx.gather_column_order_plain(*_t(cols, vals), d)
+    want = _column_walk(cols, vals, d)
+    np.testing.assert_array_equal(colptr.numpy(), want[0])
+    np.testing.assert_array_equal(rows.numpy(), want[1])
+    np.testing.assert_array_equal(tvals.numpy(), want[2])
+    assert colptr.dtype == rows.dtype == torch.int32
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("nnz_max", [mfx.GATHER_NNZ_THRESHOLD - 488,
+                                     mfx.GATHER_NNZ_THRESHOLD + 88])
+def test_column_ordered_dw_matches_jax_grad(nnz_max, bias):
+    """dW and dbias from the dlogits through the column order, against
+    jax.grad of the JAX oracle on the same numpy inputs, for nnz on both
+    sides of GATHER_NNZ_THRESHOLD; and gather_bwd_plain, which composes
+    the three steps, returns the same."""
+    n, d, r, b = 9, 700, 3, 37
+    rng = np.random.default_rng(nnz_max + int(bias))
+    indptr, indices, values = _csr(rng, n, d, nnz_max)
+    w, bb = _head(rng, d, r, b, bias)
+    y = _labels(rng, n, r, b)
+    g = rng.uniform(0.5, 1.5, size=(n,)).astype(np.float32)
+    jip, jix, jv, jw, jb = _j(indptr, indices, values, w, bb)
+
+    def jloss(w_, b_):
+        return jnp.sum(jref.mach_fused_xent_csr_ref(
+            jip, jix, jv, w_, jnp.asarray(y), b, b_) * g)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1) if bias else (0,))(jw, jb)
+    tip, tix, tv, tw, tb = _t(indptr, indices, values, w, bb)
+    cols, vals = ops.csr_to_ell(tip, tix, tv, nnz_max, d)
+    ty, tg = torch.from_numpy(y), torch.from_numpy(g)
+    _, lse = mfx.fused_xent_ell_plain(cols, vals, tw, tb, ty, b)
+    dlogits = mfx.gather_dlogits_plain(cols, vals, tw, tb, ty, lse, tg, b)
+    dw, db = mfx.gather_dw_plain(*mfx.gather_column_order_plain(cols, vals, d),
+                                 dlogits)
+    _close(dw, jgrads[0])
+    if bias:
+        _close(db, jgrads[1])
+    composed = mfx.gather_bwd_plain(cols, vals, tw, tb, ty, lse, tg, b)
+    assert torch.equal(composed[0], dw)
+    assert (composed[1] is None) == (not bias)
+
+
+def test_python_constants_match_csrc():
+    """The gather wrapper sizes its heavy-row list from kHeavyTerms."""
+    src = (Path(mfx.__file__).resolve().parent / "csrc"
+           / "mach_fused_xent_gather.cu").read_text()
+    want = int(re.search(r"constexpr int kHeavyTerms = (\d+);", src).group(1))
+    assert mfx._HEAVY_TERMS == want

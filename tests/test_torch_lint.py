@@ -67,12 +67,18 @@ def test_kernel_sources_present_and_hashed():
     assert _build.library_path("mach_decode") != _build.library_path("mach_topk")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # the three fused-xent families: one source each, a forward and a
-    # backward launch function each, and the shared epilogue header
+    # backward launch function each (the gather backward in three: its
+    # dlogits, the column order after a sort, dW), and the shared
+    # epilogue header
+    backward = {family: [f"fused_xent_{family}_bwd_launch"]
+                for family in ("dense", "ell")}
+    backward["gather"] = [f"fused_xent_gather_{step}_launch"
+                          for step in ("dlogits", "order", "dw")]
     for family in ("dense", "ell", "gather"):
         name = f"mach_fused_xent_{family}"
         assert name in _build.SOURCES
         assert set(_build.SIGNATURES[name]) == {
-            f"fused_xent_{family}_fwd_launch", f"fused_xent_{family}_bwd_launch"}
+            f"fused_xent_{family}_fwd_launch", *backward[family]}
         source = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "mach_xent_common.cuh"' in source
         for fn in _build.SIGNATURES[name]:

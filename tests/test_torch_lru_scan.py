@@ -14,9 +14,17 @@ the JAX oracle (JAX does not differentiate the TPU kernel: it has no
 backward, and ``pallas_call``'s JVP refuses its scratch) at rtol 1e-5 (atol
 1e-5 of the largest entry, for entries that cancel), and against
 ``torch.autograd`` through the plain forward loop, bit for bit.
+
+The kernels' launch (``scan_layout``: copy unit, stage length, ring
+depth) is held at the prefill, training, decode and ragged shapes, and
+the wrapper's copies of ``csrc/lru_ring.cuh``'s constants against the
+source; the kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 
+import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -141,3 +149,88 @@ def test_backward_keeps_dtypes():
     h.float().sum().backward()
     assert [z.grad.dtype for z in leaves] == [torch.bfloat16, torch.bfloat16,
                                               torch.float32]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch (scan_layout) and the wrapper's copies of csrc
+# constants, read against csrc/lru_ring.cuh
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+# an H100 SXM: 132 SMs, 228 KB of shared memory each, 1 KB of it held
+# back for each block
+H100 = ls.Card(sms=132, smem_per_sm=233472, block_reserved=1024)
+
+# (b, t, d, dtype, aligned, backward) -> (unit, steps_f32, stages) on an
+# H100
+LAYOUTS = {
+    (1, 4096, 2560, F32, 16, False): (16, 32, 24),   # prefill
+    (1, 4096, 2560, F32, 16, True): (16, 32, 18),
+    (2, 4096, 2560, F32, 16, False): (16, 16, 24),   # training
+    (2, 4096, 2560, F32, 16, True): (16, 16, 24),
+    (4, 1, 2560, F32, 16, False): (16, 16, 1),       # decode
+    (4, 1, 2560, F32, 16, True): (16, 16, 1),
+    (2, 4097, 2570, F32, 16, False): (4, 16, 24),    # ragged
+    (2, 4097, 2570, BF16, 16, True): (4, 16, 24),
+    (3, 37, 300, F32, 16, False): (16, 32, 2),
+    (3, 37, 300, BF16, 16, False): (4, 32, 1),
+    (2, 130, 301, BF16, 16, True): (2, 32, 3),       # odd D
+    (1, 100, 2560, BF16, 4, False): (4, 32, 2),      # pointers
+    (1, 100, 2560, BF16, 2, False): (2, 32, 2),
+    (1, 100, 2560, F32, 4, True): (4, 32, 4),
+}
+
+
+@pytest.mark.parametrize("key", sorted(LAYOUTS, key=str), ids=str)
+def test_scan_layout(key):
+    b, t, d, dtype, aligned, backward = key
+    lay = ls.scan_layout(b, t, d, dtype, backward, aligned, H100)
+    assert (lay.unit, lay.steps_f32, lay.stages) == LAYOUTS[key]
+    # csrc launch_groups: ns slots of NOPS operands' S steps, behind the
+    # barriers; with more than 2 slots the SM's groups fit side by side
+    steps = lay.steps_f32 * 4 // dtype.itemsize
+    slot = (3 if backward else 2) * steps * ls.CHANNELS * dtype.itemsize
+    smem = lay.stages * slot + 16 * -(-24 * lay.stages // 16)
+    per_sm = -(-b * -(-d // ls.CHANNELS) // H100.sms)
+    if lay.stages > 2:
+        assert per_sm * (smem + H100.block_reserved) <= H100.smem_per_sm
+
+
+def test_scan_layout_every_unit_divides_the_row():
+    """A copy unit holds whole elements and a row of d elements whole
+    units, at every d and alignment."""
+    for dtype in (F32, BF16):
+        esize = dtype.itemsize
+        for d in range(1, 70):
+            for aligned in (2, 4, 16) if dtype == BF16 else (4, 16):
+                unit = ls.scan_layout(1, 5, d, dtype, False, aligned,
+                                      H100).unit
+                assert unit >= esize and (d * esize) % unit == 0
+                assert aligned % unit == 0
+
+
+CSRC = Path(ls.__file__).resolve().parent / "csrc" / "lru_ring.cuh"
+
+
+def _constexpr(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         CSRC.read_text()).group(1))
+
+
+@pytest.mark.parametrize("python,name", [
+    (ls.CHANNELS, "kChannels"), (ls.STEPS_LONG, "kStepsLong"),
+    (ls.STEPS_SHORT, "kStepsShort"), (ls.MAX_STAGES, "kMaxStages")], ids=str)
+def test_python_constants_match_csrc(python, name):
+    assert python == _constexpr(name)
+
+
+def test_python_units_and_barrier_bytes_match_csrc():
+    text = CSRC.read_text()
+    body = re.search(r"enum Unit : int \{([^}]+)\}", text).group(1)
+    units = [int(item.split("=")[1]) for item in body.split(",")]
+    assert tuple(units) == ls.UNITS
+    assert "return (3 * 8 * ns + 15) / 16 * 16;" in text
+    for ns in range(1, ls.MAX_STAGES + 1):
+        assert ls._barrier_bytes(ns) == (3 * 8 * ns + 15) // 16 * 16
