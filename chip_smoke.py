@@ -16,9 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    for N in {256, 64, 37, 33, 31, 1}, so that both of its mappings (query
    per lane from N = 32, class per thread below) and the threshold
    between them run, and on rows whose maximum two classes in different
-   K-splits share (the lowest id must win); then the top-1 and streaming
-   top-k kernels against their plain PyTorch versions — table and inline
-   hashing, the
+   K-splits share (the lowest id must win); then kernel 2 (streaming
+   top-k) the same way at k in {1, 10, 32, 33, 100} and the three
+   estimators (R = 25 is no multiple of the lane mapping's 4-repetition
+   gather chunk, so min and median read its +inf pad row), each of its
+   two mappings counted as launched (query per lane where N >= 32 and
+   next_pow2(k) <= 32, class per thread otherwise); then the top-1 and
+   streaming top-k kernels against their plain PyTorch versions — table
+   and inline hashing, the
    three estimators, k in {1, 10, 100}, the ODP shape (R=25, B=32), the
    ImageNet-21k shape (R=20, B=512, even-R median) and a tiny-B, tiny-R
    shape where classes collide in bulk, with ragged N and K.  Dyadic
@@ -29,11 +34,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    8,192} with m in {1, 2, 3, 12, 16, 32, 33, B-1, B} up to B, on dyadic,
    random, all-equal and signed-zero rows, every path of its wrapper
    counted as launched; the candidate filter (kernel 8) at
-   N <= 5, both hash sources, the three estimators, (m, t) in {(1, 1),
-   (2, 2), (B, R)} and a flat-random (1, R) that exercises the backfill
-   slot, k in {1, 10, 100}: values, bands and ids equal, dyadic and
-   random.  Shapes: ODP (R=25, B=32), ImageNet-21k (R=20, B=512), the
-   JAX gate (R=16, B=8192, K=1,048,576) and a tiny collide one (R=B=4).
+   N <= 5 and, at ODP, N in {1, 4, 37}, both hash sources, the three
+   estimators, (m, t) in {(1, 1), (2, 2), (B, R)} and a flat-random
+   (1, R) that exercises the backfill slot, k in {1, 10, 100}: values,
+   bands and ids equal, dyadic and random; every layout of
+   ``cand_layout`` (probabilities in shared or global memory, one or four
+   keys a lane) counted as launched.  Shapes: ODP (R=25, B=32),
+   ImageNet-21k (R=20, B=512), the JAX gate (R=16, B=8192, K=1,048,576)
+   and a tiny collide one (R=B=4).
 4. Main path at full ODP width: ``MACHLinear`` (K=105,033, d=422,713,
    B=32, R=25) with seeded random weights answers a 256-query CSR batch
    (nnz=120) through ``predict`` and ``estimators.predict_topk(k=10)``
@@ -42,8 +50,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    Then ms per answer, kernel ms, plain ms, the library yardstick — the
    float32 GEMM against the (R·B, K) multi-hot matrix, then ``torch.max``
    or ``torch.topk`` (the times over materialized sums kept apart, as a
-   labelled extra) — and peak memory; kernel 1 also with the table hash,
-   its layout and ptxas's registers and spills.
+   labelled extra) — and peak memory; kernels 1 and 2 also with the table
+   hash and by CUDA-graph replay, their layouts and ptxas's registers and
+   spills, and how often kernel 2's median ran its sorting network.
 4b. Candidate main path at full width: ODP (phase 4's model and batch)
    and ImageNet-21k (K=21,841, d=6,144, B=512, R=20, dense features,
    N=256) through ``estimators.predict_topk(candidate_mode=(m, t))`` for
@@ -56,8 +65,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel, plain, ``torch.topk`` and streaming-kernel times, bounds,
    peak memory, and the JAX gate shape (N=8, m=12, planted-signal
    batch): candidate kernels vs the plain streaming top-k, recall@10.
-   Kernel 7 is timed in each setting beside ``torch.topk``, and at the LM
-   engine's (2048, 8) and (16, 2) and the gate's shape.
+   Kernel 8 is timed by CUDA events and by CUDA-graph replay in every
+   setting (its layout and ptxas's registers and spills printed), and at
+   the LM engine's (2048, 8) and (16, 2) on its 4-slot pool (checked
+   against the plain version there too); kernel 7 in each setting beside
+   ``torch.topk``, and at the LM engine's settings and the gate's shape.
 5. Fused-xent kernels vs plain on the card, forward and backward: the
    dense, ELL and gather families against their plain PyTorch versions
    (loss, lse, dW, dbias, dh) at the ODP shape (R=25, B=32), the
@@ -108,7 +120,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    block holds 3 queries and the last block 1): top-1 and top-k (k 1 and
    50, the three estimators) against their plain versions, dyadic inputs
    exactly, random ones as in phase 3; kernel 1's time there beside its
-   plain version and a sparse multi-hot product + ``torch.max``.
+   plain version and a sparse multi-hot product + ``torch.max``, kernel
+   2's (k=50) beside it + ``torch.topk``.
 8. LM serving at full width: recurrentgemma-2b (26 layers, bf16, MACH
    head B=2048, R=8 over V=256,000) with seeded random weights on the
    card, served by ``ServingEngine`` (4 slots, max_len 4,160, top_k 50,
@@ -205,6 +218,12 @@ CAND_SHAPES = [("odp", 5, 25, 32, 105033), ("imagenet21k", 5, 20, 512, 21841),
 # kernel 1's two mappings at ODP's shape: N >= 32 query per lane (33 and 37
 # one ragged 64-query tile, 64 and 256 full ones), 31 and 1 class per thread
 TOP1_N = (256, 64, 37, 33, 31, 1)
+# kernel 2 at the same N: query per lane where N >= 32 and next_pow2(k) <=
+# 32 (lists of 1, 16 and 32 keys), class per thread at k = 33 and 100
+TOPK_K = (1, 10, 32, 33, 100)
+# kernel 8 at ODP beside CAND_SHAPES' N: one query, the LM engine's 4, and
+# a ragged 37
+CAND_N = (1, 4, 37)
 # kernel 7 checks on 37 queries x 3 repetitions: each B with each m of
 # TOPM_M up to B, and B - 1 and B, so every path of ``topm_layout`` runs
 # (select: m <= 32 above B = 1,024, and below where next_pow2(m) <=
@@ -269,7 +288,7 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-# how rows 1 and 7 of the kernel report are timed
+# how rows 1, 2, 7 and 8 of the kernel report are timed
 TIMING = ("ms, plain_ms and library_ms by kernel_ms (CUDA events around "
           "back-to-back calls, as every row); *_graph by graph_ms (device "
           "time, CUDA-graph replay)")
@@ -395,13 +414,82 @@ def _top1_mappings(dev) -> dict:
     return by_mapping
 
 
+def _topk_mappings(dev) -> dict:
+    """Kernel 2 vs plain at ODP's shape (R=25, B=32, K=105,033) for each N
+    of TOP1_N and k of TOPK_K, the three estimators (R = 25 is no multiple
+    of the 4-repetition gather chunk, so the lane mapping's pad row is
+    read), both hash sources, dyadic inputs exactly and random ones as
+    ``_check_same`` holds them; then rows whose best value two classes in
+    different K-splits share (256 rows in four 64-query tiles, and 31
+    rows class per thread): the lowest id must rank first.  Returns the
+    comparisons made in each mapping; both must run."""
+    from repro_torch.core.hashing import MultShiftFamily
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+
+    r, b, num_classes = 25, 32, 105033
+    fam = MultShiftFamily(b, r, seed=1)
+    table = fam.table(num_classes, dev)
+    hashes = {"table": {"table": table},
+              "inline": {"inline_coeffs": fam.coeffs_tensor(dev),
+                         "inline_shift": fam.shift}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_mapping = dict.fromkeys(md.MAPPINGS, 0)
+
+    def check(tag, meta, exact, est):
+        n = meta.shape[0]
+        scores = mt.estimator_scores(meta, table, est)
+        pv_all, pi_all = mt.mach_topk_plain(meta, table, num_classes=num_classes,
+                                            k=max(TOPK_K), estimator=est)
+        for k in TOPK_K:
+            mapping = mt.topk_layout(n, r, b, num_classes, k, sms).mapping
+            for mode, hash_kw in hashes.items():
+                before = mt.mach_topk_cuda.launches
+                kv, ki = mt.mach_topk_cuda(meta, num_classes=num_classes, k=k,
+                                           estimator=est, **hash_kw)
+                torch.cuda.synchronize()
+                if mt.mach_topk_cuda.launches != before + 1:
+                    fail("mach_topk_cuda did not count its launch")
+                _check_same(f"topk odp n={n} {est} k={k} {tag} {mode} "
+                            f"({mapping})", kv, ki, pv_all[:, :k],
+                            pi_all[:, :k], scores, exact)
+                by_mapping[mapping] += 1
+        return pi_all
+
+    for n in TOP1_N:
+        for dyadic in (True, False):
+            meta = _inputs(n, r, b, dyadic, seed=n + 1, dev=dev)
+            for est in ESTIMATORS:
+                check("dyadic" if dyadic else "random", meta, dyadic, est)
+    reps = torch.arange(r, device=dev)[None, :]
+    for n in (256, 31):
+        q = torch.arange(n, device=dev)
+        low = 1000 + 211 * q                     # early K-splits
+        high = num_classes - 1 - 97 * q          # the last ones
+        meta = torch.zeros((n, r, b), device=dev)
+        for k in (low, high):
+            meta[q[:, None], reps, table[:, k].T.long()] = 0.5
+        for est in ESTIMATORS:
+            pi = check("tied across K-splits", meta, True, est).long()
+            if not torch.equal(pi[:, :2], torch.stack([low, high], 1)):
+                fail(f"topk {est} n={n}: the tie does not go to the lowest "
+                     f"class id")
+    for mapping, count in by_mapping.items():
+        if count < 1:
+            fail(f"topk mapping {mapping} never ran")
+    print(f"topk mappings vs plain at odp, N in {TOP1_N}, k in {TOPK_K} and "
+          f"two tie batches: {by_mapping} comparisons ok", flush=True)
+    return by_mapping
+
+
 def phase_kernels_vs_plain(dev) -> tuple[int, dict]:
     from repro_torch.core.hashing import MultShiftFamily
     from repro_torch.kernels import mach_decode as md
     from repro_torch.kernels import mach_topk as mt
 
-    by_mapping = _top1_mappings(dev)
-    checked = sum(by_mapping.values())
+    mappings = {"mach_decode": _top1_mappings(dev),
+                "mach_topk": _topk_mappings(dev)}
+    checked = sum(sum(m.values()) for m in mappings.values())
     for label, n, r, b, num_classes in CHECK_SHAPES:
         fam = MultShiftFamily(b, r, seed=1)
         table = fam.table(num_classes, dev)
@@ -433,7 +521,7 @@ def phase_kernels_vs_plain(dev) -> tuple[int, dict]:
                         checked += 1
         print(f"kernels vs plain: {label} (N={n}, R={r}, B={b}, K={num_classes})"
               f" ok", flush=True)
-    return checked, by_mapping
+    return checked, mappings
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +612,11 @@ def phase_candidates_vs_plain(dev) -> dict:
 
     stats = {"mach_candidate_topk": 0, "max_abs_err": 0.0, "backfill_rows": 0}
     stats.update(_topm_sweep(dev))
-    for label, n, r, b, num_classes in CAND_SHAPES:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # kernel 8's layouts run: (probabilities in shared memory, keys a lane)
+    by_layout = {(smem, keys): 0 for smem in (True, False) for keys in (1, 4)}
+    shapes = CAND_SHAPES + [("odp", n, 25, 32, 105033) for n in CAND_N]
+    for label, n, r, b, num_classes in shapes:
         fam = MultShiftFamily(b, r, seed=1)
         table = fam.table(num_classes, dev)
         inv = inverted_table(table, b, device=dev)
@@ -545,10 +637,17 @@ def phase_candidates_vs_plain(dev) -> dict:
                         if (m, t) == (1, r):
                             stats["backfill_rows"] += int((want[1][:, 0] == 1).sum())
                         for k in (1, 10, 100):
+                            lay = mc.cand_layout(n, r, b, m, inv.shape[1], k,
+                                                 sms)
+                            before = mc.mach_candidate_topk_cuda.launches
                             got = mc.mach_candidate_topk_cuda(
                                 meta, tau, ids, inv, num_classes=num_classes,
                                 k=k, t=t, estimator=est, **hash_kw)
                             torch.cuda.synchronize()
+                            if mc.mach_candidate_topk_cuda.launches != before + 1:
+                                fail("mach_candidate_topk_cuda did not count "
+                                     "its launch")
+                            by_layout[lay.smem_probs, lay.lane_keys] += 1
                             err = _check_candidates(
                                 f"candidates {label} {kind} {mode} {est} m={m} "
                                 f"t={t} k={k}", got, [x[:, :k] for x in want])
@@ -558,6 +657,16 @@ def phase_candidates_vs_plain(dev) -> dict:
               f"K={num_classes}, L={inv.shape[1]}) ok", flush=True)
     if stats["backfill_rows"] < 1:
         fail("no flat-random row exercised the backfill slot")
+    for (smem, keys), count in by_layout.items():
+        if count < 1:
+            fail(f"kernel 8's layout (probabilities in "
+                 f"{'shared' if smem else 'global'} memory, {keys} keys a "
+                 f"lane) never ran")
+    stats["cand_by_layout"] = {
+        f"{'shared' if smem else 'global'} probabilities, {keys} "
+        f"key{'s' if keys > 1 else ''} a lane": count
+        for (smem, keys), count in by_layout.items()}
+    print(f"kernel 8 layouts run: {stats['cand_by_layout']}", flush=True)
     return stats
 
 
@@ -698,17 +807,30 @@ def phase_main_path(dev) -> list[dict]:
         "layout": md.decode_layout(N_MAIN, R, B, K, sms)._asdict(),
         "ptxas": _ptxas_registers(_build.build_log("mach_decode")),
     })
-    ms_est, plain_est = {}, {}
+    ms_est, graph_est, plain_est = {}, {}, {}
     for e in ESTIMATORS:
         ms_est[e] = kernel_ms(lambda e=e: mt.mach_topk_cuda(
+            meta, table, num_classes=K, k=K_MAIN, estimator=e))
+        graph_est[e] = graph_ms(lambda e=e: mt.mach_topk_cuda(
             meta, table, num_classes=K, k=K_MAIN, estimator=e))
         plain_est[e] = kernel_ms(lambda e=e: mt.mach_topk_plain(
             meta, table, num_classes=K, k=K_MAIN, estimator=e), iters=5)
     ms_inline = kernel_ms(lambda: mt.mach_topk_cuda(
         meta, num_classes=K, k=K_MAIN, inline_coeffs=coeffs,
         inline_shift=shift))
+    graph_inline = graph_ms(lambda: mt.mach_topk_cuda(
+        meta, num_classes=K, k=K_MAIN, inline_coeffs=coeffs,
+        inline_shift=shift))
     ms_k100 = kernel_ms(lambda: mt.mach_topk_cuda(
         meta, table, num_classes=K, k=100))
+    topk_layout = mt.topk_layout(N_MAIN, R, B, K, K_MAIN, sms)
+    # how often the query-per-lane median ran its sorting network: runs
+    # over (warp, class, query slot) steps, one per class, tile and slot
+    runs = torch.zeros(1, dtype=torch.int64, device=dev)
+    mt.mach_topk_cuda(meta, table, num_classes=K, k=K_MAIN,
+                      estimator="median", network_runs=runs)
+    steps = -(-N_MAIN // topk_layout.queries) * K * (topk_layout.queries // 32)
+    network_share = int(runs) / steps
     t_bound, by = bound_ms(N_MAIN, R, B, K, K_MAIN, table=True)
     rows.append({
         "name": "mach_topk", "route": "cuda",
@@ -724,8 +846,15 @@ def phase_main_path(dev) -> list[dict]:
         "library_ms_materialized": kernel_ms(
             lambda: torch.topk(sums, K_MAIN, dim=-1)),
         "shape": f"N={N_MAIN} R={R} B={B} K={K} k={K_MAIN} table hash, unbiased",
-        "ms_by_estimator": ms_est, "plain_ms_by_estimator": plain_est,
-        "ms_unbiased_inline": ms_inline, "ms_unbiased_k100": ms_k100,
+        "timing": TIMING,
+        "ms_graph": graph_est["unbiased"],
+        "ms_by_estimator": ms_est, "ms_graph_by_estimator": graph_est,
+        "plain_ms_by_estimator": plain_est,
+        "ms_unbiased_inline": ms_inline,
+        "ms_graph_unbiased_inline": graph_inline, "ms_unbiased_k100": ms_k100,
+        "layout": topk_layout._asdict(),
+        "median_network_share": network_share,
+        "ptxas": _ptxas_registers(_build.build_log("mach_topk"), "topk_lane"),
     })
     gemm_ms = kernel_ms(lambda: meta2d @ multihot)
     del multihot
@@ -743,10 +872,13 @@ def phase_main_path(dev) -> list[dict]:
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), launches "
               f"{row['launches']} [{smi}]", flush=True)
     print(f"kernel mach_topk by estimator (k={K_MAIN}, table): "
-          + ", ".join(f"{e} {ms_est[e]:.4f} ms (plain {plain_est[e]:.4f})"
-                      for e in ESTIMATORS)
-          + f"; unbiased inline {ms_inline:.4f} ms; unbiased k=100 "
-            f"{ms_k100:.4f} ms [{smi}]", flush=True)
+          + ", ".join(f"{e} {ms_est[e]:.4f} ms (graph {graph_est[e]:.4f}, "
+                      f"plain {plain_est[e]:.4f})" for e in ESTIMATORS)
+          + f"; unbiased inline {ms_inline:.4f} ms (graph {graph_inline:.4f})"
+            f"; unbiased k=100 {ms_k100:.4f} ms; layout "
+            f"{topk_layout._asdict()}; the median ran its sorting network "
+            f"on {network_share:.4f} of its (warp, class, query slot) steps; "
+            f"ptxas {rows[1]['ptxas']} [{smi}]", flush=True)
     print(f"yardstick: the multi-hot f32 GEMM alone {gemm_ms:.4f} ms [{smi}]",
           flush=True)
     return rows, {"head": head, "params": params, "batch": batch,
@@ -995,16 +1127,26 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
                 tau, ids = mc.bucket_topm_cuda(meta, m)
                 kw = {"num_classes": K, "k": K_MAIN, "t": t, "estimator": e}
                 fam = ctx["head"].cfg.family
+                inline_kw = {"inline_coeffs": fam.coeffs_tensor(dev),
+                             "inline_shift": fam.shift}
                 row = {
                     "m": m, "t": t,
                     "ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
                         meta, tau, ids, inv, table, **kw), iters=5, warmup=1),
+                    "ms_graph": graph_ms(lambda: mc.mach_candidate_topk_cuda(
+                        meta, tau, ids, inv, table, **kw), iters=5),
                     # the same work with the hash recomputed in-register
                     # instead of read from the (R, K) table
                     "inline_ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
-                        meta, tau, ids, inv, **kw,
-                        inline_coeffs=fam.coeffs_tensor(dev),
-                        inline_shift=fam.shift), iters=5, warmup=1),
+                        meta, tau, ids, inv, **kw, **inline_kw), iters=5,
+                        warmup=1),
+                    "inline_ms_graph": graph_ms(
+                        lambda: mc.mach_candidate_topk_cuda(
+                            meta, tau, ids, inv, **kw, **inline_kw), iters=5),
+                    "layout": mc.cand_layout(
+                        N_MAIN, R, B, m, inv.shape[1], K_MAIN,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)._asdict(),
                     "plain_ms": kernel_ms(lambda: mc.mach_candidate_topk_plain(
                         meta, tau, ids, inv, table, **kw), iters=2, warmup=1),
                     "streaming_ms": kernel_ms(lambda: mt.mach_topk_cuda(
@@ -1029,8 +1171,10 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
                                       K_MAIN, K, row["gathers"])
                 by_setting[f"{name} {setting} {e}"] = row
                 print(f"kernel mach_candidate_topk {name} {e} (m, t)=({m}, {t})"
-                      f": {row['ms']:.4f} ms (inline hash {row['inline_ms']:.4f}"
-                      f"), plain {row['plain_ms']:.4f} ms, "
+                      f": {row['ms']:.4f} ms (graph {row['ms_graph']:.4f}; "
+                      f"inline hash {row['inline_ms']:.4f}, graph "
+                      f"{row['inline_ms_graph']:.4f}; layout "
+                      f"{row['layout']}), plain {row['plain_ms']:.4f} ms, "
                       f"library: none (no single PyTorch call computes the "
                       f"filter), streaming kernel 2 {row['streaming_ms']:.4f} "
                       f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
@@ -1086,15 +1230,68 @@ def phase_candidate_main_path(dev, odp: dict, checks: dict) -> list[dict]:
         "gathers": primary["gathers"],
         "library_ms": None, "streaming_ms": primary["streaming_ms"],
         "shape": shape,
-        "ms_by_setting": {key: {f: v[f] for f in ("m", "t", "ms", "inline_ms",
-                                                   "plain_ms", "streaming_ms",
-                                                   "gathers", "bound_ms",
-                                                   "bound_by")}
-                          for key, v in by_setting.items()},
+        "ms_graph": primary["ms_graph"], "timing": TIMING,
+        "ms_by_setting": {key: {f: v[f] for f in (
+            "m", "t", "ms", "ms_graph", "inline_ms", "inline_ms_graph",
+            "layout", "plain_ms", "streaming_ms", "gathers", "bound_ms",
+            "bound_by")} for key, v in by_setting.items()},
+        "ms_lm_engine": _cand_lm_timed(dev),
         "answer_ms": {" ".join(key): v for key, v in timings.items()},
         "peak_gib": peak_gib, "gate": gate,
+        "checks_by_layout": checks["cand_by_layout"],
+        "ptxas": _ptxas_registers(_build.build_log("mach_candidates"),
+                                  "cand_"),
     }]
     return rows
+
+
+def _cand_lm_timed(dev) -> dict:
+    """Kernel 8 at the LM engine's candidate settings, (2048, 8) (exact)
+    and (16, 2), on its 4-slot pool (N=4, R=8, B=2,048, K=256,000, the
+    model's inline hash, k=50), unbiased, on random softmax rows: events
+    and graph replay, the plain version and the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hashing import inverted_table
+    from repro_torch.kernels import mach_candidates as mc
+
+    mach = get_config("recurrentgemma-2b").mach
+    fam = mach.family
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    inv = inverted_table(fam.table_np(num_classes), b, device=dev)
+    hash_kw = {"inline_coeffs": fam.coeffs_tensor(dev),
+               "inline_shift": fam.shift}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = _nvidia_smi()
+    out = {}
+    for m, t in ((b, r), LM_CAND_APPROX):
+        meta = _inputs(LM_SLOTS, r, b, False, seed=m, dev=dev)
+        tau, ids = mc.bucket_topm(meta, m)
+        kw = {"num_classes": num_classes, "k": LM_TOP_K, "t": t, **hash_kw}
+        row = {"ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
+                   meta, tau, ids, inv, **kw)),
+               "ms_graph": graph_ms(lambda: mc.mach_candidate_topk_cuda(
+                   meta, tau, ids, inv, **kw)),
+               "plain_ms": kernel_ms(lambda: mc.mach_candidate_topk_plain(
+                   meta, tau, ids, inv, **kw), iters=2, warmup=1),
+               "gathers": mc.pool_gathers(meta, tau, ids, inv,
+                                          num_classes=num_classes, **hash_kw),
+               "layout": mc.cand_layout(LM_SLOTS, r, b, m, inv.shape[1],
+                                        LM_TOP_K, sms)._asdict()}
+        (row["bound_ms"], row["bound_by"]), _ = _candidate_bounds(
+            meta, ids, inv, None, LM_SLOTS, r, b, LM_TOP_K, num_classes,
+            row["gathers"])
+        got = mc.mach_candidate_topk_cuda(meta, tau, ids, inv, **kw)
+        want = mc.mach_candidate_topk_plain(meta, tau, ids, inv, **kw)
+        torch.cuda.synchronize()
+        _check_candidates(f"candidates lm ({m}, {t})", got, want)
+        out[f"({m}, {t})"] = row
+        print(f"kernel mach_candidate_topk at the LM engine ({m}, {t}), "
+              f"N={LM_SLOTS} R={r} B={b} K={num_classes} k={LM_TOP_K} inline "
+              f"hash: {row['ms']:.4f} ms (graph {row['ms_graph']:.4f}), plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}; {row['gathers']} gathers); layout "
+              f"{row['layout']} [{smi}]", flush=True)
+    return out
 
 
 def phase_candidate_gate(dev) -> dict:
@@ -1137,6 +1334,8 @@ def phase_candidate_gate(dev) -> dict:
         row = {"t": t,
                "ms": kernel_ms(lambda: mc.mach_candidate_topk_cuda(
                    meta, tau, ids, inv, **kw, **hash_kw), iters=10),
+               "ms_graph": graph_ms(lambda: mc.mach_candidate_topk_cuda(
+                   meta, tau, ids, inv, **kw, **hash_kw), iters=10),
                "decode_ms": kernel_ms(lambda: cand(meta), iters=10),
                "plain_streaming_ms": kernel_ms(lambda: stream(meta), iters=3),
                "recall_at_k": _recall(cand(meta)[1], stream(meta)[1]),
@@ -1146,7 +1345,8 @@ def phase_candidate_gate(dev) -> dict:
             meta, ids, inv, None, g["N"], g["R"], g["B"], g["k"], g["K"],
             res["gathers"])
         res[e] = row
-        print(f"gate {res['shape']} {e} t={t}: kernel 8 {row['ms']:.4f} ms, "
+        print(f"gate {res['shape']} {e} t={t}: kernel 8 {row['ms']:.4f} ms "
+              f"(graph {row['ms_graph']:.4f}), "
               f"candidate decode (kernels 7 + 8 + decode) {row['decode_ms']:.4f}"
               f" ms vs plain streaming top-k {row['plain_streaming_ms']:.4f} ms "
               f"(the streaming kernel refuses R·B={g['R'] * g['B']}); bound "
@@ -1920,7 +2120,7 @@ def phase_lm_kernels_vs_plain(dev) -> dict:
         cases += 1
     head_cases, errs["lm_head"], head_ms = _lm_head_vs_plain(dev)
     return {"cases": cases, "head_cases": head_cases, "errs": errs,
-            "lm_head_top1": head_ms}
+            "lm_head_top1": head_ms, "lm_head_topk": _lm_head_topk_times(dev)}
 
 
 def _lm_head_vs_plain(dev) -> tuple[int, float]:
@@ -2003,6 +2203,50 @@ def _lm_head_top1_times(dev, table, hash_kw, b) -> dict:
               f"(graph {row['library_ms_graph']:.4f}; torch.max over a "
               f"sparse multi-hot product) [{smi}]",
               flush=True)
+    return out
+
+
+def _lm_head_topk_times(dev) -> dict:
+    """Kernel 2 at the LM head's shape and the engine's k (N in
+    LM_HEAD_N, k=50, inline hash, unbiased): kernel ms by events and graph
+    replay, plain ms and the library call, ``torch.topk`` over the sparse
+    multi-hot product (as ``_lm_head_top1_times``'s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mach_topk as mt
+
+    mach = get_config("recurrentgemma-2b").mach
+    fam = mach.family
+    r, b, k = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    table = fam.table(k, dev)
+    hash_kw = {"inline_coeffs": fam.coeffs_tensor(dev),
+               "inline_shift": fam.shift}
+    cols = (torch.arange(r, device=dev)[:, None] * b + table.long()).T
+    multihot = torch.sparse_csr_tensor(
+        torch.arange(0, k * r + 1, r, device=dev), cols.reshape(-1),
+        torch.ones(k * r, device=dev), size=(k, r * b))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = _nvidia_smi()
+    out = {}
+    for n in LM_HEAD_N:
+        meta = _inputs(n, r, b, False, seed=n, dev=dev)
+        meta2d_t = meta.reshape(n, r * b).T.contiguous()
+        kw = {"num_classes": k, "k": LM_TOP_K, **hash_kw}
+        row = {"mapping": mt.topk_layout(n, r, b, k, LM_TOP_K, sms).mapping,
+               "ms": kernel_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
+               "ms_graph": graph_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
+               "plain_ms": kernel_ms(lambda: mt.mach_topk_plain(meta, **kw),
+                                     iters=5),
+               "library_ms": kernel_ms(lambda: torch.topk(
+                   torch.sparse.mm(multihot, meta2d_t), LM_TOP_K, dim=0)),
+               "library_ms_graph": graph_ms(lambda: torch.topk(
+                   torch.sparse.mm(multihot, meta2d_t), LM_TOP_K, dim=0))}
+        out[f"N={n}"] = row
+        print(f"kernel mach_topk at the LM head (N={n}, R={r}, B={b}, K={k}, "
+              f"k={LM_TOP_K}, inline hash, {row['mapping']}): {row['ms']:.4f} "
+              f"ms (graph {row['ms_graph']:.4f}), plain {row['plain_ms']:.4f}, "
+              f"library {row['library_ms']:.4f} (graph "
+              f"{row['library_ms_graph']:.4f}; torch.topk over a sparse "
+              f"multi-hot product) [{smi}]", flush=True)
     return out
 
 
@@ -2944,7 +3188,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    checked, top1_mappings = phase_kernels_vs_plain(dev)
+    checked, mappings = phase_kernels_vs_plain(dev)
     print(f"kernels vs plain: {checked} comparisons ok in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2957,7 +3201,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows, odp = phase_main_path(dev)
-    rows[0]["checks_by_mapping"] = top1_mappings
+    for row in rows:
+        row["checks_by_mapping"] = mappings[row["name"]]
     t0 = time.perf_counter()
     rows += phase_candidate_main_path(dev, odp, cand_checks)
     print(f"candidate main path: ok in {time.perf_counter() - t0:.1f} s",
@@ -2988,8 +3233,8 @@ def main() -> int:
                 lm["launches_direct_loop"][row["name"]]
             row["max_abs_err_lm_head"] = max(lm_checks["errs"]["lm_head"],
                                              lm["head_err"])
-            if row["name"] == "mach_decode":
-                row["lm_head"] = lm_checks["lm_head_top1"]
+            row["lm_head"] = lm_checks["lm_head_top1" if row["name"] ==
+                                       "mach_decode" else "lm_head_topk"]
         if row["name"] in ("bucket_topm", "mach_candidate_topk"):
             row["launches_lm_serve_exact"] = \
                 lm["candidates"]["exact_launches"][row["name"]]

@@ -38,8 +38,8 @@ SIGNATURES = {
             [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]},
     "mach_topk": {
         "mach_topk_launch":
-            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P]},
+            [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _I, _P, _P, _P, _P, _P, _P]},
     "mach_candidates": {
         "bucket_topm_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         "mach_candidate_topk_launch":

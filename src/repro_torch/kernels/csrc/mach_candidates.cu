@@ -28,43 +28,64 @@
 //   block.
 // Rows are read with 16-byte loads wherever B % 4 == 0.
 //
-// Kernel 8, cand_partial_kernel + cand_merge_kernel, replaces
+// Kernel 8, cand_warp_kernel + cand_merge_kernel, replaces
 // ::mach_candidate_topk_pallas, which walked a sequential grid of chunks
 // per query, DMA-selected each chunk's inverted-table row by a
 // scalar-prefetched id, recomputed buckets with one-hot matmuls on the MXU
-// and merged into a running top-k held in VMEM across the grid.  Here blocks
-// run in no order: a block owns one query and every num_splits-th tile of
-// 256 pool entries (pool entry e = chunk e / L, slot e % L; chunk c is the
-// inverted row r0*B + ids[r0, c % m], r0 = c / m), so the work of a query
-// spreads evenly over its blocks whatever the chunk count (800 chunks at
-// ODP exact mode, 10,240 at ImageNet-21k).  A thread owns an entry: it reads
-// the class id from the inverted row (neighbouring threads, neighbouring
-// slots), then visits repetitions in order, hashing the class (inline
-// multiply-shift or a table read) and gathering g[r] from the query's R*B
-// probabilities — in shared memory when they fit, else from global memory,
-// where one query's row stays in L2 (512 KB at R=16, B=8192).  member[r] =
-// g[r] >= tau[r]; the entry is claimed iff the first member repetition is
-// r0, so an entry of chunk r0 stops at the first member repetition below r0
-// or at r0 itself if it is no member there (in exact mode every entry of a
-// chunk r0 >= 1 stops after one gather).  A claimed entry goes on to all R
-// values: their sum in r order (unbiased), min, or the median through the
-// register network of mach_common.cuh, and count >= t decides its band.
+// and merged into a running top-k held in VMEM across the grid.  The pool
+// of a query is its R*m chunks (chunk c is the inverted row r0*B + ids[r0,
+// c % m], r0 = c / m) of L entries each.  member[r] = g[r] >= tau[r] with
+// g[r] the query's probability in class cls's bucket h_r(cls); an entry of
+// chunk r0 is claimed iff its first member repetition is r0, so a class is
+// claimed at most once.  A claimed entry's value: the sum of its R values
+// in r order from +0.0 (unbiased), their min (fminf), or their median
+// through the register network of mach_common.cuh (sorted_median); count
+// >= t decides its band.
 //
+// What bounds it on this card: the gathered values, one float operation
+// each (mach_candidates.py::pool_gathers counts what these inputs need: R
+// for a claimed entry, one per repetition up to the first member one for
+// the rest), the probabilities and inverted rows read, and the latency of
+// the chains of dependent gathers that the early stop makes.  The first
+// CUDA design gave a thread one entry per step, with two integer divisions
+// per entry, up to R dependent gathers, a shared-memory atomic and two
+// block barriers every 256 entries: about one gather a clock an SM.  So:
+// - a warp walks whole chunks of one query (chunks strided over the
+//   query's warps), so r0, the bucket id and the row pointer are
+//   warp-uniform and found once a chunk (no division per entry); a chunk's
+//   own repetition puts every entry in one bucket, so its test at r0 is
+//   one value for the whole chunk;
+// - a lane reads four entries of the row with one 16-byte load, two steps
+//   of rows in flight ahead of the one it scores, and runs the four
+//   entries' chains side by side: below r0 a gather is a test that may end
+//   the chain, above r0 (claimed entries only) the gathers are independent;
+// - where m = B, tau is each row's minimum, so every bucket of repetition 0
+//   is a member and only the chunks of repetition 0 can claim: the kernel
+//   checks each repetition for that (tau[j] at or below the row's minimum)
+//   and skips later repetitions' chunks whole, which leaves exact mode the
+//   streaming kernel's N*K*R gathers instead of (R-1)*B*L more tests;
+// - each warp keeps its running top kcap keys in registers (kcap/32 a lane,
+//   1 or 4), best first across the warp, and a warp-uniform threshold, the
+//   kcap-th key; a ballot after each step finds lanes with a key above it,
+//   and only then are those keys inserted, one at a time.  No block barrier
+//   and no atomic in the walk; at its end warp 0 folds the other warps'
+//   lists into its own by bitonic merges in registers;
+// - probabilities sit in shared memory when R*B fits (a block's walk is at
+//   least R*B entries, to pay for the copy), else in global memory, where
+//   one query's row stays in L2 (512 KB at R=16, B=8192);
+// - in table mode each gather also needs h_r(cls) from the table at a
+//   random class: the wrapper hands the kernel the table transposed, (K,
+//   R), so a class's bucket ids lie side by side (100 bytes at R = 25) and
+//   its chain's reads after the first hit L1, where the (R, K) rows cost
+//   an L2 sector a gather.
 // Keys are 64-bit: band (2 valid, 1 backfill, 0 dead) in bits 62-63, the
 // selection value made order-preserving in bits 30-61, and 2^30-1-class id
 // below, so one unsigned compare ranks (band, value descending, class id
 // ascending) and the result does not depend on the schedule.  Each block
-// keeps a threshold-filtered pool of keys in shared memory (slots [0, kcap)
-// the running top-kcap, bitonic-sorted when the rest could overflow), writes
-// its top-kcap to (N, num_splits, kcap) partials, and a merge kernel sorts
-// each query's num_splits * kcap keys (<= 4096) and decodes the best k into
-// (value, band, class id).  No (N, K) or (N, P) tensor exists.
-//
-// What bounds it on this card: the gathered values the early stop above
-// leaves (R per claimed entry, fewer for the rest of the P = R*m*L pool
-// entries; mach_candidates.py::pool_gathers counts them) at one float
-// operation each, against the bytes of the probabilities, the inverted rows
-// the batch touches and the outputs.
+// writes its top kcap to (N, num_splits, kcap) partials, and a merge kernel
+// sorts each query's num_splits * kcap keys (<= 4096) and decodes the best
+// k into (value, band, class id).  No (N, K) or (N, P) tensor exists.  The
+// grid and the probabilities' home come from mach_candidates.cand_layout.
 #include "mach_common.cuh"
 
 namespace mach {
@@ -75,8 +96,6 @@ constexpr unsigned kIdMask = (1u << kIdBits) - 1;
 
 enum Estimator : int { kUnbiased = 0, kMin = 1, kMedian = 2 };
 enum Band : int { kDead = 0, kBackfill = 1, kValid = 2 };
-
-using Key = unsigned long long;
 
 // ---------------------------------------------------------------------------
 // Kernel 7: bucket top-m.
@@ -106,36 +125,9 @@ __device__ __forceinline__ void sort_keys_desc(Key* key, int n) {
   }
 }
 
-// (value, bucket id) as one key, larger ranking first: the value's
-// order-preserving bits above (-0.0 folded into +0.0, which torch.sort
-// counts equal and orders by id), 2^32 - 1 - id below.  Every real key is
-// nonzero; pads are 0 and sort last.
-__device__ __forceinline__ Key topm_key(float v, int id) {
-  uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<Key>(u) << 32) |
-         static_cast<Key>(0xffffffffu - static_cast<uint32_t>(id));
-}
-
-__device__ __forceinline__ int topm_id(Key key) {
-  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
-}
-
 // Rows can be read as float4 when B % 4 == 0 and the base is aligned.
 __device__ __forceinline__ bool rows_vectorizable(const float* meta, int b) {
   return (b & 3) == 0 && (reinterpret_cast<uintptr_t>(meta) & 15) == 0;
-}
-
-// Insert x into a lane's list, best first, keeping its kLen best keys.
-template <int kLen>
-__device__ __forceinline__ void keep_best(Key (&list)[kLen], Key x) {
-  if (x > list[kLen - 1]) {
-#pragma unroll
-    for (int i = kLen - 1; i > 0; --i) {
-      list[i] = x > list[i - 1] ? list[i - 1] : (x > list[i] ? x : list[i]);
-    }
-    list[0] = x > list[0] ? x : list[0];
-  }
 }
 
 // m rounds of a warp arg-max over the lanes' list heads; the winner's
@@ -194,16 +186,16 @@ topm_select_kernel(const float* __restrict__ meta, int rows, int b, int m,
       for (int u = 0; u < 4; ++u) {
         const int i = i0 + 128 * u;
         if (i < hi) {
-          keep_best(list, topm_key(v[u].x, i));
-          keep_best(list, topm_key(v[u].y, i + 1));
-          keep_best(list, topm_key(v[u].z, i + 2));
-          keep_best(list, topm_key(v[u].w, i + 3));
+          keep_best(list, value_key(v[u].x, i));
+          keep_best(list, value_key(v[u].y, i + 1));
+          keep_best(list, value_key(v[u].z, i + 2));
+          keep_best(list, value_key(v[u].w, i + 3));
         }
       }
     }
   } else {
     for (int i = lo + lane; i < hi; i += 32) {
-      keep_best(list, topm_key(src[i], i));
+      keep_best(list, value_key(src[i], i));
     }
   }
   Key mine = pop_best(list, m, lane);
@@ -217,46 +209,8 @@ topm_select_kernel(const float* __restrict__ meta, int rows, int b, int m,
     for (int w = 0; w < kRowWarps; ++w) keep_best(list, heads[w][lane]);
     mine = pop_best(list, m, lane);
   }
-  if (lane < m) ids[static_cast<size_t>(row) * m + lane] = topm_id(mine);
-  if (lane == m - 1) tau[row] = src[topm_id(mine)];
-}
-
-// Bitonic sort, best first, of the 32 * kV keys a warp holds, key[j] of
-// lane l at position p = l * kV + j: a stride below kV pairs two registers
-// of one lane, a larger one the same register of lanes l and l ^ (stride /
-// kV).  Every index is a compile-time constant once unrolled, so the keys
-// stay in registers.
-template <int kV>
-__device__ __forceinline__ void warp_sort_desc(Key (&key)[kV], int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32 * kV; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= kV) {
-        const int lanes = stride / kV;
-        const bool lower = (lane & lanes) == 0;
-#pragma unroll
-        for (int j = 0; j < kV; ++j) {
-          const Key other = __shfl_xor_sync(0xffffffffu, key[j], lanes);
-          const bool best_first = ((lane * kV + j) & size) == 0;
-          const bool keep_larger = lower == best_first;
-          key[j] = (other > key[j]) == keep_larger ? other : key[j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kV; ++j) {
-          const int jj = j ^ stride;
-          if (jj > j) {
-            const bool best_first = ((lane * kV + j) & size) == 0;
-            const Key x = key[j], y = key[jj];
-            const bool swap = best_first ? y > x : x > y;
-            key[j] = swap ? y : x;
-            key[jj] = swap ? x : y;
-          }
-        }
-      }
-    }
-  }
+  if (lane < m) ids[static_cast<size_t>(row) * m + lane] = key_id(mine);
+  if (lane == m - 1) tau[row] = src[key_id(mine)];
 }
 
 // B <= 32 * kV <= 1024: one warp sorts a row in registers and writes its
@@ -279,10 +233,10 @@ topm_warp_kernel(const float* __restrict__ meta, int rows, int b, int m,
         const int p = p0 + j;        // p < b implies p + 3 < b
         const float4 v = p < b ? *reinterpret_cast<const float4*>(src + p)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
-        key[j] = p < b ? topm_key(v.x, p) : 0ull;
-        key[j + 1] = p < b ? topm_key(v.y, p + 1) : 0ull;
-        key[j + 2] = p < b ? topm_key(v.z, p + 2) : 0ull;
-        key[j + 3] = p < b ? topm_key(v.w, p + 3) : 0ull;
+        key[j] = p < b ? value_key(v.x, p) : 0ull;
+        key[j + 1] = p < b ? value_key(v.y, p + 1) : 0ull;
+        key[j + 2] = p < b ? value_key(v.z, p + 2) : 0ull;
+        key[j + 3] = p < b ? value_key(v.w, p + 3) : 0ull;
       }
       loaded = true;
     }
@@ -290,7 +244,7 @@ topm_warp_kernel(const float* __restrict__ meta, int rows, int b, int m,
   if (!loaded) {
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
-      key[j] = p0 + j < b ? topm_key(src[p0 + j], p0 + j) : 0ull;
+      key[j] = p0 + j < b ? value_key(src[p0 + j], p0 + j) : 0ull;
     }
   }
   warp_sort_desc<kV>(key, lane);
@@ -302,8 +256,8 @@ topm_warp_kernel(const float* __restrict__ meta, int rows, int b, int m,
       for (int j = 0; j < kV; j += 4) {
         if (p0 + j < m) {
           *reinterpret_cast<int4*>(out + p0 + j) =
-              make_int4(topm_id(key[j]), topm_id(key[j + 1]),
-                        topm_id(key[j + 2]), topm_id(key[j + 3]));
+              make_int4(key_id(key[j]), key_id(key[j + 1]),
+                        key_id(key[j + 2]), key_id(key[j + 3]));
         }
       }
       stored = true;
@@ -312,8 +266,8 @@ topm_warp_kernel(const float* __restrict__ meta, int rows, int b, int m,
 #pragma unroll
   for (int j = 0; j < kV; ++j) {
     const int p = p0 + j;
-    if (!stored && p < m) out[p] = topm_id(key[j]);
-    if (p == m - 1) tau[row] = src[topm_id(key[j])];
+    if (!stored && p < m) out[p] = key_id(key[j]);
+    if (p == m - 1) tau[row] = src[key_id(key[j])];
   }
 }
 
@@ -327,14 +281,14 @@ topm_block_kernel(const float* __restrict__ meta, int b, int m, int width,
   const size_t row = blockIdx.x;
   const float* src = meta + row * b;
   for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    key[i] = i < b ? topm_key(src[i], i) : 0ull;
+    key[i] = i < b ? value_key(src[i], i) : 0ull;
   }
   __syncthreads();
   sort_keys_desc(key, width);
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    ids[row * m + i] = topm_id(key[i]);
+    ids[row * m + i] = key_id(key[i]);
   }
-  if (threadIdx.x == 0) tau[row] = src[topm_id(key[m - 1])];
+  if (threadIdx.x == 0) tau[row] = src[key_id(key[m - 1])];
 }
 
 // A row longer than kTopmWarpRow is shared by a block's warps.
@@ -375,6 +329,10 @@ constexpr TopmLaunch kTopmWarpLaunch[] = {
 // Kernel 8: filtered gather + score + top-k.
 // ---------------------------------------------------------------------------
 
+constexpr int kCandWarps = 8;                      // warps a block
+constexpr int kCandThreads = kCandWarps * 32;
+constexpr int kCandStep = 128;                     // pool entries a warp step
+
 __device__ __forceinline__ Key make_key(int band, float v, int cls) {
   uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));   // -0 ranks as +0
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);     // order-preserving
@@ -401,123 +359,356 @@ struct CandArgs {
   const float* tau;        // (n, R)
   const int* ids;          // (n, R, m)
   const int* inverted;     // (R*B, L)
-  const int* table;        // (R, K) or null
+  const int* table;        // (K, R): the hash table transposed, or null
   const long long* coeffs; // (R,) or null
-  int n, r_count, b, m, ell, num_classes, shift, t, k, kcap, pool, num_splits;
+  int n, r_count, b, m, ell, num_classes, shift, t, k, kcap, num_splits;
   Key* part;               // (n, num_splits, kcap)
   float* out_sel;          // (n, k)
   int* out_band;           // (n, k)
   int* out_idx;            // (n, k)
 };
 
-// Key of pool entry `cls`, found in a chunk of repetition r0, or 0 (dead)
-// when another repetition claims it or none does.
-template <int kEst, bool kInline>
-__device__ __forceinline__ Key entry_key(const CandArgs& a,
-                                         const float* __restrict__ p,
-                                         const float* __restrict__ tau,
-                                         const uint32_t (&coef)[kMaxR], int r0,
-                                         int cls) {
+// Where a warp's walk stands: chunk c (inverted row r0 * B + bucket) and
+// its step s, kCandStep entries a step.
+struct Pos {
+  int c, s, r0, bucket;
+};
+
+// Chunk c's first step; r0 and the bucket id are found once a chunk.
+__device__ __forceinline__ Pos chunk_at(int c, int m,
+                                        const int* __restrict__ ids_q,
+                                        int live) {
+  Pos p{c, 0, 0, 0};
+  if (c < live) {
+    p.r0 = c / m;
+    p.bucket = __ldg(ids_q + c);
+  }
+  return p;
+}
+
+__device__ __forceinline__ Pos advance(const Pos& p, int steps, int stride,
+                                       int m, const int* __restrict__ ids_q,
+                                       int live) {
+  if (p.s + 1 < steps) return Pos{p.c, p.s + 1, p.r0, p.bucket};
+  return chunk_at(p.c + stride, m, ids_q, live);
+}
+
+// A lane's four entries of step p: one 16-byte load when the rows allow
+// it; -1 past the row's end or the walk's.
+__device__ __forceinline__ int4 fetch(const CandArgs& a, const Pos& p,
+                                      int live, int lane, bool vec) {
+  int4 v = make_int4(-1, -1, -1, -1);
+  if (p.c >= live) return v;
+  const int* row =
+      a.inverted + (static_cast<size_t>(p.r0) * a.b + p.bucket) * a.ell;
+  const int slot = p.s * kCandStep + 4 * lane;
+  if (vec) {
+    if (slot < a.ell) v = __ldg(reinterpret_cast<const int4*>(row + slot));
+    return v;
+  }
+  if (slot < a.ell) v.x = __ldg(row + slot);
+  if (slot + 1 < a.ell) v.y = __ldg(row + slot + 1);
+  if (slot + 2 < a.ell) v.z = __ldg(row + slot + 2);
+  if (slot + 3 < a.ell) v.w = __ldg(row + slot + 3);
+  return v;
+}
+
+// g[j] of class cls: the bucket from the inline hash or the transposed
+// table (a class's R bucket ids side by side), the value from the query's
+// probabilities.
+template <bool kInline>
+__device__ __forceinline__ float gather(const CandArgs& a,
+                                        const float* __restrict__ p,
+                                        const uint32_t* coef, int j, int cls) {
+  const int h =
+      kInline ? static_cast<int>((coef[j] * static_cast<uint32_t>(cls)) >>
+                                 a.shift)
+              : __ldg(a.table + static_cast<size_t>(cls) * a.r_count + j);
+  return p[j * a.b + h];
+}
+
+// The key of a claimed entry under the median: all R values (the chunk's
+// own repetition gives its bucket's value gr), their median through the
+// register network — unless the pre-test shows that it cannot beat `thr`
+// (its band below thr's, or fewer than R - R/2 values at or above thr's
+// value): then 0.
+template <bool kInline>
+__device__ __forceinline__ Key median_key(const CandArgs& a,
+                                          const float* __restrict__ p,
+                                          const float* tau,
+                                          const uint32_t* coef, int r0,
+                                          float gr, int cls, Key thr) {
+  float thr_v;
+  int thr_band, thr_cls;
+  split_key(thr, thr_v, thr_band, thr_cls);
   float g[kMaxR];
-  float sum = 0.f, lo = CUDART_INF_F;
-  int count = 0;
+  int count = 1, at_least = 0;
 #pragma unroll
   for (int j = 0; j < kMaxR; ++j) {
-    g[j] = CUDART_INF_F;                 // pads sort last in the median
+    float x = CUDART_INF_F;               // pads sort last
     if (j < a.r_count) {
-      const int h =
-          kInline ? static_cast<int>((coef[j] * static_cast<uint32_t>(cls)) >>
-                                     a.shift)
-                  : __ldg(a.table + static_cast<size_t>(j) * a.num_classes + cls);
-      const float v = p[j * a.b + h];
-      const bool member = v >= tau[j];
-      if (j < r0 ? member : (j == r0 && !member)) return 0ull;
-      count += member;
-      g[j] = v;
-      sum = __fadd_rn(sum, v);
-      lo = fminf(lo, v);
+      x = j == r0 ? gr : gather<kInline>(a, p, coef, j, cls);
+      count += j > r0 && x >= tau[j];
+      at_least += x >= thr_v;
+    }
+    g[j] = x;
+  }
+  const int band = (a.t <= 1 || count >= a.t) ? kValid : kBackfill;
+  if (band < thr_band ||
+      (band == thr_band && at_least < a.r_count - a.r_count / 2)) {
+    return 0ull;
+  }
+  return make_key(band, sorted_median(g, a.r_count), cls);
+}
+
+// The keys of a lane's four entries of chunk (r0, bucket), 0 where dead.
+// The chunk's own repetition puts every entry in the same bucket, so its
+// test is one value for the whole chunk (gr >= tau[r0]).  Below r0 each
+// gather is a test — an entry dies at its first member repetition — and
+// the four entries' chains run side by side; a claimed entry then goes on
+// to every repetition above r0, counting members.  The sum runs over r in
+// order from +0.0, as the plain version's.
+template <int kEst, bool kInline>
+__device__ __forceinline__ void entry_keys(const CandArgs& a,
+                                           const float* __restrict__ p,
+                                           const float* tau,
+                                           const uint32_t* coef, int4 v,
+                                           const Pos& pos, Key thr,
+                                           Key (&cand)[4]) {
+  const int cls[4] = {v.x, v.y, v.z, v.w};
+  const int r0 = pos.r0;
+  const float gr = p[r0 * a.b + pos.bucket];
+  const bool chunk_member = gr >= tau[r0];
+  bool alive[4];
+  float sum[4], lo[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    alive[u] = chunk_member && cls[u] >= 0 && cls[u] < a.num_classes;
+    sum[u] = 0.f;
+    lo[u] = CUDART_INF_F;
+    cand[u] = 0ull;
+  }
+  for (int j = 0; j < r0; ++j) {
+    if (!(alive[0] || alive[1] || alive[2] || alive[3])) break;
+    const float tj = tau[j];
+    float g[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      g[u] = alive[u] ? gather<kInline>(a, p, coef, j, cls[u]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (g[u] >= tj) alive[u] = false;
+      sum[u] = __fadd_rn(sum[u], g[u]);
+      lo[u] = fminf(lo[u], g[u]);
     }
   }
-  float s;
-  if (kEst == kUnbiased) {
-    s = sum;
-  } else if (kEst == kMin) {
-    s = lo;
-  } else {
-    s = sorted_median(g, a.r_count);
+  if (kEst == kMedian) {
+    // each round scores every lane's next claimed entry, so the warp runs
+    // as many rounds as its busiest lane has claimed entries (every lane
+    // of the warp reaches this loop)
+    unsigned left = (alive[0] ? 1u : 0u) | (alive[1] ? 2u : 0u) |
+                    (alive[2] ? 4u : 0u) | (alive[3] ? 8u : 0u);
+    while (__any_sync(0xffffffffu, left != 0u)) {
+      if (left != 0u) {
+        const int u = __ffs(left) - 1;
+        const int c = u == 0 ? cls[0] : (u == 1 ? cls[1] : (u == 2 ? cls[2]
+                                                                   : cls[3]));
+        const Key key = median_key<kInline>(a, p, tau, coef, r0, gr, c, thr);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          if (w == u) cand[w] = key;
+        }
+        left &= left - 1u;
+      }
+    }
+    return;
   }
-  return make_key((a.t <= 1 || count >= a.t) ? kValid : kBackfill, s, cls);
+  if (!(alive[0] || alive[1] || alive[2] || alive[3])) return;
+  int count[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    sum[u] = __fadd_rn(sum[u], gr);
+    lo[u] = fminf(lo[u], gr);
+    count[u] = 1;
+  }
+#pragma unroll 2
+  for (int j = r0 + 1; j < a.r_count; ++j) {
+    const float tj = tau[j];
+    float g[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      g[u] = alive[u] ? gather<kInline>(a, p, coef, j, cls[u]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      sum[u] = __fadd_rn(sum[u], g[u]);
+      lo[u] = fminf(lo[u], g[u]);
+      count[u] += g[u] >= tj;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (alive[u]) {
+      const int band = (a.t <= 1 || count[u] >= a.t) ? kValid : kBackfill;
+      cand[u] = make_key(band, kEst == kUnbiased ? sum[u] : lo[u], cls[u]);
+    }
+  }
 }
 
-// Sort the pool, keep its best kcap keys, clear the rest and move the
-// threshold.  Called by the whole block.
-__device__ __forceinline__ void merge_keys(Key* keys, int pool, int kcap,
-                                           int* count, Key* thr) {
-  sort_keys_desc(keys, pool);
-  for (int i = kcap + threadIdx.x; i < pool; i += blockDim.x) keys[i] = 0ull;
-  if (threadIdx.x == 0) {
-    *count = 0;
-    *thr = keys[kcap - 1];
+// The warp's running top keys: 32 * kKpl of them in registers, best first
+// at position p = lane * kKpl + j.  Insert x (larger than the last):
+// positions past x's place take their predecessor's key.
+template <int kKpl>
+__device__ __forceinline__ void list_insert(Key (&list)[kKpl], Key x,
+                                            int lane) {
+  Key before = __shfl_up_sync(0xffffffffu, list[kKpl - 1], 1);
+  if (lane == 0) before = ~0ull;
+#pragma unroll
+  for (int j = kKpl - 1; j >= 0; --j) {
+    const Key prev = j > 0 ? list[j - 1] : before;
+    list[j] = list[j] > x ? list[j] : (prev > x ? x : prev);
   }
-  __syncthreads();
 }
 
-template <int kEst, bool kInline, bool kSmemProbs>
-__global__ void __launch_bounds__(kThreads)
-cand_partial_kernel(const CandArgs a) {
+// The key at warp-uniform position pos of the list.
+template <int kKpl>
+__device__ __forceinline__ Key list_at(const Key (&list)[kKpl], int pos) {
+  Key mine = list[0];
+#pragma unroll
+  for (int j = 1; j < kKpl; ++j) {
+    if (pos % kKpl == j) mine = list[j];
+  }
+  return __shfl_sync(0xffffffffu, mine, pos / kKpl);
+}
+
+// Offer the lanes' candidate keys to the list: while some lane holds one
+// above the threshold (the kcap-th key), the lowest such lane's best goes
+// in.  Keys are unique (a class is claimed at most once a query), so the
+// list's order is the key's whatever the order of the offers.
+template <int kKpl>
+__device__ __forceinline__ void offer(Key (&list)[kKpl], Key& thr,
+                                      Key (&cand)[4], int kcap, int lane) {
+  while (true) {
+    Key mine = 0ull;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (cand[u] > thr && cand[u] > mine) mine = cand[u];
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, mine != 0ull);
+    if (ballot == 0u) return;
+    const int src = __ffs(ballot) - 1;
+    const Key x = __shfl_sync(0xffffffffu, mine, src);
+    list_insert(list, x, lane);
+    thr = list_at(list, kcap - 1);
+    if (lane == src) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (cand[u] == x) cand[u] = 0ull;
+      }
+    }
+  }
+}
+
+template <int kEst, bool kInline, bool kSmemProbs, int kKpl>
+__global__ void __launch_bounds__(kCandThreads)
+cand_warp_kernel(const CandArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float tau_s[kMaxR];
-  __shared__ int count;
-  __shared__ Key thr;
-  Key* keys = reinterpret_cast<Key*>(smem);                 // (pool,)
-  float* probs = reinterpret_cast<float*>(keys + a.pool);   // (R*B,)
+  __shared__ uint32_t coef_s[kMaxR];
+  __shared__ int live_reps;
+  constexpr int kList = 32 * kKpl;
+  Key* lists = reinterpret_cast<Key*>(smem);                  // (warps, kList)
+  float* probs = reinterpret_cast<float*>(lists + kCandWarps * kList);
 
-  const int q = blockIdx.y, split = blockIdx.x;
+  const int q = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rb = a.r_count * a.b;
   const float* row = a.meta + static_cast<size_t>(q) * rb;
   if (kSmemProbs) {
-    for (int i = threadIdx.x; i < rb; i += blockDim.x) probs[i] = row[i];
+    if ((rb & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+      for (int i = threadIdx.x; i < rb / 4; i += blockDim.x) {
+        reinterpret_cast<float4*>(probs)[i] =
+            __ldg(reinterpret_cast<const float4*>(row) + i);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rb; i += blockDim.x) probs[i] = row[i];
+    }
   }
-  for (int i = threadIdx.x; i < a.pool; i += blockDim.x) keys[i] = 0ull;
   if (threadIdx.x < kMaxR) {
-    tau_s[threadIdx.x] =
-        threadIdx.x < a.r_count ? a.tau[q * a.r_count + threadIdx.x] : 0.f;
+    const bool on = threadIdx.x < a.r_count;
+    tau_s[threadIdx.x] = on ? a.tau[q * a.r_count + threadIdx.x] : 0.f;
+    coef_s[threadIdx.x] =
+        (kInline && on) ? static_cast<uint32_t>(a.coeffs[threadIdx.x]) : 0u;
   }
-  if (threadIdx.x == 0) {
-    count = 0;
-    thr = 0ull;
-  }
-  uint32_t coef[kMaxR];
-  load_coeffs<kInline>(coef, a.r_count, a.coeffs);
+  if (threadIdx.x == 0) live_reps = a.r_count;
   __syncthreads();
-
   const float* p = kSmemProbs ? probs : row;
-  const int* ids_q = a.ids + static_cast<size_t>(q) * a.r_count * a.m;
-  const int total = a.r_count * a.m * a.ell;
-  const int step = a.num_splits * static_cast<int>(blockDim.x);
-  const int merge_at = a.pool - a.kcap - static_cast<int>(blockDim.x);
-  for (int base = split * blockDim.x; base < total; base += step) {
-    const int e = base + threadIdx.x;
-    if (e < total) {
-      const int c = e / a.ell;
-      const int r0 = c / a.m;
-      const int cls = __ldg(a.inverted +
-                            (static_cast<size_t>(r0) * a.b + ids_q[c]) * a.ell +
-                            (e - c * a.ell));
-      if (cls >= 0 && cls < a.num_classes) {
-        const Key key = entry_key<kEst, kInline>(a, p, tau_s, coef, r0, cls);
-        if (key > thr) keys[a.kcap + atomicAdd(&count, 1)] = key;
+
+  // A repetition j where every bucket is a member (tau[j] at or below the
+  // row's minimum, as when m = B) is at or above every class's first member
+  // repetition, so no entry of a later repetition's chunks is claimed:
+  // those chunks are skipped whole.  Checked where m = B.
+  if (a.m == a.b) {
+    for (int j = warp; j < a.r_count; j += kCandWarps) {
+      bool all = true;
+      for (int i = lane; i < a.b; i += 32) all &= p[j * a.b + i] >= tau_s[j];
+      if (__all_sync(0xffffffffu, all) && lane == 0) {
+        atomicMin(&live_reps, j + 1);
       }
     }
     __syncthreads();
-    // every thread reads the count before a merge resets it
-    const bool full = count > merge_at;
-    __syncthreads();
-    if (full) merge_keys(keys, a.pool, a.kcap, &count, &thr);
   }
-  merge_keys(keys, a.pool, a.kcap, &count, &thr);
+
+  const int live = live_reps * a.m;                 // chunks that can claim
+  const int steps = (a.ell + kCandStep - 1) / kCandStep;
+  const int stride = gridDim.y * kCandWarps;
+  const bool vec = (a.ell & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.inverted) & 15) == 0;
+  const int* ids_q = a.ids + static_cast<size_t>(q) * a.r_count * a.m;
+
+  Key list[kKpl];
+#pragma unroll
+  for (int j = 0; j < kKpl; ++j) list[j] = 0ull;
+  Key thr = 0ull;
+  // two steps' rows in flight ahead of the one scored
+  Pos p0 = chunk_at(split * kCandWarps + warp, a.m, ids_q, live);
+  Pos p1 = advance(p0, steps, stride, a.m, ids_q, live);
+  int4 v0 = fetch(a, p0, live, lane, vec);
+  int4 v1 = fetch(a, p1, live, lane, vec);
+  while (p0.c < live) {
+    const Pos p2 = advance(p1, steps, stride, a.m, ids_q, live);
+    const int4 v2 = fetch(a, p2, live, lane, vec);
+    Key cand[4];
+    entry_keys<kEst, kInline>(a, p, tau_s, coef_s, v0, p0, thr, cand);
+    offer(list, thr, cand, a.kcap, lane);
+    p0 = p1;
+    v0 = v1;
+    p1 = p2;
+    v1 = v2;
+  }
+
+  // the block's top kcap: warp 0 merges each other warp's list into its
+  // own, a bitonic merge of its list with the other one reversed
+#pragma unroll
+  for (int j = 0; j < kKpl; ++j) lists[warp * kList + lane * kKpl + j] = list[j];
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kCandWarps; ++w) {
+#pragma unroll
+    for (int j = 0; j < kKpl; ++j) {
+      const Key other =
+          lists[w * kList + (31 - lane) * kKpl + (kKpl - 1 - j)];
+      list[j] = other > list[j] ? other : list[j];
+    }
+    warp_bitonic_stage<kKpl>(list, lane, kList);
+  }
   Key* out = a.part + (static_cast<size_t>(q) * a.num_splits + split) * a.kcap;
-  for (int i = threadIdx.x; i < a.kcap; i += blockDim.x) out[i] = keys[i];
+#pragma unroll
+  for (int j = 0; j < kKpl; ++j) {
+    const int pos = lane * kKpl + j;
+    if (pos < a.kcap) out[pos] = list[j];
+  }
 }
 
 // One block per query: sort its num_splits * kcap partial keys (padded to
@@ -543,15 +734,15 @@ cand_merge_kernel(const CandArgs a, int width) {
   }
 }
 
-template <int kEst, bool kInline, bool kSmemProbs>
+template <int kEst, bool kInline, bool kSmemProbs, int kKpl>
 cudaError_t launch_cand(const CandArgs& a, int width, cudaStream_t stream) {
-  auto kernel = cand_partial_kernel<kEst, kInline, kSmemProbs>;
+  auto kernel = cand_warp_kernel<kEst, kInline, kSmemProbs, kKpl>;
   const size_t smem =
-      static_cast<size_t>(a.pool) * sizeof(Key) +
+      static_cast<size_t>(kCandWarps) * 32 * kKpl * sizeof(Key) +
       (kSmemProbs ? static_cast<size_t>(a.r_count) * a.b * sizeof(float) : 0);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.num_splits, a.n), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.n, a.num_splits), kCandThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t merge_smem = static_cast<size_t>(width) * sizeof(Key);
@@ -561,15 +752,26 @@ cudaError_t launch_cand(const CandArgs& a, int width, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int kEst>
+template <int kEst, int kKpl>
 cudaError_t launch_est(const CandArgs& a, int width, bool smem_probs,
                        cudaStream_t s) {
   if (a.table != nullptr) {
-    return smem_probs ? launch_cand<kEst, false, true>(a, width, s)
-                      : launch_cand<kEst, false, false>(a, width, s);
+    return smem_probs ? launch_cand<kEst, false, true, kKpl>(a, width, s)
+                      : launch_cand<kEst, false, false, kKpl>(a, width, s);
   }
-  return smem_probs ? launch_cand<kEst, true, true>(a, width, s)
-                    : launch_cand<kEst, true, false>(a, width, s);
+  return smem_probs ? launch_cand<kEst, true, true, kKpl>(a, width, s)
+                    : launch_cand<kEst, true, false, kKpl>(a, width, s);
+}
+
+template <int kKpl>
+cudaError_t launch_kpl(const CandArgs& a, int estimator, int width,
+                       bool smem_probs, cudaStream_t s) {
+  switch (estimator) {
+    case kUnbiased: return launch_est<kUnbiased, kKpl>(a, width, smem_probs, s);
+    case kMin: return launch_est<kMin, kKpl>(a, width, smem_probs, s);
+    case kMedian: return launch_est<kMedian, kKpl>(a, width, smem_probs, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -615,27 +817,29 @@ int bucket_topm_launch(const void* meta, int n, int r_count, int b, int m,
 }
 
 // meta (n, R, B) f32, tau (n, R) f32, ids (n, R, m) int32, inverted
-// (R*B, L) int32; table (R, K) int32 or, when table is null, coeffs (R,)
+// (R*B, L) int32; table (K, R) int32 (the hash table transposed) or, when
+// table is null, coeffs (R,)
 // int64 holding uint32 multipliers with `shift`; estimator 0/1/2 =
 // unbiased (raw sum) / min / median; part (n, num_splits, kcap) 64-bit
-// scratch; out_sel (n, k) f32, out_band and out_idx (n, k) int32.  kcap,
-// pool and merge_width are powers of two with k <= kcap <= 128, pool -
-// kcap >= 256 and merge_width >= num_splits * kcap; smem_probs nonzero
-// copies each query's R*B probabilities to shared memory.  Returns a
-// cudaError_t code.
+// scratch; out_sel (n, k) f32, out_band and out_idx (n, k) int32.  kcap
+// and merge_width are powers of two with k <= kcap <= 32 * lane_keys,
+// lane_keys 1 or 4 (the keys a lane holds of its warp's list), kcap <= 128
+// and merge_width >= num_splits * kcap; smem_probs nonzero copies each
+// query's R*B probabilities to shared memory.  Returns a cudaError_t code.
 int mach_candidate_topk_launch(
     const void* meta, const void* tau, const void* ids, const void* inverted,
     int n, int r_count, int b, int m, int ell, int num_classes,
     const void* table, const void* coeffs, int shift, int estimator, int t,
-    int k, int kcap, int pool, int num_splits, int merge_width, int smem_probs,
-    void* part, void* out_sel, void* out_band, void* out_idx, void* stream) {
+    int k, int kcap, int lane_keys, int num_splits, int merge_width,
+    int smem_probs, void* part, void* out_sel, void* out_band, void* out_idx,
+    void* stream) {
   using namespace mach;
   if (n < 1 || r_count < 1 || r_count > kMaxR || b < 1 || m < 1 || m > b ||
       ell < 1 || num_classes < 1 || num_classes > static_cast<int>(kIdMask) ||
       t < 1 || t > r_count || k < 1 || k > kcap || kcap > kMaxKCand ||
-      !is_pow2(kcap) || !is_pow2(pool) || pool - kcap < kThreads ||
-      num_splits < 1 || !is_pow2(merge_width) ||
-      merge_width < num_splits * kcap ||
+      !is_pow2(kcap) || (lane_keys != 1 && lane_keys != 4) ||
+      kcap > 32 * lane_keys || num_splits < 1 || num_splits > 65535 ||
+      !is_pow2(merge_width) || merge_width < num_splits * kcap ||
       static_cast<long long>(r_count) * m * ell >= (1ll << 31) ||
       (table == nullptr && coeffs == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -657,7 +861,6 @@ int mach_candidate_topk_launch(
   a.t = t;
   a.k = k;
   a.kcap = kcap;
-  a.pool = pool;
   a.num_splits = num_splits;
   a.part = static_cast<Key*>(part);
   a.out_sel = static_cast<float*>(out_sel);
@@ -665,13 +868,9 @@ int mach_candidate_topk_launch(
   a.out_idx = static_cast<int*>(out_idx);
   auto s = static_cast<cudaStream_t>(stream);
   const bool sp = smem_probs != 0;
-  cudaError_t err;
-  switch (estimator) {
-    case kUnbiased: err = launch_est<kUnbiased>(a, merge_width, sp, s); break;
-    case kMin: err = launch_est<kMin>(a, merge_width, sp, s); break;
-    case kMedian: err = launch_est<kMedian>(a, merge_width, sp, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      lane_keys == 1 ? launch_kpl<1>(a, estimator, merge_width, sp, s)
+                     : launch_kpl<4>(a, estimator, merge_width, sp, s);
   return static_cast<int>(err);
 }
 

@@ -121,10 +121,102 @@ __device__ __forceinline__ void bitonic_sort_best_first(float* v, int* idx,
   }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when asked.
+// (value, id) as one 64-bit key, larger ranking first: the value's
+// order-preserving bits above (-0.0 folded into +0.0, which the plain
+// versions count equal and order by id), 2^32 - 1 - id below, so one
+// unsigned compare ranks (value descending, id ascending).  Every real key
+// is nonzero; 0 is the empty slot and ranks last.
+using Key = unsigned long long;
+
+__device__ __forceinline__ Key value_key(float v, int id) {
+  uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<Key>(u) << 32) |
+         static_cast<Key>(0xffffffffu - static_cast<uint32_t>(id));
+}
+
+__device__ __forceinline__ int key_id(Key key) {
+  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
+}
+
+__device__ __forceinline__ float key_value(Key key) {
+  uint32_t u = static_cast<uint32_t>(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
+// Insert x into a lane's list, best first, keeping its kLen best keys.
+template <int kLen>
+__device__ __forceinline__ void keep_best(Key (&list)[kLen], Key x) {
+  if (x > list[kLen - 1]) {
+#pragma unroll
+    for (int i = kLen - 1; i > 0; --i) {
+      list[i] = x > list[i - 1] ? list[i - 1] : (x > list[i] ? x : list[i]);
+    }
+    list[0] = x > list[0] ? x : list[0];
+  }
+}
+
+// One bitonic stage sequence over the 32 * kV keys a warp holds, key[j] of
+// lane l at position p = l * kV + j: strides below kV pair two registers
+// of one lane, larger ones the same register of lanes l and l ^ (stride /
+// kV).  Every index is a compile-time constant once unrolled, so the keys
+// stay in registers.  `size` is the length of the bitonic runs merged.
+template <int kV>
+__device__ __forceinline__ void warp_bitonic_stage(Key (&key)[kV], int lane,
+                                                   int size) {
+#pragma unroll
+  for (int stride = 16 * kV; stride > 0; stride >>= 1) {
+    if (stride >= size) continue;
+    if (stride >= kV) {
+      const int lanes = stride / kV;
+      const bool lower = (lane & lanes) == 0;
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const Key other = __shfl_xor_sync(0xffffffffu, key[j], lanes);
+        const bool best_first = ((lane * kV + j) & size) == 0;
+        const bool keep_larger = lower == best_first;
+        key[j] = (other > key[j]) == keep_larger ? other : key[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const int jj = j ^ stride;
+        if (jj > j) {
+          const bool best_first = ((lane * kV + j) & size) == 0;
+          const Key x = key[j], y = key[jj];
+          const bool swap = best_first ? y > x : x > y;
+          key[j] = swap ? y : x;
+          key[jj] = swap ? x : y;
+        }
+      }
+    }
+  }
+}
+
+// Bitonic sort, best first, of the 32 * kV keys a warp holds.
+template <int kV>
+__device__ __forceinline__ void warp_sort_desc(Key (&key)[kV], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * kV; size <<= 1) {
+    warp_bitonic_stage<kV>(key, lane, size);
+  }
+}
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Opt a kernel into more than 48 KB of shared memory when asked: the
+// default limit holds the dynamic bytes and the kernel's static ones
+// together, and the static ones here stay under 1 KB.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 47 * 1024) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -137,14 +137,6 @@ inline size_t lane_smem(int rb, int vec) {
   return tile > winners ? tile : winners;
 }
 
-// 4-byte asynchronous copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // Query per lane: Q = 32 * kVec queries a block, lane l owning queries
 // l*kVec .. l*kVec + kVec - 1.  Row R*B of the tile is zeros: repetitions
 // past R gather it, and adding +0.0 leaves a sum unchanged (a sum that

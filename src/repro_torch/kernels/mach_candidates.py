@@ -64,9 +64,9 @@ from repro_torch.kernels.mach_topk import MAX_K, _next_pow2, unbiased_affine
 OFFSET = 4.0
 NEG_INF = torch.finfo(torch.float32).min
 MAX_CLASSES = (1 << 30) - 1   # class ids fill 30 bits of the key (csrc kIdBits)
-_POOL = 512                   # per-block candidate pool (power of two)
+MAX_KCAP = 128                # largest kcap kernel 8 takes (csrc kMaxKCand)
+_CAND_WARPS = 8               # kernel 8: warps a block (csrc kCandWarps)
 _MERGE_MAX = 4096             # largest split-merge width (num_splits * kcap)
-_MIN_SPLIT = 2048             # pool entries a block takes at least
 _PLAIN_ENTRIES = 1 << 22      # pool entries the plain version scores at once
 _DEAD = -(1 << 63)            # the plain version's key of a dead entry
 
@@ -373,19 +373,38 @@ def mach_candidate_topk_plain(meta_probs: torch.Tensor, tau: torch.Tensor,
     return _unpack_keys(torch.cat(list(runs.values())))
 
 
+def live_repetitions(meta_probs: torch.Tensor, tau: torch.Tensor,
+                     m: int) -> torch.Tensor:
+    """(N,) the repetitions whose chunks kernel 8 walks: where m = B, up to
+    and including the first repetition j in which every bucket is a member
+    (every value >= tau[j], as when tau is the row's minimum): every class
+    meets a member repetition there or earlier, so no entry of a later
+    repetition's chunk is claimed and the kernel skips those chunks.  R
+    where m < B or no repetition is all members."""
+    n, r, b = meta_probs.shape
+    if m != b:
+        return torch.full((n,), r, dtype=torch.int64, device=meta_probs.device)
+    every = (meta_probs.to(torch.float32) >= tau[..., None]).all(-1)   # (N, R)
+    first = torch.where(every.any(-1), every.to(torch.int8).argmax(-1), r - 1)
+    return first.to(torch.int64) + 1
+
+
 def pool_gathers(meta_probs: torch.Tensor, tau: torch.Tensor,
                  ids: torch.Tensor, inverted: torch.Tensor,
                  table: Optional[torch.Tensor] = None, *, num_classes: int,
                  inline_coeffs: Optional[torch.Tensor] = None,
                  inline_shift: Optional[int] = None) -> int:
-    """The probability values kernel 8 gathers on these inputs, its work
+    """The probability values kernel 8 needs on these inputs, its work
     count: R for a claimed entry; for another live entry of a chunk of
-    repetition r0, one for each repetition up to the first member one or
-    r0, whichever comes first (the kernel stops there); none for
-    padding.  Inputs as ``mach_candidate_topk_plain``."""
+    repetition r0, one for each repetition up to its first member one
+    when that is below r0 (the test at r0 is the chunk's own bucket, one
+    value a chunk, which kills the whole chunk or none of it); none for
+    padding, a dead chunk or the chunks past ``live_repetitions``.  Inputs
+    as ``mach_candidate_topk_plain``."""
     meta = meta_probs.to(torch.float32)
     n, r, b = meta.shape
     m = ids.shape[-1]
+    reps = live_repetitions(meta, tau, m)
     total = 0
     for lo, hi, pos in _pool_blocks(n, r * m * inverted.shape[1], meta.device):
         chunks = candidate_chunks(ids[lo:hi], b).to(torch.int64)
@@ -393,9 +412,50 @@ def pool_gathers(meta_probs: torch.Tensor, tau: torch.Tensor,
             meta[lo:hi], tau[lo:hi], chunks, inverted, pos, m, num_classes,
             table, inline_coeffs, inline_shift)
         rep = rep[None, :]
-        need = torch.where(first == rep, r, torch.minimum(first, rep) + 1)
+        need = torch.where(first == rep, r,
+                           torch.where(first < rep, first + 1, 0))
+        live &= rep < reps[lo:hi, None]
         total += int(need[live].sum())
     return total
+
+
+class CandLayout(NamedTuple):
+    splits: int          # blocks a query
+    kcap: int            # keys a block keeps: next_pow2(k)
+    lane_keys: int       # keys a lane holds of its warp's list: 1 or 4
+    smem_probs: bool     # the query's R·B probabilities in shared memory
+    smem_bytes: int      # dynamic shared memory a block
+
+
+def cand_layout(n: int, r: int, b: int, m: int, ell: int, k: int,
+                sms: int) -> CandLayout:
+    """How kernel 8 covers N queries on a card of ``sms`` SMs.
+
+    A block is 8 warps; a warp walks whole chunks of one query, the
+    chunks strided over the query's ``splits`` blocks.  The chunks that
+    can claim are R·m, or m where m = B (then only repetition 0's, see
+    ``live_repetitions``).  ``splits``: one wave of four blocks an SM
+    (4·sms // N, at least 1), but no more blocks than give each warp a
+    chunk, splits · kcap within the merge kernel's 4,096 keys, and, where
+    the block stages the probabilities, at least R·B / 8 pool entries a
+    block, to pay for the copy.  The probabilities go to shared memory
+    when they fit beside the warps' lists (8 warps · 32 · lane_keys
+    keys), else the kernel reads them from global memory (L2): the
+    gate's R·B = 131,072.  ``lane_keys``: 1 for kcap <= 32, else 4
+    (kcap <= 128)."""
+    if not 1 <= k <= MAX_KCAP:
+        raise ValueError(f"need 1 <= k <= {MAX_KCAP}, got {k}")
+    kcap = _next_pow2(k)
+    lane_keys = 1 if kcap <= 32 else 4
+    lists = 8 * _CAND_WARPS * 32 * lane_keys
+    smem_probs = lists + 4 * r * b <= _SMEM_OPTIN
+    chunks = m if m == b else r * m
+    splits = min(4 * sms // n, -(-chunks // _CAND_WARPS), _MERGE_MAX // kcap)
+    if smem_probs:
+        splits = min(splits, 8 * chunks * ell // (r * b))
+    splits = max(1, splits)
+    return CandLayout(splits, kcap, lane_keys, smem_probs,
+                      lists + (4 * r * b if smem_probs else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +472,12 @@ def mach_candidate_topk_cuda(meta_probs: torch.Tensor, tau: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch kernel 8 (filtered gather + score + per-block top-k, then
-    the split merge) on ``meta_probs``' stream.  Inputs and outputs as
-    ``mach_candidate_topk_plain``; tensors contiguous on one card (meta
-    and tau f32, ids and inverted int32, table int32 or coeffs int64).
+    the split merge) on ``meta_probs``' stream, laid out by
+    ``cand_layout``.  Inputs and outputs as ``mach_candidate_topk_plain``;
+    tensors contiguous on one card (meta and tau f32, ids and inverted
+    int32, table int32 or coeffs int64); ``inverted`` is the inverted
+    table of the same hash (the kernel takes every entry of chunk r0 to
+    lie in its bucket at repetition r0).
     ``mach_candidate_topk_cuda.launches`` counts the launches."""
     check_cuda_operands(meta_probs, table, num_classes, inline_coeffs,
                         inline_shift)
@@ -435,13 +498,13 @@ def mach_candidate_topk_cuda(meta_probs: torch.Tensor, tau: torch.Tensor,
     p_pool = r * m * ell
     if p_pool >= 1 << 31:
         raise ValueError(f"pool of R·m·L={p_pool} entries exceeds 2^31")
-    kcap = _next_pow2(k)
     dev = meta_probs.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-2 * sms // n), -(-p_pool // _MIN_SPLIT),
-                        _MERGE_MAX // kcap))
+    layout = cand_layout(n, r, b, m, ell, k, sms)
+    kcap, splits = layout.kcap, layout.splits
     width = _next_pow2(splits * kcap)
-    smem_probs = 4 * r * b + 8 * _POOL <= _SMEM_OPTIN
+    # a class's R bucket ids side by side for the kernel's random reads
+    table_t = table.t().contiguous() if table is not None else None
     part = torch.empty((n, splits, kcap), dtype=torch.int64, device=dev)
     sel = torch.empty((n, k), dtype=torch.float32, device=dev)
     band = torch.empty((n, k), dtype=torch.int32, device=dev)
@@ -452,12 +515,12 @@ def mach_candidate_topk_cuda(meta_probs: torch.Tensor, tau: torch.Tensor,
         code = lib.mach_candidate_topk_launch(
             meta_probs.data_ptr(), tau.data_ptr(), ids.data_ptr(),
             inverted.data_ptr(), n, r, b, m, ell, num_classes,
-            table.data_ptr() if table is not None else None,
+            table_t.data_ptr() if table is not None else None,
             inline_coeffs.data_ptr() if table is None else None,
             inline_shift if table is None else 0,
-            ESTIMATORS.index(estimator), t, k, kcap, _POOL, splits, width,
-            int(smem_probs), part.data_ptr(), sel.data_ptr(), band.data_ptr(),
-            idx.data_ptr(), stream)
+            ESTIMATORS.index(estimator), t, k, kcap, layout.lane_keys, splits,
+            width, int(layout.smem_probs), part.data_ptr(), sel.data_ptr(),
+            band.data_ptr(), idx.data_ptr(), stream)
     _build.check(lib, code, "mach_candidate_topk")
     mach_candidate_topk_cuda.launches += 1
     return sel, band, idx

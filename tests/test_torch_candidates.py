@@ -314,6 +314,32 @@ def test_pool_gathers_counts_the_kernel_loop(mode):
     assert got == want
 
 
+@pytest.mark.parametrize("mode", ["table", "inline"])
+def test_pool_gathers_skips_chunks_past_an_all_member_repetition(mode):
+    """At m = B tau is each row's minimum, so repetition 0 is all members
+    and only its chunks can claim: pool_gathers counts R for each of
+    their live entries (every class once a query) and nothing for the
+    later repetitions' chunks, which kernel 8 skips whole."""
+    k_cls, b, r, n = 300, 8, 4, 3
+    fam, tab, inv = _family(k_cls, b, r, seed=4)
+    meta = torch.from_numpy(random_meta(n, r, b, seed=5))
+    tau, ids = tc.bucket_topm(meta, b)
+    hash_kw = ({"inline_coeffs": torch.from_numpy(fam.coeffs().astype(np.int64)),
+                "inline_shift": fam.shift} if mode == "inline"
+               else {"table": torch.from_numpy(tab)})
+    assert tc.live_repetitions(meta, tau, b).tolist() == [1] * n
+    assert tc.live_repetitions(meta, tau, b - 1).tolist() == [r] * n
+    got = tc.pool_gathers(meta, tau, ids, torch.from_numpy(inv),
+                          num_classes=k_cls, **hash_kw)
+    assert got == n * k_cls * r
+    # a row whose repetition 2 alone is all members: repetitions 0-2 walk
+    flat = meta.clone()
+    flat[0, 2] = 0.125
+    tau2, _ = tc.bucket_topm(flat, b)
+    tau2[0, :2] = 1.0           # no bucket a member at repetitions 0-1
+    assert tc.live_repetitions(flat, tau2, b).tolist()[0] == 3
+
+
 def test_keys_round_trip():
     """The plain version's int64 keys order (band, value, -class id) and
     decode back, -0.0 as +0.0."""

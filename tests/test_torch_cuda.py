@@ -1,5 +1,6 @@
-"""The CUDA kernels (decode, both mappings of the top-1 kernel; candidate
-decode, every path of bucket top-m; fused projection + CE,
+"""The CUDA kernels (decode, both mappings of the top-1 and top-k kernels;
+candidate decode, every path of bucket top-m and kernel 8's layouts;
+fused projection + CE,
 forward and backward; the R-head CE on given logits, forward and
 backward; the RG-LRU scan and flash attention, forward and backward)
 against their plain versions, on the card, and one full-width
@@ -173,6 +174,83 @@ def test_top1_tie_across_splits_goes_to_lowest_id(dev, n):
         assert torch.equal(kv, torch.full_like(kv, 0.5 * ODP_R))
 
 
+def _assert_topk_close(meta, table, kv, ki, pv, pi, est):
+    """Random inputs: values at rtol 1e-6, indices equal except where the
+    plain scores tie within it."""
+    torch.testing.assert_close(kv, pv, rtol=1e-6, atol=1e-7)
+    scores = mt.estimator_scores(meta, table, est)
+    torch.testing.assert_close(scores.gather(1, ki.long()), pv, rtol=1e-6,
+                               atol=1e-7)
+    for row in ki.tolist():
+        assert len(set(row)) == len(row)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("estimator", ["unbiased", "min", "median"])
+@pytest.mark.parametrize("r,n", [(25, 256), (25, 37), (3, 64), (3, 33)])
+def test_topk_query_per_lane_equals_plain(dev, r, n, estimator, k):
+    """Kernel 2's query-per-lane mapping (N >= 32, k <= 32) at ODP's B and
+    K, R = 25 and R = 3 (neither a multiple of the 4-repetition gather
+    chunk, so the pad row is gathered: +0.0 for the sum, +inf for min and
+    median), both hash sources: dyadic inputs exactly, random ones at
+    rtol 1e-6 with indices equal except on near-ties."""
+    fam = MultShiftFamily(ODP_B, r, 1)
+    table = fam.table(ODP_K, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert mt.topk_layout(n, r, ODP_B, ODP_K, k, sms).mapping == \
+        "query_per_lane"
+    gen = torch.Generator(device=dev).manual_seed(n + r)
+    random = torch.softmax(torch.randn((n, r, ODP_B), generator=gen,
+                                       device=dev), -1)
+    for hash_kw in ({"table": table},
+                    {"inline_coeffs": fam.coeffs_tensor(dev),
+                     "inline_shift": fam.shift}):
+        for meta in (_dyadic(n, r, ODP_B, dev, seed=n), random):
+            before = mt.mach_topk_cuda.launches
+            kv, ki = mt.mach_topk_cuda(meta, num_classes=ODP_K, k=k,
+                                       estimator=estimator, **hash_kw)
+            assert mt.mach_topk_cuda.launches == before + 1
+            pv, pi = mt.mach_topk_plain(meta, num_classes=ODP_K, k=k,
+                                        estimator=estimator, **hash_kw)
+            if meta is random:
+                _assert_topk_close(meta, table, kv, ki, pv, pi, estimator)
+            else:
+                assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("estimator", ["unbiased", "min", "median"])
+def test_topk_query_per_lane_ties_go_to_lowest_id(dev, estimator):
+    """Rows whose best value two classes share, one in an early K-split
+    and one in the last ones: the lowest id ranks first (k = 10)."""
+    table, hashes = _odp_hashes(dev)
+    n = 64
+    q = torch.arange(n, device=dev)
+    low, high = 1000 + 211 * q, ODP_K - 1 - 97 * q
+    meta = torch.zeros((n, ODP_R, ODP_B), device=dev)
+    for k in (low, high):
+        meta[q[:, None], torch.arange(ODP_R, device=dev)[None, :],
+             table[:, k].T.long()] = 0.5
+    for hash_kw in hashes.values():
+        kv, ki = mt.mach_topk_cuda(meta, num_classes=ODP_K, k=10,
+                                   estimator=estimator, **hash_kw)
+        pv, pi = mt.mach_topk_plain(meta, num_classes=ODP_K, k=10,
+                                    estimator=estimator, **hash_kw)
+        assert torch.equal(ki[:, :2].long(), torch.stack([low, high], 1))
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+def test_topk_median_counts_network_runs(dev):
+    """The query-per-lane median adds its sorting-network runs to the
+    counter it is given: at least one a warp, at most one a class and
+    query slot."""
+    table, _ = _odp_hashes(dev)
+    meta = _dyadic(64, ODP_R, ODP_B, dev, seed=3)
+    runs = torch.zeros(1, dtype=torch.int64, device=dev)
+    mt.mach_topk_cuda(meta, table, num_classes=ODP_K, k=10,
+                      estimator="median", network_runs=runs)
+    assert 0 < int(runs) <= 2 * ODP_K
+
+
 TOPM_CASES = [(b, m) for b in (4, 32, 37, 512, 1000, 2048, 8192)
               for m in sorted({m for m in (1, 2, 3, 12, 16, 32, 33) if m <= b}
                               | {max(1, b - 1), b})]
@@ -226,6 +304,41 @@ def test_candidate_kernel_equals_plain(dev, r, b, n, num_classes, estimator):
                                                 num_classes=num_classes, k=33,
                                                 t=t, estimator=estimator,
                                                 **hash_kw)
+            for a, c in zip(got, want):
+                assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("estimator", ["unbiased", "min", "median"])
+@pytest.mark.parametrize("r,b,n,num_classes,m", [
+    (25, 32, 5, 20011, 32),      # exact: only repetition 0's chunks walk
+    (25, 32, 5, 20011, 2),
+    (16, 8192, 3, 300007, 12),   # probabilities from global memory
+    (16, 8192, 2, 300007, 8192)])
+def test_candidate_kernel_layouts_equal_plain(dev, r, b, n, num_classes, m,
+                                              estimator):
+    """Kernel 8 at kcap 128 (four keys a lane) and 16, with the
+    probabilities in shared and in global memory, dyadic inputs, both
+    hash sources: values, bands and ids equal the plain version's."""
+    meta = _dyadic(n, r, b, dev, seed=r + m)
+    fam = MultShiftFamily(b, r, 2)
+    table = fam.table(num_classes, dev)
+    inv = inverted_table(table, b, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tau, ids = mc.bucket_topm(meta, m)
+    for k in (100, 10):
+        lay = mc.cand_layout(n, r, b, m, inv.shape[1], k, sms)
+        assert lay.lane_keys == (4 if k == 100 else 1)
+        assert lay.smem_probs == (b < 8192)
+        for hash_kw in ({"table": table},
+                        {"inline_coeffs": fam.coeffs_tensor(dev),
+                         "inline_shift": fam.shift}):
+            t = 2 if estimator != "unbiased" else 1
+            got = mc.mach_candidate_topk_cuda(
+                meta, tau, ids, inv, num_classes=num_classes, k=k, t=t,
+                estimator=estimator, **hash_kw)
+            want = mc.mach_candidate_topk_plain(
+                meta, tau, ids, inv, num_classes=num_classes, k=k, t=t,
+                estimator=estimator, **hash_kw)
             for a, c in zip(got, want):
                 assert torch.equal(a, c)
 
