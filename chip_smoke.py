@@ -100,8 +100,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    finite, and each first step's loss and gradients must equal the plain
    version's.  Then ms per step, stage times (the fused-xent kernels by
    CUDA events and by CUDA-graph replay), peak memory.  Then kernel 4
-   at the LM head's shape in bf16 (the fused LM loss's call, not yet on
-   a path): forward and backward-with-dh ms, plain and library (bf16
+   at the LM head's shape in bf16 (the fused LM loss's call, on the
+   path in phase 10's fused run): forward and backward-with-dh ms, plain and library (bf16
    torch.matmul + F.cross_entropy) ms, peak memory of each, bound,
    ptxas registers and shared memory.
 7. LM kernels vs plain on the card: the RG-LRU scan (kernel 9) equal to
@@ -181,7 +181,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    AdamW + apply, and kernel, plain, bound and library times at the
    path's shapes (``F.cross_entropy`` and SDPA's backward as yardsticks;
    kernel 9 forward and backward also by CUDA-graph replay).
-11. The kernel report (one JSON line), then the device line, last.
+   Then the same training with ``mach_fused_loss=True`` (same params,
+   stream and trainer): the loss runs kernel 4 on the bf16 hidden states
+   and head kernel, forward and backward with dh.  Launch counters from
+   0: kernel 4 forward and backward once a step, kernel 3 never.  The
+   first step's loss is held to the unfused loss of the same params and
+   batch within 2^-8 of it (one bf16 unit roundoff: the unfused loss
+   rounds its logits to bf16, the fused one never forms them).  Ms per
+   step, tokens/s and peak memory beside the unfused run's.
+11. Dynamic bucket selection at the JAX package's 500k-label workload
+   (``benchmarks/bench_train_xent.py`` EXTREME_500K: K=500,000, B=4,096,
+   R=8, d=1,024, N=512, c_sel=512, refresh every 10 steps), trained
+   through ``Trainer`` with a ``bucket_proxy_fn`` for 6 AdamW steps,
+   selection on and off, on CSR batches at nnz 64 (kernel 5) and 1,024
+   (kernel 6) and on the nnz-64 batches densified (kernel 4, float32).
+   Launch counters from 0 for each run: the family's forward and
+   backward once a step, the proxy once.  Every loss finite; the
+   selected first loss at most the full one (the bias is one-sided).  Ms
+   per step and peak memory, on and off.  Then kernels 4-6 at B' = c_sel
+   on the gathered columns against their plain versions, forward and
+   backward (gradients through the gather to the full W and bias), at
+   R=8, c_sel=512 and at R=5, c_sel=511 (R·c_sel = 2,555 odd: unaligned
+   rows, kernel 6's scalar dW path): the unselected columns' gradients
+   exactly zero, the card's selected ids equal to the CPU's, the ops'
+   ``bucket_select`` dispatch equal to the kernel at the gathered
+   columns; each family's kernel times at B' and at B on the same inputs.
+12. The one-vs-all baseline: ``OAAClassifier`` trained at ImageNet-21k
+   width (K=21,841, d=6,144, N=512, dense float32, 5 AdamW steps) beside
+   the fused ``MACHLinear`` on the same stream (ms a step, peak memory;
+   first losses near ln K and R ln B); ODP's OAA (105,033 x 422,713
+   float32 = 177.6 GB) sized and not tried: it does not fit on one card.
+   Then recurrentgemma-2b with ``mach="off"`` (the tied 256,000 x 2,560
+   softmax head): phase 8's requests served by the engine (greedy tokens
+   must equal the direct greedy loop; kernels 9-10 counted), and phase
+   10's training (first loss near ln V, batch 0's loss falling), ms a
+   step and peak beside the MACH head's.
+13. The kernel report (one JSON line), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -197,6 +232,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -442,8 +478,9 @@ def _topk_mappings(dev) -> dict:
         pv_all, pi_all = mt.mach_topk_plain(meta, table, num_classes=num_classes,
                                             k=max(TOPK_K), estimator=est)
         for k in TOPK_K:
-            mapping = mt.topk_layout(n, r, b, num_classes, k, sms).mapping
             for mode, hash_kw in hashes.items():
+                mapping = mt.topk_layout(n, r, b, num_classes, k, sms, est,
+                                         inline=mode == "inline").mapping
                 before = mt.mach_topk_cuda.launches
                 kv, ki = mt.mach_topk_cuda(meta, num_classes=num_classes, k=k,
                                            estimator=est, **hash_kw)
@@ -825,11 +862,14 @@ def phase_main_path(dev) -> list[dict]:
         meta, table, num_classes=K, k=100))
     topk_layout = mt.topk_layout(N_MAIN, R, B, K, K_MAIN, sms)
     # how often the query-per-lane median ran its sorting network: runs
-    # over (warp, class, query slot) steps, one per class, tile and slot
+    # over (warp, class, query slot) steps, one per class, tile and slot;
+    # inline hash, since the median in table mode runs class per thread
     runs = torch.zeros(1, dtype=torch.int64, device=dev)
-    mt.mach_topk_cuda(meta, table, num_classes=K, k=K_MAIN,
-                      estimator="median", network_runs=runs)
-    steps = -(-N_MAIN // topk_layout.queries) * K * (topk_layout.queries // 32)
+    mt.mach_topk_cuda(meta, num_classes=K, k=K_MAIN, inline_coeffs=coeffs,
+                      inline_shift=shift, estimator="median",
+                      network_runs=runs)
+    lane = mt.topk_layout(N_MAIN, R, B, K, K_MAIN, sms, "median", inline=True)
+    steps = -(-N_MAIN // lane.queries) * K * (lane.queries // 32)
     network_share = int(runs) / steps
     t_bound, by = bound_ms(N_MAIN, R, B, K, K_MAIN, table=True)
     rows.append({
@@ -1958,7 +1998,7 @@ def phase_dense_lm_head(dev, checks: dict, launches: int, smi: str) -> dict:
     forward, then the backward with dh): times, plain and library times,
     peak memory of each, bound, ptxas registers and shared memory.
     ``launches`` is the main path's count (the
-    ImageNet-21k training run); the LM path does not run kernel 4 yet."""
+    ImageNet-21k training run); phase 10's fused run adds the LM path's."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import mach_fused_xent as mfx
 
@@ -1992,7 +2032,7 @@ def phase_dense_lm_head(dev, checks: dict, launches: int, smi: str) -> dict:
         "name": "mach_fused_xent_dense", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mach_fused_xent_dense.cu",
         "replaces": "src/repro/kernels/mach_fused_xent.py:724",
-        "launches": launches, "launches_lm_path": 0,
+        "launches": launches,
         "max_abs_err": checks["dense_lm_bf16"]["max_abs_err"],
         "ms": ms_fwd + ms_bwd, "ms_fwd": ms_fwd, "ms_bwd_with_dh": ms_bwd,
         "plain_ms": plain_ms, "bound_ms": bf + bb_,
@@ -3142,6 +3182,548 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10, flag on: the same training with the fused logit-free LM loss
+# ---------------------------------------------------------------------------
+
+# the fused loss reads bf16 h and head kernel in float32 and never rounds
+# the logits; the unfused loss rounds them to bf16 before its CE: the two
+# first-step losses are held within one bf16 unit roundoff of the loss
+FUSED_LOSS_RTOL = 2.0 ** -8
+
+
+def phase_lm_train_fused(dev, train: dict) -> dict:
+    """recurrentgemma-2b trained as in phase 10 (same params, stream and
+    trainer settings) with ``mach_fused_loss=True``: the loss runs kernel 4
+    on the bf16 hidden states and head kernel, forward and backward with
+    dh, and kernel 3 not at all.  The first step's loss is held to the
+    unfused loss of the same params and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import mach_xent as mx
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import TrainConfig, Trainer, new_train_state
+
+    base = get_config("recurrentgemma-2b")
+    cfg = dataclasses.replace(base, mach_fused_loss=True)
+    model = LanguageModel(cfg)
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2, peak_lr=3e-4,
+                       log_every=min(5, TRAIN_STEPS))
+    trainer = Trainer(model, tcfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    stream = SyntheticLMStream(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), device=dev)
+    batch0 = stream.batch_at(0)
+    with torch.no_grad():
+        unfused0 = float(LanguageModel(base).loss(params, batch0)[0])
+
+    # the main path's run: counts from 0, read just after
+    kernels = {"dense_fwd": mfx.dense_fwd_cuda, "dense_bwd": mfx.dense_bwd_cuda,
+               "mach_xent_fwd": mx.mach_xent_cuda_fwd,
+               "mach_xent_bwd": mx.mach_xent_cuda_bwd,
+               "lru_scan": ls.lru_scan_cuda,
+               "flash_attention": fa.flash_attention_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = new_train_state(params, trainer.opt)
+    del params
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, stream.batch_at(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    del state
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"lm train fused: non-finite loss in {losses}")
+    err = abs(losses[0] - unfused0)
+    if err > FUSED_LOSS_RTOL * abs(unfused0):
+        fail(f"lm train fused: first loss {losses[0]} vs the unfused loss "
+             f"{unfused0} of the same params and batch: {err} > 2^-8 of it")
+    want = {"dense_fwd": TRAIN_STEPS, "dense_bwd": TRAIN_STEPS,
+            "mach_xent_fwd": 0, "mach_xent_bwd": 0}
+    for name, count in want.items():
+        if launches[name] != count:
+            fail(f"lm train fused: {name} launched {launches[name]} times, "
+                 f"expected {count}")
+    smi = _nvidia_smi()
+    ms = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"lm train fused (mach_fused_loss=True): losses {losses}; first "
+          f"loss {losses[0]:.6f} vs unfused {unfused0:.6f} (|diff| {err:.3e},"
+          f" bound 2^-8 of it); launches {launches}; {ms:.3f} ms/step (host "
+          f"clock, median of steps 2..{TRAIN_STEPS}; the first "
+          f"{step_ms[0]:.3f} ms), {tokens / ms * 1e3:.1f} tokens/s, peak "
+          f"{peak_gib:.2f} GiB; unfused (phase 10) {train['step_ms']:.3f} "
+          f"ms/step, {tokens / train['step_ms'] * 1e3:.1f} tokens/s, peak "
+          f"{train['peak_gib']:.2f} GiB [{smi}]", flush=True)
+    return {"launches": launches, "losses": losses, "unfused_loss0": unfused0,
+            "step_ms": ms, "peak_gib": peak_gib}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: dynamic bucket selection at the JAX package's 500k-label
+# workload (benchmarks/bench_train_xent.py, EXTREME_500K)
+# ---------------------------------------------------------------------------
+
+SELECT = {"K": 500_000, "B": 4096, "R": 8, "d": 1024, "N": 512,
+          "c_sel": 512, "refresh_every": 10}
+# (label, nnz of the CSR stream, kernel family): CSR at nnz = 64 runs the
+# ELL family (kernel 5), at nnz_max = 1,024 the gather family (kernel 6);
+# the nnz = 64 stream densified runs the dense family (kernel 4, float32)
+SELECT_RUNS = (("csr nnz=64", 64, "ell"), ("csr nnz=1024", 1024, "gather"),
+               ("dense", 64, "dense"))
+SELECT_STEPS = 6
+# kernels vs plain at B' = c_sel: (R, c_sel); R·c_sel = 2,555 is odd, so
+# the gathered W's rows are off 16-byte alignment (kernel 4's plain loads)
+# and kernel 6's dW takes its scalar path (c % 4 != 0)
+SELECT_CHECKS = ((8, 512), (5, 511))
+
+
+class _HeadTask:
+    """A MACH head trained through its fused loss, as the ``Trainer``
+    takes a model: ``loss(params, batch) -> (loss, metrics)``, and a
+    ``cfg.mach_bucket_select`` that sets the proxy's refresh cadence.
+    Keeps each step's loss (detached, no synchronisation)."""
+
+    def __init__(self, head, bucket_select):
+        self.head = head
+        self.cfg = types.SimpleNamespace(mach_bucket_select=bucket_select)
+        self.losses = []
+
+    def loss(self, params, batch):
+        loss = self.head.fused_loss(params, batch["x"], batch["y"],
+                                    bucket_select=self.cfg.mach_bucket_select,
+                                    bucket_proxy=batch.get("bucket_proxy"))
+        self.losses.append(loss.detach())
+        return loss, {"loss": loss}
+
+
+class _Stream:
+    def __init__(self, batch_at):
+        self._batch_at = batch_at
+
+    def batch_at(self, step):
+        x, y = self._batch_at(step)
+        return {"x": x, "y": y}
+
+
+class _StepTimes:
+    """``Trainer.fit``'s monitor: each step's synchronized seconds."""
+
+    def __init__(self):
+        self.ms = []
+
+    def record(self, step, seconds):
+        self.ms.append(seconds * 1e3)
+
+
+def _selection_kernel_checks(dev) -> dict:
+    """Kernels 4-6 at B' = c_sel on gathered columns against their plain
+    versions, forward and backward (gradients through the column gather
+    to the full W and bias), and the gathered W's unselected columns'
+    gradients exactly zero; the selection itself equal to the CPU's.
+    Then each family's forward and backward times at B' = c_sel and at
+    B on the same inputs (the workload's R = 8, c_sel = 512)."""
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import ops
+
+    n, d, b = SELECT["N"], SELECT["d"], SELECT["B"]
+    out = {f: {"max_abs_err": 0.0, "cases": 0} for f in ("dense", "ell",
+                                                        "gather")}
+    for r, c_sel in SELECT_CHECKS:
+        gen = torch.Generator(device=dev).manual_seed(r * c_sel)
+        proxy = torch.randn((r, b), generator=gen, device=dev)
+        y = torch.randint(0, b, (n, r), generator=gen, device=dev,
+                          dtype=torch.int32)
+        selected = ops.mach_select_buckets(proxy, y, num_buckets=b,
+                                           c_sel=c_sel)
+        on_cpu = ops.mach_select_buckets(proxy.cpu(), y.cpu(), num_buckets=b,
+                                         c_sel=c_sel)
+        if not torch.equal(selected.cpu(), on_cpu):
+            fail(f"selection R={r} c_sel={c_sel}: the card's ids differ from "
+                 f"the CPU's")
+        keep = torch.zeros((r, b), dtype=torch.bool, device=dev)
+        keep[torch.arange(r, device=dev)[:, None], selected.long()] = True
+        g = torch.rand((n,), generator=gen, device=dev) + 0.5
+        w = torch.randn((d, r * b), generator=gen, device=dev)
+        bias = torch.randn((r * b,), generator=gen, device=dev)
+        h = torch.nn.functional.normalize(
+            torch.randn((n, d), generator=gen, device=dev), dim=1)
+        for family in ("dense", "ell", "gather"):
+            nnz_max = 64 if family == "ell" else 1024
+            scale = d ** -0.5 if family == "dense" else 1.0
+            wl = (w * scale).requires_grad_(True)
+            bl = bias.clone().requires_grad_(True)
+            if family == "dense":
+                hl = h.clone().requires_grad_(True)
+                leaves, names = [hl, wl, bl], ["h", "W", "bias"]
+                inputs = (hl,)
+                kern_fn, plain_fn = (mfx.mach_fused_xent_dense,
+                                     mfx.fused_xent_dense_plain)
+            else:
+                batch = _csr_check_batch(dev, n, d, nnz_max,
+                                         seed=nnz_max + c_sel)
+                inputs = ops.csr_to_ell(batch.indptr, batch.indices,
+                                        batch.values, nnz_max, d)
+                leaves, names = [wl, bl], ["W", "bias"]
+                kern_fn = getattr(mfx, f"mach_fused_xent_{family}")
+                plain_fn = mfx.fused_xent_ell_plain
+
+            def run(fn):
+                wsel, bsel, pos = ops._apply_bucket_selection(wl, bl, y,
+                                                              selected, b)
+                return fn(*inputs, wsel, bsel, pos, c_sel)
+            tag = f"selected {family} R={r} c_sel={c_sel} (R·c_sel={r * c_sel})"
+            got = _loss_and_grads(lambda: run(kern_fn), leaves, g)
+            err = _compare(tag, got, _loss_and_grads(lambda: run(plain_fn),
+                                                     leaves, g), names)
+            gw, gb = got[2][names.index("W")], got[2][names.index("bias")]
+            if bool((gw.reshape(d, r, b)[:, ~keep] != 0).any()) or \
+                    bool((gb.reshape(r, b)[~keep] != 0).any()):
+                fail(f"{tag}: an unselected column's gradient is not zero")
+            if family == "dense":
+                via = ops.mach_fused_xent(
+                    hl, wl, y, num_buckets=b, bias=bl,
+                    bucket_select=(c_sel, 1), bucket_proxy=proxy)
+            else:
+                via = ops.mach_fused_xent_csr(
+                    batch.indptr, batch.indices, batch.values, wl, y,
+                    num_buckets=b, nnz_max=nnz_max, bias=bl,
+                    bucket_select=(c_sel, 1), bucket_proxy=proxy)
+            if not torch.allclose(via.detach(), got[0], **LOSS_TOL):
+                fail(f"{tag}: ops' bucket_select dispatch differs from the "
+                     f"kernel at the gathered columns")
+            out[family]["max_abs_err"] = max(out[family]["max_abs_err"], err)
+            out[family]["cases"] += 1
+            if (r, c_sel) == (SELECT["R"], SELECT["c_sel"]):
+                out[family].update(_selection_times(
+                    family, inputs, wl.detach(), bl.detach(), y, selected, g,
+                    b, c_sel))
+            print(f"{tag}: kernel == plain, forward and backward (max abs "
+                  f"err {err:.3e}); unselected columns' gradients exactly 0",
+                  flush=True)
+    return out
+
+
+def _selection_times(family, inputs, w, bias, y, selected, g, b, c_sel
+                     ) -> dict:
+    """A family's forward and backward kernel times (CUDA events) at
+    B' = c_sel over the gathered columns, and at B on the same inputs."""
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import ops
+
+    fwd = getattr(mfx, f"{family}_fwd_cuda")
+    bwd = getattr(mfx, f"{family}_bwd_cuda")
+    kw = {"need_dh": False} if family == "dense" else {}
+    wsel, bsel, pos = ops._apply_bucket_selection(w, bias, y, selected, b)
+    n, r, d = y.shape[0], y.shape[1], w.shape[0]
+    sparse = {}
+    if family != "dense":
+        cols = inputs[0]
+        valid = (cols >= 0) & (cols < d)
+        sparse = {"nnz": int(valid.sum()),
+                  "unique": int(torch.unique(cols[valid]).numel()),
+                  "j": cols.shape[1]}
+    res = {}
+    for key, (wk, bk, lk, nb) in (("selected", (wsel, bsel, pos, c_sel)),
+                                  ("full", (w, bias, y, b))):
+        (bf, _), (bb_, _) = _bound(family, n, d, r, nb, **sparse)
+        res[f"bound_ms_{key}"] = bf + bb_
+        _, lse = fwd(*[t.detach() for t in inputs], wk, bk, lk, nb)
+        res[f"ms_fwd_{key}"] = kernel_ms(lambda: fwd(
+            *[t.detach() for t in inputs], wk, bk, lk, nb), iters=10)
+        res[f"ms_bwd_{key}"] = kernel_ms(lambda: bwd(
+            *[t.detach() for t in inputs], wk, bk, lk, lse, g, nb, **kw),
+            iters=10)
+    return res
+
+
+def phase_selection(dev) -> dict:
+    """Train the 500k-label workload with selection on and off, CSR at
+    nnz 64 and 1,024 and dense, through the ``Trainer`` with a
+    ``bucket_proxy_fn`` refreshed every 10 steps; then kernels 4-6 held
+    against their plain versions at B' = c_sel."""
+    from repro_torch.core.mach import MACHConfig, MACHLinear
+    from repro_torch.data.extreme import (SparseExtremeDataConfig,
+                                          SparseExtremeDataset)
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.train import TrainConfig, Trainer, new_train_state
+
+    p = SELECT
+    t0 = time.perf_counter()
+    head = MACHLinear(MACHConfig(p["K"], p["B"], p["R"]), p["d"], fused=True)
+    data = {nnz: SparseExtremeDataset(SparseExtremeDataConfig(
+        num_classes=p["K"], num_features=p["d"], nnz=nnz, sig_features=16),
+        device=dev) for nnz in sorted({nnz for _, nnz, _ in SELECT_RUNS})}
+    torch.cuda.synchronize()
+    print(f"selection: K={p['K']:,} B={p['B']} R={p['R']} d={p['d']} "
+          f"N={p['N']} c_sel={p['c_sel']} refresh_every="
+          f"{p['refresh_every']} (the JAX package's EXTREME_500K); set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    select = (p["c_sel"], p["refresh_every"])
+    runs = {}
+    for label, nnz, family in SELECT_RUNS:
+        fmt = "dense" if family == "dense" else "csr"
+        stream = _Stream(lambda s, nnz=nnz, fmt=fmt: data[nnz].batch_at(
+            s, p["N"], format=fmt))
+        for mode in ("off", "on"):
+            task = _HeadTask(head, select if mode == "on" else None)
+            proxy_calls = []
+
+            def proxy_fn(params, batch):
+                proxy_calls.append(1)
+                return head.bucket_proxy_scores(params, batch["x"])
+            trainer = Trainer(task, TrainConfig(schedule="constant",
+                                                peak_lr=0.05,
+                                                log_every=10 ** 9),
+                              bucket_proxy_fn=proxy_fn if mode == "on"
+                              else None)
+            params = head.init(torch.Generator(device=dev).manual_seed(5),
+                               device=dev)
+            state = new_train_state(params, trainer.opt)
+            del params
+            times = _StepTimes()
+            # the main path's run: counts from 0, read just after
+            for fn in mfx.CUDA_WRAPPERS:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = trainer.fit(state, stream, SELECT_STEPS, monitor=times,
+                                log=None)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            launches = {fn.__name__: fn.launches for fn in mfx.CUDA_WRAPPERS}
+            losses = [float(v) for v in task.losses]
+            del state
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"selection {label} {mode}: non-finite loss {losses}")
+            fam = launches[f"{family}_fwd_cuda"] + launches[f"{family}_bwd_cuda"]
+            if launches[f"{family}_fwd_cuda"] != SELECT_STEPS or \
+                    launches[f"{family}_bwd_cuda"] != SELECT_STEPS:
+                fail(f"selection {label} {mode}: {family} kernels launched "
+                     f"{launches}")
+            if mode == "on" and len(proxy_calls) != 1:
+                fail(f"selection {label}: the proxy ran {len(proxy_calls)} "
+                     f"times in {SELECT_STEPS} steps (refresh every "
+                     f"{p['refresh_every']})")
+            runs[label, mode] = {"ms": statistics.median(times.ms[1:]),
+                                 "first_ms": times.ms[0], "peak_gib": peak,
+                                 "losses": losses, "launches": fam,
+                                 "family": family}
+        on, off = runs[label, "on"], runs[label, "off"]
+        if on["losses"][0] > off["losses"][0] + 1e-4 * abs(off["losses"][0]):
+            fail(f"selection {label}: the selected first loss "
+                 f"{on['losses'][0]} is above the full one {off['losses'][0]} "
+                 f"(its bias is one-sided)")
+        print(f"selection {label} ({family}): on {on['ms']:.3f} ms/step "
+              f"(first {on['first_ms']:.3f}), peak {on['peak_gib']:.2f} GiB, "
+              f"losses {[round(v, 4) for v in on['losses']]}; off "
+              f"{off['ms']:.3f} ms/step (first {off['first_ms']:.3f}), peak "
+              f"{off['peak_gib']:.2f} GiB, losses "
+              f"{[round(v, 4) for v in off['losses']]} (host clock, median "
+              f"of steps 2..{SELECT_STEPS}) [{_nvidia_smi()}]", flush=True)
+    del data
+    torch.cuda.empty_cache()
+    checks = _selection_kernel_checks(dev)
+    return {"runs": runs, "checks": checks}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the one-vs-all baseline (the paper's comparison point)
+# ---------------------------------------------------------------------------
+
+OAA_STEPS = 5
+
+
+def _oaa_classifier_runs(dev) -> dict:
+    """OAAClassifier at ImageNet-21k width (K=21,841, d=6,144, dense
+    float32) beside the fused MACHLinear, on the same stream: ms a step
+    and peak memory.  ODP's OAA is only sized: it does not fit."""
+    from repro_torch.configs.odp_mach import IMAGENET, ODP
+    from repro_torch.core import OAAClassifier
+    from repro_torch.core.mach import MACHLinear
+    from repro_torch.data.extreme import ExtremeDataConfig, ExtremeDataset
+    from repro_torch.optim import adamw
+
+    data = ExtremeDataset(ExtremeDataConfig(IMAGENET.num_classes,
+                                            IMAGENET.dim), device=dev)
+    heads = {"oaa": OAAClassifier(IMAGENET.num_classes, IMAGENET.dim),
+             "mach": MACHLinear(IMAGENET.mach(), IMAGENET.dim, fused=True)}
+    want0 = {"oaa": math.log(IMAGENET.num_classes),
+             "mach": IMAGENET.mach_r * math.log(IMAGENET.mach_b)}
+    out = {}
+    for name, head in heads.items():
+        params = head.init(torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+        opt = adamw(0.05)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, losses, times, _ = _train(
+            head, params, lambda s: data.batch_at(s, N_TRAIN), OAA_STEPS, opt,
+            opt.init(params))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del params
+        if not all(math.isfinite(v) for v in losses) or \
+                abs(losses[0] - want0[name]) > 1.0:
+            fail(f"imagenet21k {name}: losses {losses} (first expected near "
+                 f"{want0[name]:.3f} at random init)")
+        out[name] = {"ms": statistics.median(times[1:]), "peak_gib": peak,
+                     "losses": losses, "params": head.param_count()}
+    smi = _nvidia_smi()
+    print(f"oaa imagenet21k (K={IMAGENET.num_classes:,}, d={IMAGENET.dim}, "
+          f"N={N_TRAIN}, dense float32; W {out['oaa']['params'] * 4 / 1e6:.1f}"
+          f" MB): OAA {out['oaa']['ms']:.3f} ms/step, peak "
+          f"{out['oaa']['peak_gib']:.2f} GiB, {out['oaa']['params']:,} params;"
+          f" MACH B={IMAGENET.mach_b} R={IMAGENET.mach_r} "
+          f"{out['mach']['ms']:.3f} ms/step, peak {out['mach']['peak_gib']:.2f}"
+          f" GiB, {out['mach']['params']:,} params (host clock, median of "
+          f"steps 2..{OAA_STEPS}; AdamW) [{smi}]", flush=True)
+    odp_bytes = ODP.num_classes * ODP.dim * 4
+    print(f"oaa odp: W would be {ODP.num_classes:,} x {ODP.dim:,} float32 = "
+          f"{odp_bytes / 1e9:.1f} GB, more than the card's 80 GB before any "
+          f"gradient or optimizer state: not tried (MACH B={ODP.mach_b} "
+          f"R={ODP.mach_r}: {ODP.dim * ODP.mach_b * ODP.mach_r * 4 / 1e9:.2f}"
+          f" GB)", flush=True)
+    return out
+
+
+def phase_oaa(dev, train: dict) -> dict:
+    """The one-vs-all baseline: the classifier at ImageNet-21k width, then
+    recurrentgemma-2b with ``mach="off"`` (the tied 256,000 x 2,560 head)
+    served by the engine (greedy tokens == a direct greedy loop) and
+    trained as in phase 10, beside the MACH head's numbers."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import TrainConfig, Trainer, new_train_state
+
+    out = {"classifier": _oaa_classifier_runs(dev)}
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma-2b", mach="off")
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev) for n in LM_PROMPTS]
+    kernels = {"lru_scan": ls.lru_scan_cuda,
+               "flash_attention": fa.flash_attention_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    engine_tokens, tick_ms, run_s = _serve(model, params, prompts)
+    served = {n: fn.launches for n, fn in kernels.items()}
+    direct = _direct_greedy(model, params, prompts, engine_tokens, dev)
+    for i, toks in enumerate(engine_tokens):
+        if len(toks) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
+            fail(f"oaa lm serve: request {i} gave {toks}")
+        if i != LM_SAMPLED and list(toks) != direct[i]:
+            fail(f"oaa lm serve: greedy request {i} gave {list(toks)}, the "
+                 f"direct loop {direct[i]}")
+    if min(served.values()) < 1:
+        fail(f"oaa lm serve: kernels 9-10 launches {served}")
+    decode_ms = statistics.median(tick_ms[1:])     # after the admission tick
+    print(f"oaa lm serve: recurrentgemma-2b mach='off' (tied {cfg.vocab_size:,}"
+          f" x {cfg.d_model} head): {len(LM_PROMPTS)} requests, greedy tokens"
+          f" == the direct greedy loop; launches {served}; decode tick "
+          f"{decode_ms:.3f} ms (median), run {run_s * 1e3:.1f} ms "
+          f"[{_nvidia_smi()}]", flush=True)
+
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2, peak_lr=3e-4,
+                       log_every=min(5, TRAIN_STEPS))
+    trainer = Trainer(model, tcfg)
+    stream = SyntheticLMStream(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), device=dev)
+    batch0 = stream.batch_at(0)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = new_train_state(params, trainer.opt)
+    del params
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, stream.batch_at(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    with torch.no_grad():
+        after = float(model.loss(state.params, batch0)[0])
+    del state
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses + [after]) or \
+            abs(losses[0] - math.log(cfg.vocab_size)) > 1.0 or \
+            not after < losses[0]:
+        fail(f"oaa lm train: losses {losses}, batch 0 after {after} (first "
+             f"expected near ln V = {math.log(cfg.vocab_size):.3f})")
+    if min(launches.values()) < 1:
+        fail(f"oaa lm train: kernels 9-10 launches {launches}")
+    ms = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"oaa lm train: {TRAIN_BATCH} x {TRAIN_SEQ} tokens, losses {losses};"
+          f" batch 0 after {TRAIN_STEPS} steps {after:.6f}; {ms:.3f} ms/step "
+          f"(median of steps 2..{TRAIN_STEPS}; the first {step_ms[0]:.3f} ms),"
+          f" {tokens / ms * 1e3:.1f} tokens/s, peak {peak_gib:.2f} GiB; the "
+          f"MACH head (phase 10) {train['step_ms']:.3f} ms/step, peak "
+          f"{train['peak_gib']:.2f} GiB [{_nvidia_smi()}]", flush=True)
+    out["lm"] = {"serve_decode_ms": decode_ms, "step_ms": ms,
+                 "peak_gib": peak_gib, "losses": losses}
+    return out
+
+
+def _add_new_path_launches(rows, fused, selection) -> None:
+    """Kernel 4's launches on the fused LM loss's path (its LM-head row),
+    and kernels 4-6's on the selected training paths (their training
+    rows), with the kernels' times, errors and bounds at B' = c_sel."""
+    families = {"mach_fused_xent_dense": "dense",
+                "mach_fused_xent_ell": "ell",
+                "mach_fused_xent_gather": "gather"}
+    for row in rows:
+        family = families.get(row["name"])
+        if family is None:
+            continue
+        if "train_step_ms" not in row:           # kernel 4 at the LM head
+            row["launches_lm_path"] = (fused["launches"]["dense_fwd"]
+                                       + fused["launches"]["dense_bwd"])
+            row["lm_fused_step_ms"] = fused["step_ms"]
+            row["lm_fused_peak_gib"] = fused["peak_gib"]
+            continue
+        label = next(lb for lb, _, f in SELECT_RUNS if f == family)
+        on = selection["runs"][label, "on"]
+        off = selection["runs"][label, "off"]
+        chk = selection["checks"][family]
+        row.update({
+            "launches_selected": on["launches"],
+            "max_abs_err_selected": chk["max_abs_err"],
+            "ms_selected": chk["ms_fwd_selected"] + chk["ms_bwd_selected"],
+            "ms_fwd_selected": chk["ms_fwd_selected"],
+            "ms_bwd_selected": chk["ms_bwd_selected"],
+            "ms_full_b_same_inputs": chk["ms_fwd_full"] + chk["ms_bwd_full"],
+            "bound_ms_selected": chk["bound_ms_selected"],
+            "bound_ms_full_b": chk["bound_ms_full"],
+            "selected_shape": (f"{label}: N={SELECT['N']} d={SELECT['d']} "
+                               f"R={SELECT['R']} B'={SELECT['c_sel']} of "
+                               f"B={SELECT['B']}, float32, with bias"),
+            "selected_train_step_ms": on["ms"],
+            "unselected_train_step_ms": off["ms"],
+            "selected_peak_gib": on["peak_gib"],
+            "unselected_peak_gib": off["peak_gib"]})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3253,6 +3835,18 @@ def main() -> int:
         if row["name"] in ("lru_scan", "flash_attention"):
             row["launches_lm_train"] = train["launches"][row["name"]]
     rows += train_rows
+
+    t0 = time.perf_counter()
+    fused = phase_lm_train_fused(dev, train)
+    print(f"lm train fused: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    selection = phase_selection(dev)
+    print(f"selection: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_oaa(dev, train)
+    print(f"oaa: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    _add_new_path_launches(rows, fused, selection)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ shapes and dtypes against the port's head of the same configuration:
 
 * ``MACHLinear``:     {"w": (d, R, B), "b": (R, B)}
 * ``MACHOutputHead``: {"kernel": (d, R·B)}
+* ``OAAClassifier``:  {"w": (d, K), "b": (K,)}
 
-``convert_lm_params`` does the same for a whole ``LanguageModel``.  The
+``convert_lm_params`` does the same for a whole ``LanguageModel``, the
+MACH head's kernel or the OAA head's ``lm_head`` among its leaves.  The
 layouts are the same in both packages, so both compute the same function
 on the converted weights.
 """
@@ -20,10 +22,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.mach import MACHHead, MACHLinear, MACHOutputHead
+from repro_torch.core.oaa import OAAClassifier
 
 
-def expected_params(head: MACHHead) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+def expected_params(head) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """Key -> (shape, dtype) of ``head``'s params."""
+    if isinstance(head, OAAClassifier):
+        return {"w": ((head.dim, head.num_classes), torch.float32),
+                "b": ((head.num_classes,), torch.float32)}
     c = head.cfg
     if isinstance(head, MACHLinear):
         return {"w": ((head.dim, c.num_repetitions, c.num_buckets), torch.float32),
@@ -33,7 +39,8 @@ def expected_params(head: MACHHead) -> dict[str, tuple[tuple[int, ...], torch.dt
     raise TypeError(f"no parameter layout for {type(head).__name__}")
 
 
-def convert_params(head: MACHHead, params: dict, device=None) -> dict:
+def convert_params(head: MACHHead | OAAClassifier, params: dict,
+                   device=None) -> dict:
     """JAX-package params (arrays) -> port params (tensors on ``device``)."""
     device = resolve_device(device)
     want = expected_params(head)

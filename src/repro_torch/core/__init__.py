@@ -27,6 +27,7 @@ from repro_torch.core.mach import (
     mach_loss,
     mach_meta_probs,
 )
+from repro_torch.core.oaa import OAAClassifier
 
 __all__ = [
     "CarterWegmanFamily", "MultShiftFamily", "make_hash_family",
@@ -35,5 +36,5 @@ __all__ = [
     "unbiased_estimator", "min_estimator", "median_estimator",
     "predict_classes", "predict_topk",
     "MACHConfig", "MACHHead", "MACHLinear", "MACHOutputHead",
-    "is_sparse_batch", "mach_loss", "mach_meta_probs",
+    "is_sparse_batch", "mach_loss", "mach_meta_probs", "OAAClassifier",
 ]

@@ -174,8 +174,20 @@ class MACHHead(abc.ABC):
                    bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logit-free counterpart of ``loss`` (fused projection + CE):
         the same value and gradients, without the (…, R, B) logits.
-        ``bucket_select`` / ``bucket_proxy`` (dynamic bucket selection)
-        are not ported yet and raise ``NotImplementedError``."""
+
+        ``bucket_select=(c_sel, refresh_every)`` turns on dynamic bucket
+        selection: the fused loss runs over the top-``c_sel``
+        proxy-scored bucket columns of each repetition, label buckets
+        force-included (a one-sided, bounded bias; see
+        ``ops.mach_fused_xent``).  ``bucket_proxy`` passes cached (R, B)
+        proxy scores (``train.Trainer`` refreshes them every
+        ``refresh_every`` steps through ``bucket_proxy_scores``)."""
+
+    def bucket_proxy_scores(self, params: dict, inputs: Any) -> torch.Tensor:
+        """(R, B) proxy scores for dynamic bucket selection: the logits of
+        the batch-mean activation, one d·R·B matvec, cacheable across
+        steps."""
+        raise NotImplementedError
 
     @abc.abstractmethod
     def param_count(self) -> int:
@@ -279,6 +291,10 @@ class MACHLinear(MACHHead):
         out = torch.matmul(x, w.reshape(self.dim, -1))
         return out.reshape(x.shape[:-1] + w.shape[1:]) + params["b"]
 
+    # the name before MACHHead
+    def logits(self, params: dict, x: Any) -> torch.Tensor:
+        return self.head_logits(params, x)
+
     def loss(self, params: dict, x: Any, y: torch.Tensor,
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Routes through the fused logit-free path when ``fused=True``
@@ -310,6 +326,19 @@ class MACHLinear(MACHHead):
                 x, w2, hashed, num_buckets=c.num_buckets, bias=bias,
                 bucket_select=bucket_select, bucket_proxy=bucket_proxy)
         return _weighted_mean(nll, weights)
+
+    def bucket_proxy_scores(self, params: dict, x: Any) -> torch.Tensor:
+        """(R, B) proxy from a dense or CSR batch (the CSR mean is a
+        scatter-add, never a densified batch)."""
+        from repro_torch.kernels import ops  # deferred: kernels import core
+        w2 = params["w"].reshape(self.dim, -1)
+        bias = params["b"].reshape(-1)
+        if is_sparse_batch(x):
+            return ops.mach_bucket_proxy(
+                w=w2, num_buckets=self.cfg.num_buckets, bias=bias,
+                csr=(x.indptr, x.indices, x.values))
+        return ops.mach_bucket_proxy(x, w2, num_buckets=self.cfg.num_buckets,
+                                     bias=bias)
 
     def param_count(self) -> int:
         c = self.cfg
@@ -369,7 +398,8 @@ class MACHOutputHead(MACHHead):
                    bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logit-free counterpart of ``loss``: the projection is fused
         into the hashed cross-entropy (``ops.mach_fused_xent``), so the
-        (…, R, B) logits never exist; gradients reach h and the kernel."""
+        (…, R, B) logits never exist; gradients reach h and the kernel.
+        ``bucket_select`` / ``bucket_proxy`` as on ``MACHHead.fused_loss``."""
         from repro_torch.kernels import ops  # deferred: kernels import core
         hashed = self.cfg.hash_labels(labels).movedim(0, -1)
         nll = ops.mach_fused_xent(h, params["kernel"], hashed,
@@ -377,6 +407,12 @@ class MACHOutputHead(MACHHead):
                                   bucket_select=bucket_select,
                                   bucket_proxy=bucket_proxy)
         return _weighted_mean(nll, weights)
+
+    def bucket_proxy_scores(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """(R, B) proxy from hidden states (..., d)."""
+        from repro_torch.kernels import ops  # deferred: kernels import core
+        return ops.mach_bucket_proxy(h, params["kernel"],
+                                     num_buckets=self.cfg.num_buckets)
 
     def param_count(self) -> int:
         return self.dim * self.out_features

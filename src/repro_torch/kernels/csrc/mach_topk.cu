@@ -16,7 +16,7 @@
 // and the outputs.  The (N, K) score matrix never exists.  Two mappings,
 // chosen by the wrapper (mach_topk.topk_layout):
 // - query per lane (topk_lane_kernel; N >= 32, k <= 32 and the transposed
-//   tile fits: ODP): kernel 1's mapping (mach_decode.cu), 32 or 64 queries
+//   tile fits, but for the median with the table hash: ODP): kernel 1's mapping (mach_decode.cu), 32 or 64 queries
 //   a block staged transposed, a warp walking classes two at a time with
 //   the R bucket ids computed once a warp and the 32 lanes gathering one
 //   bucket of their queries from consecutive words (no bank conflict).
@@ -25,7 +25,9 @@
 //   compare: no shared pool, atomic or barrier in the walk.  At the end
 //   the warps' lists meet in shared memory and a warp a query sorts them.
 // - class per thread (topk_partial_kernel; the LM head's N = 1 and 4,
-//   ImageNet-21k's R*B = 10,240, k > 32): a block holds up to
+//   ImageNet-21k's R*B = 10,240, k > 32, the median with the table hash,
+//   where the lane kernel's sorting network runs on nearly every step and
+//   was the slower one): a block holds up to
 //   kMaxQueriesTopk queries' R*B values and each thread walks classes,
 //   computing its R bucket ids once for them.  A class enters a per-query
 //   candidate pool in shared memory only if it beats the query's current
@@ -486,10 +488,16 @@ cudaError_t launch_partial(const TopkArgs& t, cudaStream_t stream) {
   const long long* coeffs = kInline ? t.coeffs : nullptr;
   const int shift = kInline ? t.shift : 0;
   if (t.mapping == kQueryPerLane) {
-    return launch_lane_len<kEst, kInline>(
-        t.queries_per_block, t.list_len, t.meta, t.n, t.r_count, t.b,
-        t.num_classes, table, coeffs, shift, t.kcap, t.num_splits, t.part_val,
-        t.part_idx, t.network_runs, stream);
+    // the median with the table hash runs class per thread (the wrapper's
+    // topk_layout), so its lane kernels are not built
+    if constexpr (kEst == kMedian && !kInline) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_lane_len<kEst, kInline>(
+          t.queries_per_block, t.list_len, t.meta, t.n, t.r_count, t.b,
+          t.num_classes, table, coeffs, shift, t.kcap, t.num_splits,
+          t.part_val, t.part_idx, t.network_runs, stream);
+    }
   }
   const int qpb = t.queries_per_block;
   const size_t smem = static_cast<size_t>(qpb) *
@@ -532,7 +540,8 @@ extern "C" {
 // (queries_per_block <= kMaxQueriesTopk, a shared pool of `pool` slots a
 // query: a power of two with pool - kcap >= 256), 1 = query per lane
 // (queries_per_block 32 or 64, list_len 1, 16 or 32 keys a lane keeps per
-// query, 64 queries only with list_len <= 16, kcap <= list_len);
+// query, 64 queries only with list_len <= 16, kcap <= list_len; not for
+// the median with the table hash);
 // part_* (n, num_splits, kcap) scratch; out_* (n, k); network_runs null or
 // one counter the query-per-lane median adds its sorting-network runs to.
 // kcap and merge_width are powers of two with k <= kcap <= kMaxK and

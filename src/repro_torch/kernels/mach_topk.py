@@ -98,9 +98,11 @@ class TopkLayout(NamedTuple):
 
 
 def topk_layout(n: int, r: int, b: int, num_classes: int, k: int,
-                sms: int) -> TopkLayout:
+                sms: int, estimator: str = "unbiased",
+                inline: bool = False) -> TopkLayout:
     """How the streaming top-k kernel covers N queries on a card of
-    ``sms`` SMs.
+    ``sms`` SMs, for ``estimator`` with the hash read from the (R, K)
+    table or computed ``inline``.
 
     Query per lane (kernel 1's mapping, ``mach_decode.decode_layout``)
     where N fills a warp of queries (N >= 32), next_pow2(k) <= 32 and the
@@ -110,13 +112,17 @@ def topk_layout(n: int, r: int, b: int, num_classes: int, k: int,
     query (the shortest of those that holds next_pow2(k)); 64 queries a
     block where N > 32, the list is at most 16 keys and they fit; K split
     for one wave.  Otherwise (the LM head's N = 1 and 4, ImageNet-21k's
-    R·B, k > 32) class per thread: up to 4 queries a block with a pool of
-    512 keys each, K split for two waves.  Both keep the splits' keys of
-    a query within the merge kernel's 4,096.  Raises if not even one
+    R·B, k > 32, and the median in table mode, where the lane kernel runs
+    its sorting network on nearly every step and the class-per-thread
+    kernel was faster on an H100: 2.20 against 2.58 ms at ODP, N = 256,
+    k = 10) class per thread: up to 4 queries a block with a pool of 512
+    keys each, K split for two waves.  Both keep the splits' keys of a
+    query within the merge kernel's 4,096.  Raises if not even one
     query's R·B values fit."""
     rb = r * b
     kcap = _next_pow2(k)
-    if n >= 32 and kcap <= _LANE_LISTS[-1]:
+    lane_ok = inline or estimator != "median"
+    if lane_ok and n >= 32 and kcap <= _LANE_LISTS[-1]:
         list_len = next(x for x in _LANE_LISTS if x >= kcap)
         for q in ((64, 32) if n > 32 and list_len <= 16 else (32,)):
             vec = q // 32
@@ -159,7 +165,8 @@ def mach_topk_cuda(meta_probs: torch.Tensor,
         raise ValueError("network_runs must be a (1,) int64 tensor on "
                          f"{dev}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    layout = topk_layout(n, r, b, num_classes, k, sms)
+    layout = topk_layout(n, r, b, num_classes, k, sms, estimator,
+                         inline=table is None)
     kcap = _next_pow2(k)
     width = _next_pow2(layout.splits * kcap)
     part_val = torch.empty((n, layout.splits, kcap), dtype=torch.float32,

@@ -3,9 +3,11 @@
 Dispatch is by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions (large CPU top-k
 problems to a blocked streaming version with the same results).  There
-are no knobs that pick a device path; the one algorithm knob,
-``sparse_impl``, picks a sparse kernel family.  Every public op names
-its oracle in ``kernels/ref.py`` in ``ORACLES``.
+are no knobs that pick a device path.  The algorithm knobs are
+``sparse_impl`` (a sparse kernel family), ``bucket_select`` (dynamic
+bucket selection) and ``candidate_mode`` (the count-min candidate
+filter).  Every public op names its oracle in ``kernels/ref.py`` in
+``ORACLES``.
 """
 
 from __future__ import annotations
@@ -202,13 +204,6 @@ def mach_xent(logits: torch.Tensor, hashed_labels: torch.Tensor
     return _mx.MachXent.apply(flat, labels).reshape(lead)
 
 
-def _no_bucket_select(bucket_select, bucket_proxy) -> None:
-    if bucket_select is not None or bucket_proxy is not None:
-        raise NotImplementedError(
-            "bucket_select / bucket_proxy (dynamic bucket selection) are not "
-            "ported yet; see ROADMAP.md, open item 1.2")
-
-
 def csr_to_ell(indptr: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor, nnz_max: int, num_features: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,11 +254,29 @@ def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
     tensor cores and the (…, R·B) logits never exist in device memory;
     on the CPU the plain version runs (bf16 operands upcast to float32
     before the product, as the JAX kernel does).  Differentiable wrt h,
-    w and bias, gradients in the inputs' dtype.  The kernels choose their own tiles: the TPU
-    knobs ``block_n/block_c/block_d`` have no counterpart.
-    ``bucket_select`` / ``bucket_proxy`` raise ``NotImplementedError``.
+    w and bias, gradients in the inputs' dtype.  The kernels choose their
+    own tiles: the TPU knobs ``block_n/block_c/block_d`` have no
+    counterpart.
+
+    ``bucket_select=(c_sel, refresh_every)`` turns on dynamic bucket
+    selection where c_sel < num_buckets: a proxy scores all R·B bucket
+    columns, the top c_sel of each repetition are kept (the batch's label
+    buckets force-included, so the bias is one-sided and bounded by
+    ``ref.mach_selected_bias_bound_ref``), and the fused loss runs over
+    the gathered (d, R·c_sel) columns.  ``bucket_proxy`` passes cached
+    (R, B) proxy scores (``train.Trainer`` refreshes them every
+    ``refresh_every`` steps); without it the proxy is computed here from
+    the batch mean.  Selection itself runs on every call.  With c_sel >=
+    num_buckets, or ``bucket_select=None``, this is the unselected path.
     """
-    _no_bucket_select(bucket_select, bucket_proxy)
+    if bucket_select is not None and bucket_select[0] < num_buckets:
+        proxy = bucket_proxy if bucket_proxy is not None else \
+            mach_bucket_proxy(h, w, num_buckets=num_buckets, bias=bias)
+        selected = mach_select_buckets(proxy, hashed_labels,
+                                       num_buckets=num_buckets,
+                                       c_sel=bucket_select[0])
+        return mach_fused_xent_selected(h, w, hashed_labels, selected,
+                                        num_buckets=num_buckets, bias=bias)
     lead, d = h.shape[:-1], h.shape[-1]
     r = hashed_labels.shape[-1]
     loss, _ = mfx.mach_fused_xent_dense(
@@ -295,13 +308,24 @@ def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
     by that threshold alone (the TPU's extra switch on a VMEM budget has
     no meaning on this card).  Differentiable wrt w and bias; ``values``
     get no gradient on either device (features are data).
-    ``bucket_select`` / ``bucket_proxy`` raise ``NotImplementedError``.
+    ``bucket_select`` / ``bucket_proxy`` as on ``mach_fused_xent``; the
+    proxy's batch mean is a scatter-add of the CSR values.
     """
     d = w.shape[0]
     r = hashed_labels.shape[-1]
     if w.dim() != 2 or w.shape[1] != r * num_buckets:
         raise ValueError(f"w {tuple(w.shape)} != (d, {r}*{num_buckets})")
-    _no_bucket_select(bucket_select, bucket_proxy)
+    if bucket_select is not None and bucket_select[0] < num_buckets:
+        proxy = bucket_proxy if bucket_proxy is not None else \
+            mach_bucket_proxy(w=w, num_buckets=num_buckets, bias=bias,
+                              csr=(indptr, indices, values))
+        selected = mach_select_buckets(proxy, hashed_labels,
+                                       num_buckets=num_buckets,
+                                       c_sel=bucket_select[0])
+        return mach_fused_xent_csr_selected(
+            indptr, indices, values, w, hashed_labels, selected,
+            num_buckets=num_buckets, nnz_max=nnz_max, bias=bias,
+            sparse_impl=sparse_impl)
     if sparse_impl not in (None, "densify", "gather"):
         raise ValueError(f"sparse_impl must be 'densify', 'gather' or None, "
                          f"got {sparse_impl!r}")
@@ -313,6 +337,91 @@ def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
     loss, _ = family(cols, vals, w, bias, hashed_labels.to(torch.int32),
                      num_buckets)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# Dynamic bucket selection (the training-time cut of the C axis).  Plain
+# PyTorch on both devices, as the JAX package computes it outside any
+# kernel; the loss it feeds runs kernels 4-6 at B' = c_sel.
+# ---------------------------------------------------------------------------
+
+def mach_bucket_proxy(h: Optional[torch.Tensor] = None,
+                      w: Optional[torch.Tensor] = None, *, num_buckets: int,
+                      bias: Optional[torch.Tensor] = None,
+                      csr: Optional[tuple] = None) -> torch.Tensor:
+    """(R, B) float32 bucket proxy scores: the logits of the batch-mean
+    activation.  Dense: ``h`` (..., d); sparse: ``csr=(indptr, indices,
+    values)`` in its place (the mean is a scatter-add, never a densified
+    batch).  No gradient flows through it: the proxy only ranks buckets."""
+    with torch.no_grad():
+        if csr is not None:
+            return ref.mach_bucket_proxy_csr_ref(*csr, w, num_buckets,
+                                                 bias=bias)
+        return ref.mach_bucket_proxy_ref(h.reshape(-1, h.shape[-1]), w,
+                                         num_buckets, bias=bias)
+
+
+def mach_select_buckets(proxy_scores: torch.Tensor,
+                        hashed_labels: torch.Tensor, *, num_buckets: int,
+                        c_sel: int) -> torch.Tensor:
+    """Top-``c_sel`` bucket columns per repetition by proxy score, the
+    batch's label buckets force-included -> (R, c_sel) int32, ascending;
+    ties to the lower bucket id, as ``jax.lax.top_k`` breaks them."""
+    lbl = hashed_labels.reshape(-1, hashed_labels.shape[-1])
+    return ref.mach_select_buckets_ref(proxy_scores, lbl.to(torch.int32),
+                                       num_buckets, c_sel)
+
+
+def _apply_bucket_selection(w, bias, lbl, selected, num_buckets):
+    """The selected W columns (d, R·c_sel) and bias entries, gathered in
+    one ``index_select`` (its backward writes gradients into the selected
+    columns only: every other column's is exactly zero), and each label's
+    position inside its selection (position 0 if it is not in it)."""
+    r = selected.shape[0]
+    flat = (torch.arange(r, device=selected.device)[:, None] * num_buckets
+            + selected.long()).reshape(-1)
+    wsel = w.index_select(1, flat)
+    bsel = None if bias is None else bias.index_select(0, flat)
+    return wsel, bsel, ref.label_positions(selected, lbl)
+
+
+def mach_fused_xent_selected(h: torch.Tensor, w: torch.Tensor,
+                             hashed_labels: torch.Tensor,
+                             selected: torch.Tensor, *, num_buckets: int,
+                             bias: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The fused projection + R-head CE over a selected bucket subset:
+    ``selected`` (R, c_sel) from ``mach_select_buckets``, which
+    force-includes every label bucket (a label outside its head's
+    selection silently takes position 0, as in the JAX package).  Runs
+    ``mach_fused_xent`` at B' = c_sel on the gathered columns: kernel 4
+    on CUDA tensors.  A lower bound on the full loss."""
+    r, c_sel = selected.shape
+    lbl = hashed_labels.reshape(-1, r).to(torch.int32)
+    wsel, bsel, pos = _apply_bucket_selection(w, bias, lbl, selected,
+                                              num_buckets)
+    return mach_fused_xent(h, wsel, pos.reshape(hashed_labels.shape),
+                           num_buckets=c_sel, bias=bsel)
+
+
+def mach_fused_xent_csr_selected(indptr: torch.Tensor, indices: torch.Tensor,
+                                 values: torch.Tensor, w: torch.Tensor,
+                                 hashed_labels: torch.Tensor,
+                                 selected: torch.Tensor, *, num_buckets: int,
+                                 nnz_max: int,
+                                 bias: Optional[torch.Tensor] = None,
+                                 sparse_impl: Optional[str] = None
+                                 ) -> torch.Tensor:
+    """CSR counterpart of ``mach_fused_xent_selected``: runs
+    ``mach_fused_xent_csr`` at B' = c_sel on the gathered columns
+    (kernel 5 below ``GATHER_NNZ_THRESHOLD``, kernel 6 from it)."""
+    r, c_sel = selected.shape
+    lbl = hashed_labels.reshape(-1, r).to(torch.int32)
+    wsel, bsel, pos = _apply_bucket_selection(w, bias, lbl, selected,
+                                              num_buckets)
+    return mach_fused_xent_csr(indptr, indices, values, wsel, pos,
+                               num_buckets=c_sel, nnz_max=nnz_max, bias=bsel,
+                               sparse_impl=sparse_impl)
 
 
 def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
@@ -354,6 +463,10 @@ ORACLES: dict = {
     "mach_xent": "mach_xent_ref",
     "mach_fused_xent": "mach_fused_xent_ref",
     "mach_fused_xent_csr": "mach_fused_xent_csr_ref",
+    "mach_bucket_proxy": "mach_bucket_proxy_ref",
+    "mach_select_buckets": "mach_select_buckets_ref",
+    "mach_fused_xent_selected": "mach_fused_xent_selected_ref",
+    "mach_fused_xent_csr_selected": "mach_fused_xent_csr_selected_ref",
     "csr_to_ell": "csr_densify_ref",
     "lru_scan": "lru_scan_ref",
     "flash_attention": "flash_attention_ref",

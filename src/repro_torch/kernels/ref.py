@@ -163,6 +163,131 @@ def mach_fused_xent_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Dynamic bucket selection (the training-time cut of the C axis).
+# ---------------------------------------------------------------------------
+
+def _proxy_scores(xbar: torch.Tensor, w: torch.Tensor, num_buckets: int,
+                  bias: torch.Tensor = None) -> torch.Tensor:
+    scores = xbar @ w.to(torch.float32)
+    if bias is not None:
+        scores = scores + bias.to(torch.float32)
+    return scores.reshape(w.shape[1] // num_buckets, num_buckets)
+
+
+def mach_bucket_proxy_ref(h2: torch.Tensor, w: torch.Tensor, num_buckets: int,
+                          bias: torch.Tensor = None) -> torch.Tensor:
+    """Per-repetition bucket proxy scores of a dense batch: the logits of
+    the batch-mean activation, ``mean_n(h) @ W + bias`` in float32,
+    reshaped (R, B).  One d·R·B matvec, 1/N of the full projection."""
+    return _proxy_scores(h2.to(torch.float32).mean(dim=0), w, num_buckets,
+                         bias)
+
+
+def mach_bucket_proxy_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
+                              values: torch.Tensor, w: torch.Tensor,
+                              num_buckets: int,
+                              bias: torch.Tensor = None) -> torch.Tensor:
+    """CSR counterpart of ``mach_bucket_proxy_ref``: the batch-mean
+    activation is a scatter-add of values / N, never a densified batch."""
+    n = indptr.shape[0] - 1
+    xbar = torch.zeros((w.shape[0],), dtype=torch.float32, device=w.device)
+    xbar = xbar.index_add(0, indices.long(), values.to(torch.float32))
+    return _proxy_scores(xbar / max(n, 1), w, num_buckets, bias)
+
+
+def mach_select_buckets_ref(proxy_scores: torch.Tensor,
+                            hashed_labels: torch.Tensor,
+                            num_buckets: int, c_sel: int) -> torch.Tensor:
+    """Top-``c_sel`` bucket columns per repetition by proxy score, every
+    bucket a batch label hits force-included: proxy (R, B), labels (N, R)
+    -> (R, c_sel) int32, ascending per row.  The boost ``span = max − min
+    + 1`` (float32) lifts every label bucket above every other while
+    keeping proxy order within each group; ties go to the lower bucket id,
+    as ``jax.lax.top_k`` breaks them (a stable descending sort)."""
+    r, b = proxy_scores.shape
+    if not 1 <= c_sel <= b:
+        raise ValueError(f"need 1 <= c_sel <= num_buckets, got "
+                         f"c_sel={c_sel}, num_buckets={b}")
+    proxy = proxy_scores.to(torch.float32)
+    rows = torch.arange(r, device=proxy.device).expand(hashed_labels.shape)
+    present = torch.zeros((r, b), dtype=torch.float32, device=proxy.device)
+    present[rows, hashed_labels.long()] = 1.0
+    span = proxy.max() - proxy.min() + 1.0
+    _, idx = topk_lowest_id(proxy + present * span, c_sel)
+    return torch.sort(idx, dim=-1).values
+
+
+def label_positions(selected: torch.Tensor, hashed_labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """Each label's position inside its repetition's selection: selected
+    (R, c_sel), labels (N, R) -> (N, R) int32, the first match.  A label
+    outside the selection maps to position 0 (the JAX package's argmax
+    over an all-false row)."""
+    hit = selected[None, :, :] == hashed_labels[:, :, None].to(selected.dtype)
+    return torch.argmax(hit.to(torch.uint8), dim=-1).to(torch.int32)
+
+
+def _selected_logits(h2, w, hashed_labels, selected, num_buckets, bias):
+    """(full (N, R, B) float32 logits, selected (N, R, c_sel) ones)."""
+    n, r = hashed_labels.shape
+    logits = h2.to(torch.float32) @ w.to(torch.float32)
+    if bias is not None:
+        logits = logits + bias.to(torch.float32)[None, :]
+    logits3 = logits.reshape(n, r, num_buckets)
+    index = selected.long()[None].expand(n, -1, -1)
+    return logits3, torch.gather(logits3, 2, index)
+
+
+def mach_fused_xent_selected_ref(h2: torch.Tensor, w: torch.Tensor,
+                                 hashed_labels: torch.Tensor,
+                                 selected: torch.Tensor, num_buckets: int,
+                                 bias: torch.Tensor = None) -> torch.Tensor:
+    """Materializing oracle for the selected-bucket fused loss: the full
+    (N, R, B) logits, the selected columns of each head, each label
+    remapped to its position in the selection, then ``mach_xent_ref``.
+    A label outside the selection aliases to position 0."""
+    _, sel = _selected_logits(h2, w, hashed_labels, selected, num_buckets,
+                              bias)
+    return mach_xent_ref(sel, label_positions(selected, hashed_labels))
+
+
+def mach_fused_xent_csr_selected_ref(indptr: torch.Tensor,
+                                     indices: torch.Tensor,
+                                     values: torch.Tensor, w: torch.Tensor,
+                                     hashed_labels: torch.Tensor,
+                                     selected: torch.Tensor,
+                                     num_buckets: int,
+                                     bias: torch.Tensor = None
+                                     ) -> torch.Tensor:
+    """CSR oracle for the selected-bucket fused loss: densify, then
+    ``mach_fused_xent_selected_ref``."""
+    x = csr_densify_ref(indptr, indices, values.to(torch.float32), w.shape[0])
+    return mach_fused_xent_selected_ref(x, w, hashed_labels, selected,
+                                        num_buckets, bias=bias)
+
+
+def mach_selected_bias_bound_ref(h2: torch.Tensor, w: torch.Tensor,
+                                 hashed_labels: torch.Tensor,
+                                 selected: torch.Tensor, num_buckets: int,
+                                 bias: torch.Tensor = None) -> torch.Tensor:
+    """Per-example upper bound on the one-sided selection bias, (N,)
+    float32.  With every label bucket selected, full − selected loss =
+    Σ_r (lse_full − lse_sel), and each head's gap lies in [0, log1p((B −
+    c_sel)·exp(m_exc − lse_sel))], m_exc that head's largest excluded
+    logit.  Materializes the full logits: a test helper."""
+    r, c_sel = selected.shape
+    logits3, sel = _selected_logits(h2, w, hashed_labels, selected,
+                                    num_buckets, bias)
+    lse_sel = torch.logsumexp(sel, dim=-1)                       # (N, R)
+    mask = torch.zeros((r, num_buckets), dtype=torch.bool,
+                       device=logits3.device)
+    mask[torch.arange(r, device=mask.device)[:, None], selected.long()] = True
+    m_exc = torch.where(mask[None], -torch.inf, logits3).amax(dim=-1)
+    gap = torch.log1p((num_buckets - c_sel) * torch.exp(m_exc - lse_sel))
+    return torch.where(torch.isfinite(m_exc), gap, 0.0).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # LM substrate: the RG-LRU recurrence and attention.
 # ---------------------------------------------------------------------------
 

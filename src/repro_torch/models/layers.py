@@ -73,6 +73,12 @@ def embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["embedding"][tokens.long()].to(dtype)
 
 
+def unembed(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logits: h (..., d) @ embeddingᵀ -> (..., V), in h's
+    dtype."""
+    return h @ params["embedding"].to(h.dtype).T
+
+
 # ---------------------------------------------------------------------------
 # Activations / gated MLP
 # ---------------------------------------------------------------------------

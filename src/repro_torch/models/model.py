@@ -1,20 +1,22 @@
-"""LanguageModel: embeddings → stacked decoder layers → the MACH head.
+"""LanguageModel: embeddings → stacked decoder layers → the output head.
 
-The port of ``repro/models/model.py`` for decoder-only models whose
-output head is MACH (the paper's head; the dense OAA softmax head,
-enc-dec, vision, MoE and paged caches are not ported yet, nor, for
-training, the fused logit-free loss and dynamic bucket selection — see
-ROADMAP.md).
+The port of ``repro/models/model.py`` for decoder-only models.  The
+config decides the head: the MACH head (the paper's) or the dense OAA
+softmax (``cfg.mach is None``; tied to the embeddings or its own
+``lm_head``).  Enc-dec, vision, MoE and paged caches are not ported yet
+(see ROADMAP.md).
 
 Public surface:
   init(generator, device)                      -> params
   loss(params, batch)                          -> (loss, metrics): the
-                                                  R-head CE (kernel 3)
+      R-head CE on the head's logits (kernel 3), or with
+      ``mach_fused_loss`` the fused logit-free loss (kernel 4, over the
+      selected buckets with ``mach_bucket_select``); OAA: softmax CE
   hidden_states(params, tokens, caches=...)    -> (hidden, caches)
   prefill(params, tokens, max_len)             -> (caches, last_hidden)
   decode_step(params, caches, tokens, pos)     -> (caches, hidden)
   next_token / topk_scores / topk_candidates   -> MACH decode (kernels 1-2,
-                                                  or 7-8 with candidate_mode)
+      or 7-8 with candidate_mode); OAA: argmax / top-k of the logits
 
 Caches are nested lists of ``KVCache`` / ``RecurrentState`` with a
 leading stacked-layer axis and the batch (slot) axis second, as in the
@@ -30,7 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.hashing import MultShiftFamily
 from repro_torch.core.mach import MACHOutputHead
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, recurrent
 from repro_torch.models.transformer import (ModelConfig, apply_stacks,
@@ -40,17 +42,13 @@ from repro_torch.models.transformer import (ModelConfig, apply_stacks,
 class LanguageModel:
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.mach is None:
-            raise NotImplementedError(
-                "the port serves and trains the MACH head only; the dense OAA "
-                "head is not ported yet, for serving or training (see "
-                "ROADMAP.md)")
         if cfg.num_encoder_layers or cfg.frontend:
             raise NotImplementedError(
                 "enc-dec and vision models are not ported yet, for serving or "
                 "training (see ROADMAP.md)")
         self.cfg = cfg
-        self.head = MACHOutputHead(cfg.mach, cfg.d_model, torch.float32)
+        self.head = (MACHOutputHead(cfg.mach, cfg.d_model, torch.float32)
+                     if cfg.mach is not None else None)
         self._coeffs: dict = {}
 
     # ------------------------------------------------------------------ init
@@ -63,8 +61,12 @@ class LanguageModel:
         p = {"embed": layers.init_embedding(generator, cfg.vocab_size,
                                             cfg.d_model, device),
              "stacks": init_stacks(generator, cfg, cfg.layout(), device),
-             "final_norm": layers.init_norm(cfg.d_model, cfg.norm, device),
-             "mach_head": self.head.init(generator, device)}
+             "final_norm": layers.init_norm(cfg.d_model, cfg.norm, device)}
+        if cfg.mach is not None:
+            p["mach_head"] = self.head.init(generator, device)
+        elif not cfg.tie_embeddings:
+            p["lm_head"] = layers.init_dense(generator, cfg.d_model,
+                                             (cfg.vocab_size,), device)
         if cfg.param_dtype is not None:
             p = tree_map(lambda x: x.to(cfg.param_dtype)
                          if x.is_floating_point() else x, p)
@@ -95,31 +97,45 @@ class LanguageModel:
                                  positions, caches, per_slot)
         return layers.apply_norm(params["final_norm"], x, cfg.norm), caches
 
+    def oaa_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """The dense head's (..., V) logits in h's dtype: the tied
+        embedding or ``lm_head``, then the optional tanh soft cap."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = layers.unembed(params["embed"], h)
+        else:
+            logits = layers.dense(params["lm_head"], h)
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
+
     def mach_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return self.head.apply(params["mach_head"], h)       # (..., R, B)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: dict, batch: dict):
-        """batch: tokens (B, L+1) int; optional weights (B, L).  Returns
-        (loss, {"loss", "tokens"}): the weighted mean over tokens of the
-        summed R-head cross-entropy of each next token's hashed label,
-        through ``ops.mach_xent`` (kernel 3) on the head's logits, which
-        take the activations' dtype."""
+        """batch: tokens (B, L+1) int; optional weights (B, L) and, with
+        ``mach_bucket_select``, cached (R, B) ``bucket_proxy`` scores.
+        Returns (loss, {"loss", "tokens"}): the weighted mean over tokens
+        of each next token's cross-entropy.
+
+        MACH head: the summed R-head CE of the hashed label, through
+        ``ops.mach_xent`` (kernel 3) on the head's logits, which take the
+        activations' dtype; with ``mach_fused_loss``, through
+        ``ops.mach_fused_xent`` (kernel 4), so the (B, L, R·B) logits
+        never exist, over the ``mach_bucket_select`` selection if set
+        (ignored otherwise, as in the JAX package).  The fused op reads
+        h and the head kernel in float32 whatever their dtypes, so where
+        they differ both are promoted to the wider one (bf16 to float32
+        is exact).  OAA head: the softmax CE of float32 logits, the
+        label's logit picked by a gather."""
         cfg = self.cfg
         for key in ("enc_feats", "prefix_feats"):
             if batch.get(key) is not None:
                 raise NotImplementedError(
                     f"batch[{key!r}] (enc-dec / vision training) is not "
                     f"ported yet (see ROADMAP.md)")
-        if cfg.mach_fused_loss:
-            raise NotImplementedError(
-                "mach_fused_loss=True (the fused logit-free LM loss, kernels "
-                "4-6 on bf16 inputs) is not ported yet for training; the "
-                "port trains through mach_xent (see ROADMAP.md)")
-        if cfg.mach_bucket_select is not None:
-            raise NotImplementedError(
-                "mach_bucket_select (dynamic bucket selection) is not ported "
-                "yet for training (see ROADMAP.md)")
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         weights = batch.get("weights")
@@ -127,8 +143,22 @@ class LanguageModel:
             weights = torch.ones(labels.shape, dtype=torch.float32,
                                  device=tokens.device)
         h, _ = self.hidden_states(params, inputs)
-        hashed = cfg.mach.hash_labels(labels).movedim(0, -1)  # (B, L, R)
-        per_tok = ops.mach_xent(self.mach_logits(params, h), hashed)
+        if cfg.mach is None:
+            logits = self.oaa_logits(params, h).to(torch.float32)
+            picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+            per_tok = torch.logsumexp(logits, dim=-1) - picked
+        else:
+            hashed = cfg.mach.hash_labels(labels).movedim(0, -1)  # (B, L, R)
+            if cfg.mach_fused_loss:
+                kernel = params["mach_head"]["kernel"]
+                dt = torch.promote_types(h.dtype, kernel.dtype)
+                per_tok = ops.mach_fused_xent(
+                    h.to(dt), kernel.to(dt), hashed,
+                    num_buckets=cfg.mach.num_buckets,
+                    bucket_select=cfg.mach_bucket_select,
+                    bucket_proxy=batch.get("bucket_proxy"))
+            else:
+                per_tok = ops.mach_xent(self.mach_logits(params, h), hashed)
         total = torch.sum(weights)
         loss = torch.sum(per_tok * weights) / torch.clamp(total, min=1.0)
         return loss, {"loss": loss, "tokens": total}
@@ -221,8 +251,13 @@ class LanguageModel:
     def next_token(self, params: dict, hidden: torch.Tensor):
         """Greedy next token from final hidden states (B, d) -> (ids (B,),
         values (B,)): the top-1 kernel for the unbiased estimator, the
-        k=1 streaming top-k for min / median."""
+        k=1 streaming top-k for min / median.  OAA: the argmax of the
+        logits (ties to the lowest id) and its logit."""
         cfg = self.cfg
+        if cfg.mach is None:
+            logits = self.oaa_logits(params, hidden)
+            idx = torch.argmax(logits, dim=-1)
+            return idx.to(torch.int32), torch.amax(logits, dim=-1)
         if cfg.mach.estimator != "unbiased":
             vals, idxs = self.topk_scores(params, hidden, 1)
             return idxs[:, 0], vals[:, 0]
@@ -241,8 +276,13 @@ class LanguageModel:
         """Top-k (values, class ids) from final hidden states (B, d) on
         the estimator's scale, through the streaming top-k kernel (no
         (B, V) scores), or the count-min candidate filter with an
-        (m, t) ``candidate_mode`` (filtered slots (-inf, -1))."""
+        (m, t) ``candidate_mode`` (filtered slots (-inf, -1)).  OAA: the
+        top-k of the float32 logits, ties to the lowest id;
+        ``estimator`` and ``candidate_mode`` are ignored."""
         cfg = self.cfg
+        if cfg.mach is None:
+            return ref.topk_lowest_id(
+                self.oaa_logits(params, hidden).to(torch.float32), k)
         est = estimator or cfg.mach.estimator
         filtered = candidate_mode not in (None, ops.CANDIDATE_EXACT)
         inverted = self.mach_inverted_table(hidden.device) if filtered else None
@@ -256,11 +296,13 @@ class LanguageModel:
         """Top-k sampling candidates (vals, idxs), each (B, top_k), on the
         sampling scale: unbiased values go back to the summed-score scale
         (× r·(b−1)/b, the inverse of Eq. 2 up to a per-row constant that
-        cancels in the categorical); min / median keep their own."""
+        cancels in the categorical); min / median keep their own.  OAA:
+        the logits."""
         cfg = self.cfg
         vals, idxs = self.topk_scores(params, hidden, top_k, estimator,
                                       candidate_mode)
-        if (estimator or cfg.mach.estimator) == "unbiased":
+        if cfg.mach is not None and \
+                (estimator or cfg.mach.estimator) == "unbiased":
             r, b = cfg.mach.num_repetitions, cfg.mach.num_buckets
             vals = vals * (r * (b - 1.0) / b)
         return vals, idxs

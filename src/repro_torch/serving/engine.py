@@ -19,7 +19,9 @@ Both phases end in the same serve step: the fused streaming top-k
 (kernel 2; kernels 7-8 with ``candidate_mode``) per live estimator,
 then a per-row Gumbel-max pick at the row's temperature over its first
 ``row_top_k`` candidates.  Greedy rows ride the same step at
-ε-temperature over their top-1 candidate.  No (batch, V) logits exist.
+ε-temperature over their top-1 candidate.  With the MACH head no
+(batch, V) logits exist; a model with the dense OAA head takes the
+top-k of its logits, and refuses ``SamplingParams.estimator``.
 
 Randomness is keyed per request: row i's noise at token j comes from
 ``numpy.random.default_rng([ServeConfig.seed, salt_i, j])``, where the
@@ -269,7 +271,7 @@ class ServingEngine:
         self.params = params
         self.scfg = scfg
         self.device = params["embed"]["embedding"].device
-        if cm not in (None, ops.CANDIDATE_EXACT):
+        if cm not in (None, ops.CANDIDATE_EXACT) and model.cfg.mach is not None:
             model.mach_inverted_table(self.device)   # build it once, now
         self._serve_step = make_serve_step_fn(model, scfg.top_k, cm)
         # the fixed slot pool — allocated once, reused for every request
@@ -306,9 +308,13 @@ class ServingEngine:
         if sp.top_k is not None and sp.top_k < 1:
             raise ValueError(f"SamplingParams.top_k must be >= 1, "
                              f"got {sp.top_k}")
-        if sp.estimator is not None and sp.estimator not in ESTIMATORS:
-            raise ValueError(f"SamplingParams.estimator must be one of "
-                             f"{ESTIMATORS}, got {sp.estimator!r}")
+        if sp.estimator is not None:
+            if self.model.cfg.mach is None:
+                raise ValueError("SamplingParams.estimator is a MACH-head "
+                                 "knob; this model serves the OAA head")
+            if sp.estimator not in ESTIMATORS:
+                raise ValueError(f"SamplingParams.estimator must be one of "
+                                 f"{ESTIMATORS}, got {sp.estimator!r}")
         max_new = (request.max_new_tokens
                    if request.max_new_tokens is not None
                    else scfg.max_new_tokens)
@@ -332,7 +338,8 @@ class ServingEngine:
         of its estimator's scores."""
         cfg, scfg = self.model.cfg, self.scfg
         sp = req.sampling
-        est = sp.estimator or cfg.mach.estimator
+        est = sp.estimator or (cfg.mach.estimator if cfg.mach is not None
+                               else "unbiased")
         samples = (sp.temperature is not None or sp.top_k is not None
                    or scfg.temperature is not None)
         if not samples:

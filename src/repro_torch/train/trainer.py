@@ -78,19 +78,36 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple],
 
 
 class Trainer:
-    """Single-device driver (examples, tests, ``launch/train.py``)."""
+    """Single-device training loop (examples, tests, ``launch/train.py``).
+
+    Dynamic bucket selection: ``bucket_proxy_fn(params, batch)`` -> (R, B)
+    proxy scores, recomputed every ``refresh_every`` steps (the second
+    entry of ``model.cfg.mach_bucket_select``, else every step) under
+    ``torch.no_grad`` and injected as ``batch["bucket_proxy"]``.  Without
+    it the loss recomputes the proxy each step."""
 
     def __init__(self, model, tcfg: TrainConfig,
                  loss_fn: Optional[Callable] = None,
                  bucket_proxy_fn: Optional[Callable] = None):
-        if bucket_proxy_fn is not None:
-            raise NotImplementedError(
-                "bucket_proxy_fn (dynamic bucket selection) is not ported "
-                "yet (see ROADMAP.md)")
         self.model = model
         self.tcfg = tcfg
         self.loss_fn = loss_fn or model.loss
         self.step_fn, self.opt = make_train_step(self.loss_fn, tcfg)
+        self.bucket_proxy_fn = bucket_proxy_fn
+        sel = getattr(getattr(model, "cfg", None), "mach_bucket_select", None)
+        self._proxy_every = sel[1] if sel is not None and len(sel) > 1 else 1
+        self._proxy = None
+
+    def _with_bucket_proxy(self, state: TrainState, batch, step: int):
+        """Refresh the cached proxy on schedule and hand it to the loss.
+        Selection itself runs in the loss on the current batch, so a stale
+        proxy changes only which other buckets the loss sees."""
+        if self.bucket_proxy_fn is None or not isinstance(batch, dict):
+            return batch
+        if self._proxy is None or step % max(self._proxy_every, 1) == 0:
+            with torch.no_grad():
+                self._proxy = self.bucket_proxy_fn(state.params, batch)
+        return {**batch, "bucket_proxy": self._proxy}
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    device=None) -> TrainState:
@@ -105,7 +122,8 @@ class Trainer:
         start = state.step
         for s in range(start, start + num_steps):
             t0 = time.perf_counter()
-            state, metrics = self.step_fn(state, stream.batch_at(s))
+            batch = self._with_bucket_proxy(state, stream.batch_at(s), s)
+            state, metrics = self.step_fn(state, batch)
             if monitor is not None:
                 leaf = tree_leaves(state.params)[0]
                 if leaf.device.type == "cuda":

@@ -1,10 +1,12 @@
 """The CUDA kernels (decode, both mappings of the top-1 and top-k kernels;
 candidate decode, every path of bucket top-m and kernel 8's layouts;
-fused projection + CE,
-forward and backward; the R-head CE on given logits, forward and
-backward; the RG-LRU scan and flash attention, forward and backward)
-against their plain versions, on the card, and one full-width
-recurrentgemma-2b request through the serving engine.  Gradients at
+fused projection + CE, forward and backward, also at B' = c_sel over
+bucket-selected columns (unselected columns' gradients exactly zero);
+the R-head CE on given logits, forward and backward; the RG-LRU scan and
+flash attention, forward and backward) against their plain versions, on
+the card, one full-width recurrentgemma-2b request through the serving
+engine, and the OAA head (``OAAClassifier`` and the smoke LM's) on the
+card as on the CPU.  Gradients at
 rtol 1e-4 / atol 1e-6: the dense and ELL kernels reduce dW, dh and dbias
 with float atomics, in another order than the plain version (and from
 run to run); the gather backward sums each dW row and dbias in a fixed
@@ -38,6 +40,8 @@ package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -192,19 +196,23 @@ def test_topk_query_per_lane_equals_plain(dev, r, n, estimator, k):
     """Kernel 2's query-per-lane mapping (N >= 32, k <= 32) at ODP's B and
     K, R = 25 and R = 3 (neither a multiple of the 4-repetition gather
     chunk, so the pad row is gathered: +0.0 for the sum, +inf for min and
-    median), both hash sources: dyadic inputs exactly, random ones at
-    rtol 1e-6 with indices equal except on near-ties."""
+    median), both hash sources (the median in table mode runs class per
+    thread): dyadic inputs exactly, random ones at rtol 1e-6 with indices
+    equal except on near-ties."""
     fam = MultShiftFamily(ODP_B, r, 1)
     table = fam.table(ODP_K, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert mt.topk_layout(n, r, ODP_B, ODP_K, k, sms).mapping == \
-        "query_per_lane"
     gen = torch.Generator(device=dev).manual_seed(n + r)
     random = torch.softmax(torch.randn((n, r, ODP_B), generator=gen,
                                        device=dev), -1)
     for hash_kw in ({"table": table},
                     {"inline_coeffs": fam.coeffs_tensor(dev),
                      "inline_shift": fam.shift}):
+        inline = "table" not in hash_kw
+        want = "class_per_thread" if (estimator, inline) == ("median", False) \
+            else "query_per_lane"
+        assert mt.topk_layout(n, r, ODP_B, ODP_K, k, sms, estimator,
+                              inline).mapping == want
         for meta in (_dyadic(n, r, ODP_B, dev, seed=n), random):
             before = mt.mach_topk_cuda.launches
             kv, ki = mt.mach_topk_cuda(meta, num_classes=ODP_K, k=k,
@@ -243,11 +251,11 @@ def test_topk_median_counts_network_runs(dev):
     """The query-per-lane median adds its sorting-network runs to the
     counter it is given: at least one a warp, at most one a class and
     query slot."""
-    table, _ = _odp_hashes(dev)
+    _, hashes = _odp_hashes(dev)
     meta = _dyadic(64, ODP_R, ODP_B, dev, seed=3)
     runs = torch.zeros(1, dtype=torch.int64, device=dev)
-    mt.mach_topk_cuda(meta, table, num_classes=ODP_K, k=10,
-                      estimator="median", network_runs=runs)
+    mt.mach_topk_cuda(meta, num_classes=ODP_K, k=10, estimator="median",
+                      network_runs=runs, **hashes["inline"])
     assert 0 < int(runs) <= 2 * ODP_K
 
 
@@ -836,3 +844,168 @@ def test_full_width_serve_one_request(dev):
         toks.append(int(model.next_token(params, h)[0][0]))
     assert md.mach_decode_cuda.launches > before
     assert list(out.tokens) == toks
+
+
+# ---------------------------------------------------------------------------
+# dynamic bucket selection: kernels 4-6 at B' = c_sel over gathered columns
+# ---------------------------------------------------------------------------
+
+def _selected_case(dev, n, d, r, b, c_sel, seed):
+    """(w, bias, labels, g, selected): labels drawn from at most c_sel
+    buckets a repetition, the selection the CPU takes from a random proxy
+    (ids equal to the card's)."""
+    w, bb, _, g = _xent_case(dev, n, d, r, b, True, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    proxy = torch.randn((r, b), generator=gen)
+    pool = torch.stack([torch.randperm(b, generator=gen)[:c_sel]
+                        for _ in range(r)])
+    y = pool[torch.arange(r), torch.randint(0, c_sel, (n, r), generator=gen)]
+    y = y.to(torch.int32)
+    selected = ops.mach_select_buckets(proxy, y, num_buckets=b, c_sel=c_sel)
+    on_card = ops.mach_select_buckets(proxy.to(dev), y.to(dev),
+                                      num_buckets=b, c_sel=c_sel)
+    assert torch.equal(on_card.cpu(), selected)
+    return w, bb, y.to(dev), g, on_card
+
+
+def _unselected_zero(grad_w, grad_b, selected, d, r, b):
+    keep = torch.zeros((r, b), dtype=torch.bool, device=selected.device)
+    keep[torch.arange(r, device=selected.device)[:, None], selected.long()] = True
+    assert torch.all(grad_w.reshape(d, r, b)[:, ~keep] == 0)
+    assert torch.all(grad_b.reshape(r, b)[~keep] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,r,b,c_sel", [(70, 200, 25, 32, 8),
+                                           (33, 77, 3, 512, 37),   # R·c odd
+                                           (64, 256, 8, 2048, 512)])
+def test_selected_dense_kernel_equals_plain(dev, n, d, r, b, c_sel, dtype):
+    """Kernel 4 at B' = c_sel on the (d, R·c_sel) gathered columns (R·c_sel
+    = 111 is odd: unaligned rows, plain loads), against its plain version
+    on the same gathered columns (float32: run in float64); unselected
+    columns of dW and dbias exactly zero."""
+    w, bb, y, g, selected = _selected_case(dev, n, d, r, b, c_sel, seed=n)
+    h = torch.randn((n, d), device=dev)
+    h, w, bb = (t.to(dtype).requires_grad_(True) for t in (h, w, bb))
+    before = (mfx.dense_fwd_cuda.launches, mfx.dense_bwd_cuda.launches)
+    loss = ops.mach_fused_xent_selected(h, w, y, selected, num_buckets=b,
+                                        bias=bb)
+    got = torch.autograd.grad((loss * g).sum(), [h, w, bb])
+    assert (mfx.dense_fwd_cuda.launches, mfx.dense_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _unselected_zero(got[1].float(), got[2].float(), selected, d, r, b)
+    up = torch.float64 if dtype == torch.float32 else dtype
+    leaves = [t.detach().to(up).requires_grad_(True) for t in (h, w, bb)]
+    wsel, bsel, pos = ops._apply_bucket_selection(leaves[1], leaves[2], y,
+                                                  selected, b)
+    want_loss, _ = mfx.fused_xent_dense_plain(leaves[0], wsel, bsel, pos,
+                                              c_sel)
+    want = torch.autograd.grad((want_loss * g.to(want_loss.dtype)).sum(),
+                               leaves)
+    torch.testing.assert_close(loss, want_loss.float(), rtol=1e-5, atol=1e-6)
+    if dtype == torch.float32:
+        for a, c in zip(got, want):
+            torch.testing.assert_close(a, c.float(), rtol=1e-4, atol=1e-6)
+    else:
+        _assert_bf16_grads_close(got, want)
+
+
+def _csr_from_ell(cols, vals, d):
+    keep = cols < d
+    lengths = keep.sum(1)
+    indptr = torch.cat([lengths.new_zeros(1), lengths.cumsum(0)]).to(torch.int32)
+    return indptr, cols[keep].to(torch.int32), vals[keep]
+
+
+@pytest.mark.parametrize("n,d,r,b,c_sel,j", [(37, 5000, 25, 32, 8, 120),
+                                             (37, 5000, 3, 512, 37, 64),
+                                             (16, 3000, 8, 4096, 512, 1024),
+                                             (6, 3000, 3, 37, 11, 600)])
+def test_selected_sparse_kernels_equal_plain(dev, n, d, r, b, c_sel, j):
+    """Kernels 5 (nnz_max < 512) and 6 (from 512) at B' = c_sel through
+    ``ops.mach_fused_xent_csr(bucket_select=...)`` with the proxy passed,
+    against the same op on CPU copies (the plain versions); R·c_sel = 111
+    and 33 are odd (kernel 6's dW takes its scalar path where c % 4 != 0);
+    unselected columns of dW and dbias exactly zero."""
+    w, bb, y, g, selected = _selected_case(dev, n, d, r, b, c_sel, seed=j)
+    indptr, indices, values = _csr_from_ell(*_ell(dev, n, d, j, seed=j), d)
+    family = "gather" if j >= mfx.GATHER_NNZ_THRESHOLD else "ell"
+    fwd, bwd = (getattr(mfx, f"{family}_fwd_cuda"),
+                getattr(mfx, f"{family}_bwd_cuda"))
+    out = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in (w, bb)]
+        args = [t.to(where) for t in (indptr, indices, values)]
+        before = (fwd.launches, bwd.launches)
+        loss = ops.mach_fused_xent_csr_selected(
+            *args, leaves[0], y.to(where), selected.to(where),
+            num_buckets=b, nnz_max=j, bias=leaves[1])
+        grads = torch.autograd.grad((loss * g.to(where)).sum(), leaves)
+        launched = (fwd.launches - before[0], bwd.launches - before[1])
+        assert launched == ((1, 1) if where == "cuda" else (0, 0))
+        out[where] = (loss, grads)
+    (gl, gg), (wl, wg) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(gl.cpu(), wl, rtol=1e-5, atol=1e-6)
+    for a, c in zip(gg, wg):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-6)
+    _unselected_zero(*gg, selected, d, r, b)
+
+
+# ---------------------------------------------------------------------------
+# the OAA baseline: a matrix product and a softmax (no kernel of its own)
+# ---------------------------------------------------------------------------
+
+def test_oaa_classifier_and_lm_head_on_the_card(dev):
+    """OAAClassifier's loss, gradients and predictions on the card equal
+    the CPU's; the smoke recurrentgemma-2b with the OAA head (untied,
+    soft-capped) trains and decodes on the card as on the CPU, and the
+    engine refuses an estimator."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import OAAClassifier
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import value_and_grad
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serving import (Request, SamplingParams, ServeConfig,
+                                     ServingEngine)
+
+    clf = OAAClassifier(1000, 64)
+    params = clf.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((33, 64), generator=gen)
+    y = torch.randint(0, 1000, (33,), generator=gen)
+    cpu = value_and_grad(clf.loss, params, x, y)
+    card = value_and_grad(clf.loss, {k: v.to(dev) for k, v in params.items()},
+                          x.to(dev), y.to(dev))
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=1e-6)
+    for key in ("w", "b"):
+        torch.testing.assert_close(card[1][key].cpu(), cpu[1][key],
+                                   rtol=1e-4, atol=1e-6)
+    assert torch.equal(clf.predict(params, x),
+                       clf.predict({k: v.to(dev) for k, v in params.items()},
+                                   x.to(dev)).cpu())
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                              mach=None, tie_embeddings=False,
+                              logit_softcap=30.0)
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, 256, (2, 25), generator=gen, dtype=torch.int32)
+    (cpu_loss, _), cpu_grads = value_and_grad(model.loss, params,
+                                              {"tokens": tokens}, has_aux=True)
+    dparams = tree_map(lambda t: t.to(dev), params)
+    (loss, _), grads = value_and_grad(model.loss, dparams,
+                                      {"tokens": tokens.to(dev)}, has_aux=True)
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=1e-5)
+    scale = float(cpu_grads["lm_head"]["kernel"].abs().max())
+    torch.testing.assert_close(grads["lm_head"]["kernel"].cpu(),
+                               cpu_grads["lm_head"]["kernel"], rtol=1e-3,
+                               atol=1e-4 * scale)
+    eng = ServingEngine(model, dparams, ServeConfig(max_len=32, num_slots=2,
+                                                    max_new_tokens=4))
+    with pytest.raises(ValueError, match="OAA"):
+        eng.submit(Request(prompt=[1], sampling=SamplingParams(
+            estimator="median")))
+    eng.submit(Request(prompt=[5, 6, 7]))
+    out = eng.run()[0]
+    caches, h = model.prefill(dparams, torch.tensor([[5, 6, 7]], device=dev),
+                              32)
+    assert int(model.next_token(dparams, h)[0][0]) == out.tokens[0]

@@ -10,7 +10,8 @@ Kernel 7 (``mach_candidates.topm_layout``): select for m <= 32 above
 B = 1,024, and at B <= 1,024 where next_pow2(m) <= next_pow2(B) / 32 and
 B > 32; else a warp sort for B <= 1,024 and a block sort above.  Kernel 2
 (``mach_topk.topk_layout``): query per lane from N = 32 where
-next_pow2(k) <= 32 and the tile fits, else class per thread.  Kernel 8
+next_pow2(k) <= 32 and the tile fits, except the median in table mode,
+else class per thread.  Kernel 8
 (``mach_candidates.cand_layout``): blocks a query, keys a lane, and
 whether the probabilities sit in shared memory; a query's partial keys
 stay within the merge kernel's 4,096.  The wrappers' copies of csrc
@@ -162,11 +163,35 @@ TOPK = {
 }
 
 
+# (shape, N, k) -> the median's layout in table mode where it differs from
+# TOPK's: class per thread, whose kernel was faster there (2.20 against
+# 2.58 ms at ODP, N = 256, k = 10, on an H100)
+TOPK_MEDIAN_TABLE = {
+    ("odp", 256, 10): (THREAD, 4, 5, 0, 4 * (3200 + 4096)),  # the main path
+    ("odp", 256, 1): (THREAD, 4, 5, 0, 4 * (3200 + 4096)),
+    ("odp", 256, 32): (THREAD, 4, 5, 0, 4 * (3200 + 4096)),
+    ("odp", 37, 10): (THREAD, 4, 27, 0, 4 * (3200 + 4096)),
+    ("odp", 33, 10): (THREAD, 4, 30, 0, 4 * (3200 + 4096)),
+    ("odp", 32, 10): (THREAD, 4, 33, 0, 4 * (3200 + 4096)),
+    ("collide", 37, 10): (THREAD, 4, 5, 0, 4 * (32 + 4096)),
+}
+
+
 @pytest.mark.parametrize("shape,n,k", sorted(TOPK), ids=str)
 def test_topk_layout(shape, n, k):
+    """TOPK's layout for every estimator and both hash sources, but the
+    median in table mode, which keeps class per thread."""
     r, b, num_classes = SHAPES[shape]
     want = mt.TopkLayout(*TOPK[shape, n, k])
     assert mt.topk_layout(n, r, b, num_classes, k, SMS) == want
+    median_table = mt.TopkLayout(*TOPK_MEDIAN_TABLE.get((shape, n, k), want))
+    assert median_table.mapping == THREAD
+    for estimator in ("unbiased", "min", "median"):
+        for inline in (False, True):
+            expect = median_table if (estimator, inline) == ("median", False) \
+                else want
+            assert mt.topk_layout(n, r, b, num_classes, k, SMS, estimator,
+                                  inline) == expect
 
 
 @pytest.mark.parametrize("shape,n,k", [("lm_head", 1, 50), ("lm_head", 4, 50),
@@ -204,6 +229,15 @@ def test_topk_layout_picks_instantiated_lane_kernels():
     have = _lane_instances()
     assert have == {(32, 1), (64, 1), (32, 16), (64, 16), (32, 32)}
     assert set(mt._LANE_LISTS) == {length for _, length in have}
+    # the median with the table hash has no lane kernel, and is never
+    # given one
+    assert "if constexpr (kEst == kMedian && !kInline)" in \
+        (CSRC / "mach_topk.cu").read_text()
+    r, b, num_classes = SHAPES["odp"]
+    for n in (32, 256):
+        for k in (1, 10, 32):
+            assert mt.topk_layout(n, r, b, num_classes, k, SMS, "median",
+                                  inline=False).mapping == THREAD
     for shape in ("odp", "collide"):
         r, b, num_classes = SHAPES[shape]
         for n in (32, 33, 64, 256):

@@ -244,13 +244,16 @@ def test_bad_operands_and_unported_knobs_raise():
         ops.mach_fused_xent(h, w, y, num_buckets=3)
     with pytest.raises(ValueError, match="bias"):
         ops.mach_fused_xent(h, w, y, num_buckets=4, bias=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="bucket_select"):
-        ops.mach_fused_xent(h, w, y, num_buckets=4, bucket_select=(2, 1))
-    with pytest.raises(NotImplementedError, match="bucket_select"):
+    # bucket_select is ported: a c_sel below 1 is refused, as the JAX
+    # package's mach_select_buckets_ref refuses it
+    with pytest.raises(ValueError, match="c_sel"):
+        ops.mach_fused_xent(h, w, y, num_buckets=4, bucket_select=(0, 1))
+    with pytest.raises(ValueError, match="c_sel"):
         ops.mach_fused_xent_csr(torch.tensor([0, 1], dtype=torch.int32),
                                 torch.tensor([0], dtype=torch.int32),
                                 torch.ones(1), w, y[:1], num_buckets=4,
-                                nnz_max=1, bucket_proxy=torch.zeros(2, 4))
+                                nnz_max=1, bucket_select=(0, 1),
+                                bucket_proxy=torch.zeros(2, 4))
 
 
 def test_padded_slots_are_never_read():

@@ -145,11 +145,13 @@ def test_output_head_fused_loss_equals_loss_with_grads():
 
 
 def test_fused_loss_rejects_bucket_select():
+    """bucket_select is ported: the head rejects a c_sel below 1 (as the
+    JAX package does) and returns a loss for a valid one."""
     _, _, thead, tp = _heads(ODP)
-    with pytest.raises(NotImplementedError, match="bucket_select"):
-        thead.fused_loss(tp, torch.zeros(2, ODP.small_dim),
-                         torch.zeros(2, dtype=torch.int32),
-                         bucket_select=(8, 1))
+    x, y = torch.zeros(2, ODP.small_dim), torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="c_sel"):
+        thead.fused_loss(tp, x, y, bucket_select=(0, 1))
+    assert torch.isfinite(thead.fused_loss(tp, x, y, bucket_select=(8, 1)))
 
 
 def test_training_example_runs_on_cpu(capsys):
