@@ -2,8 +2,9 @@
 """Drive the PyTorch port of MACH serving (Algorithm 2, streaming and
 count-min candidate decode), training (Algorithm 1, through the fused
 logit-free loss), language-model serving (recurrentgemma-2b with the
-MACH head, through the slot engine) and language-model training (the
-same model through the trainer) on one NVIDIA GPU.
+MACH head, through the slot engine; the dense decoders through the paged
+and lockstep engines) and language-model training (recurrentgemma-2b
+through the trainer) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -216,7 +217,51 @@ Phases, in order; any failure exits non-zero and prints no result:
    must equal the direct greedy loop; kernels 9-10 counted), and phase
    10's training (first loss near ln V, batch 0's loss falling), ms a
    step and peak beside the MACH head's.
-13. The kernel report (one JSON line), then the device line, last.
+13. The dense decoders through the paged and lockstep engines:
+   kernel 2 against its plain version at tinyllama-1.1b's MACH head
+   (R=8, B=2048, K=32,000; N 1 and 4, k 1 and 50, the three estimators,
+   table and inline hashes, dyadic inputs exactly; timed beside its
+   bound and ``torch.topk`` over a sparse multi-hot product), kernels 7
+   and 8 against theirs at the same head's candidate_mode=(B, R) =
+   (2048, 8) with tinyllama's inverted table (k=50, N 1 and 4, the
+   three estimators, both hashes, dyadic and random rows), kernel 10
+   against its plain version (phase 7's rule) and timed at tinyllama,
+   phi3-mini and granite-20b's 2,048-token prefills (bf16, causal; SDPA
+   beside it) and at tinyllama's in float32 (the float32 engines'
+   prefill).  Then, launch counters from 0 over the
+   engines' runs: tinyllama-1.1b at full width (22 layers, d=2,048,
+   32 / 4 heads, d_ff 5,632, V=32,000; seeded random weights) serves 8
+   greedy requests over 4 slots (prompts of 2,048, 5, 77, 300, 1,000,
+   17, 2,048 and 40 tokens, ragged max_new_tokens; max_len 4,096)
+   with the MACH head (B=2048, R=8) and with the OAA head, in bf16,
+   through the contiguous continuous, contiguous lockstep, paged
+   (page_size 16, the default pool) and paged half-pool (half the
+   workload's worst-case pages) engines; lockstep tokens must equal
+   continuous ones in more ticks; each paged row's hidden state after
+   the first pooled decode step, against the same step of the model in
+   float32 (the bf16 params cast up) on the same inputs, is within 1.25
+   times the contiguous engine's relative L2 error plus 2^-10 (the two
+   engines round attention at other points: softmax weights against
+   unnormalized exponentials; equal greedy tokens are counted), and two
+   faults planted in the page walk (the newest position masked, each
+   slot's newest page dropped) must each break that limit; the half pool must
+   defer admissions (reservation_failures > 0) and finish; the MACH paged
+   engine with candidate_mode=(B, R) must equal its streaming tokens
+   bit for bit (kernels 7-8); the OAA model also runs 16 slots paged
+   inside the 4-slot contiguous pool's KV bytes.  The MACH model again
+   in float32: paged greedy tokens must equal contiguous ones exactly.
+   Each engine run's kernel-10 launches must be one an attention layer
+   for each 2,048-token prompt, kernel 2's at least one on a MACH head.
+   Then phi3-mini-3.8b and granite-20b at full width (bf16, OAA heads;
+   each freed before the next) serve a 2,048-token prompt and a 33-token
+   one through the paged engine: each first token must equal a batch-1
+   prefill's greedy pick.  mistral-large-123b is sized (it does not
+   fit) and served at its smoke config.  Printed per engine: ticks, time
+   to the first token of the 2,048-token prompt, median pooled decode
+   tick after admission, tokens/s, the pool's KV bytes, peak memory,
+   pages_peak, fragmentation and reservation_failures.
+14. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
+   launches on phase 13's path), then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -227,6 +272,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -235,7 +281,16 @@ import time
 import types
 from pathlib import Path
 
-import torch
+# One process runs every phase, each with tensors of its own sizes.
+# Phase 12's OAA training step peaks near the card's capacity and, with
+# fixed segments, needs an allocator retry (a cache flush) in every run;
+# in some runs a 7.8 GiB logits gradient then found no room beside 20-25
+# GiB reserved but unallocated.  Expandable segments do not fragment so.
+# Set before torch allocates on the card; every phase's numbers are taken
+# under it (tools/smoke_memory.py prints the allocator's state by phase).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
@@ -2206,6 +2261,18 @@ def _lm_head_vs_plain(dev) -> tuple[int, float]:
     return cases, err, _lm_head_top1_times(dev, table, hash_kw, b)
 
 
+def _sparse_multihot(table: torch.Tensor, b: int) -> torch.Tensor:
+    """The (K, R·B) multi-hot matrix of an (R, K) bucket table as sparse
+    CSR, R ones a row (a dense one at an LM head takes gigabytes): the
+    library calls' operand, ``torch.sparse.mm(multihot, meta2d.T)``."""
+    r, k = table.shape
+    dev = table.device
+    cols = (torch.arange(r, device=dev)[:, None] * b + table.long()).T
+    return torch.sparse_csr_tensor(
+        torch.arange(0, k * r + 1, r, device=dev), cols.reshape(-1),
+        torch.ones(k * r, device=dev), size=(k, r * b))
+
+
 def _lm_head_top1_times(dev, table, hash_kw, b) -> dict:
     """Kernel 1 at the LM head's shape, N in LM_HEAD_N: kernel, plain and
     library ms.  The library call is the multi-hot product as a sparse
@@ -2214,10 +2281,7 @@ def _lm_head_top1_times(dev, table, hash_kw, b) -> dict:
     from repro_torch.kernels import mach_decode as md
 
     r, k = table.shape
-    cols = (torch.arange(r, device=dev)[:, None] * b + table.long()).T
-    multihot = torch.sparse_csr_tensor(
-        torch.arange(0, k * r + 1, r, device=dev), cols.reshape(-1),
-        torch.ones(k * r, device=dev), size=(k, r * b))
+    multihot = _sparse_multihot(table, b)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = _nvidia_smi()
     out = {}
@@ -2260,10 +2324,7 @@ def _lm_head_topk_times(dev) -> dict:
     table = fam.table(k, dev)
     hash_kw = {"inline_coeffs": fam.coeffs_tensor(dev),
                "inline_shift": fam.shift}
-    cols = (torch.arange(r, device=dev)[:, None] * b + table.long()).T
-    multihot = torch.sparse_csr_tensor(
-        torch.arange(0, k * r + 1, r, device=dev), cols.reshape(-1),
-        torch.ones(k * r, device=dev), size=(k, r * b))
+    multihot = _sparse_multihot(table, b)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = _nvidia_smi()
     out = {}
@@ -3685,6 +3746,652 @@ def phase_oaa(dev, train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense decoders through the paged and lockstep engines
+# ---------------------------------------------------------------------------
+
+DENSE_PROMPTS = (2048, 5, 77, 300, 1000, 17, 2048, 40)  # 2,048: kernel 10
+DENSE_MAX_NEW = (16, 4, 12, 8, 16, 2, 6, 10)            # ragged
+DENSE_SLOTS, DENSE_MAX_LEN, DENSE_PAGE, DENSE_TOP_K = 4, 4096, 16, 50
+DENSE_WIDE_SLOTS = 16        # paged, inside the 4-slot contiguous KV bytes
+# a paged row's hidden state after the first pooled decode step may be at
+# most SLOPE x the contiguous engine's rel L2 error (both against the
+# float32 model) + ATOL: the sound engines' ratio was 0.97-1.04 (PERF.md)
+DENSE_HIDDEN_SLOPE, DENSE_HIDDEN_ATOL = 1.25, 2.0 ** -10
+DENSE_OTHERS = ("phi3-mini-3.8b", "granite-20b")
+DENSE_OTHER_PROMPTS, DENSE_OTHER_MAX_NEW = (2048, 33), 8
+DENSE_OTHER_MAX_LEN = 2064   # 2,048 + 8 new tokens, page-rounded
+DENSE_KERNELS = ("flash_attention", "mach_topk", "bucket_topm",
+                 "mach_candidate_topk")
+
+
+def _dense_launchers() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_candidates as mc
+    from repro_torch.kernels import mach_topk as mt
+    return {"flash_attention": fa.flash_attention_cuda,
+            "mach_topk": mt.mach_topk_cuda,
+            "bucket_topm": mc.bucket_topm_cuda,
+            "mach_candidate_topk": mc.mach_candidate_topk_cuda}
+
+
+def _dense_head_vs_plain(dev) -> dict:
+    """Kernel 2 vs its plain version at tinyllama-1.1b's MACH head (R=8,
+    B=2048, K=32,000): N=1 (a prefill) and 4 (the pool), k 1 and 50, the
+    three estimators, table and inline hashes, dyadic inputs exactly and
+    random ones as in phase 3; then its time at the pool's N=4, k=50."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mach_topk as mt
+
+    mach = get_config("tinyllama-1.1b", mach="on").mach
+    fam = mach.family
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    table = fam.table(num_classes, dev)
+    inline = {"inline_coeffs": fam.coeffs_tensor(dev),
+              "inline_shift": fam.shift}
+    sources = {"table": ((table,), {}), "inline": ((), inline)}
+    cases, err = 0, 0.0
+    for n in LM_HEAD_N:
+        for dyadic in (True, False):
+            meta = _inputs(n, r, b, dyadic, seed=n + 11, dev=dev)
+            for est in ESTIMATORS:
+                scores = mt.estimator_scores(meta, table, est)
+                for k in LM_HEAD_K:
+                    for src, (args, kw) in sources.items():
+                        kv, ki = mt.mach_topk_cuda(
+                            meta, *args, num_classes=num_classes, k=k,
+                            estimator=est, **kw)
+                        pv, pi = mt.mach_topk_plain(
+                            meta, *args, num_classes=num_classes, k=k,
+                            estimator=est, **kw)
+                        torch.cuda.synchronize()
+                        tag = (f"tinyllama head n={n} {est} k={k} {src} "
+                               f"{'dyadic' if dyadic else 'random'}")
+                        err = max(err, _check_same(tag, kv, ki, pv, pi,
+                                                   scores, dyadic))
+                        cases += 1
+    n = DENSE_SLOTS
+    meta = _inputs(n, r, b, False, seed=n, dev=dev)
+    meta2d_t = meta.reshape(n, r * b).T.contiguous()
+    multihot = _sparse_multihot(table, b)
+    kw = {"num_classes": num_classes, "k": DENSE_TOP_K, **inline}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bound, bound_by = bound_ms(n, r, b, num_classes, DENSE_TOP_K, table=False)
+    out = {"cases": cases, "max_abs_err": err,
+           "ms": kernel_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
+           "ms_graph": graph_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
+           "plain_ms": kernel_ms(lambda: mt.mach_topk_plain(meta, **kw),
+                                 iters=5),
+           "library_ms": kernel_ms(lambda: torch.topk(
+               torch.sparse.mm(multihot, meta2d_t), DENSE_TOP_K, dim=0)),
+           "bound_ms": bound, "bound_by": bound_by,
+           "mapping": mt.topk_layout(n, r, b, num_classes, DENSE_TOP_K,
+                                     sms).mapping,
+           "shape": f"tinyllama head N={n} R={r} B={b} K={num_classes} "
+                    f"k={DENSE_TOP_K} inline hash, unbiased"}
+    print(f"tinyllama head: kernel 2 vs plain, {cases} comparisons ok (R={r},"
+          f" B={b}, K={num_classes}, N in {LM_HEAD_N}, k in {LM_HEAD_K}, "
+          f"table and inline); at N={n} k={DENSE_TOP_K} ({out['mapping']}) "
+          f"{out['ms']:.4f} ms (graph {out['ms_graph']:.4f}), plain "
+          f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms "
+          f"(torch.topk over a sparse multi-hot product), bound "
+          f"{bound:.5f} ms ({bound_by}) [{_nvidia_smi()}]", flush=True)
+    return out
+
+
+def _dense_candidates_vs_plain(dev) -> dict:
+    """Kernels 7 and 8 vs their plain versions at the tinyllama-1.1b MACH
+    engine's candidate_mode = (B, R) = (2048, 8): R=8, B=2,048,
+    K=32,000, tinyllama's inverted table, k=50, N=1 (a prefill) and 4
+    (the pool), the three estimators, table and inline hashes, dyadic
+    (ties in bulk) and random softmax rows.  Kernel 7's tau and ids
+    bit for bit; kernel 8 by ``_check_candidates``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hashing import inverted_table
+    from repro_torch.kernels import mach_candidates as mc
+
+    mach = get_config("tinyllama-1.1b", mach="on").mach
+    fam = mach.family
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    table = fam.table(num_classes, dev)
+    inv = inverted_table(fam.table_np(num_classes), b, device=dev)
+    sources = {"table": ((table,), {}),
+               "inline": ((), {"inline_coeffs": fam.coeffs_tensor(dev),
+                               "inline_shift": fam.shift})}
+    m, t = b, r
+    topm = cand = 0
+    err = 0.0
+    for n in LM_HEAD_N:
+        for dyadic in (True, False):
+            meta = _inputs(n, r, b, dyadic, seed=n + 21, dev=dev)
+            tag = f"n={n} {'dyadic' if dyadic else 'random'}"
+            tau, ids = mc.bucket_topm_cuda(meta, m)
+            p_tau, p_ids = mc.bucket_topm(meta.cpu(), m)
+            if not (torch.equal(tau.cpu().view(torch.int32),
+                                p_tau.view(torch.int32))
+                    and torch.equal(ids.cpu(), p_ids)):
+                fail(f"tinyllama candidates {tag}: bucket_topm kernel != "
+                     f"plain at m={m}")
+            topm += 1
+            for est in ESTIMATORS:
+                for src, (args, kw) in sources.items():
+                    kw = {"num_classes": num_classes, "k": DENSE_TOP_K,
+                          "t": t, "estimator": est, **kw}
+                    got = mc.mach_candidate_topk_cuda(meta, tau, ids, inv,
+                                                      *args, **kw)
+                    want = mc.mach_candidate_topk_plain(meta, tau, ids, inv,
+                                                        *args, **kw)
+                    torch.cuda.synchronize()
+                    err = max(err, _check_candidates(
+                        f"tinyllama candidates {tag} {est} {src}", got, want))
+                    cand += 1
+    print(f"tinyllama candidates: kernel 7 vs plain {topm} and kernel 8 vs "
+          f"plain {cand} comparisons ok (R={r}, B={b}, K={num_classes}, L="
+          f"{inv.shape[1]}, m={m}, t={t}, k={DENSE_TOP_K}, N in {LM_HEAD_N}, "
+          f"the three estimators, table and inline), max abs err {err:.3e}",
+          flush=True)
+    return {"bucket_topm": topm, "mach_candidate_topk": cand,
+            "max_abs_err": err}
+
+
+def _pool_kv_bytes(pool) -> int:
+    return sum(c.k.numel() * c.k.element_size() * 2
+               for stack in pool for c in stack)
+
+
+def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
+                 max_len=DENSE_MAX_LEN, num_slots=DENSE_SLOTS, **scfg_kw):
+    """Serve greedy requests on a fresh engine, one tick at a time, the
+    device synchronized after each.  Adds the run's kernel launches to
+    ``counts``.  Returns tokens per request, ms and admission per tick,
+    run seconds, time to the first token of request 0, the engine's
+    metrics and ticks, the pool's KV bytes, peak GiB and (``capture``)
+    the hidden states of the first pooled decode step."""
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=max_len, num_slots=num_slots, top_k=DENSE_TOP_K,
+        max_new_tokens=max(max_new), seed=0, **scfg_kw))
+    first_token, first_h = [], {}
+
+    def on_first(tok):
+        if not first_token:
+            first_token.append(time.perf_counter())
+
+    if capture:
+        step = model.decode_step
+
+        def recording(*args, **kwargs):
+            caches, h = step(*args, **kwargs)
+            first_h.setdefault("h", h.clone())
+            return caches, h
+        model.decode_step = recording
+    launchers = _dense_launchers()
+    before = {n: fn.launches for n, fn in launchers.items()}
+    try:
+        for i, (p, mn) in enumerate(zip(prompts, max_new)):
+            engine.submit(Request(prompt=p, max_new_tokens=mn,
+                                  on_token=on_first if i == 0 else None))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        results, tick_ms, admitted = [], [], []
+        t0 = time.perf_counter()
+        while engine.metrics.completed < len(prompts):
+            prefills = engine.metrics.prefills
+            t1 = time.perf_counter()
+            results += engine.step()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+            admitted.append(engine.metrics.prefills > prefills)
+        run_s = time.perf_counter() - t0
+    finally:
+        if capture:
+            del model.decode_step
+    launched = {n: fn.launches - before[n] for n, fn in launchers.items()}
+    for n, c in launched.items():
+        counts[n] = counts.get(n, 0) + c
+    cfg = model.cfg
+    flash = sum(len(p) >= cfg.flash_threshold
+                and len(p) % min(cfg.chunk_q, len(p)) == 0 for p in prompts)
+    want = {"flash_attention": flash * cfg.layout().count("attn")}
+    cand = scfg_kw.get("candidate_mode") is not None
+    if cfg.mach is None:
+        want.update(mach_topk=0, bucket_topm=0, mach_candidate_topk=0)
+    elif not cand:
+        want.update(bucket_topm=0, mach_candidate_topk=0)
+    for n, c in want.items():
+        if launched[n] != c:
+            fail(f"dense serve {cfg.name}: {n} launched {launched[n]} times, "
+                 f"expected {c}")
+    wanted = (("bucket_topm", "mach_candidate_topk") if cand
+              else ("mach_topk",)) if cfg.mach is not None else ()
+    if any(launched[n] < 1 for n in wanted):
+        fail(f"dense serve {cfg.name}: launches {launched}")
+    tokens = [list(r.tokens) for r in sorted(results,
+                                             key=lambda r: r.request_id)]
+    for i, (toks, mn) in enumerate(zip(tokens, max_new)):
+        if len(toks) != mn or not all(0 <= t < model.cfg.vocab_size
+                                      for t in toks):
+            fail(f"dense serve {model.cfg.name}: request {i} gave {toks}")
+    steady = [ms for ms, adm in zip(tick_ms, admitted) if not adm]
+    return {"tokens": tokens, "tick_ms": tick_ms, "run_s": run_s,
+            "launches": launched, "prompt0": len(prompts[0]),
+            "ttft_ms": (first_token[0] - t0) * 1e3,
+            "decode_ms": statistics.median(steady) if steady else None,
+            "tokens_per_s": sum(map(len, tokens)) / run_s,
+            "metrics": engine.metrics, "ticks": engine._tick,
+            "kv_bytes": _pool_kv_bytes(engine._pool),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "h": first_h.get("h")}
+
+
+def _worst_case_pages(prompts, max_new) -> int:
+    return sum(-(-(len(p) + mn - 1) // DENSE_PAGE)
+               for p, mn in zip(prompts, max_new))
+
+
+def _print_dense_run(label, res, smi) -> None:
+    m = res["metrics"]
+    pages = (f", pages_peak {m.pages_peak} of {m.num_pages}, fragmentation "
+             f"{m.fragmentation}, reservation_failures "
+             f"{m.reservation_failures}" if m.num_pages else "")
+    decode = ("none" if res["decode_ms"] is None
+              else f"{res['decode_ms']:.3f} ms")
+    print(f"dense serve {label}: {res['ticks']} ticks, time to first token "
+          f"of request 0 ({res['prompt0']:,}-token prompt) "
+          f"{res['ttft_ms']:.3f} ms, pooled decode tick after "
+          f"admission {decode} (median), {res['tokens_per_s']:.1f} tokens/s, "
+          f"pool KV {res['kv_bytes'] / 2**30:.3f} GiB, peak "
+          f"{res['peak_gib']:.2f} GiB{pages} [{smi}]", flush=True)
+
+
+def _newest_masked(cache):
+    """A planted fault: the walk sees each slot's index one short, so
+    the token just written is masked out."""
+    return cache._replace(index=cache.index - 1)
+
+
+def _last_page_dropped(cache):
+    """A planted fault: each slot's newest page is left out of the walk."""
+    col = (cache.index.long() - 1).clamp(min=0) // cache.page_size
+    return cache._replace(page_table=cache.page_table.scatter(
+        1, col[:, None], -1))
+
+
+# negative controls of the paged hidden-state check: each must fail it
+DENSE_FAULTS = {"newest position masked": _newest_masked,
+                "last page dropped": _last_page_dropped}
+
+
+def _faulted_first_step(model, params, prompts, fault) -> torch.Tensor:
+    """The paged engine's first pooled decode step's hidden states (the
+    first DENSE_SLOTS prompts, as in the engines' runs) with ``fault``
+    applied to every cache its page walk reads."""
+    from repro_torch.models import attention as attn_lib
+    walk = attn_lib.paged_decode_attend
+
+    def planted(q1, cache, **kw):
+        return walk(q1, fault(cache), **kw)
+
+    attn_lib.paged_decode_attend = planted
+    try:
+        res = _dense_serve(model, params, prompts[:DENSE_SLOTS],
+                           (2,) * DENSE_SLOTS, {}, capture=True,
+                           page_size=DENSE_PAGE)
+    finally:
+        attn_lib.paged_decode_attend = walk
+    return res["h"]
+
+
+def _paged_rows_ok(err_c, err_p) -> list:
+    return [ep <= DENSE_HIDDEN_SLOPE * ec + DENSE_HIDDEN_ATOL
+            for ec, ep in zip(err_c, err_p)]
+
+
+def _rel_l2_rows(got: torch.Tensor, want: torch.Tensor) -> list:
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+
+
+def _first_step_float32(model, params, prompts, first_tokens, dev):
+    """The engines' first pooled decode step, recomputed by the same model
+    in float32 (the bf16 params cast up, exact) on the same inputs: the
+    first DENSE_SLOTS prompts prefilled into slots 0.. of a contiguous
+    pool, then one step on their first tokens."""
+    import dataclasses
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+
+    model32 = LanguageModel(dataclasses.replace(
+        model.cfg, dtype=torch.float32, param_dtype=torch.float32))
+    params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        params)
+    pool = model32.init_caches(DENSE_SLOTS, DENSE_MAX_LEN, device=dev)
+    for i, p in enumerate(prompts[:DENSE_SLOTS]):
+        caches, _ = model32.prefill(params32, torch.tensor([p], device=dev),
+                                    DENSE_MAX_LEN)
+        model32.insert_cache_slot(pool, caches, i)
+    last = torch.tensor(first_tokens[:DENSE_SLOTS], device=dev)
+    pos = torch.tensor([len(p) for p in prompts[:DENSE_SLOTS]], device=dev)
+    _, h = model32.decode_step(params32, pool, last, pos, per_slot=True)
+    return model32, params32, h
+
+
+def _tinyllama_engines(dev, mach: str, prompts, counts, smi) -> dict:
+    """tinyllama-1.1b at full width, bf16, ``mach`` head: the workload
+    through the contiguous continuous, contiguous lockstep, paged
+    (default pool) and paged half-pool engines; with the MACH head also
+    the paged engine with candidate_mode = (B, R), and then the same
+    model in float32 (the bf16 params cast up) through the contiguous
+    and paged engines; with the OAA head 16 paged slots inside the
+    4-slot contiguous pool's KV bytes.  Fails unless lockstep ==
+    continuous in more ticks; each paged row's hidden state after the
+    first pooled decode step is, against the float32 model on the same
+    inputs, within DENSE_HIDDEN_SLOPE x the contiguous engine's error +
+    DENSE_HIDDEN_ATOL, and each fault of DENSE_FAULTS planted in the
+    page walk breaks that limit on some row; the half pool defers
+    admissions and finishes; the candidate tokens equal the streaming
+    ones; float32 paged tokens equal contiguous ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+
+    cfg = get_config("tinyllama-1.1b", mach=mach)
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    label = f"tinyllama-1.1b {'MACH' if cfg.mach else 'OAA'}"
+    print(f"dense serve: {label} bf16 ({cfg.num_layers} layers, "
+          f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, V={cfg.vocab_size}), {n_bytes / 1e9:.3f} GB of params",
+          flush=True)
+    total = sum(DENSE_MAX_NEW)
+
+    def same_tokens(a, b):
+        return sum(x == y for ra, rb in zip(a["tokens"], b["tokens"])
+                   for x, y in zip(ra, rb))
+
+    runs = {"contiguous": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
+                                       counts, capture=True),
+            "paged": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
+                                  counts, capture=True, page_size=DENSE_PAGE)}
+    cont, paged = runs["contiguous"], runs["paged"]
+    runs["lockstep"] = lock = _dense_serve(
+        model, params, prompts, DENSE_MAX_NEW, counts, scheduler="lockstep")
+    if lock["tokens"] != cont["tokens"]:
+        fail(f"dense serve {label}: lockstep tokens differ from continuous")
+    if lock["ticks"] <= cont["ticks"]:
+        fail(f"dense serve {label}: lockstep took {lock['ticks']} ticks, "
+             f"continuous {cont['ticks']}")
+    half = _worst_case_pages(prompts, DENSE_MAX_NEW) // 2
+    runs["paged half pool"] = _dense_serve(
+        model, params, prompts, DENSE_MAX_NEW, counts, page_size=DENSE_PAGE,
+        num_pages=half)
+    m = runs["paged half pool"]["metrics"]
+    if m.reservation_failures < 1 or m.pages_peak > half:
+        fail(f"dense serve {label}: a {half}-page pool gave "
+             f"{m.reservation_failures} reservation failures, peak "
+             f"{m.pages_peak}")
+    print(f"dense serve {label}: lockstep == continuous tokens in "
+          f"{lock['ticks']} ticks against {cont['ticks']}; paged == "
+          f"contiguous greedy tokens {same_tokens(paged, cont)}/{total}; the "
+          f"{half}-page pool (half the workload's worst case) == the default "
+          f"pool's {same_tokens(runs['paged half pool'], paged)}/{total}",
+          flush=True)
+    if cfg.mach is not None:
+        exact = (cfg.mach.num_buckets, cfg.mach.num_repetitions)
+        runs["paged candidates"] = _dense_serve(
+            model, params, prompts, DENSE_MAX_NEW, counts,
+            page_size=DENSE_PAGE, candidate_mode=exact)
+        if runs["paged candidates"]["tokens"] != paged["tokens"]:
+            fail(f"dense serve {label}: candidate_mode={exact} tokens differ "
+                 f"from the streaming paged engine's")
+        print(f"dense serve {label}: paged candidate_mode={exact} == "
+              f"streaming tokens, bit for bit", flush=True)
+    else:
+        wide_prompts = prompts + prompts
+        kv_page = (2 * cfg.num_layers * DENSE_PAGE * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * cfg.dtype.itemsize)
+        pages = cont["kv_bytes"] // kv_page - 1      # + the spare page
+        runs[f"paged {DENSE_WIDE_SLOTS} slots"] = wide = _dense_serve(
+            model, params, wide_prompts, DENSE_MAX_NEW + DENSE_MAX_NEW,
+            counts, num_slots=DENSE_WIDE_SLOTS, page_size=DENSE_PAGE,
+            num_pages=pages)
+        if wide["kv_bytes"] > cont["kv_bytes"]:
+            fail(f"dense serve {label}: the {DENSE_WIDE_SLOTS}-slot pool "
+                 f"holds {wide['kv_bytes']} KV bytes, more than the "
+                 f"contiguous {cont['kv_bytes']}")
+        print(f"dense serve {label}: {DENSE_WIDE_SLOTS} slots, "
+              f"{len(wide_prompts)} requests, {pages} pages (+1 spare) in "
+              f"{wide['kv_bytes']:,} KV bytes (the 4-slot contiguous pool "
+              f"{cont['kv_bytes']:,})", flush=True)
+
+    # the first pooled step's hidden states against the float32 model
+    firsts = [t[0] for t in cont["tokens"]]
+    if [t[0] for t in paged["tokens"]] != firsts:
+        fail(f"dense serve {label}: paged and contiguous prefills differ")
+    model32, params32, h32 = _first_step_float32(model, params, prompts,
+                                                 firsts, dev)
+    err_c, err_p = (_rel_l2_rows(r["h"], h32) for r in (cont, paged))
+    print(f"dense serve {label}: first pooled decode step's hidden states, "
+          f"rel L2 per row: paged vs contiguous "
+          f"{[f'{e:.2e}' for e in _rel_l2_rows(paged['h'], cont['h'])]}; "
+          f"against the float32 model, contiguous "
+          f"{[f'{e:.2e}' for e in err_c]}, paged "
+          f"{[f'{e:.2e}' for e in err_p]}", flush=True)
+    for i, ok in enumerate(_paged_rows_ok(err_c, err_p)):
+        if not ok:
+            fail(f"dense serve {label}: row {i}'s paged hidden state is "
+                 f"{err_p[i]:.3e} off the float32 model, more than "
+                 f"{DENSE_HIDDEN_SLOPE} x the contiguous engine's "
+                 f"{err_c[i]:.3e} + 2^-10")
+    for name, fault in DENSE_FAULTS.items():
+        err_f = _rel_l2_rows(_faulted_first_step(model, params, prompts,
+                                                 fault), h32)
+        ok = _paged_rows_ok(err_c, err_f)
+        print(f"dense serve {label}: negative control, {name} in the page "
+              f"walk: rel L2 per row against the float32 model "
+              f"{[f'{e:.2e}' for e in err_f]}, rows within the limit {ok}",
+              flush=True)
+        if all(ok):
+            fail(f"dense serve {label}: the paged hidden-state check passed "
+                 f"a planted fault ({name})")
+    if cfg.mach is not None:
+        del model, params
+        torch.cuda.empty_cache()
+        for name in ("contiguous", "paged"):
+            runs[f"float32 {name}"] = _dense_serve(
+                model32, params32, prompts, DENSE_MAX_NEW, counts,
+                **({"page_size": DENSE_PAGE} if name == "paged" else {}))
+        f32 = (runs["float32 contiguous"], runs["float32 paged"])
+        if f32[1]["tokens"] != f32[0]["tokens"]:
+            fail(f"dense serve {label} float32: paged tokens differ from "
+                 f"contiguous ({same_tokens(*f32)}/{total} equal)")
+        print(f"dense serve {label} float32: paged == contiguous tokens, "
+              f"{total}/{total}", flush=True)
+    for name, res in runs.items():
+        _print_dense_run(f"{label} {name}", res, smi)
+    del model32, params32
+    torch.cuda.empty_cache()
+    return {name: {k: v for k, v in res.items() if k not in ("h", "metrics")}
+            | {"pages_peak": res["metrics"].pages_peak,
+               "fragmentation": res["metrics"].fragmentation,
+               "reservation_failures": res["metrics"].reservation_failures}
+            for name, res in runs.items()}
+
+
+def _dense_other(dev, arch, counts, smi) -> dict:
+    """``arch`` at full width, bf16, OAA head: a 2,048-token prompt and a
+    short one through the paged engine; each first token must equal a
+    batch-1 prefill's greedy pick."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in DENSE_OTHER_PROMPTS]
+    max_new = (DENSE_OTHER_MAX_NEW,) * len(prompts)
+    res = _dense_serve(model, params, prompts, max_new, counts,
+                       max_len=DENSE_OTHER_MAX_LEN, num_slots=len(prompts),
+                       page_size=DENSE_PAGE)
+    for p, toks in zip(prompts, res["tokens"]):
+        _, h = model.prefill(params, torch.tensor([p], device=dev),
+                             DENSE_OTHER_MAX_LEN)
+        want = int(model.next_token(params, h)[0][0])
+        if toks[0] != want:
+            fail(f"dense serve {arch}: first token {toks[0]} != a batch-1 "
+                 f"prefill's greedy pick {want}")
+    print(f"dense serve {arch} ({cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+          f"{cfg.resolved_head_dim}, {cfg.norm}, {cfg.activation}), "
+          f"{n_bytes / 1e9:.3f} GB of params, set-up and run "
+          f"{time.perf_counter() - t0:.1f} s: first tokens == a batch-1 "
+          f"prefill's greedy pick; tokens {res['tokens']}", flush=True)
+    _print_dense_run(f"{arch} paged", res, smi)
+    del model, params
+    torch.cuda.empty_cache()
+    return {k: v for k, v in res.items() if k not in ("h", "metrics")}
+
+
+def _dense_flash_times(dev, smi) -> dict:
+    """Kernel 10 at the dense decoders' 2,048-token prefill (causal):
+    tinyllama, phi3-mini and granite-20b's heads and widths in bf16, and
+    tinyllama in float32 (the float32 engines' prefill).  Each output is
+    held to the plain version's on the same inputs by phase 7's rule
+    (bf16: at most 2 ulps of the row scale; float32: FLASH_F32_TOL);
+    then kernel, plain and library (SDPA, k/v expanded to H heads) ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    out, t = {}, DENSE_OTHER_PROMPTS[0]
+    cases = [(arch, torch.bfloat16) for arch in ("tinyllama-1.1b",)
+             + DENSE_OTHERS] + [("tinyllama-1.1b", torch.float32)]
+    for arch, dtype in cases:
+        cfg = get_config(arch)
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = _flash_inputs(dev, 1, t, h, kv, hd, dtype, seed=3)
+        label = arch if dtype == torch.bfloat16 else f"{arch} float32"
+        got = fa.flash_attention_cuda(q, k, v)
+        want = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or not torch.isfinite(got.float()).all():
+            fail(f"flash_attention at {label}'s prefill: wrong dtype or "
+                 f"non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            ulps = None
+            ok = torch.allclose(got, want, **FLASH_F32_TOL)
+        else:
+            ulps = _bf16_row_ulps(got, want)
+            ok = ulps <= 2.0
+        if not ok:
+            fail(f"flash_attention at {label}'s prefill: kernel != plain "
+                 f"(max abs err {err:.3e}, bf16 row ulps {ulps})")
+        flops = 4 * hd * h * attended_pairs(t, None)
+        t_ops = flops / (BF16_TOPS_PER_S if dtype == torch.bfloat16
+                         else F32_OPS_PER_S) * 1e3
+        t_bytes = dtype.itemsize * (2 * q.numel() + k.numel() + v.numel()) / \
+            HBM_BYTES_PER_S * 1e3
+        qh, kh, vh = (z.transpose(1, 2) for z in (
+            q, k.repeat_interleave(h // kv, 2), v.repeat_interleave(h // kv, 2)))
+        row = {"max_abs_err": err, "bf16_row_ulps": ulps,
+               "ms": kernel_ms(lambda: fa.flash_attention_cuda(q, k, v),
+                               iters=10),
+               "plain_ms": kernel_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                     iters=3, warmup=1),
+               "library_ms": kernel_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qh, kh, vh, is_causal=True), iters=10),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "shape": f"q (1, {t}, {h}, {hd}), k/v (1, {t}, {kv}, {hd}) "
+                        f"{str(dtype).removeprefix('torch.')}, causal"}
+        out[label] = row
+        close = (f"{ulps:.2f} bf16 ulps of the row scale" if ulps is not None
+                 else "within FLASH_F32_TOL")
+        print(f"kernel flash_attention at {arch}'s prefill ({row['shape']}): "
+              f"== plain ({close}, max abs err {err:.3e}); {row['ms']:.4f} ms,"
+              f" plain {row['plain_ms']:.4f}, library "
+              f"{row['library_ms']:.4f} (SDPA), bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), {flops / row['ms'] / 1e9:.1f} TFLOP/s "
+              f"[{smi}]", flush=True)
+    return out
+
+
+def _add_dense_launches(rows, dense) -> None:
+    """Rows 2, 7, 8 and 10 gain their launches on phase 13's path; row 2
+    its check, times and bound at tinyllama's MACH head, rows 7 and 8
+    their checks at tinyllama's candidate setting, row 10 its checks and
+    times at the dense decoders' prefills."""
+    for row in rows:
+        if row["name"] not in DENSE_KERNELS:
+            continue
+        row["launches_dense_serve"] = dense["launches"][row["name"]]
+        if row["name"] == "mach_topk":
+            head = dense["head"]
+            row.update({"max_abs_err_dense_head": head["max_abs_err"],
+                        "ms_dense_head": head["ms"],
+                        "ms_dense_head_graph": head["ms_graph"],
+                        "plain_ms_dense_head": head["plain_ms"],
+                        "library_ms_dense_head": head["library_ms"],
+                        "bound_ms_dense_head": head["bound_ms"],
+                        "bound_by_dense_head": head["bound_by"],
+                        "shape_dense_head": head["shape"]})
+        if row["name"] in ("bucket_topm", "mach_candidate_topk"):
+            row["checks_dense_head"] = dense["cand"][row["name"]]
+            row["max_abs_err_dense_head"] = dense["cand"]["max_abs_err"]
+        if row["name"] == "flash_attention":
+            row["dense_prefill"] = dense["flash"]
+
+
+def phase_dense_serve(dev) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+
+    smi = _nvidia_smi()
+    head = _dense_head_vs_plain(dev)
+    cand = _dense_candidates_vs_plain(dev)
+    flash = _dense_flash_times(dev, smi)
+    rng = np.random.default_rng(0)
+    vocab = get_config("tinyllama-1.1b").vocab_size
+    prompts = [rng.integers(0, vocab, n).tolist() for n in DENSE_PROMPTS]
+    # the path's run: counts from 0, read just after
+    for fn in _dense_launchers().values():
+        fn.launches = 0
+    counts = {}
+    out = {"head": head, "cand": cand, "flash": flash, "tinyllama": {}}
+    for mach in ("on", "off"):
+        out["tinyllama"][mach] = _tinyllama_engines(dev, mach, prompts,
+                                                    counts, smi)
+    for arch in DENSE_OTHERS:
+        out[arch] = _dense_other(dev, arch, counts, smi)
+    if min(counts.values()) < 1:
+        fail(f"dense serve: a kernel of the path never ran: {counts}")
+    out["launches"] = counts
+    # mistral-large-123b: sized, and served at its smoke config
+    big = get_config("mistral-large-123b")
+    size = big.param_count_estimate() * 2
+    total = torch.cuda.get_device_properties(dev).total_memory
+    model = LanguageModel(get_config("mistral-large-123b", smoke=True))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    res = _dense_serve(model, params, [[1, 2, 3], [4, 5, 6, 7, 8]], (4, 4),
+                       {}, max_len=64, num_slots=2, page_size=DENSE_PAGE)
+    print(f"dense serve mistral-large-123b: {big.param_count_estimate():,} "
+          f"params = {size / 1e9:.1f} GB in bf16 does not fit the card's "
+          f"{total / 1e9:.1f} GB; its smoke config served paged: tokens "
+          f"{res['tokens']}", flush=True)
+    print(f"dense serve launches on the path: {counts} [{smi}]", flush=True)
+    return out
+
+
 def _add_new_path_launches(rows, fused, selection) -> None:
     """Kernel 4's launches on the fused LM loss's path (its LM-head row),
     and kernels 4-6's on the selected training paths (their training
@@ -3847,6 +4554,10 @@ def main() -> int:
     phase_oaa(dev, train)
     print(f"oaa: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_new_path_launches(rows, fused, selection)
+    t0 = time.perf_counter()
+    dense = phase_dense_serve(dev)
+    print(f"dense serve: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    _add_dense_launches(rows, dense)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,17 @@
 """Configurations: the extreme-classification tasks, and the language
 models the port serves (``get_config``)."""
 
-from repro_torch.configs import recurrentgemma_2b
-from repro_torch.configs.common import SHAPES, default_mach_head
+from repro_torch.configs import (granite_20b, mistral_large_123b,
+                                 phi3_mini_3_8b, recurrentgemma_2b,
+                                 tinyllama_1_1b)
+from repro_torch.configs.common import (SHAPES, default_mach_head,
+                                        shape_applicable,
+                                        supports_long_context)
 from repro_torch.configs.odp_mach import IMAGENET, ODP, ExtremeTaskConfig
 
-_MODULES = {m.ARCH_ID: m for m in (recurrentgemma_2b,)}
+_MODULES = {m.ARCH_ID: m for m in (recurrentgemma_2b, tinyllama_1_1b,
+                                   phi3_mini_3_8b, granite_20b,
+                                   mistral_large_123b)}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -23,4 +29,5 @@ def get_config(arch_id: str, *, smoke: bool = False, mach: str = "auto"):
 
 
 __all__ = ["ARCH_IDS", "ExtremeTaskConfig", "IMAGENET", "ODP", "SHAPES",
-           "default_mach_head", "get_config"]
+           "default_mach_head", "get_config", "shape_applicable",
+           "supports_long_context"]

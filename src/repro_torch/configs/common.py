@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.core.mach import MACHConfig
+from repro_torch.models.transformer import ModelConfig
 
 # The four assigned LM shapes: (seq_len, global_batch, step kind)
 SHAPES = {
@@ -27,3 +28,19 @@ def default_mach_head(vocab_size: int, enable: str = "auto",
     return MACHConfig(num_classes=vocab_size, num_buckets=num_buckets,
                       num_repetitions=num_repetitions, seed=0,
                       estimator="unbiased", hash_kind="mult_shift")
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """long_500k runs only for sub-quadratic archs (SSM/hybrid/SWA)."""
+    if cfg.family in ("hybrid", "xlstm"):
+        return True
+    return cfg.attention_kind == "sliding_window"
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Returns (applicable, reason-if-not)."""
+    if shape == "long_500k" and not supports_long_context(cfg):
+        return False, ("pure full-attention arch: 524288-token dense KV "
+                       "cache is the quadratic regime this shape excludes "
+                       "(DESIGN.md §5)")
+    return True, ""

@@ -2,12 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 6 --slots 4 --max-new 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch tinyllama-1.1b --page-size 16          # the paged KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --full    # on a GPU
 
 Smoke config unless ``--full``; weights are random, drawn from
-``--seed``.  Runs on ``cuda`` unless ``--device`` says otherwise.  The
-continuous scheduler over contiguous caches is the one ported; the
-lockstep scheduler and paged-cache flags come with their slice.
+``--seed``.  Runs on ``cuda`` unless ``--device`` says otherwise.
+``--scheduler lockstep`` runs the chunked baseline (contiguous caches
+only); ``--page-size`` pages the linear KV caches (``--num-pages`` sizes
+the shared pool).
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import LanguageModel
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServingEngine)
+from repro_torch.serving.engine import SCHEDULERS
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default=ARCH_IDS[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda")
@@ -39,6 +43,7 @@ def main() -> int:
                     help="per-slot cache capacity")
     ap.add_argument("--max-new", type=int, default=12,
                     help="default per-request max_new_tokens")
+    ap.add_argument("--scheduler", choices=SCHEDULERS, default="continuous")
     ap.add_argument("--eos", type=int, default=-1,
                     help="EOS token id (-1: never stop early)")
     ap.add_argument("--temperature", type=float, default=None,
@@ -48,6 +53,12 @@ def main() -> int:
     ap.add_argument("--estimator", choices=("unbiased", "min", "median"),
                     default=None, help="per-request MACH estimator override")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged KV cache: tokens per page (0: contiguous "
+                         "per-slot strips)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="shared KV page-pool size (0: derive "
+                         "slots * ceil(max_len / page_size))")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -62,7 +73,10 @@ def main() -> int:
                                        eos_id=args.eos,
                                        temperature=args.temperature,
                                        top_k=args.top_k,
-                                       seed=args.seed))
+                                       seed=args.seed,
+                                       scheduler=args.scheduler,
+                                       page_size=args.page_size,
+                                       num_pages=args.num_pages))
     rng = np.random.default_rng(args.seed)
     sampling = SamplingParams(estimator=args.estimator)
     for _ in range(args.requests):
@@ -82,6 +96,10 @@ def main() -> int:
     print(f"{len(outs)} requests on {device}, "
           f"{m.tokens_generated / dt:.1f} tok/s, "
           f"{m.decode_steps} decode steps, occupancy {m.occupancy:.2f}")
+    if args.page_size:
+        print(f"page pool: {m.num_pages} pages x {args.page_size} tokens, "
+              f"peak {m.pages_peak} reserved, "
+              f"{m.reservation_failures} reservation failures")
     return 0
 
 

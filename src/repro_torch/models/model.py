@@ -3,8 +3,8 @@
 The port of ``repro/models/model.py`` for decoder-only models.  The
 config decides the head: the MACH head (the paper's) or the dense OAA
 softmax (``cfg.mach is None``; tied to the embeddings or its own
-``lm_head``).  Enc-dec, vision, MoE and paged caches are not ported yet
-(see ROADMAP.md).
+``lm_head``).  Enc-dec, vision and MoE models are not ported yet (see
+ROADMAP.md).
 
 Public surface:
   init(generator, device)                      -> params
@@ -20,7 +20,11 @@ Public surface:
 
 Caches are nested lists of ``KVCache`` / ``RecurrentState`` with a
 leading stacked-layer axis and the batch (slot) axis second, as in the
-JAX package; prefill and decode write into them in place.
+JAX package; prefill and decode write into them in place.  A paged pool
+(``init_paged_caches``) holds ``PagedKVCache`` leaves in place of the
+linear attention caches; its slot ops (``insert_cache_slot_paged``,
+``reset_cache_slot_paged``, ``append_cache_page``) touch each leaf kind
+as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -164,36 +168,61 @@ class LanguageModel:
         return loss, {"loss": loss, "tokens": total}
 
     # --------------------------------------------------------------- serving
+    def _init_kind_cache(self, kind: str, n: int, batch: int, max_len: int,
+                         device, linear_cap: Optional[int] = None,
+                         paged: Optional[tuple] = None):
+        """Stacked (n, ...) cache for one period position.  ``paged`` =
+        (num_pages, page_size, max_pages) turns a linear attention cache
+        into a page pool (``batch`` is then the slot count); ring caches
+        (window < max_len) keep their strips.  ``linear_cap`` overrides
+        the capacity of linear caches (the paged engine's prefill)."""
+        cfg = self.cfg
+        if kind == "rglru":
+            one = recurrent.init_recurrent_state(
+                batch, cfg.resolved_rnn_width, cfg.dtype, device)
+        else:
+            window = cfg.block_window(kind)
+            ring = window is not None and window < max_len
+            kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+            if paged is not None and not ring:
+                num_pages, page_size, max_pages = paged
+                one = attn_lib.init_paged_cache(batch, num_pages, page_size,
+                                                max_pages, kv, hd, cfg.dtype,
+                                                device)
+            else:
+                if ring:
+                    cap = window
+                else:
+                    cap = linear_cap if linear_cap else max_len
+                    if window is not None:
+                        cap = min(cap, window)
+                one = attn_lib.init_cache(batch, cap, kv, hd, cfg.dtype,
+                                          device)
+        return tree_map(lambda x: x[None].repeat((n,) + (1,) * x.dim()), one)
+
     def init_caches(self, batch_size: int, max_len: int,
                     linear_cap: Optional[int] = None, device=None) -> list:
         """Decode caches mirroring the stack nesting.  Local-attention
         layers whose window is below ``max_len`` get a ring of ``window``
         rows; ``linear_cap`` overrides the capacity of linear caches."""
-        cfg = self.cfg
         device = resolve_device(device)
-        hd = cfg.resolved_head_dim
-        caches = []
-        for period, n in plan_stacks(cfg.layout()):
-            st = []
-            for kind in period:
-                if kind == "rglru":
-                    one = recurrent.init_recurrent_state(
-                        batch_size, cfg.resolved_rnn_width, cfg.dtype, device)
-                else:
-                    window = cfg.block_window(kind)
-                    if window is not None and window < max_len:
-                        cap = window
-                    else:
-                        cap = linear_cap if linear_cap else max_len
-                        if window is not None:
-                            cap = min(cap, window)
-                    one = attn_lib.init_cache(batch_size, cap,
-                                              cfg.num_kv_heads, hd, cfg.dtype,
-                                              device)
-                st.append(tree_map(
-                    lambda x: x[None].repeat((n,) + (1,) * x.dim()), one))
-            caches.append(st)
-        return caches
+        return [[self._init_kind_cache(kind, n, batch_size, max_len, device,
+                                       linear_cap=linear_cap)
+                 for kind in period]
+                for period, n in plan_stacks(self.cfg.layout())]
+
+    def init_paged_caches(self, num_slots: int, max_len: int, page_size: int,
+                          num_pages: int, device=None) -> list:
+        """Paged decode pool: linear attention caches become one shared
+        (num_pages, page_size, KV, hd) page pool per layer (plus the spare
+        page, see ``PagedKVCache``) with per-slot page tables; ring caches
+        and recurrent states stay per-slot strips."""
+        device = resolve_device(device)
+        paged = (num_pages, page_size, -(-max_len // page_size))
+        return [[self._init_kind_cache(kind, n, num_slots, max_len, device,
+                                       paged=paged)
+                 for kind in period]
+                for period, n in plan_stacks(self.cfg.layout())]
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_len: int,
                 linear_cap: Optional[int] = None):
@@ -230,6 +259,52 @@ class LanguageModel:
         device = pool[0][0][0].device
         return self.insert_cache_slot(
             pool, self.init_caches(1, max_len, device=device), slot)
+
+    # ------------------------------------------------------ paged slot pool
+    @staticmethod
+    def insert_cache_slot_paged(pool: list, one: list, slot: int,
+                                pages: torch.Tensor) -> list:
+        """Admit a batch-1 prefill cache into slot ``slot`` of a paged
+        pool, in place: linear attention leaves copy their page-rounded
+        strips into the pool pages ``pages`` (one id a prompt page, the
+        same on every layer) and set the slot's table row; ring and
+        recurrent leaves take the contiguous per-slot copy."""
+        for p_st, o_st in zip(pool, one):
+            for pc, oc in zip(p_st, o_st):
+                if isinstance(pc, attn_lib.PagedKVCache):
+                    attn_lib.paged_insert_prefill(pc, oc, slot, pages)
+                else:
+                    LanguageModel.insert_cache_slot(pc, oc, slot)
+        return pool
+
+    def reset_cache_slot_paged(self, pool: list, slot: int,
+                               max_len: int) -> list:
+        """Free slot ``slot`` of a paged pool, in place: table row → −1
+        and index → 0 on paged leaves (page contents stay stale, see
+        ``paged_reset_slot``); ring and recurrent leaves are restored to
+        their freshly initialized state."""
+        fresh = None
+        for si, p_st in enumerate(pool):
+            for pi, pc in enumerate(p_st):
+                if isinstance(pc, attn_lib.PagedKVCache):
+                    attn_lib.paged_reset_slot(pc, slot)
+                    continue
+                if fresh is None:
+                    fresh = self.init_caches(1, max_len, device=pc[0].device)
+                self.insert_cache_slot(pc, fresh[si][pi], slot)
+        return pool
+
+    @staticmethod
+    def append_cache_page(pool: list, slot: int, page_idx: int,
+                          page_id: int) -> list:
+        """Grow ``slot``'s page table by pool page ``page_id`` at table
+        position ``page_idx`` on every paged leaf and layer, in place
+        (decode boundary crossing)."""
+        for p_st in pool:
+            for pc in p_st:
+                if isinstance(pc, attn_lib.PagedKVCache):
+                    attn_lib.paged_append_page(pc, slot, page_idx, page_id)
+        return pool
 
     # ------------------------------------------------------------ MACH decode
     def _hash_kw(self, device) -> dict:

@@ -167,14 +167,23 @@ def init_block(generator, cfg: ModelConfig, kind: str, device) -> dict:
 
 
 def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
-                    cache: Optional[attn_lib.KVCache], per_slot: bool = False):
+                    cache, per_slot: bool = False):
     """Returns (attn_out, cache); a given cache is updated in place."""
     q = layers.dense(params["q"], x)
     k = layers.dense(params["k"], x)
     v = layers.dense(params["v"], x)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
-    if cache is None or x.shape[1] > 1:
+    if isinstance(cache, attn_lib.PagedKVCache):     # paged slot decode
+        if x.shape[1] > 1:
+            raise NotImplementedError(
+                "paged caches decode one token per slot; prefill goes "
+                "through a batch-1 contiguous cache that the engine "
+                "scatters into reserved pages (chunked paged prefill is "
+                "a future admission policy)")
+        cache = attn_lib.paged_cache_update_decode(cache, k, v)
+        out = attn_lib.paged_decode_attend(q, cache, window=window)
+    elif cache is None or x.shape[1] > 1:
         if cache is not None:                 # prefill into cache
             cache = attn_lib.cache_update_prefill(cache, k, v, positions)
         out = attn_lib.attend(q, k, v, positions, positions, causal=True,
@@ -245,14 +254,28 @@ def tree_map(fn, *trees):
 
 def init_stacks(generator, cfg: ModelConfig, layout: list, device) -> list:
     """List over stacks of lists over period positions of block params
-    stacked on a leading layer axis."""
+    stacked on a leading layer axis.  Each block's float leaves take
+    ``cfg.param_dtype`` (if set) as the block is drawn, and the block is
+    copied into its preallocated stack, so drawing holds the stacks and
+    one float32 block (a 20 B-parameter model's float32 blocks would not
+    fit beside its bf16 stacks on one card)."""
+    def cast(x):
+        if cfg.param_dtype is not None and x.is_floating_point():
+            return x.to(cfg.param_dtype)
+        return x
+
     params = []
     for period, n in plan_stacks(layout):
         p_list = []
         for kind in period:
-            blocks = [init_block(generator, cfg, kind, device)
-                      for _ in range(n)]
-            p_list.append(tree_map(lambda *xs: torch.stack(xs), *blocks))
+            stacked = None
+            for li in range(n):
+                block = tree_map(cast, init_block(generator, cfg, kind, device))
+                if stacked is None:
+                    stacked = tree_map(lambda x: x.new_empty((n,) + x.shape),
+                                       block)
+                tree_map(lambda st, x: st[li].copy_(x), stacked, block)
+            p_list.append(stacked)
         params.append(p_list)
     return params
 

@@ -1,9 +1,8 @@
 """Continuous-batching serving engine: slot-scheduled MACH decode.
 
-The port of ``repro/serving/engine.py`` with its ``continuous``
-scheduler and contiguous caches.  Callers build a ``Request`` (prompt,
-optional ``SamplingParams``, per-request ``max_new_tokens``, optional
-``on_token`` callback), ``submit()`` it, and drive the engine with
+The port of ``repro/serving/engine.py``.  Callers build a ``Request``
+(prompt, optional ``SamplingParams``, per-request ``max_new_tokens``,
+optional ``on_token`` callback), ``submit()`` it, and drive the engine with
 ``step()`` (one scheduler tick) or ``run()`` (drain everything);
 finished requests come back as ``GenerationResult``s.
 
@@ -13,7 +12,20 @@ exact prompt length, no padding) and copying its caches into a free
 slot; every decode step then advances the whole pool with per-slot
 positions and per-row cache writes.  EOS or the request's
 ``max_new_tokens`` frees the slot at once, and the next queued request
-is admitted into it on the following tick.
+is admitted into it on the following tick.  ``ServeConfig.scheduler =
+"lockstep"`` keeps the chunked baseline instead: it admits only into an
+empty pool and holds every finished row (as an inert greedy row) until
+the whole chunk has finished.
+
+``ServeConfig.page_size > 0`` pages the linear KV caches: one shared
+pool of ``num_pages`` pages a layer with per-slot page tables, in place
+of a ``max_len`` strip a slot.  Admission reserves a request's worst
+case (prompt + max_new_tokens, page-rounded) up front and allocates its
+prompt pages (a FIFO free list); decode appends a reserved page when a
+slot's next write crosses a page boundary; a finished request returns
+its pages at once.  A request whose reservation does not fit waits at
+the head of the queue (``reservation_failures``).  Lockstep runs on the
+contiguous layout only.
 
 Both phases end in the same serve step: the fused streaming top-k
 (kernel 2; kernels 7-8 with ``candidate_mode``) per live estimator,
@@ -30,9 +42,6 @@ engine-assigned request id, so a request's samples depend neither on
 its slot nor on its neighbours, seeded and unseeded requests never
 share a stream, and greedy rows are inert.  The JAX package keys the
 same way with ``fold_in``; the two draw different bits.
-
-``ServeConfig.scheduler="lockstep"`` and ``page_size > 0`` (the paged
-KV cache) raise ``NotImplementedError`` until their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -121,6 +130,12 @@ class EngineMetrics:
     completed: int = 0
     live_slot_steps: int = 0      # Σ over decode calls of producing slots
     peak_live_slots: int = 0      # max concurrently occupied slots
+    # page-pool gauges (paged engines only; zero on the contiguous path)
+    num_pages: int = 0            # pool size (0 = contiguous/strip layout)
+    pages_in_use: int = 0         # pages allocated+written by live slots now
+    pages_reserved: int = 0       # reserved now (incl. not yet written)
+    pages_peak: int = 0           # max pages_reserved over the lifetime
+    reservation_failures: int = 0  # admission ticks deferred for lack of pages
 
     @property
     def occupancy(self) -> float:
@@ -133,18 +148,29 @@ class EngineMetrics:
         return (self.tokens_generated / self.decode_steps
                 if self.decode_steps else 0.0)
 
+    @property
+    def fragmentation(self) -> int:
+        """Reserved − written pages: the internal fragmentation of the
+        worst-case (prompt + max_new) reservations held right now."""
+        return self.pages_reserved - self.pages_in_use
+
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    max_len: int = 2048           # per-request token cap (slot capacity)
+    max_len: int = 2048           # per-request token cap (page-table span)
     num_slots: int = 8            # fixed decode-pool width
     max_new_tokens: int = 64      # default per-request cap
     eos_id: int = -1              # -1: never stop early
     temperature: Optional[float] = None   # engine-wide sampling default
     top_k: int = 50               # fused-kernel candidate cap
     seed: int = 0
-    scheduler: str = "continuous"  # "continuous" ("lockstep" not ported)
-    page_size: int = 0            # paged KV cache (not ported): must be 0
+    scheduler: str = "continuous"  # "continuous" | "lockstep" (baseline)
+    # paged KV cache: page_size > 0 turns the linear KV caches into one
+    # shared (num_pages, page_size) pool a layer with per-slot page
+    # tables; num_pages = 0 derives num_slots × ceil(max_len / page_size)
+    # (the contiguous layout's bytes).  page_size = 0 keeps contiguous
+    # per-slot strips (required by scheduler="lockstep").
+    page_size: int = 0
     num_pages: int = 0
     # decode algorithm: None | "exact" stream all V classes; an (m, t)
     # tuple routes every serve step through the count-min candidate
@@ -173,18 +199,23 @@ def make_serve_step_fn(model: LanguageModel, top_k: int, candidate_mode=None):
     """One step for both phases of serving.
 
     ``caches=None`` selects prefill: ``tokens`` is the (1, L) prompt and
-    fresh caches are built (``pos`` is ignored).  Otherwise one pooled
-    decode step: ``tokens`` is (S, 1), ``pos`` the per-slot absolute
-    positions, and every row's KV write lands at its own cache index.
+    fresh caches are built (``pos`` is ignored), their linear caches at
+    ``linear_cap`` rows if given (the paged engine's page-rounded prompt
+    length, so the strips reshape exactly into the reserved pages).
+    Otherwise one pooled decode step: ``tokens`` is (S, 1), ``pos`` the
+    per-slot absolute positions, and every row's KV write lands at its
+    own cache index.
 
     Both phases end alike: the fused top-k candidates for each estimator
     in ``estimators`` (``est_sel`` picks one per row), then the per-row
     keyed temperature / top-k pick.  Returns ``(caches, ids)``."""
 
     def serve_step(params, caches, tokens, pos, seed, salts, tok_idx, temps,
-                   row_k, est_sel, *, estimators: tuple, max_len: int):
+                   row_k, est_sel, *, estimators: tuple, max_len: int,
+                   linear_cap: Optional[int] = None):
         if caches is None:                       # ---- prefill (batch 1)
-            caches, h = model.prefill(params, tokens, max_len)
+            caches, h = model.prefill(params, tokens, max_len,
+                                      linear_cap=linear_cap)
         else:                                    # ---- pooled decode step
             caches, h = model.decode_step(params, caches, tokens[:, 0], pos,
                                           per_slot=True)
@@ -225,6 +256,9 @@ class _Slot:
     est: str
     max_new: int
     submit_step: int
+    done: bool = False            # lockstep only: finished, slot held
+    pages: list = dataclasses.field(default_factory=list)  # pool page ids
+    reserved: int = 0             # worst-case pages reserved at admission
 
 
 class ServingEngine:
@@ -256,12 +290,11 @@ class ServingEngine:
             raise ValueError("ServeConfig.page_size / num_pages must be >= 0")
         if scfg.num_pages and not scfg.page_size:
             raise ValueError("ServeConfig.num_pages requires page_size > 0")
-        if scfg.scheduler == "lockstep":
-            raise NotImplementedError("scheduler='lockstep' is not ported yet "
-                                      "(see ROADMAP.md)")
-        if scfg.paged:
-            raise NotImplementedError("the paged KV cache (page_size > 0) is "
-                                      "not ported yet (see ROADMAP.md)")
+        if scfg.paged and scfg.scheduler == "lockstep":
+            # the lockstep baseline is the contiguous-strip layout by
+            # definition: a layout ablation, not a second paged scheduler
+            raise ValueError("scheduler='lockstep' runs on the contiguous "
+                             "cache layout; unset page_size for lockstep")
         cm = scfg.candidate_mode
         if cm not in (None, ops.CANDIDATE_EXACT) and (
                 isinstance(cm, str) or len(cm) != 2):
@@ -275,19 +308,39 @@ class ServingEngine:
             model.mach_inverted_table(self.device)   # build it once, now
         self._serve_step = make_serve_step_fn(model, scfg.top_k, cm)
         # the fixed slot pool — allocated once, reused for every request
-        self._pool = model.init_caches(scfg.num_slots, scfg.max_len,
-                                       device=self.device)
+        if scfg.paged:
+            self._num_pages = (scfg.num_pages or scfg.num_slots
+                               * -(-scfg.max_len // scfg.page_size))
+            self._pool = model.init_paged_caches(
+                scfg.num_slots, scfg.max_len, scfg.page_size,
+                self._num_pages, device=self.device)
+            # FIFO free list: pages come back in the order they were
+            # freed, so allocation is a function of the request sequence
+            self._free_pages: collections.deque = collections.deque(
+                range(self._num_pages))
+        else:
+            self._num_pages = 0
+            self._pool = model.init_caches(scfg.num_slots, scfg.max_len,
+                                           device=self.device)
         self._slots: list = [None] * scfg.num_slots
         self._queue: collections.deque = collections.deque()
         self._next_id = 0
         self._tick = 0               # scheduler ticks (latency unit)
-        self.metrics = EngineMetrics(num_slots=scfg.num_slots)
+        self.metrics = EngineMetrics(num_slots=scfg.num_slots,
+                                     num_pages=self._num_pages)
 
     def __repr__(self) -> str:
+        m = self.metrics
         live = sum(s is not None for s in self._slots)
-        return (f"<ServingEngine slots={live}/{self.scfg.num_slots} "
+        body = (f"slots={live}/{self.scfg.num_slots} "
                 f"queue={len(self._queue)} tick={self._tick} "
-                f"completed={self.metrics.completed}>")
+                f"completed={m.completed}")
+        if self.scfg.paged:
+            body += (f" pages={m.pages_in_use}/{self._num_pages}"
+                     f" reserved={m.pages_reserved}"
+                     f" frag={m.fragmentation} peak={m.pages_peak}"
+                     f" resv_fail={m.reservation_failures}")
+        return f"<ServingEngine {body}>"
 
     # ------------------------------------------------------------- submit
     @property
@@ -325,6 +378,15 @@ class ServingEngine:
                 f"prompt ({len(prompt)} tokens) + max_new_tokens ({max_new}) "
                 f"exceeds the slot capacity ServeConfig.max_len="
                 f"{scfg.max_len}")
+        if scfg.paged:
+            need = self._pages_for(len(prompt) + max_new - 1)
+            if need > self._num_pages:
+                # no pool state could ever admit it: reject now rather
+                # than block the head of the queue forever
+                raise ValueError(
+                    f"request needs {need} pages (worst case) but the "
+                    f"pool holds {self._num_pages}; raise "
+                    f"ServeConfig.num_pages or page_size")
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, request, max_new, self._tick))
@@ -349,6 +411,26 @@ class ServingEngine:
         k = sp.top_k if sp.top_k is not None else scfg.top_k
         return max(float(t), _GREEDY_TEMP), int(np.clip(k, 1, scfg.top_k)), est
 
+    # ------------------------------------------------------ page allocator
+    def _pages_for(self, tokens: int) -> int:
+        return -(-tokens // self.scfg.page_size)
+
+    def _alloc_pages(self, n: int) -> list:
+        """Pop ``n`` page ids FIFO; the caller has reserved them."""
+        assert len(self._free_pages) >= n, (len(self._free_pages), n)
+        ids = [self._free_pages.popleft() for _ in range(n)]
+        self.metrics.pages_in_use += n
+        return ids
+
+    def _release_pages(self, slot: _Slot) -> None:
+        """Return a finished slot's pages (FIFO) and drop its worst-case
+        reservation: the next admission sees them at once."""
+        self._free_pages.extend(slot.pages)
+        self.metrics.pages_in_use -= len(slot.pages)
+        self.metrics.pages_reserved -= slot.reserved
+        slot.pages = []
+        slot.reserved = 0
+
     # ---------------------------------------------------------- scheduling
     def _finish(self, slot: _Slot, reason: str) -> GenerationResult:
         self.metrics.completed += 1
@@ -371,34 +453,74 @@ class ServingEngine:
 
     def _admit(self, finished: list) -> None:
         scfg = self.scfg
+        if scfg.scheduler == "lockstep" and any(
+                s is not None for s in self._slots):
+            return                       # baseline: drain the whole chunk
         while self._queue and None in self._slots:
             slot_i = self._slots.index(None)
-            rid, req, max_new, submit_step = self._queue.popleft()
+            rid, req, max_new, submit_step = self._queue[0]      # peek
+            need, pages, linear_cap = 0, [], None
+            if scfg.paged:
+                # reserve the worst case up front, so a boundary crossing
+                # mid-decode never finds the free list empty
+                need = self._pages_for(len(req.prompt) + max_new - 1)
+                if need > self._num_pages - self.metrics.pages_reserved:
+                    # backpressure: the head of the queue waits (FIFO, no
+                    # later, smaller request jumps it) for freed pages
+                    self.metrics.reservation_failures += 1
+                    return
+            self._queue.popleft()
             temp, row_k, est = self._row_knobs(req)
             salt = _prng_salt(req.sampling.seed, rid)
+            if scfg.paged:
+                self.metrics.pages_reserved += need
+                self.metrics.pages_peak = max(self.metrics.pages_peak,
+                                              self.metrics.pages_reserved)
+                pages = self._alloc_pages(self._pages_for(len(req.prompt)))
+                linear_cap = len(pages) * scfg.page_size
             tokens = torch.as_tensor([list(req.prompt)], dtype=torch.int64,
                                      device=self.device)
             caches, ids = self._serve_step(
                 self.params, None, tokens, None, scfg.seed, [salt], [0],
-                [temp], [row_k], [0], estimators=(est,), max_len=scfg.max_len)
+                [temp], [row_k], [0], estimators=(est,), max_len=scfg.max_len,
+                linear_cap=linear_cap)
             self.metrics.prefills += 1
             slot = _Slot(req_id=rid, req=req, salt=salt, tokens=[],
                          pos=len(req.prompt), temp=temp, row_k=row_k, est=est,
-                         max_new=max_new, submit_step=submit_step)
+                         max_new=max_new, submit_step=submit_step,
+                         pages=pages, reserved=need)
             reason = self._emit(slot, int(ids[0]))
             if reason is not None:       # finished at prefill: no slot taken
+                if scfg.paged:
+                    self._release_pages(slot)
                 finished.append(self._finish(slot, reason))
                 continue
-            self.model.insert_cache_slot(self._pool, caches, slot_i)
+            if scfg.paged:
+                self.model.insert_cache_slot_paged(
+                    self._pool, caches, slot_i,
+                    torch.as_tensor(pages, device=self.device))
+            else:
+                self.model.insert_cache_slot(self._pool, caches, slot_i)
             self._slots[slot_i] = slot
 
     def _decode_once(self, finished: list) -> None:
         scfg = self.scfg
-        live = [s for s in self._slots if s is not None]
+        live = [s for s in self._slots if s is not None and not s.done]
         if not live:
             return
         self.metrics.peak_live_slots = max(self.metrics.peak_live_slots,
                                            len(live))
+        if scfg.paged:
+            # lazy page append: a slot whose next write crosses a page
+            # boundary takes its next reserved page now
+            for i, s in enumerate(self._slots):
+                if s is None or s.done:
+                    continue
+                pj = s.pos // scfg.page_size
+                if pj >= len(s.pages):
+                    (pid,) = self._alloc_pages(1)
+                    s.pages.append(pid)
+                    self.model.append_cache_page(self._pool, i, pj, pid)
         estimators = tuple(sorted({s.est for s in live}))
         n = scfg.num_slots
         toks = np.zeros((n, 1), np.int64)
@@ -411,6 +533,8 @@ class ServingEngine:
                 continue
             toks[i, 0] = s.tokens[-1]
             pos[i] = s.pos
+            if s.done:
+                continue                 # lockstep hold: inert greedy row
             salts[i], tok_idx[i] = s.salt, len(s.tokens)
             temps[i], row_k[i] = s.temp, s.row_k
             est_sel[i] = estimators.index(s.est)
@@ -425,14 +549,28 @@ class ServingEngine:
         for i, s in enumerate(self._slots):
             if s is None:
                 continue
-            s.pos += 1
+            s.pos += 1                   # every slot's cache advanced
+            if s.done:
+                continue
             reason = self._emit(s, ids[i])
             if reason is None:
                 continue
             finished.append(self._finish(s, reason))
-            # free at once: the next tick admits into this slot
-            self.model.reset_cache_slot(self._pool, i, scfg.max_len)
-            self._slots[i] = None
+            if scfg.scheduler == "lockstep":
+                s.done = True            # hold until the chunk drains
+            elif scfg.paged:             # free at once: next tick admits
+                self._release_pages(s)
+                self.model.reset_cache_slot_paged(self._pool, i, scfg.max_len)
+                self._slots[i] = None
+            else:
+                self.model.reset_cache_slot(self._pool, i, scfg.max_len)
+                self._slots[i] = None
+        if scfg.scheduler == "lockstep" and all(
+                s is None or s.done for s in self._slots):
+            for i, s in enumerate(self._slots):
+                if s is not None:
+                    self.model.reset_cache_slot(self._pool, i, scfg.max_len)
+                    self._slots[i] = None
 
     def step(self) -> list:
         """One scheduler tick: admit into free slots, advance the pool

@@ -5,8 +5,11 @@ bucket-selected columns (unselected columns' gradients exactly zero);
 the R-head CE on given logits, forward and backward; the RG-LRU scan and
 flash attention, forward and backward) against their plain versions, on
 the card, one full-width recurrentgemma-2b request through the serving
-engine, and the OAA head (``OAAClassifier`` and the smoke LM's) on the
-card as on the CPU.  Gradients at
+engine, the OAA head (``OAAClassifier`` and the smoke LM's) on the
+card as on the CPU, the paged KV cache's decode attention and write on
+the card against the same calls on a CPU copy (GQA, MHA, MQA; float32
+at rtol 1e-5, bf16 within 2 bf16 ulps of each row's largest output),
+and kernel 2 at tinyllama-1.1b's MACH head (K=32,000) exactly.  Gradients at
 rtol 1e-4 / atol 1e-6: the dense and ELL kernels reduce dW, dh and dbias
 with float atomics, in another order than the plain version (and from
 run to run); the gather backward sums each dW row and dbias in a fixed
@@ -1009,3 +1012,124 @@ def test_oaa_classifier_and_lm_head_on_the_card(dev):
     caches, h = model.prefill(dparams, torch.tensor([[5, 6, 7]], device=dev),
                               32)
     assert int(model.next_token(dparams, h)[0][0]) == out.tokens[0]
+
+
+# ---------------------------------------------------------------------------
+# the dense decoders' serving path: the paged KV cache (plain PyTorch, as
+# in the JAX package) and kernel 2 at tinyllama-1.1b's MACH head
+# ---------------------------------------------------------------------------
+
+PAGED_LENGTHS = {0: 76, 1: 17, 3: 96}     # slot -> tokens; slot 2 is free
+
+
+def _paged_cpu_pool(h, kv, hd, dtype, seed):
+    """(pool, q, owned pages by slot) on the CPU: 4 slots, 16 pages of 16
+    tokens, tables of 6 pages, random contents, positions as prefills
+    leave them (slot 3's table full), stale positions on the free pages."""
+    from repro_torch.models import attention as attn_lib
+    gen = torch.Generator().manual_seed(seed)
+    pool = attn_lib.init_paged_cache(4, 16, 16, 6, kv, hd, dtype, "cpu")
+    pool.k.copy_(torch.randn(pool.k.shape, generator=gen).to(dtype))
+    pool.v.copy_(torch.randn(pool.v.shape, generator=gen).to(dtype))
+    pool.positions.copy_(torch.randint(0, 96, pool.positions.shape,
+                                       generator=gen))
+    pages = torch.randperm(16, generator=gen)
+    owned, start = {}, 0
+    for slot, length in PAGED_LENGTHS.items():
+        n = -(-length // 16)
+        owned[slot] = pages[start:start + n]
+        start += n
+        pos = torch.arange(n * 16).reshape(n, 16)
+        pool.positions[owned[slot]] = torch.where(pos < length, pos, -1).int()
+        pool.page_table[slot, :n] = owned[slot].int()
+        pool.index[slot] = length
+    q = torch.randn((4, 1, h, hd), generator=gen).to(dtype)
+    return pool, q, owned
+
+
+def _to(pool, device):
+    return type(pool)(*(t.to(device) for t in pool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd", [(32, 4, 64), (32, 32, 96), (48, 1, 128)],
+                         ids=["GQA 32/4", "MHA 32/32", "MQA 48/1"])
+def test_paged_decode_attend_on_card_matches_cpu(dev, h, kv, hd, dtype):
+    """Paged decode attention on the card against the same call on a CPU
+    copy: float32 at rtol 1e-5, bf16 within 2 bf16 ulps of each (slot,
+    head) row's largest output (scores summed in another order)."""
+    from repro_torch.models import attention as attn_lib
+    pool, q, _ = _paged_cpu_pool(h, kv, hd, dtype, seed=h + kv)
+    want = attn_lib.paged_decode_attend(q, pool)
+    got = attn_lib.paged_decode_attend(q.to(dev), _to(pool, dev)).cpu()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.all((got.float() - want.float()).abs()
+                         <= 2 * _bf16_row_ulp(want))
+
+
+def test_paged_decode_update_with_free_slots_leaves_owned_pages(dev):
+    """A decode write on the card with a free slot (no table, its index
+    run on) and a slot whose table is full: each owning slot with room
+    writes one row of its own page, no other row of any pool page
+    changes, and the pool equals the same update on the CPU."""
+    from repro_torch.models import attention as attn_lib
+    pool, _, owned = _paged_cpu_pool(8, 2, 64, torch.bfloat16, seed=5)
+    pool.index[2] = 40
+    gen = torch.Generator().manual_seed(6)
+    k1 = torch.randn((4, 1, 2, 64), generator=gen).to(torch.bfloat16)
+    v1 = torch.randn((4, 1, 2, 64), generator=gen).to(torch.bfloat16)
+    before = type(pool)(*(t.clone() for t in pool))
+    card = _to(attn_lib.paged_cache_update_decode(
+        _to(pool, dev), k1.to(dev), v1.to(dev)), "cpu")
+    cpu = attn_lib.paged_cache_update_decode(pool, k1, v1)
+    n = cpu.num_pages
+    for got, want in ((card.k[:n], cpu.k[:n]), (card.v[:n], cpu.v[:n]),
+                      (card.positions[:n], cpu.positions[:n]),
+                      (card.page_table, cpu.page_table),
+                      (card.index, cpu.index)):
+        assert torch.equal(got, want)
+    # slot 3's table is full and slot 2 has none: both write the spare page
+    written = {(int(owned[s][PAGED_LENGTHS[s] // 16]),
+                PAGED_LENGTHS[s] % 16): s for s in (0, 1)}
+    for page in range(n):
+        for row in range(16):
+            s = written.get((page, row))
+            if s is None:
+                assert torch.equal(card.k[page, row], before.k[page, row])
+                assert torch.equal(card.v[page, row], before.v[page, row])
+                assert card.positions[page, row] == before.positions[page, row]
+            else:
+                assert torch.equal(card.k[page, row], k1[s, 0])
+                assert torch.equal(card.v[page, row], v1[s, 0])
+                assert card.positions[page, row] == PAGED_LENGTHS[s]
+    assert card.index.tolist() == [77, 18, 41, 97]
+
+
+@pytest.mark.parametrize("inline", [True, False], ids=["inline", "table"])
+@pytest.mark.parametrize("n", [1, 4])
+def test_topk_kernel_at_tinyllama_head_equals_plain(dev, n, inline):
+    """Kernel 2 at tinyllama-1.1b's MACH head (R=8, B=2048, K=32,000):
+    N=1 after a prefill, N=4 in the decode pool, k=50 and 1, the three
+    estimators, both hash sources, dyadic inputs: values and ids equal."""
+    from repro_torch.configs import get_config
+    mach = get_config("tinyllama-1.1b", mach="on").mach
+    r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
+    assert (r, b, num_classes) == (8, 2048, 32000)
+    meta = _dyadic(n, r, b, dev, seed=n + 32)
+    if inline:
+        args, kw = (), {"inline_coeffs": mach.family.coeffs_tensor(dev),
+                        "inline_shift": mach.family.shift}
+    else:
+        args, kw = (mach.family.table(num_classes, dev),), {}
+    for estimator in ("unbiased", "min", "median"):
+        for k in (1, 50):
+            before = mt.mach_topk_cuda.launches
+            kv, ki = mt.mach_topk_cuda(meta, *args, num_classes=num_classes,
+                                       k=k, estimator=estimator, **kw)
+            assert mt.mach_topk_cuda.launches == before + 1
+            pv, pi = mt.mach_topk_plain(meta, *args, num_classes=num_classes,
+                                        k=k, estimator=estimator, **kw)
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), (estimator, k)

@@ -81,6 +81,37 @@ def test_greedy_engine_matches_jax_engine(served):
         assert list(r.tokens) == _reference_decode(model, params, p, 6), p
 
 
+def test_lockstep_engine_matches_jax_lockstep_engine(served):
+    """The lockstep baseline admits only into an empty pool and holds
+    finished rows until the chunk drains: its tokens and latencies equal
+    the JAX lockstep engine's, its tokens equal the continuous engine's,
+    and the ragged mix takes it more ticks."""
+    jax_lm, jmodel, jparams, model, params = served
+    reqs = [([1, 2, 3], 6), ([4, 5], 2), ([6, 7, 8, 9], 6), ([10], 2),
+            ([11, 12], 4)]
+
+    def run(scheduler):
+        eng = _engine(model, params, num_slots=2, scheduler=scheduler)
+        for p, mn in reqs:
+            eng.submit(Request(prompt=p, max_new_tokens=mn))
+        return eng.run(), eng
+
+    outs, eng = run("lockstep")
+    js = jax_lm.serving
+    jeng = js.ServingEngine(jmodel, jparams, js.ServeConfig(
+        max_len=32, num_slots=2, max_new_tokens=6, scheduler="lockstep"))
+    for p, mn in reqs:
+        jeng.submit(js.Request(prompt=p, max_new_tokens=mn))
+    jouts = jeng.run()
+    assert [r.tokens for r in outs] == [tuple(int(t) for t in r.tokens)
+                                        for r in jouts]
+    assert [r.latency_steps for r in outs] == [r.latency_steps for r in jouts]
+    assert eng.metrics.decode_steps == jeng.metrics.decode_steps
+    cont, ceng = run("continuous")
+    assert [r.tokens for r in outs] == [r.tokens for r in cont]
+    assert eng._tick > ceng._tick
+
+
 def test_slot_reuse_ragged_workload(served):
     *_, model, params = served
     reqs = [([1, 2, 3], 6), ([4, 5], 2), ([6, 7, 8, 9], 6), ([10], 2),
@@ -133,11 +164,11 @@ def test_submit_and_config_validation(served):
                      (dict(candidate_mode=(1, 2, 3)), "candidate_mode")):
         with pytest.raises(ValueError, match=err):
             ServingEngine(model, params, ServeConfig(**bad))
-    for later in (dict(scheduler="lockstep"), dict(page_size=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(model, params, ServeConfig(**later))
+    with pytest.raises(ValueError, match="lockstep"):
+        ServingEngine(model, params, ServeConfig(scheduler="lockstep",
+                                                 page_size=16))
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("tinyllama-1.1b")
+        get_config("mixtral-8x22b")
 
 
 def test_sampling_determinism_and_fresh_streams(served):
