@@ -2,9 +2,10 @@
 """Drive the PyTorch port of MACH serving (Algorithm 2, streaming and
 count-min candidate decode), training (Algorithm 1, through the fused
 logit-free loss), language-model serving (recurrentgemma-2b with the
-MACH head, through the slot engine; the dense decoders through the paged
-and lockstep engines) and language-model training (recurrentgemma-2b
-through the trainer) on one NVIDIA GPU.
+MACH head, through the slot engine; the dense decoders and the MoE
+decoder qwen2-moe-a2.7b through the paged and lockstep engines) and
+language-model training (recurrentgemma-2b through the trainer; a cut of
+qwen2-moe-a2.7b) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -160,8 +161,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel 10's backward at the training shape ((2, 4096, 10, 256) / KV=1,
    bf16, window 2048) and at small float32 shapes (causal, windowed,
    unmasked; G = 1, 2, 10) and bf16 ones: a ragged GQA case, tinyllama's
-   and phi3's widths and head counts, a ragged windowed hd-256 case and
-   an unmasked hd 48: dq, dk, dv to rtol 1e-4 / atol 1e-5 in float32,
+   and phi3's widths and head counts, a ragged windowed hd-256 case, an
+   unmasked hd 48 and qwen2-moe-a2.7b's training shape ((2, 4096, 16,
+   128) / 16 KV heads, causal): dq, dk, dv to rtol 1e-4 / atol 1e-5 in float32,
    within 2 bf16 ulps of each row's largest entry (past a 2^-20 float32
    floor) in bf16; the forward with lse equal to the forward without it,
    bit for bit.
@@ -260,8 +262,45 @@ Phases, in order; any failure exits non-zero and prints no result:
    to the first token of the 2,048-token prompt, median pooled decode
    tick after admission, tokens/s, the pool's KV bytes, peak memory,
    pages_peak, fragmentation and reservation_failures.
-14. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
-   launches on phase 13's path), then the device line, last.
+14. The MoE decoders: kernel 2 against its plain version at
+   qwen2-moe-a2.7b's MACH head (R=8, B=2048, K=151,936; phase 13's cases;
+   timed at N=4, k=50 beside its bound and ``torch.topk`` over a sparse
+   multi-hot product), kernels 7 and 8 at its (2048, 8), kernel 10 at its
+   2,048-token prefill (q (1, 2048, 16, 128), 16 KV heads, bf16, causal;
+   SDPA beside it).  The MoE block (``models/moe.py``) at qwen2's full
+   block widths (d=2,048, 60 experts top-4 of f=1,408, 4 shared of
+   5,632, groups of 512) against its plain sequential version
+   ``moe_ref`` on the card, float32 and bf16, at n = 2,048 (4 groups, cap
+   42), 2,049 (a padded group) and 4 (a decode pool, cap 1), each input
+   the first seed whose routing drops a choice: expert ids and the kept
+   mask equal, y and the aux losses at rtol 1e-5 (float32) and a
+   relative L2 of 2^-8 (bf16); the dropped share printed.  Then
+   qwen2-moe-a2.7b at full width (24 layers, 14.0 B params, bf16, MACH
+   head; seeded random weights) serves phase 13's 8 ragged requests over
+   4 slots through the contiguous continuous, lockstep, paged and
+   contiguous candidate_mode = (2048, 8) engines, launch counters from 0
+   over the four runs: kernel 10 once an attention layer for each
+   2,048-token prompt in each run, kernel 2 in the streaming runs,
+   kernels 7-8 in the candidate run.  Each first token must equal a
+   batch-1 prefill's greedy pick; candidate tokens must equal streaming
+   ones bit for bit; lockstep tokens must equal continuous ones on the
+   tokens emitted while the two pools hold the same live rows (capacity
+   couples a pooled step's rows, and free or held rows differ between
+   schedulers), in more ticks; paged tokens are reported.  Layer 0's
+   dropped share on the 2,048-token prefill and on a 4-slot decode step
+   is printed, and each engine as in phase 13.  Then the same config
+   cut to 4 of its 24 layers (every width kept) in float32: paged tokens
+   must equal contiguous ones on every token emitted before a slot fell
+   free.  Then the 4-layer cut in bf16 trained 3 AdamW steps (remat) on
+   2 x 4,096-token batches: the router's gradient nonzero in every
+   layer, every loss, load_balance and router_z finite (the last two
+   positive), kernels 3 and 10 forward and backward at their counts a
+   step; ms a step, tokens/s, peak memory.  mixtral-8x22b is sized
+   (param_count_estimate within (120e9, 150e9); it does not fit) and its
+   smoke config (sliding window 8, ring caches, OAA head) served paged.
+15. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
+   launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's),
+   then the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -2791,6 +2830,8 @@ FLASH_BWD_SHAPES = [
      torch.bfloat16),
     ("ragged windowed hd 256", 1, 333, 10, 1, 256, True, 100, torch.bfloat16),
     ("no mask hd 48", 1, 97, 4, 2, 48, False, None, torch.bfloat16),
+    ("qwen2-moe train hd 128, 16/16 heads", TRAIN_BATCH, TRAIN_SEQ, 16, 16,
+     128, True, None, torch.bfloat16),
 ]
 FLASH_BWD_F32_TOL = {"rtol": 1e-4, "atol": 1e-5}
 
@@ -3775,15 +3816,16 @@ def _dense_launchers() -> dict:
             "mach_candidate_topk": mc.mach_candidate_topk_cuda}
 
 
-def _dense_head_vs_plain(dev) -> dict:
-    """Kernel 2 vs its plain version at tinyllama-1.1b's MACH head (R=8,
-    B=2048, K=32,000): N=1 (a prefill) and 4 (the pool), k 1 and 50, the
-    three estimators, table and inline hashes, dyadic inputs exactly and
-    random ones as in phase 3; then its time at the pool's N=4, k=50."""
+def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
+    """Kernel 2 vs its plain version at ``arch``'s MACH head (tinyllama:
+    R=8, B=2048, K=32,000): N=1 (a prefill) and 4 (the pool), k 1 and 50,
+    the three estimators, table and inline hashes, dyadic inputs exactly
+    and random ones as in phase 3; then its time at the pool's N=4, k=50."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import mach_topk as mt
 
-    mach = get_config("tinyllama-1.1b", mach="on").mach
+    mach = get_config(arch, mach="on").mach
+    name = arch.split("-")[0]
     fam = mach.family
     r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
     table = fam.table(num_classes, dev)
@@ -3805,7 +3847,7 @@ def _dense_head_vs_plain(dev) -> dict:
                             meta, *args, num_classes=num_classes, k=k,
                             estimator=est, **kw)
                         torch.cuda.synchronize()
-                        tag = (f"tinyllama head n={n} {est} k={k} {src} "
+                        tag = (f"{name} head n={n} {est} k={k} {src} "
                                f"{'dyadic' if dyadic else 'random'}")
                         err = max(err, _check_same(tag, kv, ki, pv, pi,
                                                    scores, dyadic))
@@ -3827,9 +3869,9 @@ def _dense_head_vs_plain(dev) -> dict:
            "bound_ms": bound, "bound_by": bound_by,
            "mapping": mt.topk_layout(n, r, b, num_classes, DENSE_TOP_K,
                                      sms).mapping,
-           "shape": f"tinyllama head N={n} R={r} B={b} K={num_classes} "
+           "shape": f"{name} head N={n} R={r} B={b} K={num_classes} "
                     f"k={DENSE_TOP_K} inline hash, unbiased"}
-    print(f"tinyllama head: kernel 2 vs plain, {cases} comparisons ok (R={r},"
+    print(f"{name} head: kernel 2 vs plain, {cases} comparisons ok (R={r},"
           f" B={b}, K={num_classes}, N in {LM_HEAD_N}, k in {LM_HEAD_K}, "
           f"table and inline); at N={n} k={DENSE_TOP_K} ({out['mapping']}) "
           f"{out['ms']:.4f} ms (graph {out['ms_graph']:.4f}), plain "
@@ -3839,18 +3881,19 @@ def _dense_head_vs_plain(dev) -> dict:
     return out
 
 
-def _dense_candidates_vs_plain(dev) -> dict:
-    """Kernels 7 and 8 vs their plain versions at the tinyllama-1.1b MACH
-    engine's candidate_mode = (B, R) = (2048, 8): R=8, B=2,048,
-    K=32,000, tinyllama's inverted table, k=50, N=1 (a prefill) and 4
-    (the pool), the three estimators, table and inline hashes, dyadic
-    (ties in bulk) and random softmax rows.  Kernel 7's tau and ids
-    bit for bit; kernel 8 by ``_check_candidates``."""
+def _dense_candidates_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
+    """Kernels 7 and 8 vs their plain versions at ``arch``'s MACH engine's
+    candidate_mode = (B, R) (tinyllama-1.1b: (2048, 8), R=8, B=2,048,
+    K=32,000), with its inverted table, k=50, N=1 (a prefill) and 4 (the
+    pool), the three estimators, table and inline hashes, dyadic (ties in
+    bulk) and random softmax rows.  Kernel 7's tau and ids bit for bit;
+    kernel 8 by ``_check_candidates``."""
     from repro_torch.configs import get_config
     from repro_torch.core.hashing import inverted_table
     from repro_torch.kernels import mach_candidates as mc
 
-    mach = get_config("tinyllama-1.1b", mach="on").mach
+    mach = get_config(arch, mach="on").mach
+    name = arch.split("-")[0]
     fam = mach.family
     r, b, num_classes = mach.num_repetitions, mach.num_buckets, mach.num_classes
     table = fam.table(num_classes, dev)
@@ -3870,7 +3913,7 @@ def _dense_candidates_vs_plain(dev) -> dict:
             if not (torch.equal(tau.cpu().view(torch.int32),
                                 p_tau.view(torch.int32))
                     and torch.equal(ids.cpu(), p_ids)):
-                fail(f"tinyllama candidates {tag}: bucket_topm kernel != "
+                fail(f"{name} candidates {tag}: bucket_topm kernel != "
                      f"plain at m={m}")
             topm += 1
             for est in ESTIMATORS:
@@ -3883,9 +3926,9 @@ def _dense_candidates_vs_plain(dev) -> dict:
                                                         *args, **kw)
                     torch.cuda.synchronize()
                     err = max(err, _check_candidates(
-                        f"tinyllama candidates {tag} {est} {src}", got, want))
+                        f"{name} candidates {tag} {est} {src}", got, want))
                     cand += 1
-    print(f"tinyllama candidates: kernel 7 vs plain {topm} and kernel 8 vs "
+    print(f"{name} candidates: kernel 7 vs plain {topm} and kernel 8 vs "
           f"plain {cand} comparisons ok (R={r}, B={b}, K={num_classes}, L="
           f"{inv.shape[1]}, m={m}, t={t}, k={DENSE_TOP_K}, N in {LM_HEAD_N}, "
           f"the three estimators, table and inline), max abs err {err:.3e}",
@@ -3903,19 +3946,24 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
                  max_len=DENSE_MAX_LEN, num_slots=DENSE_SLOTS, **scfg_kw):
     """Serve greedy requests on a fresh engine, one tick at a time, the
     device synchronized after each.  Adds the run's kernel launches to
-    ``counts``.  Returns tokens per request, ms and admission per tick,
-    run seconds, time to the first token of request 0, the engine's
-    metrics and ticks, the pool's KV bytes, peak GiB and (``capture``)
-    the hidden states of the first pooled decode step."""
+    ``counts``.  Returns tokens per request, the tick that emitted each,
+    ms and admission per tick, whether every slot decoded a live request
+    at each tick, run seconds, time to the first token of request 0, the
+    engine's metrics and ticks, the pool's KV bytes, peak GiB and
+    (``capture``) the hidden states of the first pooled decode step."""
     from repro_torch.serving import Request, ServeConfig, ServingEngine
     engine = ServingEngine(model, params, ServeConfig(
         max_len=max_len, num_slots=num_slots, top_k=DENSE_TOP_K,
         max_new_tokens=max(max_new), seed=0, **scfg_kw))
     first_token, first_h = [], {}
+    token_ticks = [[] for _ in prompts]
 
-    def on_first(tok):
-        if not first_token:
-            first_token.append(time.perf_counter())
+    def on_token(i):
+        def record(tok):
+            if i == 0 and not first_token:
+                first_token.append(time.perf_counter())
+            token_ticks[i].append(engine._tick)
+        return record
 
     if capture:
         step = model.decode_step
@@ -3930,18 +3978,20 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
     try:
         for i, (p, mn) in enumerate(zip(prompts, max_new)):
             engine.submit(Request(prompt=p, max_new_tokens=mn,
-                                  on_token=on_first if i == 0 else None))
+                                  on_token=on_token(i)))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        results, tick_ms, admitted = [], [], []
+        results, tick_ms, admitted, full = [], [], [], []
         t0 = time.perf_counter()
         while engine.metrics.completed < len(prompts):
             prefills = engine.metrics.prefills
+            live = engine.metrics.live_slot_steps
             t1 = time.perf_counter()
             results += engine.step()
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - t1) * 1e3)
             admitted.append(engine.metrics.prefills > prefills)
+            full.append(engine.metrics.live_slot_steps - live == num_slots)
         run_s = time.perf_counter() - t0
     finally:
         if capture:
@@ -3952,7 +4002,8 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
     cfg = model.cfg
     flash = sum(len(p) >= cfg.flash_threshold
                 and len(p) % min(cfg.chunk_q, len(p)) == 0 for p in prompts)
-    want = {"flash_attention": flash * cfg.layout().count("attn")}
+    want = {"flash_attention": flash * sum(kind in ("attn", "moe")
+                                           for kind in cfg.layout())}
     cand = scfg_kw.get("candidate_mode") is not None
     if cfg.mach is None:
         want.update(mach_topk=0, bucket_topm=0, mach_candidate_topk=0)
@@ -3973,7 +4024,8 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
                                       for t in toks):
             fail(f"dense serve {model.cfg.name}: request {i} gave {toks}")
     steady = [ms for ms, adm in zip(tick_ms, admitted) if not adm]
-    return {"tokens": tokens, "tick_ms": tick_ms, "run_s": run_s,
+    return {"tokens": tokens, "token_ticks": token_ticks, "full": full,
+            "tick_ms": tick_ms, "run_s": run_s,
             "launches": launched, "prompt0": len(prompts[0]),
             "ttft_ms": (first_token[0] - t0) * 1e3,
             "decode_ms": statistics.median(steady) if steady else None,
@@ -4105,11 +4157,6 @@ def _tinyllama_engines(dev, mach: str, prompts, counts, smi) -> dict:
           f"{cfg.d_ff}, V={cfg.vocab_size}), {n_bytes / 1e9:.3f} GB of params",
           flush=True)
     total = sum(DENSE_MAX_NEW)
-
-    def same_tokens(a, b):
-        return sum(x == y for ra, rb in zip(a["tokens"], b["tokens"])
-                   for x, y in zip(ra, rb))
-
     runs = {"contiguous": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
                                        counts, capture=True),
             "paged": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
@@ -4133,9 +4180,9 @@ def _tinyllama_engines(dev, mach: str, prompts, counts, smi) -> dict:
              f"{m.pages_peak}")
     print(f"dense serve {label}: lockstep == continuous tokens in "
           f"{lock['ticks']} ticks against {cont['ticks']}; paged == "
-          f"contiguous greedy tokens {same_tokens(paged, cont)}/{total}; the "
+          f"contiguous greedy tokens {_same_tokens(paged, cont)}/{total}; the "
           f"{half}-page pool (half the workload's worst case) == the default "
-          f"pool's {same_tokens(runs['paged half pool'], paged)}/{total}",
+          f"pool's {_same_tokens(runs['paged half pool'], paged)}/{total}",
           flush=True)
     if cfg.mach is not None:
         exact = (cfg.mach.num_buckets, cfg.mach.num_repetitions)
@@ -4205,7 +4252,7 @@ def _tinyllama_engines(dev, mach: str, prompts, counts, smi) -> dict:
         f32 = (runs["float32 contiguous"], runs["float32 paged"])
         if f32[1]["tokens"] != f32[0]["tokens"]:
             fail(f"dense serve {label} float32: paged tokens differ from "
-                 f"contiguous ({same_tokens(*f32)}/{total} equal)")
+                 f"contiguous ({_same_tokens(*f32)}/{total} equal)")
         print(f"dense serve {label} float32: paged == contiguous tokens, "
               f"{total}/{total}", flush=True)
     for name, res in runs.items():
@@ -4259,19 +4306,22 @@ def _dense_other(dev, arch, counts, smi) -> dict:
     return {k: v for k, v in res.items() if k not in ("h", "metrics")}
 
 
-def _dense_flash_times(dev, smi) -> dict:
-    """Kernel 10 at the dense decoders' 2,048-token prefill (causal):
-    tinyllama, phi3-mini and granite-20b's heads and widths in bf16, and
-    tinyllama in float32 (the float32 engines' prefill).  Each output is
-    held to the plain version's on the same inputs by phase 7's rule
-    (bf16: at most 2 ulps of the row scale; float32: FLASH_F32_TOL);
-    then kernel, plain and library (SDPA, k/v expanded to H heads) ms."""
+def _dense_flash_times(dev, smi, cases=None) -> dict:
+    """Kernel 10 at a 2,048-token prefill (causal) at each (arch, dtype)
+    of ``cases`` (by default the dense decoders': tinyllama, phi3-mini and
+    granite-20b's heads and widths in bf16, and tinyllama in float32, the
+    float32 engines' prefill).  Each output is held to the plain
+    version's on the same inputs by phase 7's rule (bf16: at most 2 ulps
+    of the row scale; float32: FLASH_F32_TOL); then kernel, plain and
+    library (SDPA, k/v expanded to H heads) ms, the kernel also by
+    CUDA-graph replay."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
 
     out, t = {}, DENSE_OTHER_PROMPTS[0]
-    cases = [(arch, torch.bfloat16) for arch in ("tinyllama-1.1b",)
-             + DENSE_OTHERS] + [("tinyllama-1.1b", torch.float32)]
+    if cases is None:
+        cases = [(arch, torch.bfloat16) for arch in ("tinyllama-1.1b",)
+                 + DENSE_OTHERS] + [("tinyllama-1.1b", torch.float32)]
     for arch, dtype in cases:
         cfg = get_config(arch)
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -4303,6 +4353,8 @@ def _dense_flash_times(dev, smi) -> dict:
         row = {"max_abs_err": err, "bf16_row_ulps": ulps,
                "ms": kernel_ms(lambda: fa.flash_attention_cuda(q, k, v),
                                iters=10),
+               "ms_graph": graph_ms(lambda: fa.flash_attention_cuda(q, k, v),
+                                    iters=10),
                "plain_ms": kernel_ms(lambda: fa.flash_attention_plain(q, k, v),
                                      iters=3, warmup=1),
                "library_ms": kernel_ms(
@@ -4317,8 +4369,9 @@ def _dense_flash_times(dev, smi) -> dict:
                  else "within FLASH_F32_TOL")
         print(f"kernel flash_attention at {arch}'s prefill ({row['shape']}): "
               f"== plain ({close}, max abs err {err:.3e}); {row['ms']:.4f} ms,"
-              f" plain {row['plain_ms']:.4f}, library "
-              f"{row['library_ms']:.4f} (SDPA), bound {row['bound_ms']:.4f} "
+              f" graph {row['ms_graph']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"library {row['library_ms']:.4f} (SDPA), bound "
+              f"{row['bound_ms']:.4f} "
               f"({row['bound_by']}), {flops / row['ms'] / 1e9:.1f} TFLOP/s "
               f"[{smi}]", flush=True)
     return out
@@ -4390,6 +4443,443 @@ def phase_dense_serve(dev) -> dict:
           f"{res['tokens']}", flush=True)
     print(f"dense serve launches on the path: {counts} [{smi}]", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the MoE block; qwen2-moe-a2.7b served and trained; mixtral sized
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# block checks: 4 groups of 512 (cap 42), one padded group, a 4-slot decode
+# (one group of 4, cap 1)
+MOE_BLOCK_N = (2048, 2049, 4)
+MOE_SEED_TRIES = 8           # input seeds tried until a choice is dropped
+MOE_F32_TOL = 1e-5           # rtol, and atol of the largest entry
+MOE_BF16_REL_L2 = 2.0 ** -8
+MOE_CUT = 4                  # layers of the float32 and training cuts
+MOE_TRAIN_STEPS = 3
+MOE_KERNELS = ("mach_xent_fwd", "mach_xent_bwd", "flash_attention",
+               "flash_attention_bwd")
+
+
+def _moe_kwargs(cfg, activation=True) -> dict:
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.experts_top_k,
+              capacity_factor=cfg.capacity_factor,
+              group_size=cfg.moe_group_size)
+    return dict(kw, activation=cfg.activation) if activation else kw
+
+
+def _dropped_share(r) -> float:
+    """The share of a routing's real tokens' choices that capacity dropped."""
+    keep = r.keep.reshape(-1, r.keep.shape[-1])[:r.n]
+    return 1.0 - float(keep.float().mean())
+
+
+def _moe_close(tag, got, want, dtype) -> float:
+    """float32: rtol MOE_F32_TOL, atol MOE_F32_TOL of the largest entry
+    (returns the max abs error); bf16: relative L2 within 2^-8 (returns
+    it).  The CPU tests' rules."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=MOE_F32_TOL,
+                              atol=MOE_F32_TOL * float(want.abs().max())):
+            fail(f"{tag}: apply_moe vs moe_ref max abs err {err:.3e}")
+        return err
+    rel = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    if rel > MOE_BF16_REL_L2:
+        fail(f"{tag}: apply_moe vs moe_ref rel L2 {rel:.3e} > 2^-8")
+    return rel
+
+
+def _moe_block_vs_ref(dev, cfg, smi) -> dict:
+    """``apply_moe`` against ``moe_ref`` on the card at ``cfg``'s full
+    block widths, float32 and bf16, at each n of MOE_BLOCK_N: expert ids
+    and the kept mask equal, y and the aux losses by ``_moe_close`` (aux in
+    float32 in both).  The inputs come from the first seed (of
+    MOE_SEED_TRIES) whose float32 routing drops a choice."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(0),
+                          cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                          cfg.num_shared_experts, cfg.shared_d_ff, dev,
+                          cfg.activation)
+    kw, rkw = _moe_kwargs(cfg), _moe_kwargs(cfg, activation=False)
+    out = {}
+    for n in MOE_BLOCK_N:
+        for seed in range(MOE_SEED_TRIES):
+            x = torch.randn((1, n, cfg.d_model), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+            if _dropped_share(moe.route(params, x, **rkw)) > 0:
+                break
+        else:
+            fail(f"moe block n={n}: no seed of {MOE_SEED_TRIES} drops a choice")
+        row = {"seed": seed}
+        for dtype in (torch.float32, torch.bfloat16):
+            p = tree_map(lambda t: t.to(dtype), params)
+            xd = x.to(dtype)
+            r = moe.route(p, xd, **rkw)
+            y, aux = moe.apply_moe(p, xd, **kw)
+            ry, raux, ids, keep = moe.moe_ref(p, xd, **kw)
+            torch.cuda.synchronize()
+            tag = f"moe block n={n} {str(dtype).removeprefix('torch.')}"
+            if not (torch.equal(ids, r.experts) and torch.equal(keep, r.keep)):
+                fail(f"{tag}: expert ids or the kept mask differ from moe_ref")
+            if not torch.isfinite(y.float()).all():
+                fail(f"{tag}: non-finite output")
+            err = _moe_close(f"{tag} y", y, ry, dtype)
+            err_aux = max(_moe_close(f"{tag} {k}", aux[k], raux[k],
+                                     torch.float32) for k in aux)
+            row[str(dtype).removeprefix("torch.")] = {
+                "dropped": _dropped_share(r), "err_y": err, "err_aux": err_aux,
+                "groups": r.logits.shape[0], "cap": r.cap}
+            del p, xd, y, ry
+        f32, bf16 = row["float32"], row["bfloat16"]
+        print(f"moe block n={n} ({f32['groups']} groups, cap {f32['cap']}; "
+              f"input seed {seed}): apply_moe == moe_ref ids and kept mask; "
+              f"float32 y max abs err {f32['err_y']:.3e}, aux "
+              f"{f32['err_aux']:.3e}; bf16 y rel L2 {bf16['err_y']:.3e}, aux "
+              f"{bf16['err_aux']:.3e}; dropped share of choices float32 "
+              f"{f32['dropped']:.4f}, bf16 {bf16['dropped']:.4f} (d="
+              f"{cfg.d_model}, E={cfg.num_experts}, top-{cfg.experts_top_k}, "
+              f"f={cfg.moe_d_ff}, {cfg.num_shared_experts} shared of "
+              f"{cfg.shared_d_ff}) [{smi}]", flush=True)
+        out[n] = row
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shared_prefix(a: dict, b: dict) -> list:
+    """The (request, token) pairs two runs of the same requests must agree
+    on under MoE blocks, which couple a pooled decode step's rows through
+    expert capacity: each request's first token (its batch-1 prefill), and
+    every token emitted before either run first decoded a pool with a slot
+    not holding a live request (a free slot, or lockstep's held row: those
+    rows differ between schedulers and layouts)."""
+    stop = min(r["full"].index(False) if False in r["full"]
+               else len(r["full"]) for r in (a, b))
+    return [(i, j) for i, ticks in enumerate(a["token_ticks"])
+            for j, tick in enumerate(ticks) if j == 0 or tick < stop]
+
+
+def _same_on(pairs, a, b) -> int:
+    return sum(a["tokens"][i][j] == b["tokens"][i][j] for i, j in pairs)
+
+
+def _same_tokens(a, b) -> int:
+    return sum(x == y for ra, rb in zip(a["tokens"], b["tokens"])
+               for x, y in zip(ra, rb))
+
+
+def _record_routing(first: dict):
+    """Wrap ``moe.route`` so that the first routing of a (B, T) input
+    shape in ``first`` (keyed by shape) is kept there; returns the undo."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(params, x, **kw):
+        r = route(params, x, **kw)
+        key = tuple(x.shape[:2])
+        if key in first and first[key] is None:
+            first[key] = _dropped_share(r)
+        return r
+
+    moe.route = recording
+    return lambda: setattr(moe, "route", route)
+
+
+def _moe_engines(dev, cfg, smi) -> dict:
+    """qwen2-moe-a2.7b at full width (bf16, MACH head): the 8-request
+    ragged mix through the contiguous continuous, lockstep, paged and
+    contiguous candidate_mode = (B, R) engines, launch counters from 0
+    over the four runs.  Each first token must equal a batch-1 prefill's
+    greedy pick; lockstep tokens must equal continuous ones on
+    ``_shared_prefix`` (and take more ticks); candidate tokens must equal
+    streaming ones bit for bit; paged tokens are reported.  Returns the
+    runs, the launches and the first 4-layer cut of the params (cloned,
+    bf16); the full params are freed."""
+    import numpy as np
+
+    from repro_torch.models import LanguageModel
+
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"moe serve: {cfg.name} bf16 ({cfg.num_layers} layers, d="
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.experts_top_k} of f="
+          f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared of "
+          f"{cfg.shared_d_ff}, groups of {cfg.moe_group_size}, V="
+          f"{cfg.vocab_size}, MACH B={cfg.mach.num_buckets} R="
+          f"{cfg.mach.num_repetitions}), {n_bytes / 1e9:.3f} GB of params "
+          f"(param_count_estimate {cfg.param_count_estimate():,}), drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in DENSE_PROMPTS]
+    exact = (cfg.mach.num_buckets, cfg.mach.num_repetitions)
+    # the path's run: counts from 0, read just after
+    for fn in _dense_launchers().values():
+        fn.launches = 0
+    counts: dict = {}
+    runs = {"contiguous": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
+                                       counts),
+            "lockstep": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
+                                     counts, scheduler="lockstep"),
+            "paged": _dense_serve(model, params, prompts, DENSE_MAX_NEW,
+                                  counts, page_size=DENSE_PAGE)}
+    first = {(1, DENSE_PROMPTS[0]): None, (DENSE_SLOTS, 1): None}
+    undo = _record_routing(first)
+    try:
+        runs["candidates"] = _dense_serve(model, params, prompts,
+                                          DENSE_MAX_NEW, counts,
+                                          candidate_mode=exact)
+    finally:
+        undo()
+    launches = dict(counts)
+    if min(launches.values()) < 1:
+        fail(f"moe serve: a kernel of the path never ran: {launches}")
+    cont, lock = runs["contiguous"], runs["lockstep"]
+    total = sum(DENSE_MAX_NEW)
+    if runs["candidates"]["tokens"] != cont["tokens"]:
+        fail(f"moe serve: candidate_mode={exact} tokens differ from the "
+             f"streaming engine's")
+    pairs = _shared_prefix(cont, lock)
+    if _same_on(pairs, cont, lock) != len(pairs):
+        fail(f"moe serve: lockstep tokens differ from continuous ones while "
+             f"their pools match ({_same_on(pairs, cont, lock)}/{len(pairs)})")
+    if lock["ticks"] <= cont["ticks"]:
+        fail(f"moe serve: lockstep took {lock['ticks']} ticks, continuous "
+             f"{cont['ticks']}")
+    for i, p in enumerate(prompts):
+        _, h = model.prefill(params, torch.tensor([p], device=dev),
+                             DENSE_MAX_LEN)
+        want = int(model.next_token(params, h)[0][0])
+        for name, res in runs.items():
+            got = res["tokens"][i][0]
+            if got != want:
+                fail(f"moe serve {name}: first token {got} of a {len(p)}-token "
+                     f"prompt != a batch-1 prefill's greedy pick {want}")
+    print(f"moe serve {cfg.name}: first tokens == a batch-1 prefill's greedy "
+          f"pick in every engine; candidate_mode={exact} == streaming tokens, "
+          f"{total}/{total}; lockstep == continuous on the {len(pairs)} tokens "
+          f"emitted while their pools match ({_same_tokens(lock, cont)}/"
+          f"{total} in all, {lock['ticks']} ticks against {cont['ticks']}); "
+          f"paged == contiguous {_same_tokens(runs['paged'], cont)}/{total} "
+          f"(reported: capacity couples the rows); dropped share of choices "
+          f"in layer 0: the {DENSE_PROMPTS[0]:,}-token prefill "
+          f"{first[(1, DENSE_PROMPTS[0])]:.4f}, the first {DENSE_SLOTS}-slot "
+          f"decode step {first[(DENSE_SLOTS, 1)]:.4f}", flush=True)
+    for name, res in runs.items():
+        _print_dense_run(f"{cfg.name} {name}", res, smi)
+    print(f"moe serve launches on the path: {launches} [{smi}]", flush=True)
+    from repro_torch.models.transformer import tree_map
+    cut = {k: v for k, v in params.items() if k != "stacks"}
+    cut["stacks"] = [[tree_map(lambda t: t[:MOE_CUT], p) for p in st]
+                     for st in params["stacks"]]
+    cut = tree_map(torch.Tensor.clone, cut)
+    del model, params
+    torch.cuda.empty_cache()
+    return {"runs": {name: {k: v for k, v in res.items()
+                            if k not in ("h", "metrics")}
+                     for name, res in runs.items()},
+            "launches": launches, "prompts": prompts, "cut": cut,
+            "dropped_prefill": first[(1, DENSE_PROMPTS[0])],
+            "dropped_decode": first[(DENSE_SLOTS, 1)]}
+
+
+def _moe_cut_float32(dev, cfg, cut, prompts, smi) -> dict:
+    """The MOE_CUT-layer cut in float32 (the bf16 params cast up): the
+    ragged mix through the contiguous and paged engines; paged greedy
+    tokens must equal contiguous ones exactly on ``_shared_prefix``."""
+    import dataclasses
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+
+    model = LanguageModel(dataclasses.replace(
+        cfg, num_layers=MOE_CUT, dtype=torch.float32,
+        param_dtype=torch.float32))
+    params = tree_map(lambda t: t.float() if t.is_floating_point() else t, cut)
+    n_params = sum(t.numel() for t in _leaves(params))
+    runs = {name: _dense_serve(model, params, prompts, DENSE_MAX_NEW, {},
+                               **kw)
+            for name, kw in (("contiguous", {}),
+                             ("paged", {"page_size": DENSE_PAGE}))}
+    cont, paged = runs["contiguous"], runs["paged"]
+    pairs = _shared_prefix(cont, paged)
+    same = _same_on(pairs, cont, paged)
+    if same != len(pairs):
+        fail(f"moe float32 cut: paged tokens differ from contiguous ones "
+             f"while every slot is live ({same}/{len(pairs)})")
+    total = sum(DENSE_MAX_NEW)
+    print(f"moe float32 cut ({MOE_CUT} of {cfg.num_layers} layers, every "
+          f"width kept, {n_params:,} params): paged == contiguous on the "
+          f"{len(pairs)} tokens emitted before a slot fell free "
+          f"({_same_tokens(paged, cont)}/{total} in all)", flush=True)
+    for name, res in runs.items():
+        _print_dense_run(f"{cfg.name} float32 cut {name}", res, smi)
+    del model, params
+    torch.cuda.empty_cache()
+    return {name: {k: v for k, v in res.items() if k not in ("h", "metrics")}
+            for name, res in runs.items()} | {"shared_prefix": len(pairs)}
+
+
+def _moe_train(dev, cfg, params, smi) -> dict:
+    """The MOE_CUT-layer cut (bf16, remat) trained MOE_TRAIN_STEPS AdamW
+    steps on TRAIN_BATCH x TRAIN_SEQ tokens through ``Trainer.step_fn``:
+    first the router's gradient on batch 0 (nonzero in every layer), then
+    launch counters from 0 over the steps: kernels 3 and 10 forward and
+    backward at their counts a step; every loss, load_balance and
+    router_z finite, the last two positive."""
+    import dataclasses
+
+    from repro_torch.data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_xent as mx
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import value_and_grad
+    from repro_torch.train import TrainConfig, Trainer, new_train_state
+
+    full_layers = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=MOE_CUT)
+    model = LanguageModel(cfg)
+    tcfg = TrainConfig(total_steps=MOE_TRAIN_STEPS, warmup_steps=2,
+                       peak_lr=3e-4, log_every=MOE_TRAIN_STEPS)
+    trainer = Trainer(model, tcfg)
+    stream = SyntheticLMStream(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), device=dev)
+    (_, met0), grads = value_and_grad(model.loss, params, stream.batch_at(0),
+                                      has_aux=True)
+    router = grads["stacks"][0][0]["moe"]["router"]["kernel"].float()
+    router_norms = router.flatten(1).norm(dim=1).tolist()
+    del grads
+    torch.cuda.empty_cache()
+    if not all(v > 0 and math.isfinite(v) for v in router_norms):
+        fail(f"moe train: the router's gradient norms by layer {router_norms}")
+    kernels = {"mach_xent_fwd": mx.mach_xent_cuda_fwd,
+               "mach_xent_bwd": mx.mach_xent_cuda_bwd,
+               "flash_attention": fa.flash_attention_cuda,
+               "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+    # the path's run: counts from 0, read just after
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = new_train_state(params, trainer.opt)
+    del params
+    step_ms, metrics = [], []
+    for s in range(MOE_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, met = trainer.step_fn(state, stream.batch_at(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(met[k]) for k in ("loss", "load_balance",
+                                                   "router_z", "grad_norm")})
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_attn = cfg.layout().count("moe")
+    expected = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
+                "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    for name, per_step in expected.items():
+        if launches[name] != per_step * MOE_TRAIN_STEPS:
+            fail(f"moe train: {name} launched {launches[name]} times, "
+                 f"expected {per_step} a step")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()) or \
+                m["load_balance"] <= 0 or m["router_z"] <= 0:
+            fail(f"moe train: metrics {metrics}")
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    del state
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"moe train: {cfg.name} cut to {MOE_CUT} of {full_layers} layers (every width "
+          f"kept, {n_params:,} params, bf16, remat={cfg.remat}), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW: router gradient norms "
+          f"by layer {[f'{v:.3e}' for v in router_norms]} (batch 0, loss "
+          f"{float(met0['loss']):.4f}); metrics by step {metrics}; launches "
+          f"{launches} (a step: {expected}); {ms:.3f} ms/step (host clock, "
+          f"median of steps 2..{MOE_TRAIN_STEPS}; the first {step_ms[0]:.3f} "
+          f"ms), {tokens / ms * 1e3:.1f} tokens/s, peak {peak_gib:.2f} GiB "
+          f"[{smi}]", flush=True)
+    return {"launches": launches, "metrics": metrics, "step_ms": ms,
+            "step_ms_all": step_ms, "peak_gib": peak_gib,
+            "router_grad_norms": router_norms, "params": n_params}
+
+
+def _mixtral(dev) -> dict:
+    """mixtral-8x22b sized (param_count_estimate within (120e9, 150e9),
+    the JAX package's bound), and its smoke config (SWA window 8, ring
+    caches, OAA head) served through the paged engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+
+    big = get_config("mixtral-8x22b")
+    n = big.param_count_estimate()
+    if not 120e9 < n < 150e9:
+        fail(f"mixtral-8x22b: param_count_estimate {n:,} outside (120e9, "
+             f"150e9)")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    model = LanguageModel(get_config("mixtral-8x22b", smoke=True))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    res = _dense_serve(model, params, [[1, 2, 3], list(range(4, 17))], (6, 6),
+                       {}, max_len=64, num_slots=2, page_size=DENSE_PAGE)
+    print(f"moe serve mixtral-8x22b: {n:,} params = {n * 2 / 1e9:.1f} GB in "
+          f"bf16 does not fit the card's {total / 1e9:.1f} GB; its smoke "
+          f"config (window {model.cfg.window}, ring caches) served paged: "
+          f"tokens {res['tokens']}", flush=True)
+    return {"params": n, "tokens": res["tokens"]}
+
+
+def phase_moe(dev) -> dict:
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    smi = _nvidia_smi()
+    cfg = get_config(MOE_ARCH)
+    out = {"head": _dense_head_vs_plain(dev, MOE_ARCH),
+           "cand": _dense_candidates_vs_plain(dev, MOE_ARCH),
+           "flash": _dense_flash_times(dev, smi, [(MOE_ARCH, torch.bfloat16)]),
+           "block": _moe_block_vs_ref(dev, cfg, smi)}
+    serve = _moe_engines(dev, cfg, smi)
+    cut = serve.pop("cut")
+    out["serve"] = serve
+    out["float32_cut"] = _moe_cut_float32(dev, cfg, cut, serve["prompts"], smi)
+    out["train"] = _moe_train(dev, cfg, cut, smi)
+    del cut
+    out["mixtral"] = _mixtral(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"moe: phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _add_moe_launches(rows, moe) -> None:
+    """Rows 2, 7, 8 and 10 gain their launches on the MoE serving path,
+    rows 3 and 10 (forward and backward) on its training cut; row 2 its
+    check, times and bound at qwen2-moe's MACH head, rows 7 and 8 their
+    checks at its (2048, 8), row 10 its check and times at its prefill."""
+    for row in rows:
+        name = row["name"]
+        if name in DENSE_KERNELS:
+            row["launches_moe_serve"] = moe["serve"]["launches"][name]
+        if name in MOE_KERNELS:
+            row["launches_moe_train"] = moe["train"]["launches"][name]
+        if name == "mach_topk":
+            head = moe["head"]
+            row.update({f"{k}_moe_head": head[k] for k in (
+                "max_abs_err", "ms", "ms_graph", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "shape")})
+        if name in ("bucket_topm", "mach_candidate_topk"):
+            row["checks_moe_head"] = moe["cand"][name]
+            row["max_abs_err_moe_head"] = moe["cand"]["max_abs_err"]
+        if name == "flash_attention":
+            row["moe_prefill"] = moe["flash"]
 
 
 def _add_new_path_launches(rows, fused, selection) -> None:
@@ -4558,6 +5048,10 @@ def main() -> int:
     dense = phase_dense_serve(dev)
     print(f"dense serve: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_dense_launches(rows, dense)
+    t0 = time.perf_counter()
+    moe = phase_moe(dev)
+    print(f"moe: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    _add_moe_launches(rows, moe)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

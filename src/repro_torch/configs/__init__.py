@@ -2,7 +2,8 @@
 models the port serves (``get_config``)."""
 
 from repro_torch.configs import (granite_20b, mistral_large_123b,
-                                 phi3_mini_3_8b, recurrentgemma_2b,
+                                 mixtral_8x22b, phi3_mini_3_8b,
+                                 qwen2_moe_a2_7b, recurrentgemma_2b,
                                  tinyllama_1_1b)
 from repro_torch.configs.common import (SHAPES, default_mach_head,
                                         shape_applicable,
@@ -11,7 +12,8 @@ from repro_torch.configs.odp_mach import IMAGENET, ODP, ExtremeTaskConfig
 
 _MODULES = {m.ARCH_ID: m for m in (recurrentgemma_2b, tinyllama_1_1b,
                                    phi3_mini_3_8b, granite_20b,
-                                   mistral_large_123b)}
+                                   mistral_large_123b, mixtral_8x22b,
+                                   qwen2_moe_a2_7b)}
 
 ARCH_IDS = tuple(_MODULES)
 

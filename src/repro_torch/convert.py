@@ -10,7 +10,10 @@ shapes and dtypes against the port's head of the same configuration:
 * ``OAAClassifier``:  {"w": (d, K), "b": (K,)}
 
 ``convert_lm_params`` does the same for a whole ``LanguageModel``, the
-MACH head's kernel or the OAA head's ``lm_head`` among its leaves.  The
+MACH head's kernel or the OAA head's ``lm_head`` among its leaves, and
+an MoE block's ``moe`` subtree (router (d, E), wi / wg (E, d, f), wo
+(E, f, d), the shared experts' MLP and ``shared_gate`` (d, 1)) stacked
+on the layer axis like every block leaf.  The
 layouts are the same in both packages, so both compute the same function
 on the converted weights.
 """

@@ -3,7 +3,8 @@
 The port of ``repro/models/model.py`` for decoder-only models.  The
 config decides the head: the MACH head (the paper's) or the dense OAA
 softmax (``cfg.mach is None``; tied to the embeddings or its own
-``lm_head``).  Enc-dec, vision and MoE models are not ported yet (see
+``lm_head``).  MoE blocks add their load-balance and router-z losses to
+the training loss.  Enc-dec and vision models are not ported yet (see
 ROADMAP.md).
 
 Public surface:
@@ -11,8 +12,9 @@ Public surface:
   loss(params, batch)                          -> (loss, metrics): the
       R-head CE on the head's logits (kernel 3), or with
       ``mach_fused_loss`` the fused logit-free loss (kernel 4, over the
-      selected buckets with ``mach_bucket_select``); OAA: softmax CE
-  hidden_states(params, tokens, caches=...)    -> (hidden, caches)
+      selected buckets with ``mach_bucket_select``); OAA: softmax CE;
+      plus the MoE aux losses
+  hidden_states(params, tokens, caches=...)    -> (hidden, caches, aux)
   prefill(params, tokens, max_len)             -> (caches, last_hidden)
   decode_step(params, caches, tokens, pos)     -> (caches, hidden)
   next_token / topk_scores / topk_candidates   -> MACH decode (kernels 1-2,
@@ -90,16 +92,17 @@ class LanguageModel:
                       caches: Optional[list] = None,
                       positions: Optional[torch.Tensor] = None,
                       per_slot: bool = False):
-        """tokens (B, T) -> (hidden (B, T, d), caches)."""
+        """tokens (B, T) -> (hidden (B, T, d), caches, aux): aux holds the
+        MoE blocks' ``load_balance`` and ``router_z`` summed over layers."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         b, t = x.shape[:2]
         if positions is None:
             positions = torch.arange(t, dtype=torch.int32,
                                      device=x.device).expand(b, t)
-        x, caches = apply_stacks(params["stacks"], cfg, cfg.layout(), x,
-                                 positions, caches, per_slot)
-        return layers.apply_norm(params["final_norm"], x, cfg.norm), caches
+        x, caches, aux = apply_stacks(params["stacks"], cfg, cfg.layout(), x,
+                                      positions, caches, per_slot)
+        return layers.apply_norm(params["final_norm"], x, cfg.norm), caches, aux
 
     def oaa_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """The dense head's (..., V) logits in h's dtype: the tied
@@ -121,8 +124,11 @@ class LanguageModel:
     def loss(self, params: dict, batch: dict):
         """batch: tokens (B, L+1) int; optional weights (B, L) and, with
         ``mach_bucket_select``, cached (R, B) ``bucket_proxy`` scores.
-        Returns (loss, {"loss", "tokens"}): the weighted mean over tokens
-        of each next token's cross-entropy.
+        Returns (total, metrics): the weighted mean over tokens of each
+        next token's cross-entropy, in ``metrics["loss"]`` with
+        ``"tokens"``; with MoE blocks (``cfg.num_experts``) the total adds
+        ``lb_loss_coef`` x ``load_balance`` + ``z_loss_coef`` x
+        ``router_z`` and the metrics gain both.
 
         MACH head: the summed R-head CE of the hashed label, through
         ``ops.mach_xent`` (kernel 3) on the head's logits, which take the
@@ -146,7 +152,7 @@ class LanguageModel:
         if weights is None:
             weights = torch.ones(labels.shape, dtype=torch.float32,
                                  device=tokens.device)
-        h, _ = self.hidden_states(params, inputs)
+        h, _, aux = self.hidden_states(params, inputs)
         if cfg.mach is None:
             logits = self.oaa_logits(params, h).to(torch.float32)
             picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -165,7 +171,12 @@ class LanguageModel:
                 per_tok = ops.mach_xent(self.mach_logits(params, h), hashed)
         total = torch.sum(weights)
         loss = torch.sum(per_tok * weights) / torch.clamp(total, min=1.0)
-        return loss, {"loss": loss, "tokens": total}
+        metrics = {"loss": loss, "tokens": total}
+        if cfg.num_experts:
+            metrics.update(aux)
+            loss = loss + cfg.lb_loss_coef * aux["load_balance"] \
+                + cfg.z_loss_coef * aux["router_z"]
+        return loss, metrics
 
     # --------------------------------------------------------------- serving
     def _init_kind_cache(self, kind: str, n: int, batch: int, max_len: int,
@@ -230,7 +241,7 @@ class LanguageModel:
         (B, d))."""
         caches = self.init_caches(tokens.shape[0], max_len, linear_cap,
                                   device=tokens.device)
-        h, caches = self.hidden_states(params, tokens, caches=caches)
+        h, caches, _ = self.hidden_states(params, tokens, caches=caches)
         return caches, h[:, -1]
 
     def decode_step(self, params: dict, caches: list, tokens: torch.Tensor,
@@ -239,9 +250,10 @@ class LanguageModel:
         Returns (caches, hidden (B, d)).  ``per_slot=True`` writes each
         row's KV at its own cache index (continuous batching); the
         default writes every row at row 0's index (lockstep)."""
-        h, caches = self.hidden_states(params, tokens[:, None], caches=caches,
-                                       positions=pos[:, None],
-                                       per_slot=per_slot)
+        h, caches, _ = self.hidden_states(params, tokens[:, None],
+                                          caches=caches,
+                                          positions=pos[:, None],
+                                          per_slot=per_slot)
         return caches, h[:, 0]
 
     @staticmethod

@@ -4,17 +4,20 @@ A model is a cycled ``block_pattern`` of block kinds.  The port has:
 
   attn        self-attention (+MLP)          — dense transformers
   attn_local  local-window self-attention    — griffin local layers
+  moe         self-attention (+MoE)          — mixtral, qwen2-moe
   rglru       RG-LRU recurrent block (+MLP)  — recurrentgemma
 
-``moe``, ``xattn``, ``enc``, ``mlstm`` and ``slstm`` raise
-``NotImplementedError`` (ROADMAP.md).  The cycled pattern is factored
+``xattn``, ``enc``, ``mlstm`` and ``slstm`` raise ``NotImplementedError``
+(ROADMAP.md).  The cycled pattern is factored
 into (pattern × n_periods) stacks whose parameters are stacked on a
 leading layer axis, as in the JAX package, so its params map across
 leaf for leaf; ``apply_stacks`` loops over that axis in Python.  With
 ``remat="full"``, gradients on and no caches (training), each step of
 that loop — one period of the pattern, the JAX package's scan body — is
 recomputed in the backward pass (``torch.utils.checkpoint``), so only
-its input stays in memory; serving runs it as it is.
+its input stays in memory; serving runs it as it is.  MoE blocks return
+their load-balance and router-z losses, summed over layers (the
+checkpointed period returns them too).
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mach import MACHConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, recurrent
+from repro_torch.models import layers, moe as moe_lib, recurrent
 
-PORTED_KINDS = ("attn", "attn_local", "rglru")
+PORTED_KINDS = ("attn", "attn_local", "moe", "rglru")
+AUX_KEYS = ("load_balance", "router_z")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +165,13 @@ def init_block(generator, cfg: ModelConfig, kind: str, device) -> dict:
             generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, device)
     p["norm2"] = layers.init_norm(cfg.d_model, cfg.norm, device)
-    p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, device,
-                               cfg.activation)
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(
+            generator, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts,
+            cfg.num_shared_experts, cfg.shared_d_ff, device, cfg.activation)
+    else:
+        p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, device,
+                                   cfg.activation)
     return p
 
 
@@ -202,7 +211,8 @@ def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
 
 def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
                 cache=None, per_slot: bool = False):
-    """Pre-norm residual block.  Returns (x, cache)."""
+    """Pre-norm residual block.  Returns (x, cache, aux): aux holds an MoE
+    block's losses, empty for the other kinds."""
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg.norm)
     if kind == "rglru":
@@ -213,7 +223,14 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
                                      per_slot=per_slot)
     x = x + out
     h2 = layers.apply_norm(params["norm2"], x, cfg.norm)
-    return x + layers.apply_mlp(params["mlp"], h2, cfg.activation), cache
+    if kind == "moe":
+        out2, aux = moe_lib.apply_moe(
+            params["moe"], h2, num_experts=cfg.num_experts,
+            top_k=cfg.experts_top_k, activation=cfg.activation,
+            capacity_factor=cfg.capacity_factor,
+            group_size=cfg.moe_group_size)
+        return x + out2, cache, aux
+    return x + layers.apply_mlp(params["mlp"], h2, cfg.activation), cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -280,29 +297,42 @@ def init_stacks(generator, cfg: ModelConfig, layout: list, device) -> list:
     return params
 
 
+def _add_aux(total: dict, aux: dict) -> dict:
+    return {k: v + aux.get(k, 0.0) for k, v in total.items()}
+
+
 def _apply_period(layer_params: list, cfg: ModelConfig, period: tuple, x,
                   positions):
-    """One period of the pattern without caches (the remat unit)."""
+    """One period of the pattern without caches (the remat unit).
+    Returns (x, the period's aux sums)."""
+    aux = dict.fromkeys(AUX_KEYS, 0.0)
     for lp, kind in zip(layer_params, period):
-        x, _ = apply_block(lp, cfg, kind, x, positions)
-    return x
+        x, _, block_aux = apply_block(lp, cfg, kind, x, positions)
+        aux = _add_aux(aux, block_aux)
+    return x, aux
 
 
 def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
                  caches: Optional[list] = None, per_slot: bool = False):
     """Run every layer in order; ``caches`` mirror the params nesting and
-    are updated in place.  Returns (x, caches)."""
+    are updated in place.  Returns (x, caches, aux): the MoE blocks'
+    ``load_balance`` and ``router_z`` summed over layers (0.0 without
+    MoE blocks)."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()
+    aux = dict.fromkeys(AUX_KEYS, 0.0)
     for si, ((period, n), p_list) in enumerate(zip(plan_stacks(layout), params)):
         for li in range(n):
             layer_params = [tree_map(lambda v: v[li], p) for p in p_list]
             if remat:
-                x = checkpoint(_apply_period, layer_params, cfg, period, x,
-                               positions, use_reentrant=False)
+                x, period_aux = checkpoint(_apply_period, layer_params, cfg,
+                                           period, x, positions,
+                                           use_reentrant=False)
+                aux = _add_aux(aux, period_aux)
                 continue
             for pi, kind in enumerate(period):
                 lc = (tree_map(lambda v: v[li], caches[si][pi])
                       if caches is not None else None)
-                x, _ = apply_block(layer_params[pi], cfg, kind, x, positions,
-                                   lc, per_slot)
-    return x, caches
+                x, _, block_aux = apply_block(layer_params[pi], cfg, kind, x,
+                                              positions, lc, per_slot)
+                aux = _add_aux(aux, block_aux)
+    return x, caches, aux

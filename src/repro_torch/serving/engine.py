@@ -42,6 +42,14 @@ engine-assigned request id, so a request's samples depend neither on
 its slot nor on its neighbours, seeded and unseeded requests never
 share a stream, and greedy rows are inert.  The JAX package keys the
 same way with ``fold_in``; the two draw different bits.
+
+Caveat: MoE blocks route tokens through shared expert-capacity groups,
+which couples rows — per-request bit parity holds for the dense /
+recurrent / local-attention substrates.  The pooled decode step passes
+every slot's row, free slots too, in slot order, as the JAX package
+does; with MoE blocks that order, and what the other slots hold, is
+part of a row's result, so a request's tokens need not equal a batch-1
+run's.
 """
 
 from __future__ import annotations

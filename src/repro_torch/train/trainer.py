@@ -59,7 +59,8 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple],
                     tcfg: TrainConfig):
     """loss_fn(params, batch) -> (loss, metrics).  Returns (the step
     (state, batch) -> (state, metrics), the optimizer).  Metrics gain
-    ``grad_norm`` (before clipping) and ``lr``."""
+    ``grad_norm`` (before clipping) and ``lr``; the loss's own (an MoE
+    model's ``load_balance`` and ``router_z``) pass through."""
     opt, sched = make_optimizer_from_config(tcfg)
 
     def step_fn(state: TrainState, batch: dict):
@@ -130,7 +131,10 @@ class Trainer:
                     torch.cuda.synchronize(leaf.device)
                 monitor.record(s, time.perf_counter() - t0)
             if (s + 1) % self.tcfg.log_every == 0 and log:
-                log(f"step {s+1}: loss={float(metrics['loss']):.4f} "
+                moe = "".join(f"{k}={float(metrics[k]):.4f} "
+                              for k in ("load_balance", "router_z")
+                              if k in metrics)
+                log(f"step {s+1}: loss={float(metrics['loss']):.4f} {moe}"
                     f"gnorm={float(metrics['grad_norm']):.3f} "
                     f"lr={float(metrics['lr']):.2e}")
         return state

@@ -9,7 +9,11 @@ engine, the OAA head (``OAAClassifier`` and the smoke LM's) on the
 card as on the CPU, the paged KV cache's decode attention and write on
 the card against the same calls on a CPU copy (GQA, MHA, MQA; float32
 at rtol 1e-5, bf16 within 2 bf16 ulps of each row's largest output),
-and kernel 2 at tinyllama-1.1b's MACH head (K=32,000) exactly.  Gradients at
+kernel 2 at tinyllama-1.1b's MACH head (K=32,000) exactly, and the MoE
+block (``models/moe.apply_moe``) against its plain sequential version
+``moe_ref`` and against itself on a CPU copy: expert ids and the kept
+mask equal, y and the aux losses at rtol 1e-5 in float32, to a relative
+L2 of 2^-8 in bf16.  Gradients at
 rtol 1e-4 / atol 1e-6: the dense and ELL kernels reduce dW, dh and dbias
 with float atomics, in another order than the plain version (and from
 run to run); the gather backward sums each dW row and dbias in a fixed
@@ -1133,3 +1137,50 @@ def test_topk_kernel_at_tinyllama_head_equals_plain(dev, n, inline):
             pv, pi = mt.mach_topk_plain(meta, *args, num_classes=num_classes,
                                         k=k, estimator=estimator, **kw)
             assert torch.equal(kv, pv) and torch.equal(ki, pi), (estimator, k)
+
+
+MOE_CASES = {"padded group": (1, 37, 16, 8, 2, 2),
+             "decode, cap 1": (4, 1, 16, 8, 2, 0),
+             "whole groups": (2, 32, 16, 6, 3, 2)}
+
+
+def _moe_close(got, want, dtype):
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == torch.float32:
+        assert torch.allclose(got, want, rtol=1e-5,
+                              atol=1e-5 * float(want.abs().max()))
+    else:
+        err = float((got - want).norm() / want.norm().clamp(min=1e-30))
+        assert err <= 2.0 ** -8, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_block_on_the_card_matches_ref_and_cpu(dev, case, dtype):
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+    b, t, group, e, k, shared = MOE_CASES[case]
+    d, f = 64, 48
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(1), d, f, e,
+                          shared, 96, dev, "swiglu")
+    params = tree_map(lambda p: p.to(dtype), params)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    if case.startswith("decode"):
+        x[1] = x[0]                      # row 1 collides with row 0
+    kw = dict(num_experts=e, top_k=k, activation="swiglu",
+              capacity_factor=1.25, group_size=group)
+    rkw = {key: v for key, v in kw.items() if key != "activation"}
+    r = moe.route(params, x, **rkw)
+    y, aux = moe.apply_moe(params, x, **kw)
+    ry, raux, ids, keep = moe.moe_ref(params, x, **kw)
+    assert torch.equal(ids, r.experts) and torch.equal(keep, r.keep)
+    if case.startswith("decode"):
+        assert not bool(r.keep[0, 1].any())
+    cpu = tree_map(lambda p: p.cpu(), params)
+    cy, caux = moe.apply_moe(cpu, x.cpu(), **kw)
+    assert torch.equal(moe.route(cpu, x.cpu(), **rkw).keep, r.keep.cpu())
+    for want_y, want_aux in ((ry, raux), (cy, caux)):
+        _moe_close(y, want_y, dtype)
+        for key in ("load_balance", "router_z"):
+            _moe_close(aux[key], want_aux[key], torch.float32)

@@ -84,7 +84,7 @@ def test_shape_applicability_equals_jax(jax_lm, arch):
 
 def test_unported_archs_still_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_config("qwen2-moe-a2.7b")
+        configs.get_config("xlstm-350m")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -112,7 +112,7 @@ def test_smoke_loss_and_logits_match(smoke_pair):
     loss, _ = model.loss(params, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     jh, _, _ = jmodel.hidden_states(jparams, jnp.asarray(tokens))
-    h, _ = model.hidden_states(params, torch.from_numpy(tokens))
+    h, _, _ = model.hidden_states(params, torch.from_numpy(tokens))
     _close(model.oaa_logits(params, h), jmodel.oaa_logits(jparams, jh))
 
 

@@ -189,7 +189,7 @@ def test_prefill_decode_and_decode_heads_match(lms):
     next_j = jax.jit(lambda p, h: jmodel.next_token(p, h)[0])
     toks = _prompts(2, T_PROMPT, 256)
     h_j = hidden_j(jparams, jnp.asarray(toks))
-    h_t, _ = model.hidden_states(params, _t(toks))
+    h_t, _, _ = model.hidden_states(params, _t(toks))
     _close(h_t, h_j)
     caches_j, _, last_j = prefill_j(jparams, jnp.asarray(toks))
     caches_t, last_t = model.prefill(params, _t(toks).long(), MAX_LEN)

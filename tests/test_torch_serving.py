@@ -168,7 +168,7 @@ def test_submit_and_config_validation(served):
         ServingEngine(model, params, ServeConfig(scheduler="lockstep",
                                                  page_size=16))
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
+        get_config("xlstm-350m")
 
 
 def test_sampling_determinism_and_fresh_streams(served):
