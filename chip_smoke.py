@@ -3,9 +3,11 @@
 count-min candidate decode), training (Algorithm 1, through the fused
 logit-free loss), language-model serving (recurrentgemma-2b with the
 MACH head, through the slot engine; the dense decoders and the MoE
-decoder qwen2-moe-a2.7b through the paged and lockstep engines) and
-language-model training (recurrentgemma-2b through the trainer; a cut of
-qwen2-moe-a2.7b) on one NVIDIA GPU.
+decoder qwen2-moe-a2.7b through the paged and lockstep engines; the
+xLSTM, enc-dec and vision models xlstm-350m, seamless-m4t-large-v2 and
+paligemma-3b) and language-model training (recurrentgemma-2b through the
+trainer; a cut of qwen2-moe-a2.7b; the three others at full width) on
+one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -116,7 +118,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    32 / 4 heads), phi3's (hd 96, padded to 128 in the kernel, 32 / 32
    heads), a ragged windowed hd-256 case and a float32 one: float32 to
    rtol 1e-5 / atol 1e-6, bfloat16 within 2 bf16 ulps of each (query,
-   head) row's largest output.  Then the MACH decode kernels (1 and 2)
+   head) row's largest output.  Then kernel 10 in the modes phase 15
+   runs (FLASH_NEW_MODES, bf16): seamless's encoder (1, 3072, 16/16, hd
+   64) and cross-attention (1, 2048 q / 3072 kv) non-causal, its
+   training cross-attention (2, 4096 / 1024) non-causal and decoder (2,
+   4096) causal, paligemma's prefill (1, 2048, 8/1, hd 256) and training
+   (2, 4096) causal; the training cases forward and backward (phase 9's
+   rule), each timed beside SDPA with its bound.  Then the MACH decode kernels (1 and 2)
    at the LM head's shape (R=8, B=2048, K=256,000, inline multiply-shift
    hash; N=1 as after a prefill, N=4 as in the pooled decode, where a
    block holds 3 queries and the last block 1): top-1 and top-k (k 1 and
@@ -298,9 +306,49 @@ Phases, in order; any failure exits non-zero and prints no result:
    step; ms a step, tokens/s, peak memory.  mixtral-8x22b is sized
    (param_count_estimate within (120e9, 150e9); it does not fit) and its
    smoke config (sliding window 8, ring caches, OAA head) served paged.
-15. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
-   launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's),
-   then the device line, last.
+15. xlstm-350m, seamless-m4t-large-v2 and paligemma-3b at full width
+   (bf16, seeded random weights): kernels 2 and 1 against their plain
+   versions at the three models' MACH heads (xlstm's with mach="on";
+   K=50,304 / 256,206 / 257,216; kernel 2 at phase 13's cases, kernel 1
+   at N=1 and 4, table and inline hashes; each timed at N=4 (kernel 2 at
+   k=50) beside its bound and ``torch.topk`` / ``torch.max`` over a
+   sparse multi-hot product).  Then, launch counters from 0, phase
+   13's 8 ragged requests over 4 slots (max_len 4,096): xlstm-350m with
+   its OAA head through the contiguous and lockstep engines (lockstep
+   tokens == contiguous ones) and with ``mach="on"`` (B=2048, R=8 over
+   50,304) through the contiguous engine; seamless (every request with
+   its own 3,072 x 1,024 audio frames: kernel 10 non-causal in the
+   encoder, S != T in the cross-attention of the 2,048-token prompts)
+   and paligemma (256 x 1,152 patches a request; the two long prompts
+   1,792 tokens, so 2,048 positions take the flash branch) through the
+   contiguous and paged engines; each MACH model's requests also through
+   a direct greedy prefill + decode_step + next_token loop (kernel 1) in
+   a 4-row pool, whose tokens the contiguous engine's must equal; every
+   engine's first tokens equal the loop's batch-1 prefills' picks; each
+   engine run's kernel-10 launches as its encoder frames and prompts take
+   the flash branch.
+   Then each model trained 3 AdamW steps (remat) through
+   ``Trainer.step_fn``: seamless on 2 x 4,096 tokens with 1,024 frames a
+   row, paligemma on 2 x (3,840 + 256 patches), xlstm-350m (MACH) on 2 x
+   1,024 and on 2 x 64 (sequence cuts: the sLSTM is an eager loop of T
+   steps a layer); kernels 3 and 10 at their counts a step, every loss
+   and gradient norm finite, but at 1,024 only its first loss: at random
+   init the sLSTM's gradients through time overflow, in the JAX package
+   too (ROADMAP.md §3), so its gradient norm is non-finite from the
+   first step (printed with the run); ms a step, tokens/s, peak.  Counts
+   read: kernels 1, 2, 3 and 10 (forward and backward) must each have
+   run.  Then, off the count: xlstm-350m's first mLSTM and sLSTM blocks
+   in float32 over 2,048 tokens, a prefill + a decode step against the
+   longer prefill and the card against the CPU (rel L2 <= 2^-12; the
+   sLSTM's r scaled by 1/sqrt(hd), since at the reference's init its
+   recurrence amplifies rounding, see ``_xlstm_blocks_check``);
+   seamless's and paligemma's longest prefill on the flash branch
+   against the float32 model on the dense branch (at most twice the bf16
+   dense branch's rel L2 + 2^-9).
+16. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
+   launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's,
+   rows 1, 2, 3 and 10 on phase 15's and kernel 10's new modes), then the
+   device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -2170,6 +2218,25 @@ FLASH_SHAPES = [
     ("float32 windowed", 1, 777, 4, 1, 64, 100, torch.float32),
 ]
 FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# kernel 10's modes on phase 15's paths, as _flash_times cases: (label,
+# B, T, S, H, KV, hd, causal, backward too, dtype).  The encoder and the
+# cross-attention are non-causal, the cross-attention's S differs from
+# T; 3,072 and 1,024 frames are multiples of chunk_k (JAX's flash
+# recurrence reads all).
+FLASH_NEW_MODES = [
+    ("seamless encoder", 1, 3072, 3072, 16, 16, 64, False, False,
+     torch.bfloat16),
+    ("seamless cross", 1, 2048, 3072, 16, 16, 64, False, False,
+     torch.bfloat16),
+    ("seamless training cross", 2, 4096, 1024, 16, 16, 64, False, True,
+     torch.bfloat16),
+    ("seamless training decoder", 2, 4096, 4096, 16, 16, 64, True, True,
+     torch.bfloat16),
+    ("paligemma prefill", 1, 2048, 2048, 8, 1, 256, True, False,
+     torch.bfloat16),
+    ("paligemma training", 2, 4096, 4096, 8, 1, 256, True, True,
+     torch.bfloat16),
+]
 LM_PROMPTS = (4096, 5, 77, 300)  # the 4,096-token one hits the flash branch
 LM_SAMPLED = 2                   # index of the request sampled at T = 0.8
 LM_MAX_NEW, LM_SLOTS, LM_MAX_LEN, LM_TOP_K = 16, 4, 4160, 50
@@ -2252,9 +2319,155 @@ def phase_lm_kernels_vs_plain(dev) -> dict:
             fail(f"flash_attention {label}: kernel vs plain max abs err {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         cases += 1
+    flash_new = _flash_times(dev, _nvidia_smi(), FLASH_NEW_MODES)
+    cases += sum(1 + row["backward"] for row in flash_new.values())
+    errs["flash_attention"] = max([errs["flash_attention"]] + [
+        row["max_abs_err"] for row in flash_new.values()])
     head_cases, errs["lm_head"], head_ms = _lm_head_vs_plain(dev)
     return {"cases": cases, "head_cases": head_cases, "errs": errs,
-            "lm_head_top1": head_ms, "lm_head_topk": _lm_head_topk_times(dev)}
+            "lm_head_top1": head_ms, "lm_head_topk": _lm_head_topk_times(dev),
+            "flash_new": flash_new}
+
+
+def _flash_bound(b, t, s, h, kv, hd, causal, window, backward,
+                 dtype) -> tuple:
+    """(bound ms, what bounds it, GFLOP) of kernel 10: 4·hd flops an
+    attended (query, key) pair and head forward, 10·hd backward, at the
+    dtype's peak (bf16 tensor cores; float32 outside them); the bytes of
+    q, k, v and out (backward: also dout and lse read, dq, dk and dv
+    written) at HBM's rate.  Causal pairs by ``attended_pairs`` (S = T),
+    non-causal pairs T·S."""
+    pairs = b * h * (attended_pairs(t, window) if causal else t * s)
+    flops = (10 if backward else 4) * hd * pairs
+    q_el, kv_el = b * t * h * hd, b * s * kv * hd
+    n_bytes = dtype.itemsize * ((4 * q_el + 4 * kv_el) if backward
+                                else (2 * q_el + 2 * kv_el))
+    if backward:
+        n_bytes += 4 * b * h * t
+    rate = BF16_TOPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_ops = flops / rate * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops / 1e9)
+
+
+def _flash_times(dev, smi, cases) -> dict:
+    """Kernel 10 at each case (label, B, T, S, H, KV, hd, causal,
+    backward too, dtype), unwindowed: the output held to the plain
+    version's on the same inputs by phase 7's rule (bf16: at most 2 ulps
+    of each row's scale; float32: FLASH_F32_TOL), the backward's dq, dk
+    and dv by phase 9's; then kernel (also by CUDA-graph replay), plain
+    and library (SDPA, k/v expanded to H heads; its backward) ms beside
+    the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for label, b, t, s, h, kv, hd, causal, backward, dtype in cases:
+        gen = torch.Generator(device=dev).manual_seed(t + s + hd)
+        q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                         for shape in ((b, t, h, hd), (b, s, kv, hd),
+                                       (b, s, kv, hd), (b, t, h, hd)))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         return_lse=True)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if o.dtype != dtype or not torch.isfinite(o.float()).all():
+            fail(f"flash_attention {label}: wrong dtype or non-finite output")
+        err = float((o.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            ulps = None
+            ok = torch.allclose(o, want, **FLASH_F32_TOL)
+        else:
+            ulps = _bf16_row_ulps(o, want)
+            ok = ulps <= 2.0
+        if not ok:
+            fail(f"flash_attention {label}: kernel != plain (max abs err "
+                 f"{err:.3e}, bf16 row ulps {ulps})")
+        bound, bound_by, gflop = _flash_bound(b, t, s, h, kv, hd, causal,
+                                              None, False, dtype)
+        qh, kh, vh = (z.transpose(1, 2).detach().requires_grad_(backward)
+                      for z in (q, k.repeat_interleave(h // kv, 2),
+                                v.repeat_interleave(h // kv, 2)))
+        row = {"max_abs_err": err, "bf16_row_ulps": ulps,
+               "ms": kernel_ms(lambda: fa.flash_attention_cuda(
+                   q, k, v, causal=causal), iters=10),
+               "ms_graph": graph_ms(lambda: fa.flash_attention_cuda(
+                   q, k, v, causal=causal), iters=10),
+               "plain_ms": kernel_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, causal=causal), iters=2, warmup=1),
+               "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, is_causal=causal), iters=10),
+               "bound_ms": bound, "bound_by": bound_by, "gflop": gflop,
+               "backward": backward,
+               "shape": f"q ({b}, {t}, {h}, {hd}), k/v ({b}, {s}, {kv}, "
+                        f"{hd}) {str(dtype).removeprefix('torch.')}, "
+                        f"{'causal' if causal else 'non-causal'}"}
+        report = ""
+        if backward:
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                              causal=causal)
+            want_g = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse,
+                                                  causal=causal)
+            torch.cuda.synchronize()
+            g_ulps = {}
+            for name, gv, wv in zip(("dq", "dk", "dv"), got, want_g):
+                g_ulps[name] = _bf16_backward_ulps(gv, wv)
+                if not torch.isfinite(gv.float()).all() or g_ulps[name] > 2.0:
+                    fail(f"flash backward {label}: {name} {g_ulps[name]:.2f} "
+                         f"bf16 ulps from plain")
+            row["max_abs_err"] = max(err, max(
+                float((gv.float() - wv.float()).abs().max())
+                for gv, wv in zip(got, want_g)))
+            bbound, bbound_by, bgflop = _flash_bound(b, t, s, h, kv, hd,
+                                                     causal, None, True,
+                                                     dtype)
+            sdpa = F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
+            do_h = dout.transpose(1, 2)
+            row.update({
+                "bwd_ulps": g_ulps,
+                "bwd_ms": kernel_ms(lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, o, dout, lse, causal=causal), iters=5),
+                "bwd_plain_ms": kernel_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, o, dout, lse, causal=causal), iters=1, warmup=1),
+                "bwd_library_ms": kernel_ms(lambda: torch.autograd.grad(
+                    sdpa, (qh, kh, vh), do_h, retain_graph=True), iters=5,
+                    warmup=2),
+                "bwd_bound_ms": bbound, "bwd_bound_by": bbound_by,
+                "bwd_gflop": bgflop})
+            del sdpa
+            report = (f"; backward {g_ulps} bf16 ulps from plain, "
+                      f"{row['bwd_ms']:.4f} ms, plain "
+                      f"{row['bwd_plain_ms']:.4f}, library "
+                      f"{row['bwd_library_ms']:.4f} (SDPA backward), bound "
+                      f"{bbound:.4f} ({bbound_by})")
+        out[label] = row
+        close = (f"{ulps:.2f} bf16 ulps of the row scale" if ulps is not None
+                 else "within FLASH_F32_TOL")
+        print(f"kernel flash_attention {label} ({row['shape']}): == plain "
+              f"({close}, max abs err {err:.3e}); {row['ms']:.4f} ms, graph "
+              f"{row['ms_graph']:.4f}, plain {row['plain_ms']:.4f}, library "
+              f"{row['library_ms']:.4f} (SDPA), bound {bound:.4f} "
+              f"({bound_by}), {gflop / row['ms']:.1f} TFLOP/s{report} "
+              f"[{smi}]", flush=True)
+        del q, k, v, dout, o, lse, want, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prefill_case(arch, dtype=torch.bfloat16) -> tuple:
+    """The ``_flash_times`` case of ``arch``'s causal prefill of
+    DENSE_OTHER_PROMPTS[0] tokens at its heads and width, labelled by the
+    arch (and " float32")."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    t = DENSE_OTHER_PROMPTS[0]
+    label = arch if dtype == torch.bfloat16 else f"{arch} float32"
+    return (label, 1, t, t, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, True, False, dtype)
 
 
 def _lm_head_vs_plain(dev) -> tuple[int, float]:
@@ -2644,9 +2857,8 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
                                                          window=window),
                         iters=3, warmup=1)
     pairs = attended_pairs(t, window)
-    flops = 4 * hd * h * pairs * b
-    t_ops = flops / BF16_TOPS_PER_S * 1e3
-    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
+    bound10, bound10_by, gflop = _flash_bound(b, t, t, h, kv, hd, True, window,
+                                              False, cfg.dtype)
     rows_i = torch.arange(t, device=dev)[:, None]
     cols_i = torch.arange(t, device=dev)[None, :]
     mask = (cols_i <= rows_i) & (cols_i > rows_i - window)
@@ -2661,13 +2873,12 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
         "launches": served["flash_attention"],
         "max_abs_err": checks["errs"]["flash_attention"],
         "ms": ms10, "plain_ms": plain10,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound10, "bound_by": bound10_by,
         "library_ms": library10,
         "shape": (f"prefill q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, "
                   f"{hd}) bfloat16, causal, window {window}: {pairs:,} "
-                  f"attended pairs a head, {flops / 1e9:.1f} GFLOP"),
-        "tflops_per_s": flops / ms10 / 1e9})
+                  f"attended pairs a head, {gflop:.1f} GFLOP"),
+        "tflops_per_s": gflop / ms10})
     for row in rows:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -3229,10 +3440,8 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     plain10 = kernel_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, dout, lse, window=window), iters=2, warmup=1)
     pairs = attended_pairs(t, window)
-    flops = 10 * hd * h_ * pairs * b
-    t_ops = flops / BF16_TOPS_PER_S * 1e3
-    t_bytes = (2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
-               + 4 * lse.numel()) / HBM_BYTES_PER_S * 1e3
+    bound10, bound10_by, gflop = _flash_bound(b, t, t, h_, kv, hd, True,
+                                              window, True, cfg.dtype)
     rows_i = torch.arange(t, device=dev)[:, None]
     cols_i = torch.arange(t, device=dev)[None, :]
     mask = (cols_i <= rows_i) & (cols_i > rows_i - window)
@@ -3252,17 +3461,16 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
         "launches": launches["flash_attention_bwd"],
         "max_abs_err": errs["flash_attention_bwd"],
         "ms": ms10, "plain_ms": plain10,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound10, "bound_by": bound10_by,
         "library_ms": lib10,
         "shape": (f"training q ({b}, {t}, {h_}, {hd}), k/v ({b}, {t}, {kv}, "
                   f"{hd}) bfloat16, causal, window {window}: {pairs:,} "
-                  f"attended pairs a head, {flops / 1e9:.1f} GFLOP"),
+                  f"attended pairs a head, {gflop:.1f} GFLOP"),
         "library": "F.scaled_dot_product_attention backward, boolean mask, "
                    "k/v expanded to 10 heads",
         "ms_forward_with_lse_at_this_shape": ms10_fwd,
         "library_ms_forward_at_this_shape": lib10_fwd,
-        "tflops_per_s": flops / ms10 / 1e9})
+        "tflops_per_s": gflop / ms10})
     for row in rows:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -3816,12 +4024,17 @@ def _dense_launchers() -> dict:
             "mach_candidate_topk": mc.mach_candidate_topk_cuda}
 
 
-def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
+def _dense_head_vs_plain(dev, arch="tinyllama-1.1b", top1=False) -> dict:
     """Kernel 2 vs its plain version at ``arch``'s MACH head (tinyllama:
     R=8, B=2048, K=32,000): N=1 (a prefill) and 4 (the pool), k 1 and 50,
     the three estimators, table and inline hashes, dyadic inputs exactly
-    and random ones as in phase 3; then its time at the pool's N=4, k=50."""
+    and random ones as in phase 3; then its time at the pool's N=4, k=50.
+    With ``top1``, kernel 1 too (the direct greedy loop's): N=1 and 4,
+    both hashes, dyadic and random, then its time at N=4 beside its bound
+    and the library call (``torch.max`` over the sparse multi-hot
+    product), under ``out["top1"]``."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import mach_decode as md
     from repro_torch.kernels import mach_topk as mt
 
     mach = get_config(arch, mach="on").mach
@@ -3832,10 +4045,11 @@ def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
     inline = {"inline_coeffs": fam.coeffs_tensor(dev),
               "inline_shift": fam.shift}
     sources = {"table": ((table,), {}), "inline": ((), inline)}
-    cases, err = 0, 0.0
+    cases, err, cases1, err1 = 0, 0.0, 0, 0.0
     for n in LM_HEAD_N:
         for dyadic in (True, False):
             meta = _inputs(n, r, b, dyadic, seed=n + 11, dev=dev)
+            rows = "dyadic" if dyadic else "random"
             for est in ESTIMATORS:
                 scores = mt.estimator_scores(meta, table, est)
                 for k in LM_HEAD_K:
@@ -3847,11 +4061,23 @@ def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
                             meta, *args, num_classes=num_classes, k=k,
                             estimator=est, **kw)
                         torch.cuda.synchronize()
-                        tag = (f"{name} head n={n} {est} k={k} {src} "
-                               f"{'dyadic' if dyadic else 'random'}")
+                        tag = f"{name} head n={n} {est} k={k} {src} {rows}"
                         err = max(err, _check_same(tag, kv, ki, pv, pi,
                                                    scores, dyadic))
                         cases += 1
+            if not top1:
+                continue
+            summed = md.summed_scores(meta, table)
+            for src, (args, kw) in sources.items():
+                kv, ki = md.mach_decode_cuda(meta, *args,
+                                             num_classes=num_classes, **kw)
+                pv, pi = md.mach_decode_plain(meta, *args,
+                                              num_classes=num_classes, **kw)
+                torch.cuda.synchronize()
+                err1 = max(err1, _check_same(
+                    f"top1 {name} head n={n} {src} {rows}", kv, ki, pv, pi,
+                    summed, dyadic))
+                cases1 += 1
     n = DENSE_SLOTS
     meta = _inputs(n, r, b, False, seed=n, dev=dev)
     meta2d_t = meta.reshape(n, r * b).T.contiguous()
@@ -3859,6 +4085,7 @@ def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
     kw = {"num_classes": num_classes, "k": DENSE_TOP_K, **inline}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bound, bound_by = bound_ms(n, r, b, num_classes, DENSE_TOP_K, table=False)
+    smi = _nvidia_smi()
     out = {"cases": cases, "max_abs_err": err,
            "ms": kernel_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
            "ms_graph": graph_ms(lambda: mt.mach_topk_cuda(meta, **kw)),
@@ -3877,7 +4104,30 @@ def _dense_head_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
           f"{out['ms']:.4f} ms (graph {out['ms_graph']:.4f}), plain "
           f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms "
           f"(torch.topk over a sparse multi-hot product), bound "
-          f"{bound:.5f} ms ({bound_by}) [{_nvidia_smi()}]", flush=True)
+          f"{bound:.5f} ms ({bound_by}) [{smi}]", flush=True)
+    if top1:
+        kw1 = {"num_classes": num_classes, **inline}
+        bound1, bound1_by = bound_ms(n, r, b, num_classes, 1, table=False)
+        one = {"cases": cases1, "max_abs_err": err1,
+               "ms": kernel_ms(lambda: md.mach_decode_cuda(meta, **kw1)),
+               "ms_graph": graph_ms(lambda: md.mach_decode_cuda(meta, **kw1)),
+               "plain_ms": kernel_ms(lambda: md.mach_decode_plain(meta, **kw1),
+                                     iters=5),
+               "library_ms": kernel_ms(lambda: torch.max(
+                   torch.sparse.mm(multihot, meta2d_t), dim=0)),
+               "bound_ms": bound1, "bound_by": bound1_by,
+               "mapping": md.decode_layout(n, r, b, num_classes,
+                                           sms).mapping,
+               "shape": f"{name} head N={n} R={r} B={b} K={num_classes} "
+                        f"inline hash"}
+        out["top1"] = one
+        print(f"{name} head: kernel 1 vs plain, {cases1} comparisons ok "
+              f"(N in {LM_HEAD_N}, table and inline, dyadic exactly); at "
+              f"N={n} ({one['mapping']}) {one['ms']:.4f} ms (graph "
+              f"{one['ms_graph']:.4f}), plain {one['plain_ms']:.4f} ms, "
+              f"library {one['library_ms']:.4f} ms (torch.max over a sparse "
+              f"multi-hot product), bound {bound1:.5f} ms ({bound1_by}) "
+              f"[{smi}]", flush=True)
     return out
 
 
@@ -3938,14 +4188,42 @@ def _dense_candidates_vs_plain(dev, arch="tinyllama-1.1b") -> dict:
 
 
 def _pool_kv_bytes(pool) -> int:
-    return sum(c.k.numel() * c.k.element_size() * 2
+    """K and V bytes of the attention caches; every byte of a recurrent
+    state (xLSTM)."""
+    return sum(c.k.numel() * c.k.element_size() * 2 if hasattr(c, "k")
+               else sum(x.numel() * x.element_size() for x in c)
                for stack in pool for c in stack)
 
 
+def _takes_flash(cfg, t: int) -> bool:
+    return t >= cfg.flash_threshold and t % min(cfg.chunk_q, t) == 0
+
+
+def _expected_flash(model, prompts, feats) -> int:
+    """Kernel-10 launches of an engine run: for each request, every
+    encoder layer where its frames take the flash branch, and every
+    decoder attention (self and cross) where its prefix + prompt does."""
+    cfg = model.cfg
+    kinds = model._dec_layout()
+    per_prompt = sum(k in ("attn", "attn_local", "moe", "xattn")
+                     for k in kinds) + kinds.count("xattn")
+    total = 0
+    for i, p in enumerate(prompts):
+        f = feats[i] if feats else {}
+        t = len(p) + (cfg.num_prefix_tokens if "prefix_feats" in f else 0)
+        if "enc_feats" in f and _takes_flash(cfg, f["enc_feats"].shape[0]):
+            total += cfg.num_encoder_layers
+        if _takes_flash(cfg, t):
+            total += per_prompt
+    return total
+
+
 def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
-                 max_len=DENSE_MAX_LEN, num_slots=DENSE_SLOTS, **scfg_kw):
+                 max_len=DENSE_MAX_LEN, num_slots=DENSE_SLOTS, feats=None,
+                 **scfg_kw):
     """Serve greedy requests on a fresh engine, one tick at a time, the
-    device synchronized after each.  Adds the run's kernel launches to
+    device synchronized after each; ``feats`` gives each request its
+    frontend features (a dict each).  Adds the run's kernel launches to
     ``counts``.  Returns tokens per request, the tick that emitted each,
     ms and admission per tick, whether every slot decoded a live request
     at each tick, run seconds, time to the first token of request 0, the
@@ -3978,7 +4256,8 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
     try:
         for i, (p, mn) in enumerate(zip(prompts, max_new)):
             engine.submit(Request(prompt=p, max_new_tokens=mn,
-                                  on_token=on_token(i)))
+                                  on_token=on_token(i),
+                                  **(feats[i] if feats else {})))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         results, tick_ms, admitted, full = [], [], [], []
@@ -4000,10 +4279,7 @@ def _dense_serve(model, params, prompts, max_new, counts, *, capture=False,
     for n, c in launched.items():
         counts[n] = counts.get(n, 0) + c
     cfg = model.cfg
-    flash = sum(len(p) >= cfg.flash_threshold
-                and len(p) % min(cfg.chunk_q, len(p)) == 0 for p in prompts)
-    want = {"flash_attention": flash * sum(kind in ("attn", "moe")
-                                           for kind in cfg.layout())}
+    want = {"flash_attention": _expected_flash(model, prompts, feats)}
     cand = scfg_kw.get("candidate_mode") is not None
     if cfg.mach is None:
         want.update(mach_topk=0, bucket_topm=0, mach_candidate_topk=0)
@@ -4306,77 +4582,6 @@ def _dense_other(dev, arch, counts, smi) -> dict:
     return {k: v for k, v in res.items() if k not in ("h", "metrics")}
 
 
-def _dense_flash_times(dev, smi, cases=None) -> dict:
-    """Kernel 10 at a 2,048-token prefill (causal) at each (arch, dtype)
-    of ``cases`` (by default the dense decoders': tinyllama, phi3-mini and
-    granite-20b's heads and widths in bf16, and tinyllama in float32, the
-    float32 engines' prefill).  Each output is held to the plain
-    version's on the same inputs by phase 7's rule (bf16: at most 2 ulps
-    of the row scale; float32: FLASH_F32_TOL); then kernel, plain and
-    library (SDPA, k/v expanded to H heads) ms, the kernel also by
-    CUDA-graph replay."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-
-    out, t = {}, DENSE_OTHER_PROMPTS[0]
-    if cases is None:
-        cases = [(arch, torch.bfloat16) for arch in ("tinyllama-1.1b",)
-                 + DENSE_OTHERS] + [("tinyllama-1.1b", torch.float32)]
-    for arch, dtype in cases:
-        cfg = get_config(arch)
-        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q, k, v = _flash_inputs(dev, 1, t, h, kv, hd, dtype, seed=3)
-        label = arch if dtype == torch.bfloat16 else f"{arch} float32"
-        got = fa.flash_attention_cuda(q, k, v)
-        want = fa.flash_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        if got.dtype != dtype or not torch.isfinite(got.float()).all():
-            fail(f"flash_attention at {label}'s prefill: wrong dtype or "
-                 f"non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        if dtype == torch.float32:
-            ulps = None
-            ok = torch.allclose(got, want, **FLASH_F32_TOL)
-        else:
-            ulps = _bf16_row_ulps(got, want)
-            ok = ulps <= 2.0
-        if not ok:
-            fail(f"flash_attention at {label}'s prefill: kernel != plain "
-                 f"(max abs err {err:.3e}, bf16 row ulps {ulps})")
-        flops = 4 * hd * h * attended_pairs(t, None)
-        t_ops = flops / (BF16_TOPS_PER_S if dtype == torch.bfloat16
-                         else F32_OPS_PER_S) * 1e3
-        t_bytes = dtype.itemsize * (2 * q.numel() + k.numel() + v.numel()) / \
-            HBM_BYTES_PER_S * 1e3
-        qh, kh, vh = (z.transpose(1, 2) for z in (
-            q, k.repeat_interleave(h // kv, 2), v.repeat_interleave(h // kv, 2)))
-        row = {"max_abs_err": err, "bf16_row_ulps": ulps,
-               "ms": kernel_ms(lambda: fa.flash_attention_cuda(q, k, v),
-                               iters=10),
-               "ms_graph": graph_ms(lambda: fa.flash_attention_cuda(q, k, v),
-                                    iters=10),
-               "plain_ms": kernel_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                     iters=3, warmup=1),
-               "library_ms": kernel_ms(
-                   lambda: torch.nn.functional.scaled_dot_product_attention(
-                       qh, kh, vh, is_causal=True), iters=10),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "shape": f"q (1, {t}, {h}, {hd}), k/v (1, {t}, {kv}, {hd}) "
-                        f"{str(dtype).removeprefix('torch.')}, causal"}
-        out[label] = row
-        close = (f"{ulps:.2f} bf16 ulps of the row scale" if ulps is not None
-                 else "within FLASH_F32_TOL")
-        print(f"kernel flash_attention at {arch}'s prefill ({row['shape']}): "
-              f"== plain ({close}, max abs err {err:.3e}); {row['ms']:.4f} ms,"
-              f" graph {row['ms_graph']:.4f}, plain {row['plain_ms']:.4f}, "
-              f"library {row['library_ms']:.4f} (SDPA), bound "
-              f"{row['bound_ms']:.4f} "
-              f"({row['bound_by']}), {flops / row['ms'] / 1e9:.1f} TFLOP/s "
-              f"[{smi}]", flush=True)
-    return out
-
-
 def _add_dense_launches(rows, dense) -> None:
     """Rows 2, 7, 8 and 10 gain their launches on phase 13's path; row 2
     its check, times and bound at tinyllama's MACH head, rows 7 and 8
@@ -4412,7 +4617,9 @@ def phase_dense_serve(dev) -> dict:
     smi = _nvidia_smi()
     head = _dense_head_vs_plain(dev)
     cand = _dense_candidates_vs_plain(dev)
-    flash = _dense_flash_times(dev, smi)
+    flash = _flash_times(dev, smi, [_prefill_case(arch) for arch in (
+        ("tinyllama-1.1b",) + DENSE_OTHERS)]
+        + [_prefill_case("tinyllama-1.1b", torch.float32)])
     rng = np.random.default_rng(0)
     vocab = get_config("tinyllama-1.1b").vocab_size
     prompts = [rng.integers(0, vocab, n).tolist() for n in DENSE_PROMPTS]
@@ -4845,7 +5052,7 @@ def phase_moe(dev) -> dict:
     cfg = get_config(MOE_ARCH)
     out = {"head": _dense_head_vs_plain(dev, MOE_ARCH),
            "cand": _dense_candidates_vs_plain(dev, MOE_ARCH),
-           "flash": _dense_flash_times(dev, smi, [(MOE_ARCH, torch.bfloat16)]),
+           "flash": _flash_times(dev, smi, [_prefill_case(MOE_ARCH)]),
            "block": _moe_block_vs_ref(dev, cfg, smi)}
     serve = _moe_engines(dev, cfg, smi)
     cut = serve.pop("cut")
@@ -4919,6 +5126,483 @@ def _add_new_path_launches(rows, fused, selection) -> None:
             "unselected_train_step_ms": off["ms"],
             "selected_peak_gib": on["peak_gib"],
             "unselected_peak_gib": off["peak_gib"]})
+
+
+# ---------------------------------------------------------------------------
+# phase 15: xlstm-350m, seamless-m4t-large-v2 and paligemma-3b served and
+# trained at full width
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-350m"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "paligemma-3b"
+ENC_FRAMES = 3072            # a request's audio frames: a multiple of chunk_k
+# paligemma's prompts: 256 patches + 1,792 tokens = 2,048, the flash branch
+VLM_PROMPTS = (1792, 5, 77, 300, 1000, 17, 1792, 40)
+OTHER_TRAIN_STEPS = 3
+ENC_TRAIN_FRAMES = 1024      # launch/train.py's seq_len // 4 at 4,096
+# (arch, mach, batch, text tokens a row, every loss and gradient norm
+# held finite): seamless and paligemma at 4,096 positions a row; xlstm
+# cut in sequence (its sLSTM runs T eager steps a layer, forward, again
+# under remat, and backward) to 1,024 and to XLSTM_FINITE_T.  At random
+# init the sLSTM's gradients through time overflow (the JAX package's
+# too, ROADMAP.md §3): at 1,024 tokens the gradient norm is non-finite
+# from the first step, so only its first loss is held and its later
+# steps run on non-finite parameters; at XLSTM_FINITE_T every loss and
+# gradient norm is held, the 24-layer backward checked on the card.
+XLSTM_FINITE_T = 64
+OTHER_TRAIN = [(ENCDEC_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ, True),
+               (VLM_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ - 256, True),
+               (XLSTM_ARCH, "on", TRAIN_BATCH, 1024, False),
+               (XLSTM_ARCH, "on", TRAIN_BATCH, XLSTM_FINITE_T, True)]
+OTHER_KERNELS = ("mach_decode", "mach_topk", "mach_xent_fwd", "mach_xent_bwd",
+                 "flash_attention", "flash_attention_bwd")
+# xLSTM blocks at full width in float32: step form against the prefill
+# and card against CPU (rel L2), over a long prompt's length
+XLSTM_CONSISTENCY_TOL = 2.0 ** -12
+XLSTM_BLOCK_T = 2048
+
+
+def _other_launchers() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_decode as md
+    from repro_torch.kernels import mach_topk as mt
+    from repro_torch.kernels import mach_xent as mx
+    return {"mach_decode": md.mach_decode_cuda, "mach_topk": mt.mach_topk_cuda,
+            "mach_xent_fwd": mx.mach_xent_cuda_fwd,
+            "mach_xent_bwd": mx.mach_xent_cuda_bwd,
+            "flash_attention": fa.flash_attention_cuda,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+
+
+def _request_feats(dev, cfg, n: int) -> list:
+    """Each of ``n`` requests' frontend features, drawn on the card: an
+    enc-dec model's (ENC_FRAMES, 1,024) audio frames, a vision model's
+    (256, 1,152) patches; empty dicts otherwise."""
+    from repro_torch.models import frontends
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for _ in range(n):
+        f = {}
+        if cfg.num_encoder_layers:
+            f["enc_feats"] = torch.randn(
+                (ENC_FRAMES, frontends.AUDIO_FEATURE_DIM), generator=gen,
+                device=dev)
+        if cfg.frontend == "vision":
+            f["prefix_feats"] = torch.randn(
+                (cfg.num_prefix_tokens, frontends.VISION_FEATURE_DIM),
+                generator=gen, device=dev)
+        out.append(f)
+    return out
+
+
+def _prefill_one(model, params, prompt, feats, dev):
+    """A batch-1 prefill at DENSE_MAX_LEN with the request's features:
+    (caches, enc_kvs, last hidden)."""
+    kvs = None
+    if "enc_feats" in feats:
+        with torch.no_grad():
+            kvs = model.enc_kvs(params, model.encode(
+                params, feats["enc_feats"][None]))
+    prefix = feats.get("prefix_feats")
+    caches, h = model.prefill(
+        params, torch.tensor([prompt], device=dev), DENSE_MAX_LEN, enc_kvs=kvs,
+        prefix_feats=None if prefix is None else prefix[None])
+    return caches, kvs, h
+
+
+def _direct_greedy_waves(model, params, prompts, max_new, feats, dev):
+    """Greedy tokens straight off the model API: batch-1 prefills, then
+    ``decode_step`` + ``next_token`` (kernel 1 on a MACH head) over a
+    DENSE_SLOTS-row pool, the requests taken DENSE_SLOTS at a time (a
+    row's result depends on the pool's shape, not on its neighbours)."""
+    from repro_torch.models.transformer import tree_map
+
+    out = [None] * len(prompts)
+    for w0 in range(0, len(prompts), DENSE_SLOTS):
+        wave = list(range(w0, min(w0 + DENSE_SLOTS, len(prompts))))
+        pool = model.init_caches(DENSE_SLOTS, DENSE_MAX_LEN, device=dev)
+        enc_pool, toks = None, {}
+        for slot, i in enumerate(wave):
+            caches, kvs, h = _prefill_one(model, params, prompts[i], feats[i],
+                                          dev)
+            model.insert_cache_slot(pool, caches, slot)
+            if kvs is not None:
+                if enc_pool is None:
+                    enc_pool = tree_map(lambda x: x.new_zeros(
+                        x.shape[:1] + (DENSE_SLOTS,) + x.shape[2:]), kvs)
+                model.insert_cache_slot(enc_pool, kvs, slot)
+            toks[i] = [int(model.next_token(params, h)[0][0])]
+        pad = DENSE_SLOTS - len(wave)
+        prefix = [model.cfg.num_prefix_tokens if "prefix_feats" in feats[i]
+                  else 0 for i in wave]
+        for step in range(1, max(max_new[i] for i in wave)):
+            last = torch.tensor([toks[i][-1] for i in wave] + [0] * pad,
+                                device=dev)
+            pos = torch.tensor([prefix[j] + len(prompts[i]) + step - 1
+                                for j, i in enumerate(wave)] + [0] * pad,
+                               device=dev)
+            pool, h = model.decode_step(params, pool, last, pos,
+                                        per_slot=True, enc_kvs=enc_pool)
+            ids = model.next_token(params, h)[0].tolist()
+            for slot, i in enumerate(wave):
+                toks[i].append(ids[slot])
+        for i in wave:
+            out[i] = toks[i][:max_new[i]]
+    return out
+
+
+def _model_on_card(dev, cfg):
+    from repro_torch.models import LanguageModel
+
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    head = (f"MACH B={cfg.mach.num_buckets} R={cfg.mach.num_repetitions}"
+            if cfg.mach is not None else "OAA")
+    print(f"other archs: {cfg.name} bf16 ({cfg.num_layers} layers"
+          f"{f' + {cfg.num_encoder_layers} encoder' if cfg.num_encoder_layers else ''}"
+          f", d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"pattern {cfg.block_pattern}, V={cfg.vocab_size}, {head}), "
+          f"{n:,} params (param_count_estimate "
+          f"{cfg.param_count_estimate():,}), drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params, n
+
+
+def _other_engines(dev, cfg, prompt_lens, engines, smi, direct=True) -> dict:
+    """``cfg`` at full width (bf16, seeded random weights) serving the
+    8-request ragged mix over DENSE_SLOTS slots through ``engines`` (name
+    -> ServeConfig keywords), each request with its frontend features;
+    lockstep's tokens must equal the contiguous engine's.  Then
+    (``direct``) the direct greedy loop, whose tokens the contiguous
+    engine's must equal, and whose batch-1 prefills' greedy picks every
+    engine's first tokens."""
+    import numpy as np
+
+    model, params, n_params = _model_on_card(dev, cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in prompt_lens]
+    feats = _request_feats(dev, cfg, len(prompts))
+    runs = {name: _dense_serve(model, params, prompts, DENSE_MAX_NEW, {},
+                               feats=feats, **kw)
+            for name, kw in engines.items()}
+    cont = runs["contiguous"]
+    total = sum(DENSE_MAX_NEW)
+    if "lockstep" in runs:
+        lock = runs["lockstep"]
+        if lock["tokens"] != cont["tokens"] or lock["ticks"] <= cont["ticks"]:
+            fail(f"other archs {cfg.name}: lockstep tokens "
+                 f"({_same_tokens(lock, cont)}/{total} equal) or ticks "
+                 f"({lock['ticks']} against {cont['ticks']}) wrong")
+    out = {"runs": runs, "params": n_params, "prompts": prompt_lens}
+    others = {name: _same_tokens(res, cont) for name, res in runs.items()
+              if name != "contiguous"}
+    checked = "lockstep == contiguous" if "lockstep" in runs else ""
+    if direct:
+        t0 = time.perf_counter()
+        toks = _direct_greedy_waves(model, params, prompts, DENSE_MAX_NEW,
+                                    feats, dev)
+        out["direct_s"] = time.perf_counter() - t0
+        same = sum(a == b for ra, rb in zip(toks, cont["tokens"])
+                   for a, b in zip(ra, rb))
+        if toks != cont["tokens"]:
+            fail(f"other archs {cfg.name}: the direct greedy loop's tokens "
+                 f"differ from the engine's ({same}/{total})")
+        for name, res in runs.items():
+            for i, tk in enumerate(toks):
+                if res["tokens"][i][0] != tk[0]:
+                    fail(f"other archs {cfg.name} {name}: first token "
+                         f"{res['tokens'][i][0]} of request {i} != a batch-1 "
+                         f"prefill's greedy pick {tk[0]}")
+        checked = (f"first tokens == a batch-1 prefill's greedy pick in "
+                   f"every engine; contiguous == the direct greedy loop, "
+                   f"{total}/{total} ({out['direct_s']:.1f} s)")
+    print(f"other archs {cfg.name}: {checked}; tokens equal to contiguous: "
+          f"{others} of {total}", flush=True)
+    for name, res in runs.items():
+        _print_dense_run(f"{cfg.name} {name}", res, smi)
+    out["model"], out["params_tree"], out["feats"] = model, params, feats
+    out["prompt_tokens"] = prompts
+    return out
+
+
+def _flash_vs_dense_full_width(dev, served, smi) -> dict:
+    """The longest request's prefill at full width through the flash
+    branch (kernel 10: seamless's encoder non-causal and its
+    cross-attention at S != T, paligemma's prefix + prompt causal),
+    against the same model in float32 (the bf16 params cast up) on the
+    dense branch: the bf16 flash hidden state's relative L2 error at most
+    twice the bf16 dense branch's, plus 2^-9 (phase 8's rule)."""
+    import dataclasses
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+
+    model, params = served["model"], served["params_tree"]
+    i = int(max(range(len(served["prompts"])),
+                key=lambda j: served["prompts"][j]))
+    prompt, feats = served["prompt_tokens"][i], served["feats"][i]
+    dense_cfg = dataclasses.replace(model.cfg, flash_threshold=1 << 30)
+    h_flash = _prefill_one(model, params, prompt, feats, dev)[2].float()
+    dense = LanguageModel(dense_cfg)
+    h_dense = _prefill_one(dense, params, prompt, feats, dev)[2].float()
+    f32 = LanguageModel(dataclasses.replace(dense_cfg, dtype=torch.float32,
+                                            param_dtype=None))
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    truth = _prefill_one(f32, p32, prompt, feats, dev)[2]
+    del p32
+    torch.cuda.empty_cache()
+    err_flash, err_dense = _rel_l2(h_flash, truth), _rel_l2(h_dense, truth)
+    if not err_flash <= 2 * err_dense + 2.0 ** -9:
+        fail(f"other archs {model.cfg.name}: the flash prefill's rel L2 "
+             f"{err_flash:.3e} to float32 > 2 x the dense branch's "
+             f"{err_dense:.3e} + 2^-9")
+    print(f"other archs {model.cfg.name}: the {len(prompt):,}-token prefill "
+          f"on the flash branch, rel L2 to float32 dense {err_flash:.3e} "
+          f"(bf16 dense {err_dense:.3e}) [{smi}]", flush=True)
+    return {"err_flash": err_flash, "err_dense": err_dense}
+
+
+def _xlstm_blocks_check(dev, served) -> dict:
+    """xlstm-350m's first mLSTM and sLSTM blocks at full width in float32
+    (the bf16 params cast up), on N(0, 1) inputs of XLSTM_BLOCK_T tokens:
+    a prefill of all but the last token + one decode step (the step form)
+    against the prefill of all (chunkwise; the sLSTM's loop), the last
+    output's rel L2; and the block on the card against the same block on
+    a CPU copy, every output's rel L2; each at most 2^-12.  For this check
+    the sLSTM's recurrent weights r are scaled by 1/sqrt(hd): at the
+    reference's init (its fan-in rule takes the 4 gates as the fan-in, a
+    stddev of 0.5) the recurrence is chaotic at these widths, a 1e-7
+    relative input difference grows to O(1) within ~100 steps, so two
+    summation orders part over a long scan.  Scaled, the same difference
+    stays near 5e-7 over 2,048 steps (``tools/slstm_sensitivity.py``),
+    and a fault that builds up along the scan still shows."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import tree_map
+
+    period = served["params_tree"]["stacks"][0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg = served["model"].cfg
+    d, t = cfg.d_model, XLSTM_BLOCK_T
+    hd = d // cfg.num_heads
+    out = {}
+    for pi, kind in enumerate(("mlstm", "slstm")):
+        p = tree_map(lambda v: v[0].float(), period[pi][kind])
+        if kind == "slstm":
+            p["r"] = {"kernel": p["r"]["kernel"] * hd ** -0.5}
+        apply = getattr(xlstm, f"apply_{kind}_block")
+        x = torch.randn((1, t, d), generator=gen, device=dev)
+        y, _ = apply(p, x)
+        _, st = apply(p, x[:, :-1])
+        y1, _ = apply(p, x[:, -1:], st, decode=True)
+        yc, _ = apply(tree_map(lambda v: v.cpu(), p), x.cpu())
+        errs = {"step_vs_prefill": _rel_l2(y1[:, 0], y[:, -1]),
+                "card_vs_cpu": _rel_l2(y.cpu(), yc)}
+        if not max(errs.values()) <= XLSTM_CONSISTENCY_TOL:
+            fail(f"other archs xlstm {kind} block: {errs} > 2^-12")
+        out[kind] = errs
+        tame = ", r scaled by 1/sqrt(hd)" if kind == "slstm" else ""
+        print(f"other archs xlstm-350m {kind} block (layer 0, float32{tame},"
+              f" T={t}): prefill of {t - 1} + a decode step vs the {t}-token"
+              f" prefill rel L2 {errs['step_vs_prefill']:.3e}; card vs CPU "
+              f"{errs['card_vs_cpu']:.3e}", flush=True)
+    return out
+
+
+def _other_train(dev, arch, mach, batch, seq, hold_all, smi) -> dict:
+    """``arch`` at full width and depth (bf16, remat) trained
+    OTHER_TRAIN_STEPS AdamW steps through ``Trainer.step_fn`` on
+    SyntheticLMStream batches of ``batch`` x ``seq`` tokens (enc-dec:
+    ENC_TRAIN_FRAMES frames a row; vision: 256 patches a row): kernel 3
+    forward and backward once a step, kernel 10 twice forward (remat) and
+    once backward a flash attention a step; every loss and gradient norm
+    finite (``hold_all``), else the first loss.  The step at which the
+    gradient norm is first non-finite is recorded and printed: the steps
+    after it run on non-finite parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, SyntheticLMStream
+    from repro_torch.models import LanguageModel
+    from repro_torch.models import frontends
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config(arch, mach=mach)
+    model = LanguageModel(cfg)
+    trainer = Trainer(model, TrainConfig(
+        total_steps=OTHER_TRAIN_STEPS, warmup_steps=2, peak_lr=3e-4,
+        log_every=OTHER_TRAIN_STEPS))
+    prefix = cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+    stream = SyntheticLMStream(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0,
+        enc_feats_dim=(frontends.AUDIO_FEATURE_DIM if cfg.num_encoder_layers
+                       else 0), enc_len=ENC_TRAIN_FRAMES,
+        prefix_feats_dim=frontends.VISION_FEATURE_DIM if prefix else 0,
+        prefix_len=prefix), device=dev)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    kernels = _other_launchers()
+    before = {n: fn.launches for n, fn in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, losses, norms = [], [], []
+    for s in range(OTHER_TRAIN_STEPS):
+        b = stream.batch_at(s)
+        t1 = time.perf_counter()
+        state, met = trainer.step_fn(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    launches = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    kinds = model._dec_layout()
+    t_dec = prefix + seq
+    n_flash = sum(k in ("attn", "xattn") for k in kinds) \
+        * _takes_flash(cfg, t_dec) \
+        + kinds.count("xattn") * _takes_flash(cfg, t_dec) \
+        + cfg.num_encoder_layers * _takes_flash(cfg, ENC_TRAIN_FRAMES)
+    expected = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
+                "flash_attention": 2 * n_flash, "flash_attention_bwd": n_flash}
+    for name, per_step in expected.items():
+        if launches[name] != per_step * OTHER_TRAIN_STEPS:
+            fail(f"other train {arch}: {name} launched {launches[name]} "
+                 f"times, expected {per_step} a step")
+    held = losses + norms if hold_all else losses[:1]
+    if not all(math.isfinite(v) for v in held):
+        fail(f"other train {arch}: losses {losses}, gradient norms {norms}")
+    del state
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_ms[1:])
+    positions = batch * t_dec
+    cut = (f"; sequence cut to {seq} (the sLSTM's eager scan: {seq} steps a "
+           f"layer forward, twice under remat, and backward)"
+           if arch == XLSTM_ARCH else "")
+    bad = next((i + 1 for i, v in enumerate(norms)
+                if not math.isfinite(v)), None)
+    if not hold_all:
+        cut += ("; only the first loss held: the random-init sLSTM's "
+                "gradients through time overflow (ROADMAP.md §3)")
+    if bad is not None:
+        cut += (f"; the gradient norm is non-finite from step {bad}, so the "
+                f"steps after it run on non-finite parameters and their ms "
+                f"is the time of such steps")
+    print(f"other train: {cfg.name} (mach={mach}, every layer and width, "
+          f"{n_params:,} params, bf16, remat={cfg.remat}), {batch} x {seq} "
+          f"text tokens{f' + {prefix} patches' if prefix else ''}"
+          f"{f', {ENC_TRAIN_FRAMES} frames a row' if cfg.num_encoder_layers else ''}"
+          f", AdamW: losses {losses}, gradient norms {norms}; launches "
+          f"{launches} (a step: "
+          f"{expected}); {ms:.3f} ms/step (host clock, median of steps 2.."
+          f"{OTHER_TRAIN_STEPS}; the first {step_ms[0]:.3f} ms), "
+          f"{batch * seq / ms * 1e3:.1f} text tokens/s "
+          f"({positions / ms * 1e3:.1f} positions/s), peak {peak_gib:.2f} GiB"
+          f"{cut} [{smi}]", flush=True)
+    return {"launches": launches, "losses": losses, "grad_norms": norms,
+            "step_ms": ms, "step_ms_all": step_ms, "peak_gib": peak_gib,
+            "params": n_params, "tokens_per_s": batch * seq / ms * 1e3,
+            "batch": batch, "seq": seq, "prefix": prefix,
+            "held": "all" if hold_all else "first loss",
+            "non_finite_grad_from_step": bad}
+
+
+def _uncounted(fn):
+    """Run a check that calls the model off the path; the launch counters
+    are put back as they were before it."""
+    launchers = _other_launchers()
+    before = {n: f.launches for n, f in launchers.items()}
+    try:
+        return fn()
+    finally:
+        for n, f in launchers.items():
+            f.launches = before[n]
+
+
+def _summary(served) -> dict:
+    return {"params": served["params"], "direct_s": served.get("direct_s"),
+            "runs": {name: {k: v for k, v in res.items()
+                            if k not in ("h", "metrics")}
+                     for name, res in served["runs"].items()}}
+
+
+def phase_other_archs(dev) -> dict:
+    """Kernels 1 and 2 vs plain at the three models' MACH heads (xlstm's
+    with mach="on"), each timed at N=4 beside its bound; then,
+    launch counters from 0, xlstm-350m with its OAA head through the
+    contiguous and lockstep engines and with a MACH head (B=2048 R=8 over
+    50,304) through the contiguous one, seamless and paligemma through the
+    contiguous and paged engines, each MACH run also through the direct
+    greedy loop (kernel 1), and the three trained 3 steps; counts read.
+    Then the numeric checks at full width, off the count: xLSTM's blocks
+    (step form, card against CPU) in float32, seamless's and paligemma's
+    flash prefills against the float32 dense branch."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    smi = _nvidia_smi()
+    out = {"head": {arch: _dense_head_vs_plain(dev, arch, top1=True)
+                    for arch in (XLSTM_ARCH, ENCDEC_ARCH, VLM_ARCH)}}
+    launchers = _other_launchers()
+    # the path's run: counts from 0, read just after
+    for fn in launchers.values():
+        fn.launches = 0
+    contiguous_lockstep = {"contiguous": {}, "lockstep": {"scheduler":
+                                                          "lockstep"}}
+    contiguous_paged = {"contiguous": {}, "paged": {"page_size": DENSE_PAGE}}
+    xl_oaa = _other_engines(dev, get_config(XLSTM_ARCH), DENSE_PROMPTS,
+                            contiguous_lockstep, smi, direct=False)
+    out["xlstm_oaa"] = _summary(xl_oaa)
+    del xl_oaa
+    xl = _other_engines(dev, get_config(XLSTM_ARCH, mach="on"), DENSE_PROMPTS,
+                        {"contiguous": {}}, smi)
+    out["xlstm_mach"] = _summary(xl)
+    out["xlstm_blocks"] = _uncounted(lambda: _xlstm_blocks_check(dev, xl))
+    del xl
+    torch.cuda.empty_cache()
+    for arch, prompts in ((ENCDEC_ARCH, DENSE_PROMPTS),
+                          (VLM_ARCH, VLM_PROMPTS)):
+        served = _other_engines(dev, get_config(arch), prompts,
+                                contiguous_paged, smi)
+        out[arch] = _summary(served)
+        out[arch]["flash_vs_dense"] = _uncounted(
+            lambda: _flash_vs_dense_full_width(dev, served, smi))
+        del served
+        torch.cuda.empty_cache()
+    out["train"] = {
+        f"{arch} x {seq}": _other_train(dev, arch, mach, batch, seq,
+                                        hold_all, smi)
+        for arch, mach, batch, seq, hold_all in OTHER_TRAIN}
+    launches = {n: fn.launches for n, fn in launchers.items()}
+    if min(launches.values()) < 1:
+        fail(f"other archs: a kernel of the path never ran: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"other archs launches on the path: {launches} [{smi}]", flush=True)
+    print(f"other archs: phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _add_other_launches(rows, other, flash_new) -> None:
+    """Rows 1, 2, 3 and 10 (forward and backward) gain their launches on
+    phase 15's path; rows 1 and 2 their checks, times and bounds at the
+    three models' MACH heads; row 10 its non-causal and S != T cases."""
+    for row in rows:
+        name = row["name"]
+        if name in OTHER_KERNELS:
+            row["launches_other_archs"] = other["launches"][name]
+        if name in ("mach_decode", "mach_topk"):
+            for arch, head in other["head"].items():
+                tag = arch.split("-")[0]
+                if name == "mach_decode":
+                    head = head["top1"]
+                row.update({f"{k}_{tag}_head": head[k] for k in (
+                    "max_abs_err", "ms", "ms_graph", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "shape")})
+        if name == "flash_attention":
+            row["encdec_vision_modes"] = flash_new
 
 
 def _leaves(tree):
@@ -5052,6 +5736,10 @@ def main() -> int:
     moe = phase_moe(dev)
     print(f"moe: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_moe_launches(rows, moe)
+    t0 = time.perf_counter()
+    other = phase_other_archs(dev)
+    print(f"other archs: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    _add_other_launches(rows, other, lm_checks["flash_new"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

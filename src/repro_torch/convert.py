@@ -12,8 +12,12 @@ shapes and dtypes against the port's head of the same configuration:
 ``convert_lm_params`` does the same for a whole ``LanguageModel``, the
 MACH head's kernel or the OAA head's ``lm_head`` among its leaves, and
 an MoE block's ``moe`` subtree (router (d, E), wi / wg (E, d, f), wo
-(E, f, d), the shared experts' MLP and ``shared_gate`` (d, 1)) stacked
-on the layer axis like every block leaf.  The
+(E, f, d), the shared experts' MLP and ``shared_gate`` (d, 1)), the
+xLSTM blocks' ``mlstm`` / ``slstm`` subtrees (their float32
+``gate_bias`` dicts, the sLSTM's recurrent ``r`` (4, H, hd, hd)), an
+``xattn`` block's ``norm_x`` and ``xattn`` projections — all stacked on
+the layer axis like every block leaf — and an enc-dec or vision model's
+``enc_adapter``, ``enc_stacks``, ``enc_norm`` and ``vis_adapter``.  The
 layouts are the same in both packages, so both compute the same function
 on the converted weights.
 """

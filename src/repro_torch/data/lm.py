@@ -7,8 +7,11 @@ Tokens are Zipf draws with a planted bigram — token t is followed by
 that learns falls.  Draws come from a ``torch.Generator`` on the chosen
 device, seeded from (seed, step, host index); they match the JAX stream
 in distribution, not number for number (tests feed both packages the
-same numpy batches where numbers must agree).  The modality stubs
-(``enc_feats`` / ``prefix_feats``) raise: no ported model reads them.
+same numpy batches where numbers must agree).  With the modality stubs
+set, a batch also carries standard normal frontend features from the
+same generator: ``enc_feats`` (B, enc_len, enc_feats_dim) for an
+enc-dec model's encoder and ``prefix_feats`` (B, prefix_len,
+prefix_feats_dim) for a vision prefix.
 """
 
 from __future__ import annotations
@@ -42,17 +45,14 @@ class SyntheticLMStream:
     """Stateless stream: ``batch_at(step)`` for any step, plus iterator
     sugar.  Per-host sharding: (host_index, host_count) carve a disjoint
     slice of the global batch.  Batches are {"tokens": (B, L+1) int32}
-    on ``device`` (default ``cuda``)."""
+    on ``device`` (default ``cuda``), plus float32 ``enc_feats`` /
+    ``prefix_feats`` where the config asks for them."""
 
     def __init__(self, cfg: LMDataConfig, host_index: int = 0,
                  host_count: int = 1, device=None):
         if cfg.global_batch % host_count:
             raise ValueError(f"global batch {cfg.global_batch} does not split "
                              f"over {host_count} hosts")
-        if cfg.enc_feats_dim or cfg.prefix_feats_dim:
-            raise NotImplementedError(
-                "enc_feats / prefix_feats (enc-dec and vision batches) are "
-                "not ported yet (see ROADMAP.md)")
         self.cfg = cfg
         self.host_index = host_index
         self.host_count = host_count
@@ -72,7 +72,14 @@ class SyntheticLMStream:
                          device=self.device) < cfg.bigram_p
         tokens = torch.cat([base[:, :1], torch.where(use, follow, base[:, 1:])],
                            dim=1)
-        return {"tokens": tokens.to(torch.int32)}
+        batch = {"tokens": tokens.to(torch.int32)}
+        for key, length, dim in (("enc_feats", cfg.enc_len, cfg.enc_feats_dim),
+                                 ("prefix_feats", cfg.prefix_len,
+                                  cfg.prefix_feats_dim)):
+            if dim:
+                batch[key] = torch.randn((b, length, dim), generator=gen,
+                                         device=self.device)
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

@@ -3,7 +3,8 @@
 ``ops.flash_attention`` takes q (B, T, H, hd) and k, v (B, S, KV, hd)
 of one dtype and returns (B, T, H, hd) in q's dtype, for contiguous
 positions: query row i may see key column j iff j <= i (causal) and
-j > i - window (windowed).  It runs the ``torch.autograd.Function``
+j > i - window (windowed); unmasked, S may differ from T (the
+encoder's and the cross-attention's calls), and both passes read S.  It runs the ``torch.autograd.Function``
 ``FlashAttention``.  On CUDA tensors its forward calls
 ``flash_attention_cuda``, which launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (it replaces the TPU kernel

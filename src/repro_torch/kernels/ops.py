@@ -444,7 +444,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Causal / windowed GQA attention for contiguous positions 0..T-1
     (queries) and 0..S-1 (keys): q (B, T, H, hd), k/v (B, S, KV, hd) ->
-    (B, T, H, hd).  Kernel 10 on CUDA tensors (the scores never leave
+    (B, T, H, hd); S may differ from T (non-causal cross-attention reads
+    every key).  Kernel 10 on CUDA tensors (the scores never leave
     the chip), its plain online-softmax version on CPU tensors.
     Differentiable wrt q, k and v (the backward kernels, or their plain
     version)."""

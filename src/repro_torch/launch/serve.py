@@ -4,10 +4,15 @@
         --requests 6 --slots 4 --max-new 12
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch tinyllama-1.1b --page-size 16          # the paged KV cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch seamless-m4t-large-v2          # enc-dec: 8 audio frames each
     PYTHONPATH=src python -m repro_torch.launch.serve --full    # on a GPU
 
 Smoke config unless ``--full``; weights are random, drawn from
-``--seed``.  Runs on ``cuda`` unless ``--device`` says otherwise.
+``--seed``.  Runs on ``cuda`` unless ``--device`` says otherwise.  An
+enc-dec model's requests carry 8 frames of audio features, a vision
+model's its patch features (the frontends are stubs), as in the JAX
+driver.
 ``--scheduler lockstep`` runs the chunked baseline (contiguous caches
 only); ``--page-size`` pages the linear KV caches (``--num-pages`` sizes
 the shared pool).
@@ -24,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import LanguageModel
+from repro_torch.models.frontends import AUDIO_FEATURE_DIM, VISION_FEATURE_DIM
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServingEngine)
 from repro_torch.serving.engine import SCHEDULERS
@@ -78,12 +84,19 @@ def main() -> int:
                                        page_size=args.page_size,
                                        num_pages=args.num_pages))
     rng = np.random.default_rng(args.seed)
+    feats = {}
+    if cfg.num_encoder_layers:
+        feats["enc_feats"] = rng.standard_normal(
+            (8, AUDIO_FEATURE_DIM)).astype(np.float32)
+    if cfg.frontend == "vision":
+        feats["prefix_feats"] = rng.standard_normal(
+            (cfg.num_prefix_tokens, VISION_FEATURE_DIM)).astype(np.float32)
     sampling = SamplingParams(estimator=args.estimator)
     for _ in range(args.requests):
         plen = int(rng.integers(2, 8))
         engine.submit(Request(
             prompt=rng.integers(1, cfg.vocab_size, plen).tolist(),
-            sampling=sampling))
+            sampling=sampling, **feats))
     t0 = time.perf_counter()
     outs = engine.run()
     if device.type == "cuda":

@@ -1,12 +1,16 @@
 """Training entry point — the LM trainer on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch paligemma-3b --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --full --seq-len 4096 \
         --global-batch 2 --steps 6                         # on a GPU
 
 Smoke config unless ``--full``; weights are random, drawn from
 ``--seed``, and batches come from ``SyntheticLMStream`` (seeded by
-``--seed``).  Runs on ``cuda`` unless ``--device`` says otherwise.  The
+``--seed``), with encoder features of ``seq_len // 4`` frames for an
+enc-dec model and patch features for a vision model, as in the JAX
+driver.  Runs on ``cuda`` unless ``--device`` says otherwise.  The
 mesh, multi-pod and checkpoint flags of the JAX driver come with their
 slice.
 """
@@ -22,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import LMDataConfig, SyntheticLMStream
 from repro_torch.models import LanguageModel
+from repro_torch.models.frontends import AUDIO_FEATURE_DIM, VISION_FEATURE_DIM
 from repro_torch.train import StragglerMonitor, TrainConfig, Trainer
 
 
@@ -48,7 +53,13 @@ def main(argv=None) -> int:
         torch.Generator(device=device).manual_seed(args.seed), device)
     stream = SyntheticLMStream(
         LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                     global_batch=args.global_batch, seed=args.seed),
+                     global_batch=args.global_batch, seed=args.seed,
+                     enc_feats_dim=(AUDIO_FEATURE_DIM if cfg.num_encoder_layers
+                                    else 0),
+                     enc_len=max(1, args.seq_len // 4),
+                     prefix_feats_dim=(VISION_FEATURE_DIM
+                                       if cfg.frontend == "vision" else 0),
+                     prefix_len=cfg.num_prefix_tokens),
         device=device)
     monitor = StragglerMonitor()
     t0 = time.perf_counter()

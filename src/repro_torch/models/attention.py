@@ -6,9 +6,12 @@ Two execution paths, both the softmax attention of the JAX package's
 * ``_attend_dense`` — one materialized float32 score tensor (short
                       prefills and every decode step).
 * the flash branch  — ``ops.flash_attention`` (kernel 10 on the card) at
-                      prefill length T >= ``flash_threshold``, T a
+                      query length T >= ``flash_threshold``, T a
                       multiple of ``min(chunk_q, T)``, where the JAX
-                      package runs its jnp flash recurrence.
+                      package runs its jnp flash recurrence: causal or
+                      windowed self-attention prefills, the encoder's
+                      non-causal self-attention and cross-attention
+                      (S != T).
 
 Decode uses a KV cache: linear for full attention, a ring buffer of
 ``window`` rows for local attention, or a shared page pool with per-slot
@@ -90,15 +93,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention. q (B,T,H,hd), k/v (B,S,KV,hd) -> (B,T,H,hd).
 
     The flash branch hands q, k, v to ``ops.flash_attention``, which
-    reads positions as 0..T-1 and 0..S-1: it is taken only for a
-    self-attention prefill (T == S), whose positions are exactly those
-    (the TPU kernel makes the same assumption)."""
+    reads positions as 0..T-1 and 0..S-1 (the TPU kernel makes the same
+    assumption): it takes a self-attention prefill (T == S), whose
+    positions are exactly those, or a non-causal, unwindowed call with
+    S != T (cross-attention), whose mask does not read positions.  Every
+    key is read, where the JAX package's flash recurrence skips the last
+    S mod ``chunk_k`` keys when S > ``chunk_k`` (ROADMAP.md)."""
     b, t, h, hd = q.shape
     kvh = k.shape[2]
     if t >= flash_threshold and t % min(chunk_q, t) == 0:
-        if k.shape[1] != t:
-            raise ValueError("the flash branch is a self-attention prefill: "
-                             f"needs S == T, got S={k.shape[1]}, T={t}")
+        if k.shape[1] != t and (causal or window is not None):
+            raise ValueError("the flash branch takes S != T only without a "
+                             f"causal mask or window, got S={k.shape[1]}, "
+                             f"T={t}, causal={causal}, window={window}")
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     out = _attend_dense(_group(q, kvh), k, v, q_pos, k_pos, causal, window,
                         1.0 / math.sqrt(hd))

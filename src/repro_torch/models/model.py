@@ -1,11 +1,12 @@
-"""LanguageModel: embeddings → stacked decoder layers → the output head.
+"""LanguageModel: embeddings → (encoder) → stacked decoder layers → head.
 
-The port of ``repro/models/model.py`` for decoder-only models.  The
-config decides the head: the MACH head (the paper's) or the dense OAA
-softmax (``cfg.mach is None``; tied to the embeddings or its own
-``lm_head``).  MoE blocks add their load-balance and router-z losses to
-the training loss.  Enc-dec and vision models are not ported yet (see
-ROADMAP.md).
+The port of ``repro/models/model.py``.  The config decides the block
+pattern, the encoder (enc-dec: every decoder layer an ``xattn`` block
+over the encoder's output), the vision prefix (``frontend="vision"``:
+adapted patch features before the text tokens) and the head: the MACH
+head (the paper's) or the dense OAA softmax (``cfg.mach is None``; tied
+to the embeddings or its own ``lm_head``).  MoE blocks add their
+load-balance and router-z losses to the training loss.
 
 Public surface:
   init(generator, device)                      -> params
@@ -13,16 +14,23 @@ Public surface:
       R-head CE on the head's logits (kernel 3), or with
       ``mach_fused_loss`` the fused logit-free loss (kernel 4, over the
       selected buckets with ``mach_bucket_select``); OAA: softmax CE;
-      plus the MoE aux losses
+      plus the MoE aux losses.  ``enc_feats`` run the encoder; after
+      ``prefix_feats`` only the text positions are predicted
+  encode(params, enc_feats)                    -> encoder output
+  enc_kvs(params, enc_out)                     -> cross-attention K/V
   hidden_states(params, tokens, caches=...)    -> (hidden, caches, aux)
-  prefill(params, tokens, max_len)             -> (caches, last_hidden)
-  decode_step(params, caches, tokens, pos)     -> (caches, hidden)
+  prefill(params, tokens, max_len, enc_kvs=, prefix_feats=)
+                                               -> (caches, last_hidden)
+  decode_step(params, caches, tokens, pos, enc_kvs=) -> (caches, hidden)
   next_token / topk_scores / topk_candidates   -> MACH decode (kernels 1-2,
       or 7-8 with candidate_mode); OAA: argmax / top-k of the logits
 
-Caches are nested lists of ``KVCache`` / ``RecurrentState`` with a
-leading stacked-layer axis and the batch (slot) axis second, as in the
-JAX package; prefill and decode write into them in place.  A paged pool
+Caches are nested lists of ``KVCache`` / ``RecurrentState`` /
+``MLSTMState`` / ``SLSTMState`` with a leading stacked-layer axis and
+the batch (slot) axis second, as in the JAX package; prefill and decode
+write into them in place.  ``enc_kvs`` mirror the decoder's params
+nesting: each ``xattn`` position holds (k, v), each (layers, B, S, KV,
+hd).  A paged pool
 (``init_paged_caches``) holds ``PagedKVCache`` leaves in place of the
 linear attention caches; its slot ops (``insert_cache_slot_paged``,
 ``reset_cache_slot_paged``, ``append_cache_page``) touch each leaf kind
@@ -40,18 +48,15 @@ from repro_torch.core.hashing import MultShiftFamily
 from repro_torch.core.mach import MACHOutputHead
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, recurrent
+from repro_torch.models import frontends, layers, recurrent, xlstm
 from repro_torch.models.transformer import (ModelConfig, apply_stacks,
-                                            init_stacks, plan_stacks, tree_map)
+                                            cross_kv, init_stacks,
+                                            plan_stacks, tree_map)
 
 
 class LanguageModel:
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.num_encoder_layers or cfg.frontend:
-            raise NotImplementedError(
-                "enc-dec and vision models are not ported yet, for serving or "
-                "training (see ROADMAP.md)")
         self.cfg = cfg
         self.head = (MACHOutputHead(cfg.mach, cfg.d_model, torch.float32)
                      if cfg.mach is not None else None)
@@ -66,17 +71,35 @@ class LanguageModel:
         device = resolve_device(device)
         p = {"embed": layers.init_embedding(generator, cfg.vocab_size,
                                             cfg.d_model, device),
-             "stacks": init_stacks(generator, cfg, cfg.layout(), device),
+             "stacks": init_stacks(generator, cfg, self._dec_layout(), device),
              "final_norm": layers.init_norm(cfg.d_model, cfg.norm, device)}
         if cfg.mach is not None:
             p["mach_head"] = self.head.init(generator, device)
         elif not cfg.tie_embeddings:
             p["lm_head"] = layers.init_dense(generator, cfg.d_model,
                                              (cfg.vocab_size,), device)
+        if cfg.num_encoder_layers:
+            p["enc_adapter"] = frontends.init_adapter(
+                generator, frontends.frontend_feature_dim(
+                    cfg.frontend or "audio"), cfg.d_model, device)
+            p["enc_stacks"] = init_stacks(
+                generator, cfg, ["enc"] * cfg.num_encoder_layers, device)
+            p["enc_norm"] = layers.init_norm(cfg.d_model, cfg.norm, device)
+        if cfg.frontend == "vision":
+            p["vis_adapter"] = frontends.init_adapter(
+                generator, frontends.VISION_FEATURE_DIM, cfg.d_model, device)
         if cfg.param_dtype is not None:
             p = tree_map(lambda x: x.to(cfg.param_dtype)
                          if x.is_floating_point() else x, p)
         return p
+
+    def _dec_layout(self) -> list:
+        """The decoder's layer kinds: every layer ``xattn`` with an encoder,
+        else the config's cycled pattern."""
+        cfg = self.cfg
+        if cfg.num_encoder_layers:
+            return ["xattn"] * cfg.num_layers
+        return cfg.layout()
 
     # --------------------------------------------------------------- forward
     def _embed_tokens(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -88,20 +111,58 @@ class LanguageModel:
                                  device=x.device)
         return x
 
+    def encode(self, params: dict, enc_feats: torch.Tensor) -> torch.Tensor:
+        """Frontend features (B, S, F) -> encoder output (B, S, d): the
+        adapter, the non-causal ``enc`` layers at positions 0..S-1, the
+        encoder's final norm."""
+        cfg = self.cfg
+        x = frontends.apply_adapter(params["enc_adapter"], enc_feats,
+                                    cfg.dtype)
+        b, s = x.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        x, _, _ = apply_stacks(params["enc_stacks"], cfg,
+                               ["enc"] * cfg.num_encoder_layers, x, pos)
+        return layers.apply_norm(params["enc_norm"], x, cfg.norm)
+
+    def enc_kvs(self, params: dict, enc_out: torch.Tensor) -> list:
+        """Every decoder layer's cross-attention (k, v) from the encoder
+        output, stacked on the layer axis like the params: a loop over
+        that axis where the JAX package ``vmap``s ``cross_kv``."""
+        out = []
+        for p_list in params["stacks"]:
+            st = []
+            for pp in p_list:
+                n = pp["xattn"]["k"]["kernel"].shape[0]
+                kvs = [cross_kv(tree_map(lambda v: v[li], pp), enc_out)
+                       for li in range(n)]
+                st.append(tuple(torch.stack(x) for x in zip(*kvs)))
+            out.append(st)
+        return out
+
     def hidden_states(self, params: dict, tokens: torch.Tensor, *,
+                      prefix_emb: Optional[torch.Tensor] = None,
+                      enc_kvs: Optional[list] = None,
                       caches: Optional[list] = None,
                       positions: Optional[torch.Tensor] = None,
-                      per_slot: bool = False):
-        """tokens (B, T) -> (hidden (B, T, d), caches, aux): aux holds the
-        MoE blocks' ``load_balance`` and ``router_z`` summed over layers."""
+                      decode: bool = False, per_slot: bool = False):
+        """tokens (B, T) -> (hidden (B, T(+P), d), caches, aux): aux holds
+        the MoE blocks' ``load_balance`` and ``router_z`` summed over
+        layers.  ``prefix_emb`` (B, P, F), the vision frontend's features,
+        go through the adapter ahead of the tokens; ``enc_kvs`` feed the
+        ``xattn`` blocks; ``decode`` runs the xLSTM blocks' step form."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
+        if prefix_emb is not None:
+            pe = frontends.apply_adapter(params["vis_adapter"], prefix_emb,
+                                         cfg.dtype)
+            x = torch.cat([pe, x], dim=1)
         b, t = x.shape[:2]
         if positions is None:
             positions = torch.arange(t, dtype=torch.int32,
                                      device=x.device).expand(b, t)
-        x, caches, aux = apply_stacks(params["stacks"], cfg, cfg.layout(), x,
-                                      positions, caches, per_slot)
+        x, caches, aux = apply_stacks(params["stacks"], cfg, self._dec_layout(),
+                                      x, positions, caches, enc_kvs, decode,
+                                      per_slot)
         return layers.apply_norm(params["final_norm"], x, cfg.norm), caches, aux
 
     def oaa_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -139,20 +200,27 @@ class LanguageModel:
         h and the head kernel in float32 whatever their dtypes, so where
         they differ both are promoted to the wider one (bf16 to float32
         is exact).  OAA head: the softmax CE of float32 logits, the
-        label's logit picked by a gather."""
+        label's logit picked by a gather.
+
+        ``enc_feats`` (B, S, F) run the encoder, whose cross-attention K/V
+        feed every decoder layer; after ``prefix_feats`` (B, P, F) the
+        loss predicts the text positions only."""
         cfg = self.cfg
-        for key in ("enc_feats", "prefix_feats"):
-            if batch.get(key) is not None:
-                raise NotImplementedError(
-                    f"batch[{key!r}] (enc-dec / vision training) is not "
-                    f"ported yet (see ROADMAP.md)")
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         weights = batch.get("weights")
         if weights is None:
             weights = torch.ones(labels.shape, dtype=torch.float32,
                                  device=tokens.device)
-        h, _, aux = self.hidden_states(params, inputs)
+        enc_kvs = None
+        if cfg.num_encoder_layers:
+            enc_kvs = self.enc_kvs(params, self.encode(params,
+                                                       batch["enc_feats"]))
+        prefix = batch.get("prefix_feats")
+        h, _, aux = self.hidden_states(params, inputs, prefix_emb=prefix,
+                                       enc_kvs=enc_kvs)
+        if prefix is not None:
+            h = h[:, prefix.shape[1]:]                   # predict text only
         if cfg.mach is None:
             logits = self.oaa_logits(params, h).to(torch.float32)
             picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -191,6 +259,13 @@ class LanguageModel:
         if kind == "rglru":
             one = recurrent.init_recurrent_state(
                 batch, cfg.resolved_rnn_width, cfg.dtype, device)
+        elif kind == "mlstm":
+            di = int(cfg.d_model * cfg.mlstm_proj)
+            one = xlstm.init_mlstm_state(batch, cfg.num_heads,
+                                         di // cfg.num_heads, device)
+        elif kind == "slstm":
+            one = xlstm.init_slstm_state(batch, cfg.num_heads,
+                                         cfg.d_model // cfg.num_heads, device)
         else:
             window = cfg.block_window(kind)
             ring = window is not None and window < max_len
@@ -220,7 +295,7 @@ class LanguageModel:
         return [[self._init_kind_cache(kind, n, batch_size, max_len, device,
                                        linear_cap=linear_cap)
                  for kind in period]
-                for period, n in plan_stacks(self.cfg.layout())]
+                for period, n in plan_stacks(self._dec_layout())]
 
     def init_paged_caches(self, num_slots: int, max_len: int, page_size: int,
                           num_pages: int, device=None) -> list:
@@ -233,27 +308,35 @@ class LanguageModel:
         return [[self._init_kind_cache(kind, n, num_slots, max_len, device,
                                        paged=paged)
                  for kind in period]
-                for period, n in plan_stacks(self.cfg.layout())]
+                for period, n in plan_stacks(self._dec_layout())]
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_len: int,
-                linear_cap: Optional[int] = None):
-        """Process the prompt tokens (B, T); returns (caches, last hidden
-        (B, d))."""
+                linear_cap: Optional[int] = None, *,
+                enc_kvs: Optional[list] = None,
+                prefix_feats: Optional[torch.Tensor] = None):
+        """Process the prompt tokens (B, T), after the vision prefix
+        ``prefix_feats`` (B, P, F) if given and over the encoder's
+        ``enc_kvs`` (``enc_kvs(params, encode(params, enc_feats))``) for an
+        enc-dec model; returns (caches, last hidden (B, d))."""
         caches = self.init_caches(tokens.shape[0], max_len, linear_cap,
                                   device=tokens.device)
-        h, caches, _ = self.hidden_states(params, tokens, caches=caches)
+        h, caches, _ = self.hidden_states(params, tokens,
+                                          prefix_emb=prefix_feats,
+                                          enc_kvs=enc_kvs, caches=caches)
         return caches, h[:, -1]
 
     def decode_step(self, params: dict, caches: list, tokens: torch.Tensor,
-                    pos: torch.Tensor, per_slot: bool = False):
-        """One token step.  tokens (B,), pos (B,) absolute positions.
+                    pos: torch.Tensor, per_slot: bool = False, *,
+                    enc_kvs: Optional[list] = None):
+        """One token step.  tokens (B,), pos (B,) absolute positions (the
+        vision prefix counted); ``enc_kvs`` the rows' cross-attention K/V.
         Returns (caches, hidden (B, d)).  ``per_slot=True`` writes each
         row's KV at its own cache index (continuous batching); the
         default writes every row at row 0's index (lockstep)."""
         h, caches, _ = self.hidden_states(params, tokens[:, None],
-                                          caches=caches,
+                                          enc_kvs=enc_kvs, caches=caches,
                                           positions=pos[:, None],
-                                          per_slot=per_slot)
+                                          decode=True, per_slot=per_slot)
         return caches, h[:, 0]
 
     @staticmethod

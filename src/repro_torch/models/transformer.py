@@ -1,14 +1,17 @@
 """Model assembly: ModelConfig, block dispatch, stacked layers.
 
-A model is a cycled ``block_pattern`` of block kinds.  The port has:
+A model is a cycled ``block_pattern`` of block kinds, every kind of the
+JAX package:
 
   attn        self-attention (+MLP)          — dense transformers
   attn_local  local-window self-attention    — griffin local layers
   moe         self-attention (+MoE)          — mixtral, qwen2-moe
   rglru       RG-LRU recurrent block (+MLP)  — recurrentgemma
+  mlstm/slstm xLSTM blocks (no second MLP)   — xlstm-350m
+  enc         non-causal self-attention      — enc-dec encoder layers
+  xattn       self + cross attention (+MLP)  — enc-dec decoder layers
 
-``xattn``, ``enc``, ``mlstm`` and ``slstm`` raise ``NotImplementedError``
-(ROADMAP.md).  The cycled pattern is factored
+The cycled pattern is factored
 into (pattern × n_periods) stacks whose parameters are stacked on a
 leading layer axis, as in the JAX package, so its params map across
 leaf for leaf; ``apply_stacks`` loops over that axis in Python.  With
@@ -17,7 +20,9 @@ that loop — one period of the pattern, the JAX package's scan body — is
 recomputed in the backward pass (``torch.utils.checkpoint``), so only
 its input stays in memory; serving runs it as it is.  MoE blocks return
 their load-balance and router-z losses, summed over layers (the
-checkpointed period returns them too).
+checkpointed period returns them too).  ``xattn`` blocks read the
+encoder's cross-attention K/V (``cross_kv``), passed as ``enc_kvs``
+mirroring the params nesting.
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mach import MACHConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, moe as moe_lib, recurrent
+from repro_torch.models import layers, moe as moe_lib, recurrent, xlstm
 
-PORTED_KINDS = ("attn", "attn_local", "moe", "rglru")
+PORTED_KINDS = ("attn", "attn_local", "moe", "rglru", "mlstm", "slstm",
+                "enc", "xattn")
 AUX_KEYS = ("load_balance", "router_z")
 
 
@@ -143,25 +149,33 @@ class ModelConfig:
         return total
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet, for serving or "
-            f"training; the port has {PORTED_KINDS} (see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
 
 def init_block(generator, cfg: ModelConfig, kind: str, device) -> dict:
-    _check_kind(kind)
+    if kind not in PORTED_KINDS:
+        raise ValueError(kind)
     p = {"norm1": layers.init_norm(cfg.d_model, cfg.norm, device)}
+    if kind == "mlstm":                           # no second MLP
+        p["mlstm"] = xlstm.init_mlstm_block(generator, cfg.d_model,
+                                            cfg.num_heads, cfg.mlstm_proj,
+                                            device)
+        return p
+    if kind == "slstm":
+        p["slstm"] = xlstm.init_slstm_block(generator, cfg.d_model,
+                                            cfg.num_heads, device=device)
+        return p
     if kind == "rglru":
         p["rglru"] = recurrent.init_rglru_block(
             generator, cfg.d_model, cfg.resolved_rnn_width, device)
     else:
         p["attn"] = attn_lib.init_attention(
+            generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, device)
+    if kind == "xattn":
+        p["norm_x"] = layers.init_norm(cfg.d_model, cfg.norm, device)
+        p["xattn"] = attn_lib.init_attention(
             generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, device)
     p["norm2"] = layers.init_norm(cfg.d_model, cfg.norm, device)
@@ -175,8 +189,15 @@ def init_block(generator, cfg: ModelConfig, kind: str, device) -> dict:
     return p
 
 
+def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, hd) attention output @ o (H, hd, d) -> (B, T, d)."""
+    o = params["o"]["kernel"].to(out.dtype)
+    b, t = out.shape[:2]
+    return out.reshape(b, t, -1) @ o.reshape(-1, o.shape[-1])
+
+
 def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
-                    cache, per_slot: bool = False):
+                    cache, causal: bool = True, per_slot: bool = False):
     """Returns (attn_out, cache); a given cache is updated in place."""
     q = layers.dense(params["q"], x)
     k = layers.dense(params["k"], x)
@@ -195,7 +216,7 @@ def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
     elif cache is None or x.shape[1] > 1:
         if cache is not None:                 # prefill into cache
             cache = attn_lib.cache_update_prefill(cache, k, v, positions)
-        out = attn_lib.attend(q, k, v, positions, positions, causal=True,
+        out = attn_lib.attend(q, k, v, positions, positions, causal=causal,
                               window=window,
                               flash_threshold=cfg.flash_threshold,
                               chunk_q=cfg.chunk_q)
@@ -204,24 +225,58 @@ def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
         cache = attn_lib.cache_update_decode(cache, k, v, ring,
                                              per_row=per_slot)
         out = attn_lib.decode_attend(q, cache, window=window)
-    o = params["o"]["kernel"].to(out.dtype)
-    b, t = out.shape[:2]
-    return out.reshape(b, t, -1) @ o.reshape(-1, o.shape[-1]), cache
+    return _out_proj(params, out), cache
+
+
+def _cross_attention(params: dict, cfg: ModelConfig, x, enc_kv):
+    """Attention of x over precomputed encoder (k, v) (``cross_kv``):
+    every query and key at position 0, non-causal, no window."""
+    q = layers.dense(params["q"], x)
+    k, v = enc_kv
+    b, t = x.shape[:2]
+    q_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = attn_lib.attend(q, k, v, q_pos, k_pos, causal=False, window=None,
+                          flash_threshold=cfg.flash_threshold,
+                          chunk_q=cfg.chunk_q)
+    return _out_proj(params, out)
+
+
+def cross_kv(params_block: dict, x_enc: torch.Tensor):
+    """One ``xattn`` block's cross-attention (k, v) from the encoder
+    output (B, S, d): each (B, S, KV, hd)."""
+    return (layers.dense(params_block["xattn"]["k"], x_enc),
+            layers.dense(params_block["xattn"]["v"], x_enc))
 
 
 def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
-                cache=None, per_slot: bool = False):
+                cache=None, enc_kv=None, decode: bool = False,
+                per_slot: bool = False):
     """Pre-norm residual block.  Returns (x, cache, aux): aux holds an MoE
-    block's losses, empty for the other kinds."""
-    _check_kind(kind)
+    block's losses, empty for the other kinds.  ``enc_kv`` is an
+    ``xattn`` block's (k, v); ``decode`` picks the xLSTM blocks' step
+    form."""
     h = layers.apply_norm(params["norm1"], x, cfg.norm)
+    if kind == "mlstm":
+        out, cache = xlstm.apply_mlstm_block(params["mlstm"], h, cache,
+                                             decode=decode)
+        return x + out, cache, {}
+    if kind == "slstm":
+        out, cache = xlstm.apply_slstm_block(params["slstm"], h, cache,
+                                             decode=decode)
+        return x + out, cache, {}
     if kind == "rglru":
         out, cache = recurrent.apply_rglru_block(params["rglru"], h, cache)
-    else:
+    elif kind in ("attn", "attn_local", "moe", "enc", "xattn"):
         out, cache = _self_attention(params["attn"], cfg, h, positions,
                                      cfg.block_window(kind), cache,
-                                     per_slot=per_slot)
+                                     causal=kind != "enc", per_slot=per_slot)
+    else:
+        raise ValueError(kind)
     x = x + out
+    if kind == "xattn":
+        hx = layers.apply_norm(params["norm_x"], x, cfg.norm)
+        x = x + _cross_attention(params["xattn"], cfg, hx, enc_kv)
     h2 = layers.apply_norm(params["norm2"], x, cfg.norm)
     if kind == "moe":
         out2, aux = moe_lib.apply_moe(
@@ -302,20 +357,23 @@ def _add_aux(total: dict, aux: dict) -> dict:
 
 
 def _apply_period(layer_params: list, cfg: ModelConfig, period: tuple, x,
-                  positions):
+                  positions, layer_enc: Optional[list] = None):
     """One period of the pattern without caches (the remat unit).
     Returns (x, the period's aux sums)."""
     aux = dict.fromkeys(AUX_KEYS, 0.0)
-    for lp, kind in zip(layer_params, period):
-        x, _, block_aux = apply_block(lp, cfg, kind, x, positions)
+    for pi, (lp, kind) in enumerate(zip(layer_params, period)):
+        ek = layer_enc[pi] if layer_enc is not None else None
+        x, _, block_aux = apply_block(lp, cfg, kind, x, positions, enc_kv=ek)
         aux = _add_aux(aux, block_aux)
     return x, aux
 
 
 def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
-                 caches: Optional[list] = None, per_slot: bool = False):
-    """Run every layer in order; ``caches`` mirror the params nesting and
-    are updated in place.  Returns (x, caches, aux): the MoE blocks'
+                 caches: Optional[list] = None, enc_kvs: Optional[list] = None,
+                 decode: bool = False, per_slot: bool = False):
+    """Run every layer in order; ``caches`` and ``enc_kvs`` (each ``xattn``
+    block's stacked (k, v)) mirror the params nesting, and caches are
+    updated in place.  Returns (x, caches, aux): the MoE blocks'
     ``load_balance`` and ``router_z`` summed over layers (0.0 without
     MoE blocks)."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()
@@ -323,16 +381,20 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
     for si, ((period, n), p_list) in enumerate(zip(plan_stacks(layout), params)):
         for li in range(n):
             layer_params = [tree_map(lambda v: v[li], p) for p in p_list]
+            layer_enc = ([tree_map(lambda v: v[li], e) for e in enc_kvs[si]]
+                         if enc_kvs is not None else None)
             if remat:
                 x, period_aux = checkpoint(_apply_period, layer_params, cfg,
-                                           period, x, positions,
+                                           period, x, positions, layer_enc,
                                            use_reentrant=False)
                 aux = _add_aux(aux, period_aux)
                 continue
             for pi, kind in enumerate(period):
                 lc = (tree_map(lambda v: v[li], caches[si][pi])
                       if caches is not None else None)
+                ek = layer_enc[pi] if layer_enc is not None else None
                 x, _, block_aux = apply_block(layer_params[pi], cfg, kind, x,
-                                              positions, lc, per_slot)
+                                              positions, lc, ek, decode,
+                                              per_slot)
                 aux = _add_aux(aux, block_aux)
     return x, caches, aux

@@ -27,6 +27,13 @@ its pages at once.  A request whose reservation does not fit waits at
 the head of the queue (``reservation_failures``).  Lockstep runs on the
 contiguous layout only.
 
+An enc-dec model's requests carry ``enc_feats`` (S, F): admission runs
+the encoder and copies the request's cross-attention K/V into a slot of
+the engine's enc-KV pool (one allocation, so every request of an engine
+has the encoder shape of the first); a freed slot's rows are zeroed.  A
+vision model's requests carry ``prefix_feats`` (P, F): the prefix counts
+in the slot's positions, its ``max_len`` and its page reservation.
+
 Both phases end in the same serve step: the fused streaming top-k
 (kernel 2; kernels 7-8 with ``candidate_mode``) per live estimator,
 then a per-row Gumbel-max pick at the row's temperature over its first
@@ -56,18 +63,24 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.estimators import ESTIMATORS
 from repro_torch.kernels import ops
+from repro_torch.models import frontends
 from repro_torch.models.model import LanguageModel
+from repro_torch.models.transformer import tree_map
 
 _GREEDY_TEMP = 1e-6            # ε-temperature: top-1 pick == argmax
 
 SCHEDULERS = ("continuous", "lockstep")
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 def _prng_salt(seed: Optional[int], rid: int) -> int:
@@ -106,10 +119,14 @@ GREEDY = SamplingParams()
 class Request:
     """One generation request.  ``on_token`` streams each generated
     token id as soon as the tick that produced it completes, the first
-    one (from the prefill) included."""
+    one (from the prefill) included.  ``enc_feats`` / ``prefix_feats``
+    (arrays or tensors) are the frontend features an enc-dec or vision
+    model needs."""
     prompt: Sequence[int]
     sampling: SamplingParams = GREEDY
     max_new_tokens: Optional[int] = None     # None -> ServeConfig default
+    enc_feats: Optional[Any] = None          # (S, F) encoder frontend
+    prefix_feats: Optional[Any] = None       # (P, F) vision prefix
     on_token: Optional[Callable[[int], None]] = None
 
 
@@ -206,13 +223,14 @@ def gumbel_noise(seed: int, salts: Sequence[int], tok_idx: Sequence[int],
 def make_serve_step_fn(model: LanguageModel, top_k: int, candidate_mode=None):
     """One step for both phases of serving.
 
-    ``caches=None`` selects prefill: ``tokens`` is the (1, L) prompt and
-    fresh caches are built (``pos`` is ignored), their linear caches at
-    ``linear_cap`` rows if given (the paged engine's page-rounded prompt
-    length, so the strips reshape exactly into the reserved pages).
-    Otherwise one pooled decode step: ``tokens`` is (S, 1), ``pos`` the
-    per-slot absolute positions, and every row's KV write lands at its
-    own cache index.
+    ``caches=None`` selects prefill: ``tokens`` is the (1, L) prompt (after
+    the (1, P, F) ``prefix_feats`` if given) and fresh caches are built
+    (``pos`` is ignored), their linear caches at ``linear_cap`` rows if
+    given (the paged engine's page-rounded prefix + prompt length, so the
+    strips reshape exactly into the reserved pages).  Otherwise one
+    pooled decode step: ``tokens`` is (S, 1), ``pos`` the per-slot
+    absolute positions, and every row's KV write lands at its own cache
+    index.  ``enc_kvs`` are the rows' cross-attention K/V (enc-dec).
 
     Both phases end alike: the fused top-k candidates for each estimator
     in ``estimators`` (``est_sel`` picks one per row), then the per-row
@@ -220,13 +238,15 @@ def make_serve_step_fn(model: LanguageModel, top_k: int, candidate_mode=None):
 
     def serve_step(params, caches, tokens, pos, seed, salts, tok_idx, temps,
                    row_k, est_sel, *, estimators: tuple, max_len: int,
-                   linear_cap: Optional[int] = None):
+                   linear_cap: Optional[int] = None, enc_kvs=None,
+                   prefix_feats=None):
         if caches is None:                       # ---- prefill (batch 1)
             caches, h = model.prefill(params, tokens, max_len,
-                                      linear_cap=linear_cap)
+                                      linear_cap=linear_cap, enc_kvs=enc_kvs,
+                                      prefix_feats=prefix_feats)
         else:                                    # ---- pooled decode step
             caches, h = model.decode_step(params, caches, tokens[:, 0], pos,
-                                          per_slot=True)
+                                          per_slot=True, enc_kvs=enc_kvs)
         cands = [model.topk_candidates(params, h, top_k, est,
                                        candidate_mode=candidate_mode)
                  for est in estimators]
@@ -330,6 +350,8 @@ class ServingEngine:
             self._num_pages = 0
             self._pool = model.init_caches(scfg.num_slots, scfg.max_len,
                                            device=self.device)
+        self._enc_pool = None        # shaped from the first request
+        self._enc_shape = None       # the pinned (S, F) of enc_feats
         self._slots: list = [None] * scfg.num_slots
         self._queue: collections.deque = collections.deque()
         self._next_id = 0
@@ -358,7 +380,7 @@ class ServingEngine:
     def submit(self, request: Request) -> int:
         """Validate and enqueue; returns the request id (results carry
         it, and ``run()`` orders by it)."""
-        scfg = self.scfg
+        cfg, scfg = self.model.cfg, self.scfg
         prompt = list(request.prompt)
         if not prompt:
             raise ValueError("Request.prompt must be non-empty")
@@ -381,13 +403,15 @@ class ServingEngine:
                    else scfg.max_new_tokens)
         if max_new < 1:
             raise ValueError("Request.max_new_tokens must be >= 1")
-        if len(prompt) + max_new - 1 > scfg.max_len:
+        prefix = cfg.num_prefix_tokens if request.prefix_feats is not None \
+            else 0
+        if prefix + len(prompt) + max_new - 1 > scfg.max_len:
             raise ValueError(
-                f"prompt ({len(prompt)} tokens) + max_new_tokens ({max_new}) "
-                f"exceeds the slot capacity ServeConfig.max_len="
-                f"{scfg.max_len}")
+                f"prompt ({prefix + len(prompt)} tokens incl. prefix) + "
+                f"max_new_tokens ({max_new}) exceeds the slot capacity "
+                f"ServeConfig.max_len={scfg.max_len}")
         if scfg.paged:
-            need = self._pages_for(len(prompt) + max_new - 1)
+            need = self._pages_for(prefix + len(prompt) + max_new - 1)
             if need > self._num_pages:
                 # no pool state could ever admit it: reject now rather
                 # than block the head of the queue forever
@@ -395,10 +419,66 @@ class ServingEngine:
                     f"request needs {need} pages (worst case) but the "
                     f"pool holds {self._num_pages}; raise "
                     f"ServeConfig.num_pages or page_size")
+        self._validate_feats(request)
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, request, max_new, self._tick))
         return rid
+
+    def _validate_feats(self, request: Request) -> None:
+        """The model decides whether features are required, and every
+        request of one engine has the encoder feature shape of the first
+        (the enc-KV slot pool is one allocation).  The JAX package's
+        checks and messages."""
+        cfg = self.model.cfg
+        if cfg.num_encoder_layers:
+            if request.enc_feats is None:
+                raise ValueError(
+                    f"model {cfg.name!r} has an encoder: every Request "
+                    f"needs enc_feats (S, F) — a batch where only some "
+                    f"requests carry features is inconsistent")
+            shape = _shape(request.enc_feats)
+            want_f = frontends.frontend_feature_dim(cfg.frontend or "audio")
+            if len(shape) != 2 or shape[1] != want_f:
+                raise ValueError(f"enc_feats must be (S, {want_f}), "
+                                 f"got {shape}")
+            if self._enc_shape is not None and shape != self._enc_shape:
+                raise ValueError(
+                    f"enc_feats shape {shape} conflicts with this "
+                    f"engine's pinned {self._enc_shape}: the enc-KV slot "
+                    f"pool is one fixed allocation, so every request must "
+                    f"use the same encoder feature shape")
+            enc_shape = shape
+        else:
+            enc_shape = None
+            if request.enc_feats is not None:
+                raise ValueError(f"model {cfg.name!r} has no encoder; "
+                                 f"enc_feats would be silently dropped")
+        if cfg.frontend == "vision":
+            if request.prefix_feats is None:
+                raise ValueError(f"model {cfg.name!r} has a vision "
+                                 f"frontend: every Request needs "
+                                 f"prefix_feats (P, F)")
+            shape = _shape(request.prefix_feats)
+            if shape != (cfg.num_prefix_tokens, frontends.VISION_FEATURE_DIM):
+                raise ValueError(
+                    f"prefix_feats must be ({cfg.num_prefix_tokens}, "
+                    f"{frontends.VISION_FEATURE_DIM}), got {shape}")
+        elif request.prefix_feats is not None:
+            raise ValueError(f"model {cfg.name!r} has no vision frontend; "
+                             f"prefix_feats would be silently dropped")
+        # pin only once the whole request is valid: a refused request
+        # constrains nothing
+        if enc_shape is not None and self._enc_shape is None:
+            self._enc_shape = enc_shape
+
+    def _feats(self, feats) -> Optional[torch.Tensor]:
+        """A request's (S, F) features as a (1, S, F) float32 tensor on the
+        engine's device, or None."""
+        if feats is None:
+            return None
+        return torch.as_tensor(feats, dtype=torch.float32,
+                               device=self.device)[None]
 
     # ----------------------------------------------------------- sampling
     def _row_knobs(self, req: Request) -> tuple:
@@ -467,11 +547,13 @@ class ServingEngine:
         while self._queue and None in self._slots:
             slot_i = self._slots.index(None)
             rid, req, max_new, submit_step = self._queue[0]      # peek
+            prefix = (self.model.cfg.num_prefix_tokens
+                      if req.prefix_feats is not None else 0)
             need, pages, linear_cap = 0, [], None
             if scfg.paged:
                 # reserve the worst case up front, so a boundary crossing
                 # mid-decode never finds the free list empty
-                need = self._pages_for(len(req.prompt) + max_new - 1)
+                need = self._pages_for(prefix + len(req.prompt) + max_new - 1)
                 if need > self._num_pages - self.metrics.pages_reserved:
                     # backpressure: the head of the queue waits (FIFO, no
                     # later, smaller request jumps it) for freed pages
@@ -484,17 +566,28 @@ class ServingEngine:
                 self.metrics.pages_reserved += need
                 self.metrics.pages_peak = max(self.metrics.pages_peak,
                                               self.metrics.pages_reserved)
-                pages = self._alloc_pages(self._pages_for(len(req.prompt)))
+                pages = self._alloc_pages(
+                    self._pages_for(prefix + len(req.prompt)))
                 linear_cap = len(pages) * scfg.page_size
             tokens = torch.as_tensor([list(req.prompt)], dtype=torch.int64,
                                      device=self.device)
+            enc_kvs = None
+            if req.enc_feats is not None:
+                # no grad mode: a cache-less stack otherwise runs remat's
+                # checkpoints
+                with torch.no_grad():
+                    enc_kvs = self.model.enc_kvs(
+                        self.params, self.model.encode(
+                            self.params, self._feats(req.enc_feats)))
             caches, ids = self._serve_step(
                 self.params, None, tokens, None, scfg.seed, [salt], [0],
                 [temp], [row_k], [0], estimators=(est,), max_len=scfg.max_len,
-                linear_cap=linear_cap)
+                linear_cap=linear_cap, enc_kvs=enc_kvs,
+                prefix_feats=self._feats(req.prefix_feats))
             self.metrics.prefills += 1
             slot = _Slot(req_id=rid, req=req, salt=salt, tokens=[],
-                         pos=len(req.prompt), temp=temp, row_k=row_k, est=est,
+                         pos=prefix + len(req.prompt), temp=temp, row_k=row_k,
+                         est=est,
                          max_new=max_new, submit_step=submit_step,
                          pages=pages, reserved=need)
             reason = self._emit(slot, int(ids[0]))
@@ -509,6 +602,12 @@ class ServingEngine:
                     torch.as_tensor(pages, device=self.device))
             else:
                 self.model.insert_cache_slot(self._pool, caches, slot_i)
+            if enc_kvs is not None:
+                if self._enc_pool is None:
+                    self._enc_pool = tree_map(
+                        lambda x: x.new_zeros(x.shape[:1] + (scfg.num_slots,)
+                                              + x.shape[2:]), enc_kvs)
+                self.model.insert_cache_slot(self._enc_pool, enc_kvs, slot_i)
             self._slots[slot_i] = slot
 
     def _decode_once(self, finished: list) -> None:
@@ -550,7 +649,7 @@ class ServingEngine:
             self.params, self._pool, torch.as_tensor(toks, device=self.device),
             torch.as_tensor(pos, device=self.device), scfg.seed, salts,
             tok_idx, temps, row_k, est_sel, estimators=estimators,
-            max_len=scfg.max_len)
+            max_len=scfg.max_len, enc_kvs=self._enc_pool)
         ids = ids.cpu().tolist()
         self.metrics.decode_steps += 1
         self.metrics.live_slot_steps += len(live)
@@ -569,16 +668,22 @@ class ServingEngine:
             elif scfg.paged:             # free at once: next tick admits
                 self._release_pages(s)
                 self.model.reset_cache_slot_paged(self._pool, i, scfg.max_len)
-                self._slots[i] = None
+                self._release_slot(i)
             else:
                 self.model.reset_cache_slot(self._pool, i, scfg.max_len)
-                self._slots[i] = None
+                self._release_slot(i)
         if scfg.scheduler == "lockstep" and all(
                 s is None or s.done for s in self._slots):
             for i, s in enumerate(self._slots):
                 if s is not None:
                     self.model.reset_cache_slot(self._pool, i, scfg.max_len)
-                    self._slots[i] = None
+                    self._release_slot(i)
+
+    def _release_slot(self, i: int) -> None:
+        """Mark slot ``i`` free and zero its rows of the enc-KV pool."""
+        self._slots[i] = None
+        if self._enc_pool is not None:
+            tree_map(lambda x: x[:, i].zero_(), self._enc_pool)
 
     def step(self) -> list:
         """One scheduler tick: admit into free slots, advance the pool

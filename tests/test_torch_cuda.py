@@ -41,6 +41,9 @@ in bfloat16 within 2 bf16 ulps of each row's largest entry plus 2^-20 of
 the tensor's largest entry: a query row that sees one key has P = 1 and
 an exact dQ of zero, and what both compute there is float32 rounding
 noise of dP − D (1e-8 against entries of 0.1), which no row scale bounds.
+Flash attention also runs non-causal with S != T (cross-attention) and
+S == T (the encoder), forward and backward, at those tolerances; the
+smoke xLSTM and enc-dec models run on the card against the CPU.
 
 Marked ``cuda``: skips without a GPU.  Needs neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -1184,3 +1187,111 @@ def test_moe_block_on_the_card_matches_ref_and_cpu(dev, case, dtype):
         _moe_close(y, want_y, dtype)
         for key in ("load_balance", "router_z"):
             _moe_close(aux[key], want_aux[key], torch.float32)
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,hd,dtype", [
+    (1, 300, 300, 16, 16, 64, torch.bfloat16),     # encoder self, non-causal
+    (1, 200, 300, 16, 16, 64, torch.bfloat16),     # cross, S > T
+    (2, 260, 100, 16, 16, 64, torch.bfloat16),     # cross, S < T
+    (1, 77, 130, 8, 1, 256, torch.bfloat16),       # ragged, MQA, hd 256
+    (1, 90, 130, 4, 2, 32, torch.float32),
+    (2, 64, 33, 4, 4, 16, torch.float32),
+])
+def test_flash_attention_unmasked_s_ne_t_matches_plain(dev, b, t, s, h, kv,
+                                                       hd, dtype):
+    """Kernel 10 non-causal with S != T (cross-attention) and S == T (the
+    encoder), forward and backward, against the plain versions at the
+    tolerances of the causal cases above."""
+    gen = torch.Generator(device=dev).manual_seed(t + s)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, t, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd), (b, t, h, hd)))
+    leaves = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    before = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_bwd_cuda.launches)
+    out = ops.flash_attention(*leaves, causal=False)
+    out.backward(do)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want, lse = fa.flash_attention_plain(q, k, v, causal=False,
+                                         return_lse=True)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, out.detach(), do, lse,
+                                              causal=False)
+    assert out.dtype == dtype and leaves[1].grad.shape == (b, s, kv, hd)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.all((out.float() - want.float()).abs()
+                         <= 2 * _bf16_row_ulp(want))
+    for got, w in zip((z.grad for z in leaves), want_grads):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+        else:
+            tol = 2 * _bf16_row_ulp(w) + 2.0 ** -20 * w.float().abs().max()
+            assert torch.all((got.float() - w.float()).abs() <= tol)
+
+
+def _smoke_on_card_and_cpu(arch, dev, **overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.transformer import tree_map
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
+    model = LanguageModel(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    return model, cpu, tree_map(lambda p: p.to(dev), cpu)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2"])
+def test_xlstm_and_enc_dec_smoke_on_the_card_match_cpu(dev, arch):
+    """The smoke xLSTM and enc-dec models (float32, the enc-dec's flash
+    branch lowered so kernel 10 runs non-causal and S != T) on the card
+    against the same params on the CPU: loss and hidden states at rtol
+    1e-4 (cuBLAS and the CPU sum in other orders, over 4 layers and the
+    chunked mLSTM), a prefill and three decode steps, and the engine's
+    greedy tokens."""
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    lowered = ({"flash_threshold": 8, "chunk_q": 8}
+               if arch.startswith("seamless") else {})
+    model, cpu, card = _smoke_on_card_and_cpu(arch, dev, **lowered)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 25), generator=gen)
+    batch = {"tokens": tokens}
+    if cfg.num_encoder_layers:
+        batch["enc_feats"] = torch.randn((2, 16, 1024), generator=gen)
+    before = fa.flash_attention_cuda.launches
+    results = []
+    for params, d in ((card, dev), (cpu, torch.device("cpu"))):
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, _ = model.loss(params, b)
+        kvs = (model.enc_kvs(params, model.encode(params, b["enc_feats"]))
+               if cfg.num_encoder_layers else None)
+        caches, h = model.prefill(params, b["tokens"][:, :16], 32,
+                                  enc_kvs=kvs)
+        hs = [h]
+        for i in range(3):
+            pos = torch.full((2,), 16 + i, dtype=torch.int32, device=d)
+            caches, h = model.decode_step(params, caches,
+                                          b["tokens"][:, 16 + i], pos,
+                                          enc_kvs=kvs)
+            hs.append(h)
+        results.append((loss, hs))
+    if cfg.num_encoder_layers:
+        assert fa.flash_attention_cuda.launches > before
+    (loss, hs), (closs, chs) = results
+    torch.testing.assert_close(loss.cpu(), closs, rtol=1e-4, atol=1e-6)
+    for h, ch in zip(hs, chs):
+        torch.testing.assert_close(h.cpu(), ch, rtol=1e-4,
+                                   atol=1e-4 * float(ch.abs().max()))
+    feats = ({"enc_feats": batch["enc_feats"][0].numpy()}
+             if cfg.num_encoder_layers else {})
+    toks = []
+    for params in (card, cpu):
+        eng = ServingEngine(model, params, ServeConfig(
+            max_len=48, num_slots=2, max_new_tokens=5))
+        for n in (9, 3, 16):
+            eng.submit(Request(prompt=tokens[0, :n].tolist(), **feats))
+        toks.append([r.tokens for r in eng.run()])
+    assert toks[0] == toks[1]

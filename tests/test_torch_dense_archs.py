@@ -83,8 +83,8 @@ def test_shape_applicability_equals_jax(jax_lm, arch):
 
 
 def test_unported_archs_still_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_config("xlstm-350m")
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("xlstm-1b")
 
 
 @pytest.fixture(scope="module", params=ARCHS)

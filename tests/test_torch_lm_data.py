@@ -72,8 +72,14 @@ def test_hosts_carve_disjoint_slices():
     assert not torch.equal(a.batch_at(0)["tokens"], b.batch_at(0)["tokens"])
     with pytest.raises(ValueError, match="split"):
         SyntheticLMStream(cfg, host_count=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SyntheticLMStream(LMDataConfig(V, 8, 8, enc_feats_dim=4), device="cpu")
+    feats = dict(enc_feats_dim=4, enc_len=3, prefix_feats_dim=5, prefix_len=2)
+    fa, fb = (SyntheticLMStream(LMDataConfig(V, 8, 8, **feats), host_index=i,
+                                host_count=2, device="cpu").batch_at(0)
+              for i in (0, 1))
+    assert fa["enc_feats"].shape == (4, 3, 4)
+    assert fa["prefix_feats"].shape == (4, 2, 5)
+    assert fa["enc_feats"].dtype == fa["prefix_feats"].dtype == torch.float32
+    assert not torch.equal(fa["enc_feats"], fb["enc_feats"])
 
 
 def test_straggler_monitor_matches_jax():

@@ -167,8 +167,8 @@ def test_submit_and_config_validation(served):
     with pytest.raises(ValueError, match="lockstep"):
         ServingEngine(model, params, ServeConfig(scheduler="lockstep",
                                                  page_size=16))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("xlstm-350m")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("xlstm-1b")
 
 
 def test_sampling_determinism_and_fresh_streams(served):

@@ -48,8 +48,8 @@ def _is_repro(name: str) -> bool:
 @contextlib.contextmanager
 def jax_reference():
     """Yield a namespace of the JAX package's LM modules (configs,
-    models, layers, recurrent, attention, transformer, model, serving,
-    engine), importable only inside the block."""
+    models, layers, recurrent, attention, transformer, xlstm, frontends,
+    model, serving, engine), importable only inside the block."""
     modules_before = set(sys.modules)
     attrs_before = {name: set(vars(mod)) for name, mod in sys.modules.items()
                     if _is_repro(name) and mod is not None}
@@ -59,6 +59,8 @@ def jax_reference():
         for name in PACKAGES + ("repro.models.layers", "repro.models.recurrent",
                                 "repro.models.attention",
                                 "repro.models.transformer",
+                                "repro.models.xlstm",
+                                "repro.models.frontends",
                                 "repro.models.model", "repro.serving.engine"):
             setattr(ns, name.rsplit(".", 1)[1], importlib.import_module(name))
         yield ns
