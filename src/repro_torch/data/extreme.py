@@ -12,8 +12,9 @@ packages the same numpy batches where numbers must agree).
   carries them plus Zipf-popular background features (value ~
   noise·U[0,1]), L2 normalized, as CSR ``SparseBatch``es.
 
-Sample batches are pure functions of (seed, split, step); class
-frequencies are Zipf.
+Sample batches are pure functions of (seed, split, step), on every
+device (categorical draws by inverse transform on a host-summed CDF,
+not ``torch.multinomial``); class frequencies are Zipf.
 """
 
 from __future__ import annotations
@@ -36,9 +37,29 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
 
 
 def _zipf(n: int, a: float, device: torch.device) -> torch.Tensor:
+    """The cumulative distribution of a Zipf(a) law over n ranks, for
+    ``_draw``."""
     ranks = np.arange(1, n + 1, dtype=np.float64)
-    w = ranks ** (-a)
-    return torch.as_tensor(w / w.sum(), dtype=torch.float32, device=device)
+    return _cdf(ranks ** (-a), device)
+
+
+def _cdf(weights: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Inclusive prefix sums of ``weights`` / their total, float64,
+    summed on the host (a CUDA prefix sum can round differently from run
+    to run)."""
+    c = np.cumsum(weights / weights.sum())
+    return torch.as_tensor(c, dtype=torch.float64, device=device)
+
+
+def _draw(cdf: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
+    """``n`` int64 draws with replacement from the distribution ``cdf``
+    (``_cdf``'s), by inverse transform: a pure function of ``gen`` on
+    every device.  (``torch.multinomial`` on a CUDA tensor is not: its
+    device prefix sum rounds differently from run to run, and a draw
+    near an edge moves.)"""
+    u = torch.rand(n, generator=gen, device=cdf.device, dtype=torch.float64)
+    return torch.searchsorted(cdf, u * cdf[-1], right=True).clamp_(
+        max=cdf.numel() - 1)
 
 
 def _split_id(split: str) -> int:
@@ -92,13 +113,12 @@ class ExtremeDataset:
         mu = torch.randn((cfg.num_classes, cfg.dim), generator=gen,
                          device=self.device)
         self.centroids = mu / torch.linalg.norm(mu, dim=1, keepdim=True)
-        self.class_probs = (_zipf(cfg.num_classes, cfg.zipf_a, self.device)
-                            if cfg.zipf_a > 0 else None)
+        self.class_cdf = (_zipf(cfg.num_classes, cfg.zipf_a, self.device)
+                          if cfg.zipf_a > 0 else None)
 
     def _labels(self, gen: torch.Generator, batch_size: int) -> torch.Tensor:
-        if self.class_probs is not None:
-            return torch.multinomial(self.class_probs, batch_size,
-                                     replacement=True, generator=gen)
+        if self.class_cdf is not None:
+            return _draw(self.class_cdf, batch_size, gen)
         return torch.randint(0, self.cfg.num_classes, (batch_size,),
                              generator=gen, device=self.device)
 
@@ -162,10 +182,14 @@ class SparseExtremeDataset:
         self.signatures = torch.randint(
             0, cfg.num_features, (cfg.num_classes, cfg.sig_features),
             generator=gen, device=self.device)
-        self.class_probs = (_zipf(cfg.num_classes, cfg.zipf_a, self.device)
-                            if cfg.zipf_a > 0 else None)
-        self.feature_probs = _zipf(cfg.num_features,
-                                   max(cfg.feature_zipf_a, 0.0), self.device)
+        self.class_cdf = (_zipf(cfg.num_classes, cfg.zipf_a, self.device)
+                          if cfg.zipf_a > 0 else None)
+        self.feature_cdf = _zipf(cfg.num_features,
+                                 max(cfg.feature_zipf_a, 0.0), self.device)
+        n_bg = cfg.nnz - cfg.sig_features
+        self.length_cdf = (_cdf((1.0 + np.arange(n_bg + 1)) **
+                                (-cfg.length_zipf_a), self.device)
+                           if cfg.length_zipf_a > 0 else None)
 
     def batch_at(self, step: int, batch_size: int, split: str = "train",
                  format: str = "csr"):
@@ -176,9 +200,8 @@ class SparseExtremeDataset:
         cfg = self.cfg
         dev = self.device
         gen = _generator(dev, cfg.seed, 3, _split_id(split), step)
-        if self.class_probs is not None:
-            y = torch.multinomial(self.class_probs, batch_size,
-                                  replacement=True, generator=gen)
+        if self.class_cdf is not None:
+            y = _draw(self.class_cdf, batch_size, gen)
         else:
             y = torch.randint(0, cfg.num_classes, (batch_size,),
                               generator=gen, device=dev)
@@ -186,17 +209,13 @@ class SparseExtremeDataset:
         ids = self.signatures[y]                                  # (B, sig)
         vals = torch.ones((batch_size, cfg.sig_features), device=dev)
         if n_bg:
-            bg_ids = torch.multinomial(self.feature_probs, batch_size * n_bg,
-                                       replacement=True, generator=gen)
+            bg_ids = _draw(self.feature_cdf, batch_size * n_bg, gen)
             bg_vals = cfg.noise * torch.rand((batch_size, n_bg),
                                              generator=gen, device=dev)
             ids = torch.cat([ids, bg_ids.reshape(batch_size, n_bg)], dim=1)
             vals = torch.cat([vals, bg_vals], dim=1)
-        if cfg.length_zipf_a > 0:
-            t = torch.arange(n_bg + 1, dtype=torch.float32, device=dev)
-            extra = torch.multinomial(
-                torch.softmax(-cfg.length_zipf_a * torch.log1p(t), dim=0),
-                batch_size, replacement=True, generator=gen)
+        if self.length_cdf is not None:
+            extra = _draw(self.length_cdf, batch_size, gen)
             keep = cfg.sig_features + extra                       # (B,)
             mask = torch.arange(cfg.nnz, device=dev)[None, :] < keep[:, None]
             vals = torch.where(mask, vals, 0.0)

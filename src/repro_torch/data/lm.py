@@ -1,7 +1,8 @@
 """Deterministic synthetic LM data (the JAX package's ``data/lm.py``).
 
-The batch at step s is a pure function of (seed, step, host index): a
-restarted job resumes at step s and sees exactly the rest of the stream.
+The batch at step s is a pure function of (seed, step, host index), on
+every device: a restarted job resumes at step s and sees exactly the
+rest of the stream.
 Tokens are Zipf draws with a planted bigram — token t is followed by
 (t·31 + 7) mod V with probability ``bigram_p`` — so the loss of a model
 that learns falls.  Draws come from a ``torch.Generator`` on the chosen
@@ -22,7 +23,7 @@ from typing import Iterator
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.data.extreme import _generator, _zipf
+from repro_torch.data.extreme import _draw, _generator, _zipf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,14 +59,13 @@ class SyntheticLMStream:
         self.host_count = host_count
         self.local_batch = cfg.global_batch // host_count
         self.device = resolve_device(device)
-        self._probs = _zipf(cfg.vocab_size, cfg.zipf_a, self.device)
+        self._cdf = _zipf(cfg.vocab_size, cfg.zipf_a, self.device)
 
     def batch_at(self, step: int) -> dict:
         cfg = self.cfg
         gen = _generator(self.device, cfg.seed, step, self.host_index)
         b, l = self.local_batch, cfg.seq_len
-        base = torch.multinomial(self._probs, b * (l + 1), replacement=True,
-                                 generator=gen).reshape(b, l + 1)
+        base = _draw(self._cdf, b * (l + 1), gen).reshape(b, l + 1)
         # plant bigram structure: with prob p, token[i+1] = f(token[i])
         follow = (base[:, :-1] * 31 + 7) % cfg.vocab_size
         use = torch.rand(follow.shape, generator=gen,

@@ -116,25 +116,36 @@ class Trainer:
         ``cuda``) and a fresh optimizer state."""
         return new_train_state(self.model.init(generator, device), self.opt)
 
-    def fit(self, state: TrainState, stream, num_steps: int, monitor=None,
-            log=print) -> TrainState:
-        """``num_steps`` steps on ``stream.batch_at(step)``; ``monitor``
-        (a ``StragglerMonitor``) gets each step's time, synchronized."""
+    def fit(self, state: TrainState, stream, num_steps: int, manager=None,
+            monitor=None, log=print) -> TrainState:
+        """``num_steps`` steps on ``stream.batch_at(step)``.  ``monitor``
+        (a ``StragglerMonitor``) gets each step's time, synchronized;
+        ``manager`` (a ``CheckpointManager``) a non-blocking save every
+        ``checkpoint_every`` steps and a blocking one at the end (which
+        takes the place of a periodic save at the last step)."""
         start = state.step
-        for s in range(start, start + num_steps):
+        end = start + num_steps
+        for s in range(start, end):
             t0 = time.perf_counter()
             batch = self._with_bucket_proxy(state, stream.batch_at(s), s)
             state, metrics = self.step_fn(state, batch)
+            slow = False
             if monitor is not None:
                 leaf = tree_leaves(state.params)[0]
                 if leaf.device.type == "cuda":
                     torch.cuda.synchronize(leaf.device)
-                monitor.record(s, time.perf_counter() - t0)
+                slow = monitor.record(s, time.perf_counter() - t0)
+            if (manager is not None and s + 1 < end
+                    and (s + 1) % self.tcfg.checkpoint_every == 0):
+                manager.save(s + 1, state, blocking=False)
             if (s + 1) % self.tcfg.log_every == 0 and log:
                 moe = "".join(f"{k}={float(metrics[k]):.4f} "
                               for k in ("load_balance", "router_z")
                               if k in metrics)
                 log(f"step {s+1}: loss={float(metrics['loss']):.4f} {moe}"
                     f"gnorm={float(metrics['grad_norm']):.3f} "
-                    f"lr={float(metrics['lr']):.2e}")
+                    f"lr={float(metrics['lr']):.2e}"
+                    f"{'  [straggler]' if slow else ''}")
+        if manager is not None:
+            manager.save(end, state, blocking=True)
         return state

@@ -95,8 +95,9 @@ def test_three_trainer_steps_match(jax_lm, name):
     assert off <= (1e-4 * total if name.startswith("adamw") else 0), off
 
 
-def test_launch_train_runs_on_the_cpu(capsys):
+def test_launch_train_runs_on_the_cpu(capsys, tmp_path):
     assert launch_train.main(["--device", "cpu", "--steps", "2",
-                              "--seq-len", "16", "--global-batch", "2"]) == 0
+                              "--seq-len", "16", "--global-batch", "2",
+                              "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "step 2: loss=" in out and "finished at step 2 on cpu" in out
