@@ -6,9 +6,10 @@ MACH head, through the slot engine; the dense decoders and the MoE
 decoder qwen2-moe-a2.7b through the paged and lockstep engines; the
 xLSTM, enc-dec and vision models xlstm-350m, seamless-m4t-large-v2 and
 paligemma-3b) and language-model training (recurrentgemma-2b through the
-trainer; a cut of qwen2-moe-a2.7b; the three others at full width) and
+trainer; a cut of qwen2-moe-a2.7b; the three others at full width),
 checkpoint-restart (ODP and tinyllama-1.1b resumed at full width, the
-training and serving examples) on one NVIDIA GPU.
+training and serving examples) and the sharded trainer on a mesh
+(tinyllama-1.1b at full width, an NCCL world of one) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -374,10 +375,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    (20 then 40 steps: the second run resumes at 20; kernel 3) and
    ``examples/serve_lm.py`` (kernels 2 and 9).  Each kernel named must
    have run in its part.
-17. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
+17. Multi-device on an NCCL world of one (a ``FileStore`` in a temporary
+   directory), a (1, 1) ``("data", "model")`` mesh, the FSDP rules:
+   kernel 10 held to plain and timed at tinyllama-1.1b's training shape
+   (2 x 4,096, 32 / 4 heads of 64, causal, bf16, forward and backward);
+   tinyllama-1.1b with the MACH head (B=2,048, R=8; kernel 3) at full
+   width, bf16 params and float32 moments, 2 x 4,096 tokens, 4 AdamW
+   steps through the unsharded ``Trainer``, then, launch counters from
+   0, through ``Trainer(mesh=)`` (the state ``DTensor``s) from the same
+   seed: losses, params and moments bit for bit, kernels 3 and 10
+   launched, ms a step and peak memory both ways.  The sharded state
+   saved (gathered, rank 0 writes) and restored unsharded, the unsharded
+   one restored onto the mesh, both bit for bit, with their times.  Then
+   ``torchrun --standalone --nproc_per_node=1 -m
+   repro_torch.launch.train --local-mesh --full --seq-len 4096
+   --global-batch 2 --steps 3`` with ``--ckpt-dir`` in the temporary
+   directory (rc 0; ``--local-mesh`` is ``--local``),
+   and ``topk_compress`` / ``quantize_8bit`` on the card equal to the
+   CPU, bit for bit.
+18. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
    launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's,
    rows 1, 2, 3 and 10 on phase 15's and kernel 10's new modes, rows 2,
-   3, 5, 6, 9 and 10 on phase 16's), then the device line, last.
+   3, 5, 6, 9 and 10 on phase 16's, rows 3 and 10 on phase 17's), then
+   the device line, last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -5171,19 +5191,22 @@ VLM_PROMPTS = (1792, 5, 77, 300, 1000, 17, 1792, 40)
 OTHER_TRAIN_STEPS = 3
 ENC_TRAIN_FRAMES = 1024      # launch/train.py's seq_len // 4 at 4,096
 # (arch, mach, batch, text tokens a row, every loss and gradient norm
-# held finite): seamless and paligemma at 4,096 positions a row; xlstm
-# cut in sequence (its sLSTM runs T eager steps a layer, forward, again
-# under remat, and backward) to 1,024 and to XLSTM_FINITE_T.  At random
-# init the sLSTM's gradients through time overflow (the JAX package's
-# too, ROADMAP.md §3): at 1,024 tokens the gradient norm is non-finite
-# from the first step, so only its first loss is held and its later
-# steps run on non-finite parameters; at XLSTM_FINITE_T every loss and
-# gradient norm is held, the 24-layer backward checked on the card.
+# held finite, steps): seamless and paligemma at 4,096 positions a row;
+# xlstm cut in sequence (its sLSTM runs T eager steps a layer, forward,
+# again under remat, and backward) to 1,024 and to XLSTM_FINITE_T.  At
+# random init the sLSTM's gradients through time overflow (the JAX
+# package's too, ROADMAP.md §3): at 1,024 tokens the gradient norm is
+# non-finite from the first step, so only its first loss is held and its
+# second step (~35 s) runs on non-finite parameters, timed; at
+# XLSTM_FINITE_T every loss and gradient norm is held, the 24-layer
+# backward checked on the card.
 XLSTM_FINITE_T = 64
-OTHER_TRAIN = [(ENCDEC_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ, True),
-               (VLM_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ - 256, True),
-               (XLSTM_ARCH, "on", TRAIN_BATCH, 1024, False),
-               (XLSTM_ARCH, "on", TRAIN_BATCH, XLSTM_FINITE_T, True)]
+OTHER_TRAIN = [
+    (ENCDEC_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ, True, OTHER_TRAIN_STEPS),
+    (VLM_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ - 256, True,
+     OTHER_TRAIN_STEPS),
+    (XLSTM_ARCH, "on", TRAIN_BATCH, 1024, False, 2),
+    (XLSTM_ARCH, "on", TRAIN_BATCH, XLSTM_FINITE_T, True, OTHER_TRAIN_STEPS)]
 OTHER_KERNELS = ("mach_decode", "mach_topk", "mach_xent_fwd", "mach_xent_bwd",
                  "flash_attention", "flash_attention_bwd")
 # xLSTM blocks at full width in float32: step form against the prefill
@@ -5443,9 +5466,9 @@ def _xlstm_blocks_check(dev, served) -> dict:
     return out
 
 
-def _other_train(dev, arch, mach, batch, seq, hold_all, smi) -> dict:
-    """``arch`` at full width and depth (bf16, remat) trained
-    OTHER_TRAIN_STEPS AdamW steps through ``Trainer.step_fn`` on
+def _other_train(dev, arch, mach, batch, seq, hold_all, steps, smi) -> dict:
+    """``arch`` at full width and depth (bf16, remat) trained ``steps``
+    AdamW steps through ``Trainer.step_fn`` on
     SyntheticLMStream batches of ``batch`` x ``seq`` tokens (enc-dec:
     ENC_TRAIN_FRAMES frames a row; vision: 256 patches a row): kernel 3
     forward and backward once a step, kernel 10 twice forward (remat) and
@@ -5478,7 +5501,7 @@ def _other_train(dev, arch, mach, batch, seq, hold_all, smi) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms, losses, norms = [], [], []
-    for s in range(OTHER_TRAIN_STEPS):
+    for s in range(steps):
         b = stream.batch_at(s)
         t1 = time.perf_counter()
         state, met = trainer.step_fn(state, b)
@@ -5497,7 +5520,7 @@ def _other_train(dev, arch, mach, batch, seq, hold_all, smi) -> dict:
     expected = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
                 "flash_attention": 2 * n_flash, "flash_attention_bwd": n_flash}
     for name, per_step in expected.items():
-        if launches[name] != per_step * OTHER_TRAIN_STEPS:
+        if launches[name] != per_step * steps:
             fail(f"other train {arch}: {name} launched {launches[name]} "
                  f"times, expected {per_step} a step")
     held = losses + norms if hold_all else losses[:1]
@@ -5526,7 +5549,7 @@ def _other_train(dev, arch, mach, batch, seq, hold_all, smi) -> dict:
           f", AdamW: losses {losses}, gradient norms {norms}; launches "
           f"{launches} (a step: "
           f"{expected}); {ms:.3f} ms/step (host clock, median of steps 2.."
-          f"{OTHER_TRAIN_STEPS}; the first {step_ms[0]:.3f} ms), "
+          f"{steps}; the first {step_ms[0]:.3f} ms), "
           f"{batch * seq / ms * 1e3:.1f} text tokens/s "
           f"({positions / ms * 1e3:.1f} positions/s), peak {peak_gib:.2f} GiB"
           f"{cut} [{smi}]", flush=True)
@@ -5602,8 +5625,8 @@ def phase_other_archs(dev) -> dict:
         torch.cuda.empty_cache()
     out["train"] = {
         f"{arch} x {seq}": _other_train(dev, arch, mach, batch, seq,
-                                        hold_all, smi)
-        for arch, mach, batch, seq, hold_all in OTHER_TRAIN}
+                                        hold_all, steps, smi)
+        for arch, mach, batch, seq, hold_all, steps in OTHER_TRAIN}
     launches = {n: fn.launches for n, fn in launchers.items()}
     if min(launches.values()) < 1:
         fail(f"other archs: a kernel of the path never ran: {launches}")
@@ -6070,6 +6093,307 @@ def _add_checkpoint_launches(rows, ckpt) -> None:
             row["launches_checkpoint"] = ckpt["launches"][row["name"]]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-device — the sharded trainer on an NCCL world of one
+# ---------------------------------------------------------------------------
+
+MD_ARCH = "tinyllama-1.1b"
+MD_SEQ, MD_BATCH, MD_STEPS = 4096, 2, 4
+MD_LAUNCH_STEPS = 3
+# kernel 10 held to plain and timed at the path's shape: tinyllama's
+# 32 / 4 heads of 64, causal, 2 x 4,096, forward and backward
+MD_FLASH = [("tinyllama train", MD_BATCH, MD_SEQ, MD_SEQ, 32, 4, 64, True,
+             True, torch.bfloat16)]
+MD_KERNELS = ("mach_xent_fwd", "mach_xent_bwd", "flash_attention",
+              "flash_attention_bwd")
+
+
+def _md_launchers() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_xent as mx
+    return {"mach_xent_fwd": mx.mach_xent_cuda_fwd,
+            "mach_xent_bwd": mx.mach_xent_cuda_bwd,
+            "flash_attention": fa.flash_attention_cuda,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+
+
+def _md_train(label, trainer, stream, dev, smi):
+    """MD_STEPS steps from seed 0's state: (the state, losses, gradient
+    norms, ms a step (host clock, synchronized), the steps' peak GiB and
+    the init's)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, step_ms = [], [], []
+    for s in range(MD_STEPS):
+        batch = stream.batch_at(s)
+        t1 = time.perf_counter()
+        state, met = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = statistics.median(step_ms[1:])
+    print(f"multidevice: {label}: losses {losses}, gradient norms {norms}; "
+          f"{ms:.3f} ms/step (host clock, median of steps 2..{MD_STEPS}; "
+          f"the first {step_ms[0]:.3f} ms), "
+          f"{MD_BATCH * MD_SEQ / ms * 1e3:.1f} tokens/s, peak {peak:.2f} GiB "
+          f"in the steps ({init_peak:.2f} GiB drawing and placing the "
+          f"state) [{smi}]", flush=True)
+    if not all(math.isfinite(v) for v in losses + norms):
+        fail(f"multidevice {label}: losses {losses}, gradient norms {norms}")
+    return state, {"losses": losses, "grad_norms": norms, "step_ms": ms,
+                   "step_ms_all": step_ms, "peak_gib": peak,
+                   "init_peak_gib": init_peak}
+
+
+def _md_host(state):
+    """``state`` gathered whole and copied to the host."""
+    from repro_torch.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.sharding import gather
+    return tree_unflatten(state, [
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for _, x in tree_flatten(gather(state))])
+
+
+def _md_diffs(state, host) -> dict:
+    """Per tree (params, mu, nu, ...): the largest |state - host| over the
+    leaves whose bits differ, leaf by leaf on the card ({} if none)."""
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.sharding import gather
+    out = {}
+    for (path, x), (_, y) in zip(tree_flatten(gather(state)),
+                                 tree_flatten(host)):
+        tree = path.split("[")[0]
+        if isinstance(x, torch.Tensor):
+            diff = _leaf_diffs({"x": x}, {"x": y.to(x.device)})
+        else:
+            diff = [] if x == y else [(path, float("nan"), 0.0)]
+        if diff:
+            out[tree] = max(out.get(tree, 0.0), diff[0][1])
+    return out
+
+
+def _md_compression(dev) -> dict:
+    """``topk_compress`` (two rounds of error feedback) and
+    ``quantize_8bit`` on the card against the same calls on a CPU copy,
+    bit for bit, on a tinyllama-sized MLP gradient with ties at its
+    top-k threshold and an all-zero leaf."""
+    from repro_torch.optim import (dequantize_8bit, init_error_feedback,
+                                   quantize_8bit, topk_compress)
+    from repro_torch.optim.optimizers import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g = {"wi": torch.randn((2048, 5632), generator=gen, device=dev),
+         "b": torch.randn((5632,), generator=gen, device=dev).to(
+             torch.bfloat16),
+         "zero": torch.zeros((64, 64), device=dev)}
+    g["wi"].view(-1)[:4096:7] = 9.5                   # tied largest values
+    cpu = {k: v.cpu() for k, v in g.items()}
+    results = {}
+    for where, tree in (("cuda", g), ("cpu", cpu)):
+        ef, rounds = init_error_feedback(tree), []
+        for _ in range(2):
+            kept, ef = topk_compress(tree, ef, 0.01)
+            rounds.append((kept, ef.residual))
+        q = quantize_8bit(tree)
+        results[where] = (rounds, q, dequantize_8bit(q))
+    torch.cuda.synchronize()
+    checked = 0
+    for a, b in zip(tree_leaves(results["cuda"]), tree_leaves(results["cpu"])):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            fail(f"multidevice: gradient compression differs on the card "
+                 f"({a.dtype}, max {float((a.cpu().float() - b.float()).abs().max())})")
+        checked += 1
+    kept = results["cuda"][0][0][0]["wi"]
+    print(f"multidevice: topk_compress (2 rounds of error feedback, 1% of "
+          f"{kept.numel():,} kept: {int((kept != 0).sum()):,} with the ties) "
+          f"and quantize_8bit / dequantize_8bit on the card == on the CPU, "
+          f"{checked} tensors bit for bit", flush=True)
+    return {"tensors_equal": checked}
+
+
+def _md_entry_point(directory: str, smi: str) -> dict:
+    """``torchrun --standalone --nproc_per_node=1 -m
+    repro_torch.launch.train --local-mesh --full ...`` as a subprocess
+    (torchrun is ``python -m torch.distributed.run``; ``--local-mesh`` is
+    ``--local``, which torchrun's parser refuses under Python 3.12.3 as
+    an abbreviation of its ``--local-addr``); its output printed here."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "repro_torch.launch.train",
+           "--local-mesh", "--full", "--seq-len", str(MD_SEQ), "--global-batch",
+           str(MD_BATCH), "--steps", str(MD_LAUNCH_STEPS), "--ckpt-dir",
+           directory]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in (res.stdout.strip().splitlines()
+                 + res.stderr.strip().splitlines()[-5:]):
+        print(f"  | {line}", flush=True)
+    print(f"multidevice: torchrun --standalone --nproc_per_node=1 -m "
+          f"repro_torch.launch.train --local-mesh --full --seq-len {MD_SEQ} "
+          f"--global-batch {MD_BATCH} --steps {MD_LAUNCH_STEPS} --ckpt-dir "
+          f"...: rc {res.returncode} in {seconds:.1f} s [{smi}]", flush=True)
+    if res.returncode != 0:
+        fail(f"multidevice: the torchrun entry point returned "
+             f"{res.returncode}")
+    if (f"finished at step {MD_LAUNCH_STEPS} on cuda:0 x 1, mesh (1, 1)"
+            not in res.stdout):
+        fail("multidevice: the torchrun entry point did not finish its "
+             "steps on a (1, 1) mesh")
+    return {"rc": res.returncode, "seconds": seconds}
+
+
+def phase_multidevice(dev) -> dict:
+    """The sharded trainer on an NCCL world of one (a ``FileStore`` in a
+    temporary directory) and a (1, 1) ``("data", "model")`` mesh with the
+    FSDP rules: tinyllama-1.1b (MACH head) at full width, 2 x 4,096
+    tokens, MD_STEPS steps through the unsharded ``Trainer`` and then,
+    launch counters from 0, through ``Trainer(mesh=)`` from the same seed:
+    losses, params and moments bit for bit, kernels 3 and 10 launched;
+    ms a step and peak both ways.  Kernel 10 held to plain at the path's
+    shape first (not counted).  The sharded state saved and restored
+    unsharded, the unsharded one restored sharded, bit for bit; then the
+    torchrun entry point, and gradient compression on the card against
+    the CPU."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    smi = _nvidia_smi()
+    out = {"flash": _flash_times(dev, smi, MD_FLASH)}
+    torch.cuda.empty_cache()
+    cfg = get_config(MD_ARCH, mach="on")
+    tcfg = launch_train.train_config(MD_STEPS, 3e-4)
+    model = LanguageModel(cfg)
+    stream = launch_train.data_stream(cfg, MD_SEQ, MD_BATCH, 0, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        dist.init_process_group("nccl", init_method=f"file://{root}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            rules = ShardingRules(fsdp=True, sp=False)
+            print(f"multidevice: {MD_ARCH} (MACH B={cfg.mach.num_buckets} "
+                  f"R={cfg.mach.num_repetitions}, {cfg.num_layers} layers, "
+                  f"{cfg.param_dtype} params, float32 moments, "
+                  f"remat={cfg.remat}), {MD_BATCH} x {MD_SEQ} tokens, "
+                  f"{MD_STEPS} AdamW steps (launch/train.py's train_config); "
+                  f"an NCCL world of {dist.get_world_size()}, mesh "
+                  f"{tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+                  f"ShardingRules(fsdp=True, sp=False)", flush=True)
+            state, out["unsharded"] = _md_train(
+                "unsharded Trainer", Trainer(model, tcfg), stream, dev, smi)
+            host = _md_host(state)
+            del state
+            launchers = _md_launchers()
+            for fn in launchers.values():
+                fn.launches = 0
+            sharded, out["sharded"] = _md_train(
+                "sharded Trainer(mesh=)", Trainer(model, tcfg, mesh=mesh,
+                                                  rules=rules),
+                stream, dev, smi)
+            out["launches"] = {n: fn.launches for n, fn in launchers.items()}
+            print(f"multidevice: launches on the sharded path "
+                  f"{out['launches']}", flush=True)
+            if min(out["launches"].values()) < 1:
+                fail(f"multidevice: a kernel of the path never ran: "
+                     f"{out['launches']}")
+            diffs = _md_diffs(sharded, host)
+            same = (not diffs and out["sharded"]["losses"]
+                    == out["unsharded"]["losses"])
+            out["same_bits"], out["diffs"] = same, diffs
+            print(f"multidevice: sharded vs unsharded after {MD_STEPS} "
+                  f"steps: losses "
+                  f"{'equal' if out['sharded']['losses'] == out['unsharded']['losses'] else 'differ'}"
+                  f", params and moments "
+                  f"{'the same bits' if not diffs else f'differ, largest by tree {diffs}'}",
+                  flush=True)
+            if not same:
+                fail(f"multidevice: at world size 1 the sharded step is not "
+                     f"the single-device step bit for bit ({diffs})")
+
+            need = 2.2 * sum(x.numel() * x.element_size()
+                             for x in _leaves(host.params)
+                             + _leaves(host.opt_state)
+                             if isinstance(x, torch.Tensor))
+            free = shutil.disk_usage(root).free
+            if free < need:
+                fail(f"multidevice: {free / 1e9:.1f} GB free under {root}, "
+                     f"the two checkpoints need {need / 1e9:.1f}")
+            mgr = CheckpointManager(os.path.join(root, "ckpt"), keep=2)
+            times = {}
+            t1 = time.perf_counter()
+            mgr.save(MD_STEPS, sharded)
+            times["save_sharded_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            restored, _ = mgr.restore(host, MD_STEPS, device=dev)
+            torch.cuda.synchronize()
+            times["restore_unsharded_s"] = time.perf_counter() - t1
+            back = _md_diffs(restored, host)
+            del restored
+            t1 = time.perf_counter()
+            mgr.save(MD_STEPS + 1, host)
+            times["save_unsharded_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            restored, _ = mgr.restore(sharded, MD_STEPS + 1)
+            torch.cuda.synchronize()
+            times["restore_sharded_s"] = time.perf_counter() - t1
+            forth = _md_diffs(restored, host)
+            placed = all(type(x).__name__ == "DTensor"
+                         for x in _leaves(restored.params))
+            del restored, sharded
+            out["checkpoint"] = dict(times, sharded_to_unsharded=back,
+                                     unsharded_to_sharded=forth)
+            print(f"multidevice: checkpoint sharded -> unsharded "
+                  f"{'bit for bit' if not back else back}, unsharded -> "
+                  f"sharded {'bit for bit' if not forth else forth} "
+                  f"(restored as DTensors: {placed}); "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f" [{smi}]", flush=True)
+            if back or forth or not placed:
+                fail(f"multidevice: a checkpoint did not restore across "
+                     f"meshes bit for bit ({back}, {forth}, {placed})")
+        finally:
+            dist.destroy_process_group()
+        del host
+        torch.cuda.empty_cache()
+        out["entry_point"] = _md_entry_point(os.path.join(root, "launch"),
+                                             smi)
+    out["compression"] = _md_compression(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"multidevice: phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _add_multidevice_launches(rows, md) -> None:
+    """Rows 3 and 10 gain their launches on phase 17's sharded path; row
+    10 its check and times at that path's shape."""
+    for row in rows:
+        if row["name"] in md["launches"]:
+            row["launches_multidevice"] = md["launches"][row["name"]]
+        if row["name"] == "flash_attention":
+            row["multidevice_shape"] = md["flash"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6209,6 +6533,10 @@ def main() -> int:
     ckpt = phase_checkpoint(dev)
     print(f"checkpoint: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_checkpoint_launches(rows, ckpt)
+    t0 = time.perf_counter()
+    md = phase_multidevice(dev)
+    print(f"multidevice: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    _add_multidevice_launches(rows, md)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 asynchronous, in the JAX package's on-disk format."""
 
 from repro_torch.checkpoint.manager import (CheckpointManager, tree_flatten,
-                                            tree_unflatten)
+                                            tree_paths, tree_unflatten)
 
-__all__ = ["CheckpointManager", "tree_flatten", "tree_unflatten"]
+__all__ = ["CheckpointManager", "tree_flatten", "tree_paths",
+           "tree_unflatten"]

@@ -36,6 +36,15 @@ Guarantees (the JAX package's):
   (save on ``cuda``, restore on ``cpu``, and back); without it, each
   leaf goes to its template leaf's device.  Either way a leaf takes its
   template leaf's dtype.
+* **Meshes** — a state of ``DTensor``s (a sharded ``Trainer``'s) is
+  saved whole, in the same format: every rank of the default process
+  group gathers each leaf, rank 0 writes, and all meet at a barrier
+  (after a non-blocking save, at the next ``wait()``).  So a sharded
+  checkpoint restores unsharded, and into the JAX package.  ``restore``
+  places each leaf like its template leaf (a ``DTensor`` template on
+  the template's mesh and placements), or by ``shardings=`` (a tree of
+  ``sharding.NamedSharding``s shaped like the template, or one for
+  every leaf) onto another mesh; every rank reads the files.
 
 CUDA leaves are copied into page-locked host buffers that the next save
 reuses.  Each leaf is written to and read from its zip entry in one
@@ -58,26 +67,35 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _BF16 = "bfloat16"
 _VOID2 = np.dtype("V2")           # a bfloat16 leaf's bits on disk
 
 
-def tree_flatten(tree: Any, path: str = "") -> list[tuple[str, Any]]:
+def tree_paths(tree: Any) -> list[tuple[tuple[str, ...], Any]]:
     """(path, leaf) pairs of nested dicts / NamedTuples / lists / tuples,
-    in the JAX package's leaf order and ``keystr`` notation."""
+    in the JAX package's leaf order; a path is a tuple of components as
+    JAX's ``str`` of a key gives them (``['w']``, ``.mu``, ``[0]``)."""
     if isinstance(tree, dict):
-        return [pair for k in sorted(tree)
-                for pair in tree_flatten(tree[k], f"{path}[{k!r}]")]
+        return [((f"[{k!r}]",) + p, x) for k in sorted(tree)
+                for p, x in tree_paths(tree[k])]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [pair for f in tree._fields
-                for pair in tree_flatten(getattr(tree, f), f"{path}.{f}")]
+        return [((f".{f}",) + p, x) for f in tree._fields
+                for p, x in tree_paths(getattr(tree, f))]
     if isinstance(tree, (list, tuple)):
-        return [pair for i, v in enumerate(tree)
-                for pair in tree_flatten(v, f"{path}[{i}]")]
+        return [((f"[{i}]",) + p, x) for i, v in enumerate(tree)
+                for p, x in tree_paths(v)]
     if tree is None:
         return []
-    return [(path, tree)]
+    return [((), tree)]
+
+
+def tree_flatten(tree: Any) -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in the JAX package's leaf order and ``keystr``
+    notation (``.opt_state.mu['w']``)."""
+    return [("".join(p), x) for p, x in tree_paths(tree)]
 
 
 def tree_unflatten(template: Any, leaves) -> Any:
@@ -165,11 +183,22 @@ def _read_npz(path: str, count: int,
     return arrays
 
 
-def _leaf(arr: np.ndarray, dtype: str, template: Any, device) -> Any:
+def _leaf(arr: np.ndarray, dtype: str, template: Any, device,
+          keep_mesh: bool) -> Any:
+    """``arr`` as ``template``'s leaf: an int, or a tensor in its dtype on
+    ``device`` (else its own), a ``DTensor`` template's placed like it
+    if ``keep_mesh``."""
     if not isinstance(template, torch.Tensor):
         return type(template)(arr.item())
     t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
          if dtype == _BF16 else torch.from_numpy(arr))
+    if isinstance(template, DTensor):
+        t = t.to(device=device or template.to_local().device,
+                 dtype=template.dtype)
+        if keep_mesh:
+            t = distribute_tensor(t, template.device_mesh,
+                                  template.placements, src_data_rank=None)
+        return t
     return t.to(device=device or template.device, dtype=template.dtype)
 
 
@@ -184,13 +213,20 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
+        self._barrier = False       # a sharded save's ranks meet at wait()
         self._pinned: dict[int, torch.Tensor] = {}   # leaf index -> buffer
 
-    def _snapshot(self, leaves: list) -> list:
+    def _snapshot(self, leaves: list, keep: bool = True) -> list:
         """Host copies of ``leaves`` that nothing else references, as
-        numpy arrays; CUDA leaves through reused page-locked buffers."""
+        numpy arrays; CUDA leaves through reused page-locked buffers.  A
+        ``DTensor`` leaf is gathered first (every rank calls this);
+        without ``keep`` nothing is copied."""
         copies, devices = [], set()
         for i, x in enumerate(leaves):
+            if isinstance(x, DTensor):
+                x = x.full_tensor()
+            if not keep:
+                continue
             if isinstance(x, int):
                 copies.append(np.asarray(x, np.int32))
                 continue
@@ -218,7 +254,15 @@ class CheckpointManager:
         self.wait()
         pairs = tree_flatten(state)
         paths = [p for p, _ in pairs]
-        arrays = self._snapshot([x for _, x in pairs])
+        sharded = any(isinstance(x, DTensor) for _, x in pairs)
+        writer = not sharded or dist.get_rank() == 0
+        arrays = self._snapshot([x for _, x in pairs], keep=writer)
+        if sharded and not writer:
+            if blocking:
+                dist.barrier()
+            else:
+                self._barrier = True
+            return
 
         def _write():
             # retryable as a whole: the rename at the end is the
@@ -266,8 +310,14 @@ class CheckpointManager:
             _retry(_publish)
 
         if blocking:
-            _write_with_retry()
+            try:
+                _write_with_retry()
+            finally:
+                if sharded:
+                    dist.barrier()
         else:
+            self._barrier = sharded
+
             def _guarded():
                 try:
                     _write_with_retry()
@@ -283,6 +333,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise exc
@@ -325,11 +378,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, int]:
+                device=None, shardings: Any = None) -> tuple[Any, int]:
         """Restore into ``template``'s structure, each leaf in its
         template leaf's dtype, on ``device`` if given (else on its
-        template leaf's device).  Raises if the leaf count or a leaf's
-        shape differs from the template's."""
+        template leaf's device; a ``DTensor`` template leaf on its mesh
+        and placements), or placed by ``shardings``.  Raises if the leaf
+        count or a leaf's shape differs from the template's."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -356,6 +410,11 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint leaf {path}: arrays.npz holds "
                                  f"{arr.shape}, the manifest {tuple(shape)}")
         device = None if device is None else torch.device(device)
-        leaves = [_leaf(arr, dtype, t, device) for arr, dtype, (_, t)
-                  in zip(arrays, manifest["dtypes"], pairs)]
-        return tree_unflatten(template, leaves), step
+        leaves = [_leaf(arr, dtype, t, device, shardings is None)
+                  for arr, dtype, (_, t) in zip(arrays, manifest["dtypes"],
+                                               pairs)]
+        state = tree_unflatten(template, leaves)
+        if shardings is not None:
+            from repro_torch.sharding import place
+            state = place(state, shardings)
+        return state, step

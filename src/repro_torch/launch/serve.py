@@ -1,4 +1,5 @@
-"""Serving entry point — continuous-batching inference on one device.
+"""Serving entry point — continuous-batching inference on one device,
+or with ``--local`` on each rank of a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 6 --slots 4 --max-new 12
@@ -16,6 +17,11 @@ driver.
 ``--scheduler lockstep`` runs the chunked baseline (contiguous caches
 only); ``--page-size`` pages the linear KV caches (``--num-pages`` sizes
 the shared pool).
+
+``--local`` places the params on a mesh of the launched world
+(``launch/train.py``'s ``process_group``) by the JAX entry point's rules
+(``ShardingRules(fsdp=False, sp=False)``), and every rank's engine
+serves the same requests on the gathered params; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -28,18 +34,26 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.train import process_group
 from repro_torch.models import LanguageModel
 from repro_torch.models.frontends import AUDIO_FEATURE_DIM, VISION_FEATURE_DIM
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServingEngine)
 from repro_torch.serving.engine import SCHEDULERS
+from repro_torch.sharding import (ShardingRules, activate, gather,
+                                  params_shardings, place)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--local", "--local-mesh", action="store_true",
+                    help="params placed on a mesh of the launched world "
+                         "(--local-mesh: the spelling for torchrun's "
+                         "command line)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=6)
     # scheduler knobs (ServeConfig)
@@ -65,13 +79,33 @@ def main() -> int:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="shared KV page-pool size (0: derive "
                          "slots * ceil(max_len / page_size))")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    model = LanguageModel(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
-                        device=device)
+    model = LanguageModel(get_config(args.arch, smoke=args.smoke))
+    if not args.local:
+        return _serve(args, device, model, _params(args, model, device), print)
+    with process_group(device):
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_local_mesh(device=device)
+        rules = ShardingRules(fsdp=False, sp=False)
+        with activate(mesh, rules):
+            params = _params(args, model, device)
+            params = gather(place(params, params_shardings(
+                mesh, rules, model.param_axes(), params)))
+            return _serve(args, device, model, params,
+                          print if torch.distributed.get_rank() == 0
+                          else lambda *a: None)
+
+
+def _params(args, model, device) -> dict:
+    return model.init(torch.Generator(device=device).manual_seed(args.seed),
+                      device=device)
+
+
+def _serve(args, device, model, params, log) -> int:
+    cfg = model.cfg
     engine = ServingEngine(model, params,
                            ServeConfig(max_len=args.max_len,
                                        num_slots=args.slots,
@@ -103,16 +137,16 @@ def main() -> int:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     for r in outs:
-        print(f"request {r.request_id} ({r.finish_reason}, "
-              f"{r.latency_steps} ticks): {list(r.tokens)}")
+        log(f"request {r.request_id} ({r.finish_reason}, "
+            f"{r.latency_steps} ticks): {list(r.tokens)}")
     m = engine.metrics
-    print(f"{len(outs)} requests on {device}, "
-          f"{m.tokens_generated / dt:.1f} tok/s, "
-          f"{m.decode_steps} decode steps, occupancy {m.occupancy:.2f}")
+    log(f"{len(outs)} requests on {device}, "
+        f"{m.tokens_generated / dt:.1f} tok/s, "
+        f"{m.decode_steps} decode steps, occupancy {m.occupancy:.2f}")
     if args.page_size:
-        print(f"page pool: {m.num_pages} pages x {args.page_size} tokens, "
-              f"peak {m.pages_peak} reserved, "
-              f"{m.reservation_failures} reservation failures")
+        log(f"page pool: {m.num_pages} pages x {args.page_size} tokens, "
+            f"peak {m.pages_peak} reserved, "
+            f"{m.reservation_failures} reservation failures")
     return 0
 
 

@@ -50,6 +50,12 @@ def init_attention(generator, d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
+ATTENTION_AXES = {"q": layers.dense_axes("embed", ("heads", "qkv")),
+                  "k": layers.dense_axes("embed", ("kv_heads", "qkv")),
+                  "v": layers.dense_axes("embed", ("kv_heads", "qkv")),
+                  "o": {"kernel": ("heads", "qkv", "embed")}}
+
+
 def _group(q: torch.Tensor, num_kv: int) -> torch.Tensor:
     """(B, T, H, hd) -> (B, T, KV, G, hd)."""
     b, t, h, hd = q.shape

@@ -23,6 +23,9 @@ def init_adapter(generator, feature_dim: int, d_model: int, device) -> dict:
                                       device)}
 
 
+ADAPTER_AXES = {"proj": layers.dense_axes(None, ("embed",))}
+
+
 def apply_adapter(params: dict, feats: torch.Tensor, dtype) -> torch.Tensor:
     """(B, S, feature_dim) precomputed frontend features -> (B, S, d_model)
     in ``dtype``."""

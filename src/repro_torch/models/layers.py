@@ -4,6 +4,17 @@ Every ``init_*`` returns a params dict with the JAX package's keys and
 layouts (``repro/models/layers.py``), drawn from an explicit
 ``torch.Generator`` on ``device``; the two packages' draws differ, so
 parity tests carry the JAX params across with ``convert.convert_lm_params``.
+Each ``*_axes`` beside an init gives the same tree with the logical name
+of every dim in place of each tensor (the JAX init's second result),
+read by ``sharding/partitioning.py``:
+
+  embed                 d_model
+  mlp                   feed-forward hidden
+  heads, kv_heads, qkv  attention projections (qkv = head_dim)
+  vocab                 embedding / OAA softmax rows
+  mach_rb               MACH head output (R·B)
+  experts               MoE expert dimension
+  layers                stacked layer dimension (never sharded)
 """
 
 from __future__ import annotations
@@ -34,6 +45,10 @@ def init_dense(generator, in_dim: int, out_dims: Sequence[int], device,
                                             generator, device)}
 
 
+def dense_axes(in_axis, out_axes) -> dict:
+    return {"kernel": (in_axis,) + tuple(out_axes)}
+
+
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ kernel (in, *out) -> (..., *out), in x's dtype."""
     k = params["kernel"].to(x.dtype)
@@ -48,6 +63,11 @@ def init_norm(dim: int, kind: str, device) -> dict:
         return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
                 "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
     raise ValueError(kind)
+
+
+def norm_axes(kind: str, axis="embed") -> dict:
+    return {k: (axis,) for k in (("scale",) if kind == "rmsnorm"
+                                 else ("scale", "bias"))}
 
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
@@ -67,6 +87,9 @@ def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
 def init_embedding(generator, vocab: int, dim: int, device) -> dict:
     return {"embedding": truncated_normal_init((vocab, dim), 1.0, generator,
                                                device)}
+
+
+EMBEDDING_AXES = {"embedding": ("vocab", "embed")}
 
 
 def embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -99,6 +122,14 @@ def init_mlp(generator, d_model: int, d_ff: int, device,
         p["wg"] = init_dense(generator, d_model, (d_ff,), device)
     p["wo"] = init_dense(generator, d_ff, (d_model,), device)
     return p
+
+
+def mlp_axes(activation: str = "swiglu") -> dict:
+    a = {"wi": dense_axes("embed", ("mlp",))}
+    if activation in ("swiglu", "geglu"):
+        a["wg"] = dense_axes("embed", ("mlp",))
+    a["wo"] = dense_axes("mlp", ("embed",))
+    return a
 
 
 def apply_mlp(params: dict, x: torch.Tensor,

@@ -10,6 +10,7 @@ load-balance and router-z losses to the training loss.
 
 Public surface:
   init(generator, device)                      -> params
+  param_axes()                                 -> the params' logical axes
   loss(params, batch)                          -> (loss, metrics): the
       R-head CE on the head's logits (kernel 3), or with
       ``mach_fused_loss`` the fused logit-free loss (kernel 4, over the
@@ -39,6 +40,7 @@ as the JAX package's do.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -51,7 +53,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends, layers, recurrent, xlstm
 from repro_torch.models.transformer import (ModelConfig, apply_stacks,
                                             cross_kv, init_stacks,
-                                            plan_stacks, tree_map)
+                                            plan_stacks, stacks_axes,
+                                            tree_map)
 
 
 class LanguageModel:
@@ -92,6 +95,27 @@ class LanguageModel:
             p = tree_map(lambda x: x.to(cfg.param_dtype)
                          if x.is_floating_point() else x, p)
         return p
+
+    def param_axes(self) -> dict:
+        """``init``'s tree with a tuple of logical axis names (one a dim)
+        in place of each tensor — the JAX package's ``init``'s second
+        result, read by ``sharding.params_shardings``."""
+        cfg = self.cfg
+        a = {"embed": layers.EMBEDDING_AXES,
+             "stacks": stacks_axes(cfg, self._dec_layout()),
+             "final_norm": layers.norm_axes(cfg.norm)}
+        if cfg.mach is not None:
+            a["mach_head"] = {"kernel": ("embed", "mach_rb")}
+        elif not cfg.tie_embeddings:
+            a["lm_head"] = layers.dense_axes("embed", ("vocab",))
+        if cfg.num_encoder_layers:
+            a["enc_adapter"] = frontends.ADAPTER_AXES
+            a["enc_stacks"] = stacks_axes(cfg,
+                                          ["enc"] * cfg.num_encoder_layers)
+            a["enc_norm"] = layers.norm_axes(cfg.norm)
+        if cfg.frontend == "vision":
+            a["vis_adapter"] = frontends.ADAPTER_AXES
+        return copy.deepcopy(a)         # the modules' constants stay theirs
 
     def _dec_layout(self) -> list:
         """The decoder's layer kinds: every layer ``xattn`` with an encoder,

@@ -63,6 +63,18 @@ def init_moe(generator, d_model: int, moe_d_ff: int, num_experts: int,
     return p
 
 
+def moe_axes(num_shared_experts: int = 0, activation: str = "swiglu") -> dict:
+    a = {"router": layers.dense_axes("embed", (None,)),
+         "wi": {"kernel": ("experts", "embed", "mlp")},
+         "wo": {"kernel": ("experts", "mlp", "embed")}}
+    if activation in ("swiglu", "geglu"):
+        a["wg"] = {"kernel": ("experts", "embed", "mlp")}
+    if num_shared_experts:
+        a["shared"] = layers.mlp_axes(activation)
+        a["shared_gate"] = layers.dense_axes("embed", (None,))
+    return a
+
+
 def _expert_ffn(params: dict, xe: torch.Tensor, activation: str) -> torch.Tensor:
     """xe (E, C, d) -> (E, C, d), batched over experts."""
     wi = params["wi"]["kernel"].to(xe.dtype)

@@ -51,6 +51,15 @@ def init_rglru_block(generator, d_model: int, width: Optional[int], device
     return p
 
 
+RGLRU_AXES = {"lin_y": layers.dense_axes("embed", ("mlp",)),
+              "lin_x": layers.dense_axes("embed", ("mlp",)),
+              "conv": {"w": (None, "mlp"), "b": ("mlp",)},
+              "gate_a": layers.dense_axes("mlp", ("mlp",)),
+              "gate_x": layers.dense_axes("mlp", ("mlp",)),
+              "lam": {"log": ("mlp",)},
+              "lin_out": layers.dense_axes("mlp", ("embed",))}
+
+
 def _causal_conv(params: dict, x: torch.Tensor, tail: Optional[torch.Tensor]
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel causal conv, width 4, taps flipped.  x: (B, T, W);

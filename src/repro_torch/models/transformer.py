@@ -189,6 +189,28 @@ def init_block(generator, cfg: ModelConfig, kind: str, device) -> dict:
     return p
 
 
+def block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """``init_block``'s tree of logical axes (one block, unstacked)."""
+    if kind not in PORTED_KINDS:
+        raise ValueError(kind)
+    a = {"norm1": layers.norm_axes(cfg.norm)}
+    if kind == "mlstm":
+        return {**a, "mlstm": xlstm.MLSTM_AXES}
+    if kind == "slstm":
+        return {**a, "slstm": xlstm.SLSTM_AXES}
+    a["rglru" if kind == "rglru" else "attn"] = (
+        recurrent.RGLRU_AXES if kind == "rglru" else attn_lib.ATTENTION_AXES)
+    if kind == "xattn":
+        a["norm_x"] = layers.norm_axes(cfg.norm)
+        a["xattn"] = attn_lib.ATTENTION_AXES
+    a["norm2"] = layers.norm_axes(cfg.norm)
+    if kind == "moe":
+        a["moe"] = moe_lib.moe_axes(cfg.num_shared_experts, cfg.activation)
+    else:
+        a["mlp"] = layers.mlp_axes(cfg.activation)
+    return a
+
+
 def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
     """(B, T, H, hd) attention output @ o (H, hd, d) -> (B, T, d)."""
     o = params["o"]["kernel"].to(out.dtype)
@@ -350,6 +372,18 @@ def init_stacks(generator, cfg: ModelConfig, layout: list, device) -> list:
             p_list.append(stacked)
         params.append(p_list)
     return params
+
+
+def stacks_axes(cfg: ModelConfig, layout: list) -> list:
+    """``init_stacks``'s tree of logical axes: each block's with the
+    stacked ``layers`` dim first."""
+    def stacked(a):
+        if isinstance(a, dict):
+            return {k: stacked(v) for k, v in a.items()}
+        return ("layers",) + a
+
+    return [[stacked(block_axes(cfg, kind)) for kind in period]
+            for period, _ in plan_stacks(layout)]
 
 
 def _add_aux(total: dict, aux: dict) -> dict:

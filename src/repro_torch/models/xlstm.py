@@ -72,6 +72,16 @@ def init_mlstm_block(generator, d_model: int, num_heads: int,
     return p
 
 
+MLSTM_AXES = {"up": layers.dense_axes("embed", ("mlp",)),
+              **{k: layers.dense_axes("mlp", ("heads", "qkv"))
+                 for k in ("q", "k", "v")},
+              "igate": layers.dense_axes("mlp", ("heads",)),
+              "fgate": layers.dense_axes("mlp", ("heads",)),
+              "gate_bias": {"i": ("heads",), "f": ("heads",)},
+              "ln_inner": layers.norm_axes("rmsnorm", "mlp"),
+              "down": layers.dense_axes("mlp", ("embed",))}
+
+
 def _causal_logd(clf: torch.Tensor, log_i: torch.Tensor) -> torch.Tensor:
     """(B, T, H) cumulative log f and log i -> (B, T, S, H) log decay,
     −inf above the diagonal."""
@@ -241,6 +251,14 @@ def init_slstm_block(generator, d_model: int, num_heads: int,
     p["ffn"] = layers.init_mlp(generator, d_model, int(d_model * ffn_factor),
                                device, "geglu")
     return p
+
+
+SLSTM_AXES = {**{k: layers.dense_axes("embed", ("heads", "qkv"))
+                 for k in ("wz", "wi", "wf", "wo")},
+              "r": {"kernel": (None, "heads", "qkv", None)},
+              "gate_bias": {g: ("heads", "qkv") for g in ("i", "f", "z", "o")},
+              "ln_inner": layers.norm_axes("rmsnorm"),
+              "ffn": layers.mlp_axes("geglu")}
 
 
 def _slstm_gates(r: torch.Tensor, gb: torch.Tensor, state: SLSTMState,

@@ -1,11 +1,24 @@
 """Gradient utilities: value-and-grad, global-norm clipping,
-microbatch accumulation."""
+microbatch accumulation, compression.
+
+Gradient compression is the JAX package's (``repro/optim/grad.py``),
+for slow links between hosts:
+
+* ``topk_compress`` — per-leaf magnitude top-k sparsification with
+  error feedback (the residual is carried into the next step's
+  gradient, Stich et al. 2018);
+* ``quantize_8bit`` / ``dequantize_8bit`` — per-leaf absmax int8.
+
+As in the JAX package, no train step calls them.
+"""
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.optim.optimizers import _unflatten, tree_leaves, tree_map
 
 
 def value_and_grad(loss_fn, params, *args, has_aux: bool = False):
@@ -68,3 +81,66 @@ def accumulate_grads(loss_fn, params, batch, num_microbatches: int):
     n = float(num_microbatches)
     return ((loss_acc / n, tree_map(lambda x: x / n, metr_acc)),
             tree_map(lambda x: x / n, g_acc))
+
+
+# ---------------------------------------------------------------------------
+# Top-k sparsification with error feedback
+# ---------------------------------------------------------------------------
+
+class ErrorFeedbackState(NamedTuple):
+    residual: Any
+
+
+def init_error_feedback(params) -> ErrorFeedbackState:
+    return ErrorFeedbackState(tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        params))
+
+
+def topk_compress(grads, ef: ErrorFeedbackState, fraction: float = 0.01):
+    """Keep each leaf's top ``fraction`` of entries by magnitude (at least
+    one); the rest goes into the error-feedback residual.  The threshold
+    is the k-th largest |g|, and every entry at it is kept, ties too.
+    Returns (kept grads, float32; the new ``ErrorFeedbackState``)."""
+
+    def per_leaf(g, r):
+        g = g.to(torch.float32) + r
+        flat = g.reshape(-1)
+        k = max(1, int(flat.numel() * fraction))
+        thresh = torch.topk(flat.abs(), k).values[-1]
+        kept = torch.where(g.abs() >= thresh, g, 0.0)
+        return kept, g - kept
+
+    outs = [per_leaf(g, r) for g, r in zip(tree_leaves(grads),
+                                           tree_leaves(ef.residual))]
+    return (_unflatten(grads, [o[0] for o in outs]),
+            ErrorFeedbackState(_unflatten(grads, [o[1] for o in outs])))
+
+
+# ---------------------------------------------------------------------------
+# 8-bit absmax quantization
+# ---------------------------------------------------------------------------
+
+class Quantized(NamedTuple):
+    q: Any        # int8 payloads
+    scale: Any    # float32 per-leaf absmax scales
+
+
+def quantize_8bit(grads) -> Quantized:
+    """Each leaf as int8 ``round(g / s)`` (half to even, as ``jnp.round``)
+    with ``s = max(max|g|, 1e-12) / 127``."""
+    def per_leaf(g):
+        g = g.to(torch.float32)
+        # divided by a tensor on g's device: PyTorch's CUDA kernels divide
+        # by a Python number as a product with its reciprocal, one ulp
+        # away from a division now and then
+        s = torch.clamp(g.abs().max(), min=1e-12) / g.new_tensor(127.0)
+        return torch.clamp(torch.round(g / s), -127, 127).to(torch.int8), s
+
+    outs = [per_leaf(g) for g in tree_leaves(grads)]
+    return Quantized(_unflatten(grads, [o[0] for o in outs]),
+                     _unflatten(grads, [o[1] for o in outs]))
+
+
+def dequantize_8bit(qt: Quantized):
+    return tree_map(lambda q, s: q.to(torch.float32) * s, qt.q, qt.scale)

@@ -28,13 +28,16 @@ ScalarOrSchedule = Union[float, Schedule]
 
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the tensor leaves of nested dicts / lists /
-    tuples (``rest`` shaped like ``tree``); None stays None."""
+    tuples / NamedTuples (``rest`` shaped like ``tree``); None stays
+    None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = (tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree))
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
     if tree is None:
         return None
     return fn(tree, *rest)

@@ -1,0 +1,317 @@
+"""Logical-axis partitioning on a ``torch.distributed`` ``DeviceMesh``
+(the JAX package's ``repro/sharding/partitioning.py``).
+
+Model code names each parameter's axes with logical names
+(``LanguageModel.param_axes()``); ``ShardingRules`` maps them onto mesh
+axes.  Rules are candidate lists: resolution checks (a) that the tensor
+dim divides by the product of the candidate's mesh axes and (b) that no
+mesh axis is used twice within one spec, and falls back to replication
+for that dim.  So one rule set covers heads=96 (16-way over ``model``)
+and heads=10 (heads replicated, FSDP on d_model).
+
+Parallelism modes expressed by the rules:
+  DP    batch -> ('pod', 'data')
+  TP    mlp/heads/vocab/mach_rb/experts -> 'model'
+  FSDP  embed (the d_model dim of weights) -> 'data'   [fsdp=True]
+  SP    seq -> 'model'                                 [sp=True]
+  EP    experts -> 'model' when E divides
+
+A spec is a tuple with one entry per tensor dim, trailing ``None``s
+trimmed: ``None`` (replicated), a mesh axis name, or a tuple of names
+(one dim over several axes, the first major) — entry for entry the JAX
+package's ``PartitionSpec``.  ``placements`` turns it into ``DTensor``
+placements, ``place`` puts a tree of tensors on the mesh, ``gather``
+brings it back whole.  The rules read only a mesh's axis names and
+sizes, so they run on a ``DeviceMesh`` and on any object with a
+``shape`` dict and ``axis_names`` (the JAX tests' ``FakeMesh``).
+
+Where the port differs (ROADMAP.md §3): ``constrain`` is the identity,
+since the model runs on whole per-rank tensors; the trainer computes on
+the ``model`` axis as data-parallel replicas and refuses ``sp``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.checkpoint.manager import (tree_flatten, tree_paths,
+                                            tree_unflatten)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    fsdp: bool = True
+    sp: bool = False
+    mach_pod_parallel: bool = False   # MACH R-heads sharded over 'pod'
+
+    def table(self, mesh) -> dict:
+        has_pod = "pod" in _view(mesh).axis_names
+        batch = ("pod", "data") if has_pod else ("data",)
+        rules = {
+            "batch": [batch, ("data",), None],
+            "seq": [("model",), None] if self.sp else [None],
+            "embed": [("data",), None] if self.fsdp else [None],
+            "mlp": [("model",), None],
+            "heads": [("model",), None],
+            "kv_heads": [("model",), None],
+            "qkv": [None],
+            "vocab": [("model",), None],
+            "experts": [("model",), None],
+            "layers": [None],
+            None: [None],
+        }
+        if self.mach_pod_parallel and has_pod:
+            # the R·B dim over (pod, model): pods own disjoint subsets of
+            # the R repetitions, the paper's embarrassing parallelism
+            rules["mach_rb"] = [("pod", "model"), ("model",), None]
+        else:
+            rules["mach_rb"] = [("model",), None]
+        return rules
+
+
+class _MeshShape:
+    """A ``DeviceMesh`` seen as the rules see a mesh: ``shape`` (axis ->
+    size) and ``axis_names``."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.axis_names = tuple(mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, mesh.shape))
+
+
+def _view(mesh):
+    return _MeshShape(mesh) if isinstance(mesh, DeviceMesh) else mesh
+
+
+# ---------------------------------------------------------------------------
+# Activation constraints.  Model code calls ``constrain(x, ("batch",
+# "seq", None))``; the JAX package then constrains XLA's layout inside
+# ``activate(mesh, rules)``.  The port's model runs on whole per-rank
+# tensors, so there is nothing to constrain.
+# ---------------------------------------------------------------------------
+
+_ACTIVE: list = []
+
+
+class activate:
+    """Keeps (mesh, rules table) in force for the block, as the JAX
+    package's ``activate`` does; ``active()`` reads it."""
+
+    def __init__(self, mesh, rules_cfg: ShardingRules):
+        self.entry = (mesh, rules_cfg.table(mesh))
+
+    def __enter__(self):
+        _ACTIVE.append(self.entry)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE.pop()
+        return False
+
+
+def active():
+    """The innermost ``activate``'s (mesh, rules table), or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def constrain(x: torch.Tensor, logical_axes) -> torch.Tensor:
+    """The identity (the JAX package's sharding constraint has no
+    counterpart on whole per-rank tensors)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def _axis_size(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def resolve_spec(mesh, rules: dict, logical_axes, shape) -> tuple:
+    """(logical axis names per dim, shape) -> spec."""
+    mesh = _view(mesh)
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, logical_axes):
+        choice = None
+        for cand in rules.get(name, [None]):
+            if cand is None:
+                break
+            if any(a in used for a in cand):
+                continue
+            if dim % _axis_size(mesh, cand) != 0:
+                continue
+            choice = tuple(cand) if len(cand) > 1 else cand[0]
+            used.update(cand)
+            break
+        out.append(choice)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def spec_axes(entry) -> tuple:
+    """A spec entry's mesh axes, major first (``()`` for ``None``)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """A spec as ``DTensor`` placements, one per mesh dim: ``Shard(d)`` on
+    each mesh axis that splits tensor dim d, ``Replicate()`` elsewhere.
+    A dim over two axes is ``Shard(d)`` on both; ``DTensor`` splits it by
+    the mesh's dim order, so its axes must come in that order (the major
+    first, as in JAX)."""
+    names = _view(mesh).axis_names
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        dims = [names.index(a) for a in spec_axes(entry)]
+        if dims != sorted(dims):
+            raise ValueError(f"spec {spec}: the axes of dim {d} are not in "
+                             f"the mesh's order {names}")
+        for i in dims:
+            out[i] = Shard(d)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the JAX package's ``NamedSharding``)."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+def _map_axes(fn, axes, shapes):
+    """``fn(axes leaf, shape leaf)`` over an axes tree (tuples of names at
+    its leaves) and the tree of tensors it describes."""
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, v, shapes[k]) for k, v in axes.items()}
+    if isinstance(axes, list):
+        return [_map_axes(fn, a, s) for a, s in zip(axes, shapes)]
+    return fn(axes, shapes)
+
+
+def params_shardings(mesh, rules_cfg: ShardingRules, axes_tree,
+                     shapes_tree) -> Any:
+    """axes_tree: tuples of logical names (``param_axes()``); shapes_tree:
+    the matching tensors (``init(device="meta")`` will do).  Returns the
+    tree of ``NamedSharding``s."""
+    rules = rules_cfg.table(mesh)
+    return _map_axes(lambda ax, t: NamedSharding(
+        mesh, resolve_spec(mesh, rules, ax, t.shape)), axes_tree, shapes_tree)
+
+
+def batch_shardings(mesh, rules_cfg: ShardingRules, batch_tree) -> Any:
+    """Every batch leaf's dim 0 as 'batch' (with the divisibility
+    fallback); dim 1 as 'seq' when ``sp``."""
+    rules = rules_cfg.table(mesh)
+
+    def per_leaf(x):
+        logical = ["batch"] + (["seq"] if rules_cfg.sp and x.dim() > 1 else
+                               [None] * max(0, x.dim() - 1))
+        logical += [None] * (x.dim() - len(logical))
+        return NamedSharding(mesh, resolve_spec(mesh, rules, logical,
+                                                x.shape))
+
+    return tree_unflatten(batch_tree, [per_leaf(x)
+                                       for _, x in tree_flatten(batch_tree)])
+
+
+def state_shardings(mesh, rules_cfg: ShardingRules, model, opt
+                    ) -> tuple[Any, Any, Any]:
+    """(state_shapes, state_shardings, params_axes) of a ``TrainState``
+    for ``model`` (``init(device=)``, ``param_axes()``) and ``opt``,
+    built on the meta device (nothing allocated).
+
+    Optimizer moments take their own parameter's sharding.  Every
+    optimizer state embeds copies of the params tree under some prefix
+    (mu / nu, momentum, master weights), so a moment is matched to its
+    parameter by tree path: the longest parameter path that is a suffix
+    of the moment's, with the shapes agreeing (Adafactor's factored
+    vr / vc share the path, not the shape).  Anything unmatched —
+    factored moments, counts, the Python-int step — is replicated."""
+    from repro_torch.train.train_state import TrainState, new_train_state
+
+    params_shapes = model.init(device="meta")
+    axes = model.param_axes()
+    state_shapes = new_train_state(params_shapes, opt)
+    p_shard = params_shardings(mesh, rules_cfg, axes, params_shapes)
+    rep = NamedSharding(mesh, ())
+
+    index: dict = {}
+    for (path, leaf), (_, sh) in zip(tree_paths(params_shapes),
+                                     tree_flatten(p_shard)):
+        index.setdefault(path, []).append((tuple(leaf.shape), sh))
+
+    def moment_sharding(path, leaf):
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else None
+        for start in range(len(path) + 1):     # the longest suffix first
+            for pshape, sh in index.get(path[start:], ()):
+                if pshape == shape:
+                    return sh
+        return rep
+
+    opt_shard = tree_unflatten(state_shapes.opt_state, [
+        moment_sharding(path, leaf)
+        for path, leaf in tree_paths(state_shapes.opt_state)])
+    return (state_shapes,
+            TrainState(step=rep, params=p_shard, opt_state=opt_shard), axes)
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device a mesh's tensors live on in this process."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def gather(tree) -> Any:
+    """Every ``DTensor`` leaf as its whole tensor, the rest as they are.
+    A collective: every rank of each leaf's mesh calls it."""
+    return tree_unflatten(tree, [
+        x.full_tensor() if isinstance(x, DTensor) else x
+        for _, x in tree_flatten(tree)])
+
+
+def place(tree, shardings) -> Any:
+    """Every tensor leaf as a ``DTensor`` on its ``NamedSharding``
+    (``shardings`` shaped like ``tree``, or one for every leaf); a
+    ``DTensor`` leaf is gathered first, so this also moves a tree from
+    one mesh to another.  Each rank cuts its own shard from the whole
+    tensor it holds (no communication): every rank must hold the same
+    values.  A leaf that is not split shares its storage.  Ints stay."""
+    if isinstance(shardings, NamedSharding):
+        shard_leaves = [shardings] * len(tree_flatten(tree))
+    else:
+        shard_leaves = [s for _, s in tree_flatten(shardings)]
+    pairs = tree_flatten(tree)
+    if len(shard_leaves) != len(pairs):
+        raise ValueError(f"{len(shard_leaves)} shardings for "
+                         f"{len(pairs)} leaves")
+    out = []
+    for (_, x), sh in zip(pairs, shard_leaves):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if isinstance(x, torch.Tensor):
+            x = distribute_tensor(x.to(mesh_device(sh.mesh)), sh.mesh,
+                                  sh.placements, src_data_rank=None)
+        out.append(x)
+    return tree_unflatten(tree, out)

@@ -1,5 +1,5 @@
 """Fault tolerance: checkpoint-restart, stragglers, elastic moves (the
-JAX package's ``repro/train/fault_tolerance.py``, on one device).
+JAX package's ``repro/train/fault_tolerance.py``).
 
 * ``run_with_restarts`` — supervisor loop: restore the latest checkpoint
   (or init) → train → on any exception, restore and re-enter.  With the
@@ -7,9 +7,11 @@ JAX package's ``repro/train/fault_tolerance.py``, on one device).
   the batches the failed run would have.
 * ``StragglerMonitor`` — per-step wall-time EWMA + z-score; steps slower
   than ``threshold_sigma`` are flagged.
-* ``reshard_state`` — the elastic path on one device: checkpoints hold
-  plain host arrays, so a state moves to another device leaf by leaf
-  (mesh placements wait for multi-device, ROADMAP.md).
+* ``reshard_state`` — the elastic path: a state moved onto another
+  mesh's shardings, or onto one device.
+
+Under a mesh every rank runs the supervisor: ``train_once`` and the
+manager's saves and restores are collectives.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.checkpoint import (CheckpointManager, tree_flatten,
                                     tree_unflatten)
+from repro_torch.sharding import gather, place
 from repro_torch.train.train_state import TrainState
 
 
@@ -59,12 +62,16 @@ class StragglerMonitor:
         return is_straggler
 
 
-def reshard_state(state: Any, device) -> Any:
-    """Every tensor leaf of ``state`` moved to ``device`` (ints stay)."""
-    device = torch.device(device)
-    return tree_unflatten(state, [
-        x.to(device) if isinstance(x, torch.Tensor) else x
-        for _, x in tree_flatten(state)])
+def reshard_state(state: Any, shardings) -> Any:
+    """``state`` moved onto ``shardings`` (a tree of
+    ``sharding.NamedSharding``s shaped like ``state``, or one for every
+    leaf), or, given a device, gathered whole onto it.  Ints stay."""
+    if isinstance(shardings, (str, torch.device)):
+        device = torch.device(shardings)
+        return tree_unflatten(state, [
+            x.to(device) if isinstance(x, torch.Tensor) else x
+            for _, x in tree_flatten(gather(state))])
+    return place(state, shardings)
 
 
 def run_with_restarts(train_once: Callable[[TrainState, int], TrainState],

@@ -5,6 +5,18 @@
 ``apply_updates``, as in the JAX package, run eagerly on the params'
 device.  MACH enters through the model's loss (the R-head hashed
 cross-entropy); nothing in the loop is MACH-specific.
+
+On a mesh (``Trainer(mesh=, rules=)``, ``DataParallel``) the state is
+sharded FSDP-style: every leaf a ``DTensor`` placed by
+``sharding.state_shardings``.  A step gathers the params whole, runs the
+model on this rank's rows of the global batch (plain tensors, so every
+kernel sees what it sees on one device), reduce-scatters the gradients
+onto the params' placements, and runs clipping and the optimizer on the
+``DTensor`` state.  The loss is the global batch's weighted mean, as on
+one device; at world size 1 the step computes the same bits as the
+single-device one.  Gathering the whole tree a step is the JAX
+function, not JAX's memory (it gathers per use inside the scan;
+ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -14,11 +26,17 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.checkpoint import tree_flatten
+from repro_torch.models.transformer import AUX_KEYS
 from repro_torch.optim import (accumulate_grads, apply_updates,
                                clip_by_global_norm, make_optimizer,
                                make_schedule)
-from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.sharding import (ShardingRules, batch_shardings, gather,
+                                  place, state_shardings)
+from repro_torch.sharding.partitioning import mesh_device, spec_axes
 from repro_torch.train.train_state import TrainState, new_train_state
 
 
@@ -55,23 +73,151 @@ def make_optimizer_from_config(tcfg: TrainConfig):
                           master_weights=tcfg.master_weights, **kw), sched
 
 
+class DataParallel:
+    """The mesh half of a sharded train step: which rows of the global
+    batch this rank computes, the global weighted mean as each rank's
+    share of the loss, and the gradients and metrics summed over the
+    ranks that hold different rows.
+
+    ``params_shardings``: the params' ``NamedSharding``s (the step
+    reduce-scatters each gradient onto its param's placements).
+    ``group_size``: an MoE model's token groups, whose per-group means
+    (``load_balance``, ``router_z``) equal one device's only where no
+    group straddles two ranks; a batch whose rows split otherwise is
+    refused."""
+
+    def __init__(self, mesh, rules: ShardingRules, params_shardings,
+                 group_size: int = 0):
+        self.mesh = mesh
+        self.rules = rules
+        self.params_shardings = params_shardings
+        self.group_size = group_size
+        # set by ``local_rows`` for the step's other calls: the batch's
+        # shard count, and a gradient's placements (summed over the mesh
+        # axes its rows split on, the same on the others)
+        self._shards, self._partial = 1, None
+
+    def local_rows(self, batch: dict, num_microbatches: int) -> dict:
+        """This rank's rows of the global ``batch``: of each microbatch
+        (the global batch split on its leading dim, as one device splits
+        it) the rows its batch shard holds, shard index major over the
+        mesh axes (``pod`` before ``data``)."""
+        names = self.mesh.mesh_dim_names
+        specs = {s.spec[:1] for _, s in tree_flatten(
+            batch_shardings(self.mesh, self.rules, batch))}
+        if len(specs) != 1:
+            raise ValueError(f"batch leaves split their rows differently: "
+                             f"{specs}")
+        axes = spec_axes((specs.pop() or (None,))[0])
+        self._partial = [Partial("sum") if a in axes else Replicate()
+                         for a in names]
+        coord = self.mesh.get_coordinate()
+        idx, n = 0, 1
+        for a in axes:
+            size = self.mesh.size(names.index(a))
+            idx, n = idx * size + coord[names.index(a)], n * size
+        self._shards = n
+
+        def rows(x):
+            b = x.shape[0]
+            if b % (n * num_microbatches):
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{num_microbatches} microbatches over "
+                                 f"{n} shards")
+            return x.reshape((num_microbatches, n, -1) + tuple(x.shape[1:])
+                             )[:, idx].reshape((-1,) + tuple(x.shape[1:]))
+
+        local = tree_map(rows, batch)
+        if self.group_size:
+            t = local["tokens"].shape[1] - 1
+            if "prefix_feats" in local:
+                t += local["prefix_feats"].shape[1]
+            per_mb = local["tokens"].shape[0] // num_microbatches * t
+            if per_mb % self.group_size:
+                raise ValueError(
+                    f"{per_mb} tokens a rank and microbatch do not fill "
+                    f"whole MoE groups of {self.group_size}: a group would "
+                    f"straddle two ranks")
+        return local
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks that hold different rows."""
+        return DTensor.from_local(x, self.mesh, self._partial,
+                                  run_check=False).full_tensor()
+
+    def global_mean(self, loss_fn):
+        """``loss_fn`` (its metrics ``loss`` and ``tokens``: the weighted
+        mean and the weight sum) as this rank's share of the global
+        batch's loss: ``loss`` times clamp(local weights, 1) / clamp(all
+        weights, 1), an MoE model's aux terms divided by the shard count.
+        Summed over the shards, value, gradients and metrics are one
+        device's."""
+        def shared(params, batch):
+            total, m = loss_fn(params, batch)
+            if "tokens" not in m:
+                raise ValueError("a sharded step needs the loss's "
+                                 "'tokens' metric (the weight sum)")
+            w = m["tokens"].detach()
+            share = torch.clamp(w, min=1.0) / torch.clamp(self._sum(w),
+                                                          min=1.0)
+            out = m["loss"] * share
+            metrics = {**m, "loss": out.detach()}
+            aux = [k for k in AUX_KEYS if k in m]
+            if aux:
+                out = out + (total - m["loss"]) / self._shards
+                metrics.update({k: m[k] / self._shards for k in aux})
+            return out, metrics
+
+        return shared
+
+    def reduce_grads(self, grads):
+        """Each rank's gradient, summed over the batch shards, onto its
+        param's placements (a reduce-scatter)."""
+        return tree_map(
+            lambda g, sh: DTensor.from_local(g, self.mesh, self._partial,
+                                             run_check=False)
+            .redistribute(self.mesh, sh.placements),
+            grads, self.params_shardings)
+
+    def reduce_metrics(self, metrics: dict) -> dict:
+        keys = sorted(metrics)
+        summed = self._sum(torch.stack([metrics[k].to(torch.float32)
+                                        for k in keys]))
+        return {k: summed[i].to(metrics[k].dtype)
+                for i, k in enumerate(keys)}
+
+
 def make_train_step(loss_fn: Callable[[Any, dict], tuple],
-                    tcfg: TrainConfig):
+                    tcfg: TrainConfig,
+                    data_parallel: Optional[DataParallel] = None):
     """loss_fn(params, batch) -> (loss, metrics).  Returns (the step
     (state, batch) -> (state, metrics), the optimizer).  Metrics gain
     ``grad_norm`` (before clipping) and ``lr``; the loss's own (an MoE
-    model's ``load_balance`` and ``router_z``) pass through."""
+    model's ``load_balance`` and ``router_z``) pass through.  With
+    ``data_parallel`` the state is sharded on its mesh and ``batch`` is
+    the global batch, the same on every rank."""
     opt, sched = make_optimizer_from_config(tcfg)
+    dp = data_parallel
 
     def step_fn(state: TrainState, batch: dict):
-        (loss, metrics), grads = accumulate_grads(
-            loss_fn, state.params, batch, tcfg.num_microbatches)
+        params, loss = state.params, loss_fn
+        if dp is not None:
+            params = gather(params)
+            batch = dp.local_rows(batch, tcfg.num_microbatches)
+            loss = dp.global_mean(loss_fn)
+        (_, metrics), grads = accumulate_grads(
+            loss, params, batch, tcfg.num_microbatches)
+        if dp is not None:
+            del params
+            grads = dp.reduce_grads(grads)
+            metrics = dp.reduce_metrics(metrics)
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         updates, opt_state = opt.update(grads, state.opt_state, state.params)
         del grads       # freed before the new params exist: the step's peak
         params = apply_updates(state.params, updates)
         metrics = dict(metrics)
-        metrics["grad_norm"] = gnorm
+        metrics["grad_norm"] = (gnorm.full_tensor()
+                                if isinstance(gnorm, DTensor) else gnorm)
         metrics["lr"] = sched(state.step)
         return TrainState(state.step + 1, params, opt_state), metrics
 
@@ -79,21 +225,48 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple],
 
 
 class Trainer:
-    """Single-device training loop (examples, tests, ``launch/train.py``).
+    """The training loop (examples, tests, ``launch/train.py``), on one
+    device or, with ``mesh``, data-parallel over a ``DeviceMesh`` with the
+    state sharded by ``rules`` (default ``ShardingRules()``: FSDP); the
+    model then needs ``param_axes()``.  Under a mesh every rank runs the
+    loop on the same global batches.
 
     Dynamic bucket selection: ``bucket_proxy_fn(params, batch)`` -> (R, B)
     proxy scores, recomputed every ``refresh_every`` steps (the second
     entry of ``model.cfg.mach_bucket_select``, else every step) under
     ``torch.no_grad`` and injected as ``batch["bucket_proxy"]``.  Without
-    it the loss recomputes the proxy each step."""
+    it the loss recomputes the proxy each step.  Not under a mesh: the
+    selection forces the batch's label buckets in, so a rank's selection
+    is another function than the global batch's (ROADMAP.md §1)."""
 
     def __init__(self, model, tcfg: TrainConfig,
                  loss_fn: Optional[Callable] = None,
-                 bucket_proxy_fn: Optional[Callable] = None):
+                 bucket_proxy_fn: Optional[Callable] = None,
+                 mesh=None, rules: Optional[ShardingRules] = None):
         self.model = model
         self.tcfg = tcfg
         self.loss_fn = loss_fn or model.loss
-        self.step_fn, self.opt = make_train_step(self.loss_fn, tcfg)
+        self.mesh = mesh
+        self.state_shardings = None
+        dp = None
+        cfg = getattr(model, "cfg", None)
+        if mesh is not None:
+            rules = rules or ShardingRules()
+            if rules.sp:
+                raise ValueError("sequence parallelism (rules.sp) is not "
+                                 "ported yet (ROADMAP.md §1)")
+            if bucket_proxy_fn is not None or \
+                    getattr(cfg, "mach_bucket_select", None) is not None:
+                raise ValueError("mach_bucket_select under a mesh: a "
+                                 "rank-local selection is another function "
+                                 "than the global one (ROADMAP.md §1)")
+            opt, _ = make_optimizer_from_config(tcfg)
+            self.state_shardings = state_shardings(mesh, rules, model,
+                                                   opt)[1]
+            dp = DataParallel(mesh, rules, self.state_shardings.params,
+                              cfg.moe_group_size if getattr(
+                                  cfg, "num_experts", 0) else 0)
+        self.step_fn, self.opt = make_train_step(self.loss_fn, tcfg, dp)
         self.bucket_proxy_fn = bucket_proxy_fn
         sel = getattr(getattr(model, "cfg", None), "mach_bucket_select", None)
         self._proxy_every = sel[1] if sel is not None and len(sel) > 1 else 1
@@ -113,8 +286,17 @@ class Trainer:
     def init_state(self, generator: Optional[torch.Generator] = None,
                    device=None) -> TrainState:
         """Params from ``model.init(generator, device)`` (default
-        ``cuda``) and a fresh optimizer state."""
-        return new_train_state(self.model.init(generator, device), self.opt)
+        ``cuda``; under a mesh, the mesh's device) and a fresh optimizer
+        state; under a mesh, placed by ``state_shardings`` (every rank
+        draws the whole state from the same generator seed, then keeps
+        its shards)."""
+        if self.mesh is None:
+            return new_train_state(self.model.init(generator, device),
+                                   self.opt)
+        state = new_train_state(
+            self.model.init(generator, device or mesh_device(self.mesh)),
+            self.opt)
+        return place(state, self.state_shardings)
 
     def fit(self, state: TrainState, stream, num_steps: int, manager=None,
             monitor=None, log=print) -> TrainState:

@@ -43,7 +43,9 @@ an exact dQ of zero, and what both compute there is float32 rounding
 noise of dP − D (1e-8 against entries of 0.1), which no row scale bounds.
 Flash attention also runs non-causal with S != T (cross-attention) and
 S == T (the encoder), forward and backward, at those tolerances; the
-smoke xLSTM and enc-dec models run on the card against the CPU.
+smoke xLSTM and enc-dec models run on the card against the CPU.  The
+sharded train step on an NCCL world of one equals the single-device
+step bit for bit.
 
 Marked ``cuda``: skips without a GPU.  Needs neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -1407,3 +1409,56 @@ def test_data_streams_same_bits_on_the_card(dev, nnz):
         for f in ("indptr", "indices", "values"):
             assert torch.equal(getattr(x0, f), getattr(x1, f)), f
         assert torch.equal(lm.batch_at(s)["tokens"], lm.batch_at(s)["tokens"])
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_world1_nccl_sharded_step_same_bits(dev, tmp_path, optimizer):
+    """The smoke tinyllama-1.1b (bf16) through ``Trainer(mesh=)`` on an
+    NCCL world of one ((1, 1) mesh, FSDP rules) and through the
+    single-device ``Trainer`` from one seed: three steps, every metric,
+    param and moment the same bits; a checkpoint of the sharded state
+    restores unsharded bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import CheckpointManager, tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import gather
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("tinyllama-1.1b", smoke=True)
+        tc = TrainConfig(optimizer=optimizer, peak_lr=1e-3, warmup_steps=2,
+                         total_steps=10)
+        model = LanguageModel(cfg)
+        sharded, single = Trainer(model, tc, mesh=mesh), Trainer(model, tc)
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+        st, rs = sharded.init_state(gen(), dev), single.init_state(gen(), dev)
+        stream = launch_train.data_stream(cfg, 64, 4, 0, dev)
+        for s in range(3):
+            st, m = sharded.step_fn(st, stream.batch_at(s))
+            rs, rm = single.step_fn(rs, stream.batch_at(s))
+            assert {k: float(v) for k, v in m.items()} == \
+                {k: float(v) for k, v in rm.items()}, s
+        whole = gather(st)
+        for (path, got), (_, want) in zip(tree_flatten(whole),
+                                          tree_flatten(rs)):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(got, want), path
+            else:
+                assert got == want, path
+        mgr = CheckpointManager(str(tmp_path / "ckpt"))
+        mgr.save(3, st)
+        restored, _ = mgr.restore(single.init_state(gen(), dev))
+        for (path, got), (_, want) in zip(tree_flatten(restored),
+                                          tree_flatten(rs)):
+            assert (torch.equal(got, want) if isinstance(want, torch.Tensor)
+                    else got == want), path
+    finally:
+        dist.destroy_process_group()

@@ -1,7 +1,8 @@
 """The LM training slice against the JAX package, at the smoke size on
 the CPU: the loss and gradients at T = 2048, three trainer steps, and
-the training entry point.  (Loss and gradients at the short length, in
-float32 and bfloat16, are in test_torch_lm_loss.py.)
+the training entry point, and the entry points' flag defaults against
+the JAX package's.  (Loss and gradients at the short length, in float32
+and bfloat16, are in test_torch_lm_loss.py.)
 
 The JAX package's recurrentgemma-2b smoke model is built inside
 ``jax_reference()``; its params reach the port through
@@ -25,6 +26,9 @@ bf16 is held exactly in ``test_torch_optim.py`` (with bf16 params the
 two packages' gradients differ by bf16 roundings, which Adam lifts the
 same way).
 """
+
+import ast
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -101,3 +105,42 @@ def test_launch_train_runs_on_the_cpu(capsys, tmp_path):
                               "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "step 2: loss=" in out and "finished at step 2 on cpu" in out
+
+
+# ------------------------------------------------ the entry points' flags
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+# the one shared flag whose default differs, by design: the port writes
+# only under its own $TMPDIR, never at a fixed /tmp path
+CKPT_DIR_DEFAULT = ('os.path.join(tempfile.gettempdir(), '
+                    "'repro_torch_pod_ckpt')")
+
+
+def _flags(path: Path) -> dict:
+    """flag -> (default, action) of every ``add_argument`` call, read with
+    ``ast`` (``repro.launch.train`` does not import under this jax)."""
+    out = {}
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Call) and \
+                getattr(node.func, "attr", "") == "add_argument":
+            kw = {k.arg: ast.unparse(k.value) for k in node.keywords}
+            out[node.args[0].value] = (kw.get("default"), kw.get("action"))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_entry_point_defaults_match_jax(entry):
+    """Every flag both packages' ``launch/<entry>.py`` take has the same
+    default (``--arch`` tinyllama-1.1b in both) and action."""
+    port = _flags(SRC / "repro_torch" / "launch" / f"{entry}.py")
+    jax_flags = _flags(SRC / "repro" / "launch" / f"{entry}.py")
+    shared = sorted(set(port) & set(jax_flags))
+    assert "--arch" in shared and "--local" in shared
+    assert port["--arch"][0] == "'tinyllama-1.1b'"
+    for flag in shared:
+        if flag == "--ckpt-dir":
+            assert port[flag] == (CKPT_DIR_DEFAULT, None)
+            continue
+        assert port[flag] == jax_flags[flag], flag
+    if entry == "train":
+        assert {"--multi-pod", "--full", "--steps"} <= set(shared)

@@ -1,0 +1,245 @@
+"""Multi-device training on CPU ``gloo`` worlds of 2 and 4 processes
+(``torch_multidevice_ranks.py`` is the rank side), held against the
+single-device port on the same global batches, and the world-2
+checkpoint held against the unsharded port and the JAX package's
+``CheckpointManager``.
+
+Each world is spawned once (module fixtures) and runs every check
+inside; the tests read what its rank 0 wrote.  The worlds join by a
+deadline and kill what is left, so a hang fails here.
+
+Tolerances.  Float32 (smoke configs, params and activations float32):
+every metric of every step (loss, tokens, grad_norm, lr, the MoE aux
+losses) at rtol 1e-6; the params after the steps within 1e-6 of each
+leaf's largest entry, except at most 0.01% of the entries, which lie
+within 2·Σlr — Adam divides a first moment by the root of the second,
+so a weight gradient that cancels to float32 noise (summed in another
+order over two ranks) takes an update of about lr whose sign the noise
+picks (as in ``test_torch_lm_train.py``).  bf16 (params and activations):
+the first step's loss at rtol 1e-6 (rows are independent until the
+loss's float32 sums), the gradient norm and later metrics at rtol 2^-6,
+the params within 2·Σlr: the ranks' bf16 gradients are rounded, then
+summed in bf16.
+World size 1 is bit for bit (``test_torch_cuda.py`` on the card).
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint.manager import CheckpointManager as JaxCheckpointManager
+from repro_torch.checkpoint import CheckpointManager, tree_flatten
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.models import LanguageModel
+from repro_torch.train import Trainer
+from torch_multidevice_ranks import (model_config, spawn_world,
+                                     train_config)
+
+RTOL = 1e-6
+BF16_RTOL = 2.0 ** -6
+OFF_SHARE = 1e-4
+WORLD_TIMEOUT = 240
+
+
+@pytest.fixture(scope="module")
+def directory(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("multidevice"))
+
+
+@pytest.fixture(scope="module")
+def world2(directory):
+    return spawn_world(2, "world2", directory, WORLD_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def world4(world2, directory):
+    return spawn_world(4, "world4", directory, WORLD_TIMEOUT)
+
+
+def _leaves(tree):
+    return [x for _, x in tree_flatten(tree)]
+
+
+def _hold(res, bf16=False):
+    """``res``: per step (sharded, one device) metrics, and both final
+    params.  Returns the share of param entries off by more than rtol of
+    their leaf's largest entry."""
+    lr_sum = sum(rm["lr"] for _, rm in res["metrics"])
+    for step, (got, want) in enumerate(res["metrics"]):
+        assert set(got) == set(want)
+        for k in want:
+            exact = not bf16 or (step == 0 and k in ("loss", "tokens", "lr"))
+            rtol = RTOL if exact else BF16_RTOL
+            np.testing.assert_allclose(got[k], want[k], rtol=rtol,
+                                       err_msg=f"step {step} {k}")
+    off = total = 0
+    for got, want in zip(_leaves(res["params"]), _leaves(res["want"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err = (got.float() - want.float()).abs()
+        assert float(err.max()) <= 2 * lr_sum
+        off += int((err > RTOL * float(want.float().abs().max())).sum())
+        total += err.numel()
+    return off / total
+
+
+@pytest.mark.parametrize("case", ["adamw", "adafactor", "weighted",
+                                  "microbatches", "moe", "fused"])
+def test_world2_matches_one_device(world2, case):
+    """Mesh (2, 1): three AdamW steps of the smoke tinyllama-1.1b, one
+    Adafactor step, uneven weights (rank 0's rows keep ~20% of their
+    tokens, rank 1's ~90%), two microbatches, the smoke qwen2-moe-a2.7b
+    (groups of 16 whole on each rank) and recurrentgemma-2b with the
+    fused MACH loss (kernel 4's plain version)."""
+    share = _hold(world2[case])
+    assert share <= (OFF_SHARE if case != "adafactor" else 0), share
+
+
+def test_world2_uneven_weights_are_the_global_mean(world2):
+    first = world2["weighted"]["metrics"][0][1]
+    assert first["tokens"] < 64 * 0.7        # the halves' sums differ
+
+
+def test_world2_bf16_within_its_tolerance(world2):
+    _hold(world2["bf16"], bf16=True)
+
+
+@pytest.mark.parametrize("mesh", ["mesh4x1", "mesh2x2", "pod"])
+def test_world4_matches_one_device(world4, mesh):
+    """Meshes (4, 1), (2, 2) (the batch over data, replicas on model) and
+    (2, 2, 1) with a pod axis (the batch over (pod, data))."""
+    assert _hold(world4[mesh]) <= OFF_SHARE
+
+
+def test_world2_checkpoint_restores_at_world_1(world2, directory):
+    """Saved whole by the sharded state's ranks, read back unsharded into
+    a single-device template, bit for bit; twice (a blocking and a
+    non-blocking save)."""
+    assert world2["ckpt_steps"] == [3, 4]
+    tiny = model_config("tinyllama-1.1b")
+    template = Trainer(LanguageModel(tiny), train_config()).init_state(
+        torch.Generator().manual_seed(1), "cpu")
+    mgr = CheckpointManager(os.path.join(directory, "ckpt_world2"))
+    for step in (3, 4):
+        restored, got_step = mgr.restore(template, step)
+        assert got_step == step and restored.step == 3
+        for (path, got), (_, want) in zip(
+                tree_flatten(restored), tree_flatten(world2["saved_state"])):
+            if isinstance(want, torch.Tensor):
+                assert type(got) is torch.Tensor
+                assert torch.equal(got, want), path
+            else:
+                assert got == want, path
+
+
+def test_world2_checkpoint_restores_in_jax(world2, directory):
+    import jax
+    mgr = JaxCheckpointManager(os.path.join(directory, "ckpt_world2"))
+    saved = tree_flatten(world2["saved_state"])
+    template = [np.zeros(tuple(x.shape), np.float32)
+                if isinstance(x, torch.Tensor) else np.int32(0)
+                for _, x in saved]
+    restored, step = mgr.restore(template, 3)
+    assert step == 3
+    for (path, want), got in zip(saved, jax.tree.leaves(restored)):
+        want = want.numpy() if isinstance(want, torch.Tensor) else want
+        np.testing.assert_array_equal(np.asarray(got), want, err_msg=path)
+
+
+def test_world4_restores_the_world2_checkpoint(world4, world2):
+    """Into a (4, 1) template (placed like it) and by ``shardings=`` onto
+    (2, 2); then moved between the meshes with ``reshard_state``."""
+    assert world4["restored_step"] == 3 and world4["restored_is_sharded"]
+    want = _leaves(world2["saved_state"])
+    for key in ("restored", "restored_by_shardings", "resharded"):
+        got = _leaves(world4[key])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert (g == w) if not isinstance(w, torch.Tensor) else \
+                torch.equal(g, w), key
+    # on (2, 2) each mesh dim of size 2 halves the dim it splits; the
+    # FSDP'd weights are split on both mesh dims
+    for shape, dims, local in world4["layout_2x2"]:
+        want = list(shape)
+        for d in dims:
+            if d is not None:
+                want[d] //= 2
+        assert tuple(want) == local, (shape, dims, local)
+    assert any(None not in dims for _, dims, _ in world4["layout_2x2"])
+
+
+def test_pod_data_rows_match_jax(world4):
+    """A dim split over ('pod', 'data'): the rows each rank holds, against
+    JAX's ``devices_indices_map`` on a (2, 2) mesh of 4 CPU devices
+    (pod major)."""
+    code = (
+        "import json, jax, numpy as np\n"
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P\n"
+        "devs = np.array(jax.devices()[:4]).reshape(2, 2)\n"
+        "m = NamedSharding(Mesh(devs, ('pod', 'data')),\n"
+        "                  P(('pod', 'data'))).devices_indices_map((8, 3))\n"
+        "print(json.dumps({f'{i},{j}': list(range(8))[m[devs[i, j]][0]]\n"
+        "                  for i in range(2) for j in range(2)}))\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    got = {f"{c[0]},{c[1]}": rows for c, rows in world4["pod_data_rows"]}
+    assert got == want
+    assert want["0,1"] == [2, 3] and want["1,0"] == [4, 5]
+
+
+def test_world2_restart_under_the_mesh(world2):
+    """``run_with_restarts`` on the mesh: a failure after the step-2 save,
+    the state restored sharded and trained on to step 4, equal bit for
+    bit to an uninterrupted run."""
+    res = world2["restart"]
+    assert any("[ft] restored checkpoint at step 2" in line
+               for line in res["logs"])
+    for (path, got), (_, want) in zip(tree_flatten(res["restarted"]),
+                                      tree_flatten(res["straight"])):
+        assert (torch.equal(got, want) if isinstance(want, torch.Tensor)
+                else got == want), path
+
+
+def _losses(out):
+    return re.findall(r"step (\d+): loss=([0-9.]+)", out)
+
+
+def test_world2_launch_train_local(world2, tmp_path, capsys):
+    """``launch.train.main(["--local", "--device", "cpu", ...])`` in the
+    ranks: the mesh run's logged loss equals the single-device run's."""
+    rc, out = world2["launch"]
+    assert rc == 0
+    assert "finished at step 3 on cpu x 2, mesh (2, 1) ('data', 'model')" \
+        in out
+    assert launch_train.main(["--device", "cpu", "--steps", "3",
+                              "--seq-len", "16", "--global-batch", "4",
+                              "--ckpt-dir", str(tmp_path)]) == 0
+    single = capsys.readouterr().out
+    assert _losses(out) == _losses(single) and _losses(out)
+
+
+def test_world2_serve_local(world2, capsys):
+    """``launch.serve.main(["--local", ...])``: params placed with
+    ``fsdp=False`` and gathered; the same tokens as one device."""
+    rc, out = world2["serve"]
+    assert rc == 0 and "3 requests on cpu" in out
+    assert launch_serve.main(["--device", "cpu", "--requests", "3"]) == 0
+    single = capsys.readouterr().out
+    requests = lambda s: [ln for ln in s.splitlines()   # noqa: E731
+                          if ln.startswith("request ")]
+    assert requests(out) == requests(single) and requests(out)
+
+
+def test_world2_rules_read_a_device_mesh(world2):
+    """``resolve_spec`` on the (2, 1) ``DeviceMesh`` itself."""
+    assert world2["mesh_view"] == ("data", "model")

@@ -1,0 +1,344 @@
+"""The port's partitioning rules against the JAX package's
+``repro.sharding.partitioning``: every case of ``tests/test_sharding.py``
+on the same ``FakeMesh``es, the port's ``LanguageModel.param_axes()``
+against the JAX init's axes for all ten architectures, a sweep of every
+parameter's spec over the production meshes and rule sets, and
+``state_shardings`` keyed by path.
+
+Specs are compared entry for entry: the port's spec is a tuple, JAX's
+``PartitionSpec`` is compared as ``tuple(spec)``.  Placing on a real
+``DeviceMesh`` (and the row ranges of a dim over ``("pod", "data")``)
+is in ``test_torch_multidevice.py``.
+"""
+
+import dataclasses
+import itertools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+from torch.distributed.tensor import Replicate, Shard
+
+from repro.optim import make_optimizer as jax_make_optimizer
+from repro.sharding import partitioning as jpart
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import LanguageModel
+from repro_torch.optim import make_optimizer
+from repro_torch.sharding import (ShardingRules, activate, active,
+                                  batch_shardings, constrain,
+                                  params_shardings, placements,
+                                  resolve_spec, state_shardings)
+from torch_reference import jax_lm  # noqa: F401  (fixture)
+
+
+class FakeMesh:
+    """resolve_spec only touches .shape and .axis_names."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+MESH1 = FakeMesh({"data": 16, "model": 16})
+MESH2 = FakeMesh({"pod": 2, "data": 16, "model": 16})
+RULES = ShardingRules(fsdp=True, sp=False)
+
+
+def _jax_rules(rules: ShardingRules):
+    return jpart.ShardingRules(fsdp=rules.fsdp, sp=rules.sp,
+                               mach_pod_parallel=rules.mach_pod_parallel)
+
+
+def _spec(mesh, axes, shape, rules=RULES):
+    """The port's spec, after checking it equals JAX's."""
+    got = resolve_spec(mesh, rules.table(mesh), axes, shape)
+    want = jpart.resolve_spec(mesh, _jax_rules(rules).table(mesh), axes,
+                              shape)
+    assert got == tuple(want), (axes, shape, got, want)
+    return got
+
+
+# ------------------------------------------- tests/test_sharding.py's cases
+
+def test_tp_sharding_divisible():
+    assert _spec(MESH1, ("embed", "heads", "qkv"), (12288, 96, 128)) == \
+        ("data", "model")
+
+
+def test_heads_fallback_when_not_divisible():
+    assert _spec(MESH1, ("embed", "heads", "qkv"), (2048, 8, 256)) == \
+        ("data",)
+    assert _spec(MESH1, ("embed", "heads", "qkv"), (2560, 10, 256)) == \
+        ("data",)
+
+
+def test_mqa_kv_replicated():
+    assert _spec(MESH1, ("embed", "kv_heads", "qkv"), (6144, 1, 128)) == \
+        ("data",)
+
+
+def test_vocab_and_mach_rb():
+    assert _spec(MESH1, ("vocab", "embed"), (256000, 2560)) == \
+        ("model", "data")
+    assert _spec(MESH1, ("embed", "mach_rb"), (2048, 16384)) == \
+        ("data", "model")
+
+
+def test_axis_conflict_first_wins():
+    assert _spec(MESH1, ("experts", "embed", "mlp"), (16, 4096, 1408)) == \
+        ("model", "data")
+    assert _spec(MESH1, ("experts", "embed", "mlp"), (60, 2048, 1408)) == \
+        (None, "data", "model")
+
+
+def test_batch_uses_pod_axis_when_present():
+    assert _spec(MESH2, ("batch", None), (512, 100)) == (("pod", "data"),)
+    assert _spec(MESH2, ("batch", None), (1, 100)) == ()
+
+
+def test_no_fsdp_disables_embed_sharding():
+    assert _spec(MESH1, ("embed", "heads", "qkv"), (4096, 32, 128),
+                 ShardingRules(fsdp=False)) == (None, "model")
+
+
+def test_sp_shards_seq():
+    rules = ShardingRules(fsdp=True, sp=True)
+    assert _spec(MESH1, ("batch", "seq", None), (256, 4096, 8192),
+                 rules) == ("data", "model")
+    assert _spec(MESH1, ("batch", "seq", None), (256, 1, 8192),
+                 rules) == ("data",)
+
+
+def test_mach_pod_parallel_rule():
+    rules = ShardingRules(fsdp=False, mach_pod_parallel=True)
+    assert _spec(MESH2, ("embed", "mach_rb"), (2048, 16384), rules) == \
+        (None, ("pod", "model"))
+
+
+class TwoParamModel:
+    """Two params of one shape and different shardings."""
+
+    def init(self, generator=None, device=None):
+        return {"emb": torch.zeros((64, 128), device=device),
+                "head": torch.zeros((64, 128), device=device)}
+
+    def param_axes(self):
+        return {"emb": ("embed", "mach_rb"), "head": ("vocab", "embed")}
+
+
+class DeepModel:
+    """Every layer's leaves share terminal path components, and a nested
+    ``block.w`` collides with a top-level ``w`` of the same shape and
+    another sharding."""
+
+    n_layers = 24
+
+    def init(self, generator=None, device=None):
+        p = {"w": torch.zeros((64, 128), device=device),
+             "block": {"w": torch.zeros((64, 128), device=device)}}
+        for i in range(self.n_layers):
+            p[f"layer_{i}"] = {"w": torch.zeros((32, 16), device=device),
+                               "b": torch.zeros((16,), device=device)}
+        return p
+
+    def param_axes(self):
+        a = {"w": ("embed", "mach_rb"), "block": {"w": ("vocab", "embed")}}
+        for i in range(self.n_layers):
+            a[f"layer_{i}"] = {"w": ("embed", "mlp") if i % 2
+                               else ("heads", "embed"), "b": (None,)}
+        return a
+
+
+class _JaxTwin:
+    """The JAX package's model protocol (``init(key) -> (params, axes)``)
+    over a port test model's tree."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, key):
+        p = jax.tree.map(lambda t: jax.numpy.zeros(t.shape),
+                         self.model.init(device="meta"))
+        return p, self.model.param_axes()
+
+
+def _specs(tree):
+    """{path: spec} of a tree of NamedShardings (port or JAX)."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: hasattr(x, "spec"))[0]
+    return {jax.tree_util.keystr(path): tuple(s.spec) for path, s in flat}
+
+
+@pytest.mark.parametrize("model", [TwoParamModel(), DeepModel()],
+                         ids=["two_params", "deep_colliding_suffixes"])
+@pytest.mark.parametrize("opt", ["adamw", "adafactor", "adamw_master"])
+def test_state_shardings_keyed_by_path_not_shape(model, opt):
+    """Every moment takes its own param's spec (longest path suffix,
+    shapes agreeing); Adafactor's factored moments, the counts and the
+    step are replicated — leaf for leaf what the JAX package gives on a
+    (1, 1) mesh."""
+    make = dict(adamw=("adamw", {}), adafactor=("adafactor", {}),
+                adamw_master=("adamw", {"master_weights": True}))[opt]
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                 ("data", "model"))
+    mesh = FakeMesh({"data": 1, "model": 1})
+    _, jshard, _ = jpart.state_shardings(
+        jmesh, jpart.ShardingRules(fsdp=True), _JaxTwin(model),
+        jax_make_optimizer(make[0], 1e-3, **make[1]))
+    shapes, shard, axes = state_shardings(
+        mesh, ShardingRules(fsdp=True), model,
+        make_optimizer(make[0], 1e-3, **make[1]))
+    assert axes == model.param_axes()
+    assert shapes.step == 0 and isinstance(shapes.step, int)
+    assert _specs(shard) == _specs(jshard)
+    p = shard.params
+    assert p["w" if "w" in p else "emb"].spec == ("data", "model")
+    # on a (16, 16) mesh the same rules split for real
+    _, shard16, _ = state_shardings(MESH1, ShardingRules(fsdp=True), model,
+                                    make_optimizer(make[0], 1e-3,
+                                                   **make[1]))
+    inner = shard16.opt_state
+    if opt == "adamw_master":
+        assert _specs(inner.master) == _specs(shard16.params)
+        inner = inner.inner
+    if opt == "adafactor":
+        assert set(_specs(inner.vr).values()) == {()}
+        assert set(_specs(inner.vc).values()) == {()}
+    else:
+        assert _specs(inner.mu) == _specs(shard16.params)
+        assert _specs(inner.nu) == _specs(shard16.params)
+    assert inner.count.spec == () and shard16.step.spec == ()
+
+
+# ------------------------------------------------ the port's param axes
+
+def _axes_leaves(tree, path=""):
+    """{path: axes tuple} of an axes tree (dicts and lists of tuples)."""
+    if isinstance(tree, dict):
+        return {p: a for k in sorted(tree)
+                for p, a in _axes_leaves(tree[k], f"{path}[{k!r}]").items()}
+    if isinstance(tree, list):
+        return {p: a for i, v in enumerate(tree)
+                for p, a in _axes_leaves(v, f"{path}[{i}]").items()}
+    return {path: tuple(tree)}
+
+
+def _shape_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: s for k in sorted(tree)
+                for p, s in _shape_leaves(tree[k], f"{path}[{k!r}]").items()}
+    if isinstance(tree, list):
+        return {p: s for i, v in enumerate(tree)
+                for p, s in _shape_leaves(v, f"{path}[{i}]").items()}
+    return {path: tuple(tree.shape)}
+
+
+@pytest.fixture(scope="module")
+def jax_axes(jax_lm):
+    """arch -> (JAX axes by path, JAX shapes by path) of each smoke model
+    (``eval_shape``: nothing allocated)."""
+    out = {}
+    for arch in ARCH_IDS:
+        jmodel = jax_lm.models.LanguageModel(
+            jax_lm.configs.get_config(arch, smoke=True))
+        shapes, axes = jpart.eval_shape_with_axes(jmodel.init,
+                                                  jax.random.key(0))
+        out[arch] = (_axes_leaves(axes), _shape_leaves(shapes))
+    return out
+
+
+def _port(arch):
+    model = LanguageModel(get_config(arch, smoke=True))
+    return model, model.init(device="meta"), model.param_axes()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_axes_match_jax_init(jax_axes, arch):
+    """Leaf for leaf (``convert.py``'s mapping is the identity on paths),
+    one logical name a dim, for every block kind."""
+    model, params, axes = _port(arch)
+    want_axes, want_shapes = jax_axes[arch]
+    assert _axes_leaves(axes) == want_axes
+    assert _shape_leaves(params) == want_shapes
+    for path, ax in _axes_leaves(axes).items():
+        assert len(ax) == len(want_shapes[path]), path
+
+
+RULE_SETS = [ShardingRules(fsdp=f, sp=s, mach_pod_parallel=m)
+             for f, s, m in itertools.product((True, False), repeat=3)]
+
+
+@pytest.mark.parametrize("rules", RULE_SETS,
+                         ids=lambda r: f"fsdp{int(r.fsdp)}sp{int(r.sp)}"
+                                       f"pod{int(r.mach_pod_parallel)}")
+@pytest.mark.parametrize("mesh", [MESH1, MESH2], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_param_spec_matches_jax(jax_axes, arch, mesh, rules):
+    """The port's ``params_shardings`` on its own axes and shapes against
+    JAX's ``resolve_spec`` on JAX's, every leaf."""
+    assert rules.table(mesh) == _jax_rules(rules).table(mesh)
+    model, params, axes = _port(arch)
+    got = _specs(params_shardings(mesh, rules, axes, params))
+    want_axes, want_shapes = jax_axes[arch]
+    table = _jax_rules(rules).table(mesh)
+    want = {path: tuple(jpart.resolve_spec(mesh, table, ax,
+                                           want_shapes[path]))
+            for path, ax in want_axes.items()}
+    assert got == want
+
+
+# ---------------------------------------------------- placements, batches
+
+def test_placements_of_a_spec():
+    assert placements(("data", "model"), MESH1) == [Shard(0), Shard(1)]
+    assert placements((None, "data"), MESH1) == [Shard(1), Replicate()]
+    assert placements(((("pod", "data")),), MESH2) == \
+        [Shard(0), Shard(0), Replicate()]
+    assert placements((None, ("pod", "model")), MESH2) == \
+        [Shard(1), Replicate(), Shard(1)]
+    assert placements((), MESH2) == [Replicate()] * 3
+    with pytest.raises(ValueError, match="mesh's order"):
+        placements(((("data", "pod")),), MESH2)
+
+
+def test_batch_shardings_split_rows():
+    batch = {"tokens": torch.zeros((512, 65), dtype=torch.int32),
+             "weights": torch.zeros((512, 64))}
+    specs = _specs(batch_shardings(MESH2, RULES, batch))
+    assert specs == {"['tokens']": (("pod", "data"),),
+                     "['weights']": (("pod", "data"),)}
+    sp = ShardingRules(sp=True)
+    assert _specs(batch_shardings(MESH1, sp, batch))["['weights']"] == \
+        ("data", "model")
+    odd = {"tokens": torch.zeros((3, 65), dtype=torch.int32)}
+    assert _specs(batch_shardings(MESH1, RULES, odd)) == {"['tokens']": ()}
+
+
+def test_activate_and_constrain():
+    """``activate`` keeps the rules in force; ``constrain`` is the
+    identity on the port's whole per-rank tensors."""
+    x = torch.randn(4, 8, 16)
+    assert active() is None
+    with activate(MESH1, RULES) as ctx:
+        assert active() == ctx.entry == (MESH1, RULES.table(MESH1))
+        with activate(MESH2, ShardingRules(fsdp=False)):
+            assert active()[0] is MESH2
+        assert active()[0] is MESH1
+        assert constrain(x, ("batch", "seq", None)) is x
+    assert active() is None
+
+
+def test_param_axes_follow_the_head():
+    """``param_axes`` keeps ``init``'s keys for each head (MACH, untied and
+    tied OAA) and names the MACH kernel's dims (embed, mach_rb)."""
+    base = get_config("recurrentgemma-2b", smoke=True)
+    assert base.mach is not None
+    for cfg in (base, dataclasses.replace(base, mach=None,
+                                          tie_embeddings=False),
+                dataclasses.replace(base, mach=None, tie_embeddings=True)):
+        model = LanguageModel(cfg)
+        assert set(model.param_axes()) == set(model.init(device="meta"))
+    assert LanguageModel(base).param_axes()["mach_head"] == \
+        {"kernel": ("embed", "mach_rb")}
