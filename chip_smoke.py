@@ -382,9 +382,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    tinyllama-1.1b with the MACH head (B=2,048, R=8; kernel 3) at full
    width, bf16 params and float32 moments, 2 x 4,096 tokens, 4 AdamW
    steps through the unsharded ``Trainer``, then, launch counters from
-   0, through ``Trainer(mesh=)`` (the state ``DTensor``s) from the same
-   seed: losses, params and moments bit for bit, kernels 3 and 10
-   launched, ms a step and peak memory both ways.  The sharded state
+   0, through ``Trainer(mesh=)`` (the state ``DTensor``s, placed as it
+   is built; each layer period's params gathered inside the recomputed
+   period) from the same seed: losses, params and moments bit for bit,
+   kernels 3 and 10 launched, the gathered bytes alive at once (counted
+   on the first step) within the leaves outside the stacks plus two
+   periods, ms a step, the steps' and the init's peak memory both ways
+   against what the phase expects (printed).  The sharded state
    saved (gathered, rank 0 writes) and restored unsharded, the unsharded
    one restored onto the mesh, both bit for bit, with their times.  Then
    ``torchrun --standalone --nproc_per_node=1 -m
@@ -404,6 +408,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -6117,10 +6122,11 @@ def _md_launchers() -> dict:
             "flash_attention_bwd": fa.flash_attention_bwd_cuda}
 
 
-def _md_train(label, trainer, stream, dev, smi):
+def _md_train(label, trainer, stream, dev, smi, count=None):
     """MD_STEPS steps from seed 0's state: (the state, losses, gradient
     norms, ms a step (host clock, synchronized), the steps' peak GiB and
-    the init's)."""
+    the init's).  ``count`` (a ``GatherCount``) watches the first step,
+    which the median leaves out."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6133,7 +6139,9 @@ def _md_train(label, trainer, stream, dev, smi):
     for s in range(MD_STEPS):
         batch = stream.batch_at(s)
         t1 = time.perf_counter()
-        state, met = trainer.step_fn(state, batch)
+        with (count if count is not None and s == 0
+              else contextlib.nullcontext()):
+            state, met = trainer.step_fn(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(met["loss"]))
@@ -6257,10 +6265,13 @@ def phase_multidevice(dev) -> dict:
     temporary directory) and a (1, 1) ``("data", "model")`` mesh with the
     FSDP rules: tinyllama-1.1b (MACH head) at full width, 2 x 4,096
     tokens, MD_STEPS steps through the unsharded ``Trainer`` and then,
-    launch counters from 0, through ``Trainer(mesh=)`` from the same seed:
-    losses, params and moments bit for bit, kernels 3 and 10 launched;
-    ms a step and peak both ways.  Kernel 10 held to plain at the path's
-    shape first (not counted).  The sharded state saved and restored
+    launch counters from 0, through ``Trainer(mesh=)`` from the same seed
+    (each layer period's params gathered inside the recomputed period,
+    the state placed as it is built): losses, params and moments bit for
+    bit, kernels 3 and 10 launched, the gathered bytes alive at once
+    within the leaves outside the stacks plus two periods; ms a step, the
+    steps' peak and the init's both ways.  Kernel 10 held to plain at the
+    path's shape first (not counted).  The sharded state saved and restored
     unsharded, the unsharded one restored sharded, bit for bit; then the
     torchrun entry point, and gradient compression on the card against
     the CPU."""
@@ -6276,6 +6287,9 @@ def phase_multidevice(dev) -> dict:
     from repro_torch.models import LanguageModel
     from repro_torch.sharding import ShardingRules
     from repro_torch.train import Trainer
+    # the gathered-bytes counter the CPU tests hold the worlds with
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_multidevice_ranks import GatherCount, gather_bounds
 
     t0 = time.perf_counter()
     smi = _nvidia_smi()
@@ -6307,11 +6321,15 @@ def phase_multidevice(dev) -> dict:
             launchers = _md_launchers()
             for fn in launchers.values():
                 fn.launches = 0
+            count = GatherCount()
             sharded, out["sharded"] = _md_train(
                 "sharded Trainer(mesh=)", Trainer(model, tcfg, mesh=mesh,
                                                   rules=rules),
-                stream, dev, smi)
+                stream, dev, smi, count)
             out["launches"] = {n: fn.launches for n, fn in launchers.items()}
+            out["gathered"] = dict(gather_bounds(host.params),
+                                   peak=count.peak, calls=count.calls)
+            _md_report(out, smi)
             print(f"multidevice: launches on the sharded path "
                   f"{out['launches']}", flush=True)
             if min(out["launches"].values()) < 1:
@@ -6382,6 +6400,46 @@ def phase_multidevice(dev) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"multidevice: phase wall time {out['seconds']:.1f} s", flush=True)
     return out
+
+
+# what phase 17 expects of the per-period sharded step at world 1
+MD_STEP_SLOWDOWN = 0.03          # at most +3% on the unsharded step
+MD_STEP_PEAK_GIB = 16.86 + 0.25  # the whole-tree gathering step's peak
+MD_INIT_PEAK_GIB = 12.5          # the state placed as it is built
+
+
+def _md_report(out, smi) -> None:
+    """The sharded run's gathered-bytes peak against its bound (fails
+    above it), and ms a step, the steps' peak and the init's peak both
+    ways against what phase 17 expects (printed, not held: one call's
+    host clock)."""
+    g, un, sh = out["gathered"], out["unsharded"], out["sharded"]
+    print(f"multidevice: per-period gathering, the first sharded step: "
+          f"{g['calls']} leaves gathered, at most {g['peak']:,} bytes "
+          f"alive at once (world 1: the gathers alias the shards, so the "
+          f"schedule); bound {g['bound']:,} = outside the stacks "
+          f"{g['rest']:,} + 2 x the largest period {g['period']:,}; whole "
+          f"tree {g['whole']:,} [{smi}]", flush=True)
+    if not 0 < g["peak"] <= g["bound"] < g["whole"]:
+        fail(f"multidevice: gathered bytes alive at once {g['peak']:,} "
+             f"above the per-period bound {g['bound']:,} (whole "
+             f"{g['whole']:,})")
+    slower = sh["step_ms"] / un["step_ms"] - 1.0
+    checks = {
+        "ms a step": (f"{un['step_ms']:.3f} unsharded, {sh['step_ms']:.3f} "
+                      f"sharded ({slower:+.2%})",
+                      slower <= MD_STEP_SLOWDOWN),
+        "step peak": (f"{un['peak_gib']:.2f} / {sh['peak_gib']:.2f} GiB",
+                      sh["peak_gib"] <= MD_STEP_PEAK_GIB),
+        "init peak": (f"{un['init_peak_gib']:.2f} drawing / "
+                      f"{sh['init_peak_gib']:.2f} drawing and placing GiB",
+                      sh["init_peak_gib"] <= MD_INIT_PEAK_GIB)}
+    out["expected"] = {k: ok for k, (_, ok) in checks.items()}
+    print("multidevice: against the expected (+3% a step, step peak <= "
+          f"{MD_STEP_PEAK_GIB:.2f} GiB, init peak <= {MD_INIT_PEAK_GIB} "
+          "GiB): " + "; ".join(f"{k} {text} {'inside' if ok else 'OUTSIDE'}"
+                               for k, (text, ok) in checks.items())
+          + f" [{smi}]", flush=True)
 
 
 def _add_multidevice_launches(rows, md) -> None:

@@ -98,24 +98,39 @@ def tree_flatten(tree: Any) -> list[tuple[str, Any]]:
     return [("".join(p), x) for p, x in tree_paths(tree)]
 
 
+def tree_leaves(tree: Any) -> list:
+    """``tree_flatten``'s leaves in its order, without their paths (the
+    model's per-layer calls, where building paths costs host time)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for f in tree._fields
+                for x in tree_leaves(getattr(tree, f))]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def tree_unflatten(template: Any, leaves) -> Any:
     """``template``'s structure, its dicts in their own key order, with
     ``leaves`` (in ``tree_flatten``'s order) in place of its leaves."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            got = {k: build(t[k]) for k in sorted(t)}
-            return {k: got[k] for k in t}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(getattr(t, f)) for f in t._fields))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        if t is None:
-            return None
-        return next(it)
 
-    return build(template)
+def _build(t: Any, it) -> Any:
+    # a module function, not a closure over ``it``: a recursive closure
+    # is a reference cycle, which would hold the leaves until the next
+    # garbage collection
+    if isinstance(t, dict):
+        got = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: got[k] for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_build(getattr(t, f), it) for f in t._fields))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    if t is None:
+        return None
+    return next(it)
 
 
 def _as_numpy(x: torch.Tensor) -> np.ndarray:

@@ -8,6 +8,12 @@ head (the paper's) or the dense OAA softmax (``cfg.mach is None``; tied
 to the embeddings or its own ``lm_head``).  MoE blocks add their
 load-balance and router-z losses to the training loss.
 
+Every read of a param goes through ``partitioning.materialize``, the
+identity on plain tensors; under FSDP (a sharded train step's
+``DTensor`` params) it gathers the leaf whole at its use and the
+backward reduce-scatters its gradient (``apply_stacks`` does so a layer
+period at a time).
+
 Public surface:
   init(generator, device)                      -> params
   param_axes()                                 -> the params' logical axes
@@ -54,7 +60,8 @@ from repro_torch.models import frontends, layers, recurrent, xlstm
 from repro_torch.models.transformer import (ModelConfig, apply_stacks,
                                             cross_kv, init_stacks,
                                             plan_stacks, stacks_axes,
-                                            tree_map)
+                                            tree_map, unstack)
+from repro_torch.sharding import partitioning
 
 
 class LanguageModel:
@@ -128,7 +135,8 @@ class LanguageModel:
     # --------------------------------------------------------------- forward
     def _embed_tokens(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = layers.embed(params["embed"], tokens, cfg.dtype)
+        x = layers.embed(partitioning.materialize(params["embed"]), tokens,
+                         cfg.dtype)
         if cfg.embed_scale != 1.0:
             # the scale is rounded to the compute dtype, as in the JAX package
             x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype,
@@ -140,25 +148,30 @@ class LanguageModel:
         adapter, the non-causal ``enc`` layers at positions 0..S-1, the
         encoder's final norm."""
         cfg = self.cfg
-        x = frontends.apply_adapter(params["enc_adapter"], enc_feats,
-                                    cfg.dtype)
+        x = frontends.apply_adapter(
+            partitioning.materialize(params["enc_adapter"]), enc_feats,
+            cfg.dtype)
         b, s = x.shape[:2]
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         x, _, _ = apply_stacks(params["enc_stacks"], cfg,
                                ["enc"] * cfg.num_encoder_layers, x, pos)
-        return layers.apply_norm(params["enc_norm"], x, cfg.norm)
+        return layers.apply_norm(partitioning.materialize(params["enc_norm"]),
+                                 x, cfg.norm)
 
     def enc_kvs(self, params: dict, enc_out: torch.Tensor) -> list:
         """Every decoder layer's cross-attention (k, v) from the encoder
         output, stacked on the layer axis like the params: a loop over
-        that axis where the JAX package ``vmap``s ``cross_kv``."""
+        that axis where the JAX package ``vmap``s ``cross_kv``.  Each
+        layer's k / v weights are gathered at their use; autograd keeps
+        them to the backward (as the ``vmap`` holds every layer's)."""
         out = []
         for p_list in params["stacks"]:
             st = []
             for pp in p_list:
                 n = pp["xattn"]["k"]["kernel"].shape[0]
-                kvs = [cross_kv(tree_map(lambda v: v[li], pp), enc_out)
-                       for li in range(n)]
+                kv = {w: pp["xattn"][w] for w in ("k", "v")}
+                kvs = [cross_kv({"xattn": partitioning.materialize(layer)},
+                                enc_out) for layer in unstack(kv, n)]
                 st.append(tuple(torch.stack(x) for x in zip(*kvs)))
             out.append(st)
         return out
@@ -177,8 +190,9 @@ class LanguageModel:
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         if prefix_emb is not None:
-            pe = frontends.apply_adapter(params["vis_adapter"], prefix_emb,
-                                         cfg.dtype)
+            pe = frontends.apply_adapter(
+                partitioning.materialize(params["vis_adapter"]), prefix_emb,
+                cfg.dtype)
             x = torch.cat([pe, x], dim=1)
         b, t = x.shape[:2]
         if positions is None:
@@ -187,23 +201,27 @@ class LanguageModel:
         x, caches, aux = apply_stacks(params["stacks"], cfg, self._dec_layout(),
                                       x, positions, caches, enc_kvs, decode,
                                       per_slot)
-        return layers.apply_norm(params["final_norm"], x, cfg.norm), caches, aux
+        final_norm = partitioning.materialize(params["final_norm"])
+        return layers.apply_norm(final_norm, x, cfg.norm), caches, aux
 
     def oaa_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """The dense head's (..., V) logits in h's dtype: the tied
         embedding or ``lm_head``, then the optional tanh soft cap."""
         cfg = self.cfg
         if cfg.tie_embeddings:
-            logits = layers.unembed(params["embed"], h)
+            logits = layers.unembed(partitioning.materialize(params["embed"]),
+                                    h)
         else:
-            logits = layers.dense(params["lm_head"], h)
+            logits = layers.dense(partitioning.materialize(params["lm_head"]),
+                                  h)
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
         return logits
 
     def mach_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        return self.head.apply(params["mach_head"], h)       # (..., R, B)
+        return self.head.apply(partitioning.materialize(params["mach_head"]),
+                               h)                             # (..., R, B)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: dict, batch: dict):
@@ -252,7 +270,8 @@ class LanguageModel:
         else:
             hashed = cfg.mach.hash_labels(labels).movedim(0, -1)  # (B, L, R)
             if cfg.mach_fused_loss:
-                kernel = params["mach_head"]["kernel"]
+                kernel = partitioning.materialize(
+                    params["mach_head"])["kernel"]
                 dt = torch.promote_types(h.dtype, kernel.dtype)
                 per_tok = ops.mach_fused_xent(
                     h.to(dt), kernel.to(dt), hashed,

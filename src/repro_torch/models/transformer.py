@@ -33,9 +33,11 @@ from typing import Any, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
 from repro_torch.core.mach import MACHConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe as moe_lib, recurrent, xlstm
+from repro_torch.sharding import partitioning
 
 PORTED_KINDS = ("attn", "attn_local", "moe", "rglru", "mlstm", "slstm",
                 "enc", "xattn")
@@ -386,14 +388,25 @@ def stacks_axes(cfg: ModelConfig, layout: list) -> list:
             for period, _ in plan_stacks(layout)]
 
 
+def unstack(tree, n: int) -> list:
+    """A tree of leaves stacked on a leading axis of ``n`` as ``n`` trees
+    of their slices: one ``unbind`` a leaf, whose backward is one
+    ``stack`` (``n`` selects would each add a zero-filled copy of the
+    whole stack to its gradient)."""
+    leaves = [x.unbind(0) for x in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[i] for u in leaves]) for i in range(n)]
+
+
 def _add_aux(total: dict, aux: dict) -> dict:
     return {k: v + aux.get(k, 0.0) for k, v in total.items()}
 
 
 def _apply_period(layer_params: list, cfg: ModelConfig, period: tuple, x,
                   positions, layer_enc: Optional[list] = None):
-    """One period of the pattern without caches (the remat unit).
-    Returns (x, the period's aux sums)."""
+    """One period of the pattern without caches (the remat unit), its
+    params gathered here (``partitioning.materialize``), so a recompute
+    gathers them again.  Returns (x, the period's aux sums)."""
+    layer_params = partitioning.materialize(layer_params)
     aux = dict.fromkeys(AUX_KEYS, 0.0)
     for pi, (lp, kind) in enumerate(zip(layer_params, period)):
         ek = layer_enc[pi] if layer_enc is not None else None
@@ -409,12 +422,23 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
     block's stacked (k, v)) mirror the params nesting, and caches are
     updated in place.  Returns (x, caches, aux): the MoE blocks'
     ``load_balance`` and ``router_z`` summed over layers (0.0 without
-    MoE blocks)."""
+    MoE blocks).
+
+    Each period's slices of the stacked params (``unstack``; under FSDP
+    ``DTensor``s, each the slice of a shard along the replicated layer
+    dim, with no communication) are gathered whole where the period
+    runs.  Under remat the forward gathers a period, uses it and drops
+    it, and the backward's recompute gathers it again: a rank holds
+    about one period whole.  With caches (serving) or ``remat="none"`` the same gather
+    runs, and autograd keeps what the period's backward needs of the
+    gathered weights until then (every period's, when gradients are
+    on)."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()
     aux = dict.fromkeys(AUX_KEYS, 0.0)
     for si, ((period, n), p_list) in enumerate(zip(plan_stacks(layout), params)):
+        slices = unstack(p_list, n)
         for li in range(n):
-            layer_params = [tree_map(lambda v: v[li], p) for p in p_list]
+            layer_params = slices[li]
             layer_enc = ([tree_map(lambda v: v[li], e) for e in enc_kvs[si]]
                          if enc_kvs is not None else None)
             if remat:
@@ -423,6 +447,7 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
                                            use_reentrant=False)
                 aux = _add_aux(aux, period_aux)
                 continue
+            layer_params = partitioning.materialize(layer_params)
             for pi, kind in enumerate(period):
                 lc = (tree_map(lambda v: v[li], caches[si][pi])
                       if caches is not None else None)

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.optimizers import _unflatten, tree_leaves, tree_map
 
@@ -25,13 +26,22 @@ def value_and_grad(loss_fn, params, *args, has_aux: bool = False):
     """``jax.value_and_grad`` for a function of a tree of tensors:
     returns (loss_fn(params, *args), grads shaped like params).  The
     gradient is taken at detached copies of the leaves, so ``params``
-    need not require grad.  With ``has_aux`` loss_fn returns (loss, aux)
-    and the first result is that pair."""
+    need not require grad.  A ``DTensor`` leaf's gradient comes back on
+    its own placements (``sharding.materialize``'s backward); one that
+    does not raises.  With ``has_aux`` loss_fn returns (loss, aux) and
+    the first result is that pair."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     out = loss_fn(leaves, *args)
     loss = out[0] if has_aux else out
     flat = tree_leaves(leaves)
-    grads = iter(torch.autograd.grad(loss, flat))
+    grads = torch.autograd.grad(loss, flat)
+    for p, g in zip(flat, grads):
+        if isinstance(p, DTensor) and (not isinstance(g, DTensor) or
+                                       g.placements != p.placements):
+            raise ValueError(f"a gradient came back on "
+                             f"{getattr(g, 'placements', 'no mesh')}, its "
+                             f"param lies on {p.placements}")
+    grads = iter(grads)
     g_tree = tree_map(lambda _: next(grads), leaves)
     if has_aux:
         return (loss.detach(), tree_map(torch.Tensor.detach, out[1])), g_tree
@@ -55,7 +65,9 @@ def clip_by_global_norm(grads, max_norm: float):
 def accumulate_grads(loss_fn, params, batch, num_microbatches: int):
     """Split the batch's leading dim into microbatches, take each one's
     gradient and average.  ``loss_fn(params, batch) -> (loss, metrics)``
-    (metrics a tree of tensors).  Returns ((loss, metrics), grads)."""
+    (metrics a tree of tensors).  Returns ((loss, metrics), grads).  The
+    float32 sums take each param's placements (a ``DTensor`` param's
+    are sharded like it, never whole)."""
     if num_microbatches <= 1:
         return value_and_grad(loss_fn, params, batch, has_aux=True)
 
@@ -68,8 +80,8 @@ def accumulate_grads(loss_fn, params, batch, num_microbatches: int):
                          + tuple(x.shape[1:]))
 
     micro = tree_map(split, batch)
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     loss_acc, metr_acc = 0.0, None
     for i in range(num_microbatches):
         (loss, metrics), g = value_and_grad(

@@ -4,10 +4,12 @@
 from repro_torch.sharding.partitioning import (NamedSharding, ShardingRules,
                                                activate, active,
                                                batch_shardings, constrain,
-                                               gather, params_shardings,
-                                               place, placements,
-                                               resolve_spec, state_shardings)
+                                               gather, materialize,
+                                               params_shardings, place,
+                                               placements, resolve_spec,
+                                               state_shardings)
 
 __all__ = ["NamedSharding", "ShardingRules", "activate", "active",
-           "batch_shardings", "constrain", "gather", "params_shardings",
-           "place", "placements", "resolve_spec", "state_shardings"]
+           "batch_shardings", "constrain", "gather", "materialize",
+           "params_shardings", "place", "placements", "resolve_spec",
+           "state_shardings"]

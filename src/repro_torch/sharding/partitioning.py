@@ -21,9 +21,11 @@ trimmed: ``None`` (replicated), a mesh axis name, or a tuple of names
 (one dim over several axes, the first major) — entry for entry the JAX
 package's ``PartitionSpec``.  ``placements`` turns it into ``DTensor``
 placements, ``place`` puts a tree of tensors on the mesh, ``gather``
-brings it back whole.  The rules read only a mesh's axis names and
-sizes, so they run on a ``DeviceMesh`` and on any object with a
-``shape`` dict and ``axis_names`` (the JAX tests' ``FakeMesh``).
+brings it back whole, and ``materialize`` brings a leaf whole where the
+model uses it (FSDP: the backward reduce-scatters its gradient).  The
+rules read only a mesh's axis names and sizes, so they run on a
+``DeviceMesh`` and on any object with a ``shape`` dict and
+``axis_names`` (the JAX tests' ``FakeMesh``).
 
 Where the port differs (ROADMAP.md §3): ``constrain`` is the identity,
 since the model runs on whole per-rank tensors; the trainer computes on
@@ -33,15 +35,15 @@ the ``model`` axis as data-parallel replicas and refuses ``sp``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
-from repro_torch.checkpoint.manager import (tree_flatten, tree_paths,
-                                            tree_unflatten)
+from repro_torch.checkpoint.manager import (tree_flatten, tree_leaves,
+                                            tree_paths, tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +94,9 @@ def _view(mesh):
 # Activation constraints.  Model code calls ``constrain(x, ("batch",
 # "seq", None))``; the JAX package then constrains XLA's layout inside
 # ``activate(mesh, rules)``.  The port's model runs on whole per-rank
-# tensors, so there is nothing to constrain.
+# tensors, so there is nothing to constrain; what it reads of the
+# activation is the mesh axes a train step's batch rows split on
+# (``materialize``).
 # ---------------------------------------------------------------------------
 
 _ACTIVE: list = []
@@ -100,13 +104,17 @@ _ACTIVE: list = []
 
 class activate:
     """Keeps (mesh, rules table) in force for the block, as the JAX
-    package's ``activate`` does; ``active()`` reads it."""
+    package's ``activate`` does; ``active()`` reads it.  A train step
+    also names ``batch_axes``, the mesh axes its batch rows split on:
+    ``materialize`` sums the gradients of its uses over them."""
 
-    def __init__(self, mesh, rules_cfg: ShardingRules):
+    def __init__(self, mesh, rules_cfg: ShardingRules,
+                 batch_axes: Optional[tuple] = None):
         self.entry = (mesh, rules_cfg.table(mesh))
+        self.batch_axes = batch_axes
 
     def __enter__(self):
-        _ACTIVE.append(self.entry)
+        _ACTIVE.append(self)
         return self
 
     def __exit__(self, *exc):
@@ -116,7 +124,7 @@ class activate:
 
 def active():
     """The innermost ``activate``'s (mesh, rules table), or None."""
-    return _ACTIVE[-1] if _ACTIVE else None
+    return _ACTIVE[-1].entry if _ACTIVE else None
 
 
 def constrain(x: torch.Tensor, logical_axes) -> torch.Tensor:
@@ -297,7 +305,8 @@ def place(tree, shardings) -> Any:
     ``DTensor`` leaf is gathered first, so this also moves a tree from
     one mesh to another.  Each rank cuts its own shard from the whole
     tensor it holds (no communication): every rank must hold the same
-    values.  A leaf that is not split shares its storage.  Ints stay."""
+    values.  A leaf that is not split shares its storage; a ``DTensor``
+    leaf already on its sharding stays as it is.  Ints stay."""
     if isinstance(shardings, NamedSharding):
         shard_leaves = [shardings] * len(tree_flatten(tree))
     else:
@@ -309,9 +318,105 @@ def place(tree, shardings) -> Any:
     out = []
     for (_, x), sh in zip(pairs, shard_leaves):
         if isinstance(x, DTensor):
+            if x.device_mesh == sh.mesh and \
+                    list(x.placements) == sh.placements:
+                out.append(x)
+                continue
             x = x.full_tensor()
         if isinstance(x, torch.Tensor):
             x = distribute_tensor(x.to(mesh_device(sh.mesh)), sh.mesh,
                                   sh.placements, src_data_rank=None)
         out.append(x)
     return tree_unflatten(tree, out)
+
+
+def materialize(tree) -> Any:
+    """Every ``DTensor`` leaf whole for its use here, the rest (plain
+    tensors: one device) as they are.  The model calls it where it reads
+    a param, so under FSDP a rank holds a leaf whole only while it uses
+    it.  The whole tensor's gradient is this rank's share: the backward
+    sums it over the innermost ``activate``'s ``batch_axes`` (each
+    rank's rows give a share of the batch's gradient; the other axes
+    hold replicas) onto the leaf's own placements — a reduce-scatter on
+    the axes that split it, an all-reduce on those that do not — as it
+    leaves this use.  A collective: every rank of the mesh calls it, in
+    the same order.  Raises on a ``DTensor`` outside a step's activation
+    on its mesh."""
+    leaves = tree_leaves(tree)
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return tree
+    act = _ACTIVE[-1] if _ACTIVE else None
+    if act is None or act.batch_axes is None:
+        raise ValueError("materialize: a DTensor param outside a train "
+                         "step's activate(mesh, rules, batch_axes=)")
+    mesh = act.entry[0]
+    summed = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+                   if a in act.batch_axes)
+    out = []
+    for x in leaves:
+        if isinstance(x, DTensor):
+            if x.device_mesh != mesh:
+                raise ValueError("materialize: a leaf on another mesh than "
+                                 "the active one")
+            x = _Gather.apply(x, summed)
+        out.append(x)
+    return tree_unflatten(tree, out)
+
+
+class _Gather(torch.autograd.Function):
+    """A ``DTensor`` -> its whole tensor, all-gathered from the local
+    shard over each mesh dim that splits it (the minor dim first, so a
+    tensor dim over two mesh dims comes back major first, as ``DTensor``
+    splits it).  Backward: the whole gradient, summed over the mesh dims
+    ``summed`` and cut to the shard — a reduce-scatter where a summed
+    dim splits the leaf, an all-reduce where it does not, a local slice
+    where an unsummed dim splits it — as a ``DTensor`` on the leaf's
+    placements.  A mesh dim of one rank moves nothing.  The same result
+    as ``redistribute`` to ``Replicate()`` and ``to_local`` with
+    ``Partial("sum")`` gradient placements, without ``DTensor``'s
+    per-call dispatch, whose host time made tinyllama-1.1b's step 6.8%
+    slower at world 1 on an H100 (the redistribute, its backward and the
+    per-layer selects of every leaf)."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, summed: tuple):
+        # the gradient takes x's spec (mesh, placements, global shape,
+        # stride and dtype) as it is: ``DTensor.from_local`` would build
+        # a new one, host time on every use of every leaf
+        ctx.spec, ctx.summed = x._spec, summed
+        mesh = x.device_mesh
+        whole = x.to_local()               # its local tensor (no grad here)
+        for i in reversed(range(mesh.ndim)):
+            p = x.placements[i]
+            n = mesh.size(i)
+            if isinstance(p, Shard) and n > 1:
+                whole = whole.contiguous()
+                parts = whole.new_empty((n * whole.shape[0],)
+                                        + tuple(whole.shape[1:]))
+                torch.distributed.all_gather_into_tensor(
+                    parts, whole, group=mesh.get_group(i))
+                if p.dim:
+                    parts = torch.cat(parts.chunk(n), dim=p.dim)
+                whole = parts
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        mesh = ctx.spec.mesh
+        for i, p in enumerate(ctx.spec.placements):
+            n = mesh.size(i)
+            if n == 1:
+                continue
+            if i in ctx.summed and isinstance(p, Shard):
+                out = torch.empty_like(g.narrow(p.dim, 0, g.shape[p.dim] // n),
+                                       memory_format=torch.contiguous_format)
+                torch.distributed.reduce_scatter_tensor(
+                    out, torch.cat(g.chunk(n, dim=p.dim), dim=0)
+                    if p.dim else g.contiguous(), group=mesh.get_group(i))
+                g = out
+            elif i in ctx.summed:
+                g = g.contiguous().clone()
+                torch.distributed.all_reduce(g, group=mesh.get_group(i))
+            elif isinstance(p, Shard):
+                g = g.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
+        return DTensor(g, ctx.spec, requires_grad=False), None

@@ -8,19 +8,22 @@ cross-entropy); nothing in the loop is MACH-specific.
 
 On a mesh (``Trainer(mesh=, rules=)``, ``DataParallel``) the state is
 sharded FSDP-style: every leaf a ``DTensor`` placed by
-``sharding.state_shardings``.  A step gathers the params whole, runs the
-model on this rank's rows of the global batch (plain tensors, so every
-kernel sees what it sees on one device), reduce-scatters the gradients
-onto the params' placements, and runs clipping and the optimizer on the
+``sharding.state_shardings``.  A step hands the model the placed params
+and this rank's rows of the global batch.  The model gathers each leaf
+where it uses it (``sharding.materialize``: the embedding at the
+lookup, each layer period's slices inside the period, recomputed under
+remat), so every kernel sees plain whole tensors as on one device and a
+rank holds about one period whole at a time, as JAX's scan does.  The
+backward reduce-scatters each use's gradient onto its param's
+placements as it leaves the use; clipping and the optimizer run on the
 ``DTensor`` state.  The loss is the global batch's weighted mean, as on
 one device; at world size 1 the step computes the same bits as the
-single-device one.  Gathering the whole tree a step is the JAX
-function, not JAX's memory (it gathers per use inside the scan;
-ROADMAP.md §1).
+single-device one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional
@@ -34,7 +37,7 @@ from repro_torch.optim import (accumulate_grads, apply_updates,
                                clip_by_global_norm, make_optimizer,
                                make_schedule)
 from repro_torch.optim.optimizers import tree_leaves, tree_map
-from repro_torch.sharding import (ShardingRules, batch_shardings, gather,
+from repro_torch.sharding import (ShardingRules, activate, batch_shardings,
                                   place, state_shardings)
 from repro_torch.sharding.partitioning import mesh_device, spec_axes
 from repro_torch.train.train_state import TrainState, new_train_state
@@ -76,26 +79,23 @@ def make_optimizer_from_config(tcfg: TrainConfig):
 class DataParallel:
     """The mesh half of a sharded train step: which rows of the global
     batch this rank computes, the global weighted mean as each rank's
-    share of the loss, and the gradients and metrics summed over the
-    ranks that hold different rows.
+    share of the loss, the mesh axes the rows split on (the model's
+    gathers sum their gradients over them), and the metrics summed over
+    the ranks that hold different rows.
 
-    ``params_shardings``: the params' ``NamedSharding``s (the step
-    reduce-scatters each gradient onto its param's placements).
     ``group_size``: an MoE model's token groups, whose per-group means
     (``load_balance``, ``router_z``) equal one device's only where no
     group straddles two ranks; a batch whose rows split otherwise is
     refused."""
 
-    def __init__(self, mesh, rules: ShardingRules, params_shardings,
-                 group_size: int = 0):
+    def __init__(self, mesh, rules: ShardingRules, group_size: int = 0):
         self.mesh = mesh
         self.rules = rules
-        self.params_shardings = params_shardings
         self.group_size = group_size
-        # set by ``local_rows`` for the step's other calls: the batch's
-        # shard count, and a gradient's placements (summed over the mesh
-        # axes its rows split on, the same on the others)
-        self._shards, self._partial = 1, None
+        # set by ``local_rows`` for the step's other calls: the mesh axes
+        # the batch rows split on, their shard count, and a sum's
+        # placements (partial over those axes, the same on the others)
+        self.batch_axes, self._shards, self._partial = None, 1, None
 
     def local_rows(self, batch: dict, num_microbatches: int) -> dict:
         """This rank's rows of the global ``batch``: of each microbatch
@@ -109,6 +109,7 @@ class DataParallel:
             raise ValueError(f"batch leaves split their rows differently: "
                              f"{specs}")
         axes = spec_axes((specs.pop() or (None,))[0])
+        self.batch_axes = axes
         self._partial = [Partial("sum") if a in axes else Replicate()
                          for a in names]
         coord = self.mesh.get_coordinate()
@@ -170,15 +171,6 @@ class DataParallel:
 
         return shared
 
-    def reduce_grads(self, grads):
-        """Each rank's gradient, summed over the batch shards, onto its
-        param's placements (a reduce-scatter)."""
-        return tree_map(
-            lambda g, sh: DTensor.from_local(g, self.mesh, self._partial,
-                                             run_check=False)
-            .redistribute(self.mesh, sh.placements),
-            grads, self.params_shardings)
-
     def reduce_metrics(self, metrics: dict) -> dict:
         keys = sorted(metrics)
         summed = self._sum(torch.stack([metrics[k].to(torch.float32)
@@ -200,16 +192,16 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple],
     dp = data_parallel
 
     def step_fn(state: TrainState, batch: dict):
-        params, loss = state.params, loss_fn
+        loss, scope = loss_fn, contextlib.nullcontext()
         if dp is not None:
-            params = gather(params)
             batch = dp.local_rows(batch, tcfg.num_microbatches)
             loss = dp.global_mean(loss_fn)
-        (_, metrics), grads = accumulate_grads(
-            loss, params, batch, tcfg.num_microbatches)
+            # the model's gathers sum their gradients over the batch axes
+            scope = activate(dp.mesh, dp.rules, dp.batch_axes)
+        with scope:
+            (_, metrics), grads = accumulate_grads(
+                loss, state.params, batch, tcfg.num_microbatches)
         if dp is not None:
-            del params
-            grads = dp.reduce_grads(grads)
             metrics = dp.reduce_metrics(metrics)
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         updates, opt_state = opt.update(grads, state.opt_state, state.params)
@@ -263,9 +255,8 @@ class Trainer:
             opt, _ = make_optimizer_from_config(tcfg)
             self.state_shardings = state_shardings(mesh, rules, model,
                                                    opt)[1]
-            dp = DataParallel(mesh, rules, self.state_shardings.params,
-                              cfg.moe_group_size if getattr(
-                                  cfg, "num_experts", 0) else 0)
+            dp = DataParallel(mesh, rules, cfg.moe_group_size if getattr(
+                cfg, "num_experts", 0) else 0)
         self.step_fn, self.opt = make_train_step(self.loss_fn, tcfg, dp)
         self.bucket_proxy_fn = bucket_proxy_fn
         sel = getattr(getattr(model, "cfg", None), "mach_bucket_select", None)
@@ -287,16 +278,19 @@ class Trainer:
                    device=None) -> TrainState:
         """Params from ``model.init(generator, device)`` (default
         ``cuda``; under a mesh, the mesh's device) and a fresh optimizer
-        state; under a mesh, placed by ``state_shardings`` (every rank
-        draws the whole state from the same generator seed, then keeps
-        its shards)."""
+        state.  Under a mesh every rank draws the whole params from the
+        same generator seed and keeps its shards (``state_shardings``);
+        the optimizer state is then built on the placed params, so
+        moments and master weights are never whole (the few leaves the
+        optimizer makes plain, Adafactor's factored moments, are placed
+        after)."""
         if self.mesh is None:
             return new_train_state(self.model.init(generator, device),
                                    self.opt)
-        state = new_train_state(
+        params = place(
             self.model.init(generator, device or mesh_device(self.mesh)),
-            self.opt)
-        return place(state, self.state_shardings)
+            self.state_shardings.params)
+        return place(new_train_state(params, self.opt), self.state_shardings)
 
     def fit(self, state: TrainState, stream, num_steps: int, manager=None,
             monitor=None, log=print) -> TrainState:

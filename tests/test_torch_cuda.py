@@ -1462,3 +1462,66 @@ def test_world1_nccl_sharded_step_same_bits(dev, tmp_path, optimizer):
                     else got == want), path
     finally:
         dist.destroy_process_group()
+
+
+def test_world1_nccl_per_period_gathering(dev, tmp_path):
+    """The smoke tinyllama-1.1b (bf16) at 4 layers under ``remat="full"``
+    through ``Trainer(mesh=)`` on an NCCL world of one: each period's
+    params gathered inside the recomputed period, losses, params and
+    moments bit for bit the single-device step's after three steps; the
+    gathered bytes alive at once (``GatherCount``: at world 1 the
+    gathers alias the shards, so it counts the schedule) within the
+    leaves outside the stacks plus two periods, below the whole tree;
+    the state placed as it is built equals a whole drawn state placed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.train_state import new_train_state
+    from torch_multidevice_ranks import GatherCount, gather_bounds
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                                  num_layers=4, remat="full",
+                                  dtype=torch.bfloat16,
+                                  param_dtype=torch.bfloat16)
+        tc = TrainConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+        model = LanguageModel(cfg)
+        sharded, single = Trainer(model, tc, mesh=mesh), Trainer(model, tc)
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+        st, rs = sharded.init_state(gen(), dev), single.init_state(gen(), dev)
+        placed = place(new_train_state(model.init(gen(), dev), sharded.opt),
+                       sharded.state_shardings)
+        for (path, a), (_, b) in zip(tree_flatten(st), tree_flatten(placed)):
+            if isinstance(b, torch.Tensor):
+                assert a.placements == b.placements, path
+                assert torch.equal(a.to_local(), b.to_local()), path
+        stream = launch_train.data_stream(cfg, 64, 4, 0, dev)
+        count = GatherCount()
+        for s in range(3):
+            with count:
+                st, m = sharded.step_fn(st, stream.batch_at(s))
+            rs, rm = single.step_fn(rs, stream.batch_at(s))
+            assert {k: float(v) for k, v in m.items()} == \
+                {k: float(v) for k, v in rm.items()}, s
+        for (path, got), (_, want) in zip(tree_flatten(gather(st)),
+                                          tree_flatten(rs)):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(got, want), path
+            else:
+                assert got == want, path
+        bounds = gather_bounds(rs.params)
+        assert count.calls > 0
+        assert count.peak <= bounds["bound"] < bounds["whole"], \
+            (count.peak, bounds)
+    finally:
+        dist.destroy_process_group()

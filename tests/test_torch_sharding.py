@@ -342,3 +342,59 @@ def test_param_axes_follow_the_head():
         assert set(model.param_axes()) == set(model.init(device="meta"))
     assert LanguageModel(base).param_axes()["mach_head"] == \
         {"kernel": ("embed", "mach_rb")}
+
+
+def _local_bytes(mesh, x, sharding) -> int:
+    """A rank's bytes of leaf ``x`` placed by ``sharding``: each dim over
+    the product of its spec entry's mesh axes."""
+    from repro_torch.sharding.partitioning import spec_axes
+    dims = list(x.shape)
+    for d, entry in enumerate(sharding.spec):
+        split = int(np.prod([mesh.shape[a] for a in spec_axes(entry)]))
+        assert dims[d] % split == 0
+        dims[d] //= split
+    return int(np.prod(dims)) * x.element_size()
+
+
+@pytest.mark.parametrize("arch,per_rank", [
+    ("tinyllama-1.1b", 55_292_160), ("mistral-large-123b", 6_080_478_720)])
+def test_production_mesh_sizes_under_fsdp(arch, per_rank):
+    """The full config (MACH head, bf16 params, AdamW's float32 moments)
+    drawn on the meta device and placed by ``state_shardings`` on the
+    (16, 16) mesh with the FSDP rules.  A rank holds ``per_rank`` bytes
+    of the state; a sharded step holds besides at most the leaves outside
+    the layer stacks and two periods whole (``partitioning.materialize``
+    gathers each period where it runs), where gathering the whole tree
+    held every param.  mistral-large-123b then fits one 80 GB card; with
+    the whole tree it did not."""
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.train.trainer import (TrainConfig,
+                                           make_optimizer_from_config)
+    cfg = get_config(arch, mach="on")
+    opt, _ = make_optimizer_from_config(TrainConfig())
+    shapes, shardings, _ = state_shardings(MESH1, RULES, LanguageModel(cfg),
+                                           opt)
+    leaves = [(x, s) for (_, x), (_, s) in zip(tree_flatten(shapes),
+                                               tree_flatten(shardings))
+              if isinstance(x, torch.Tensor)]
+    got = sum(_local_bytes(MESH1, x, s) for x, s in leaves)
+    whole = sum(x.numel() * x.element_size() for x, _ in leaves)
+    assert got == per_rank and whole / 256 <= got < whole / 100
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    heads = 2 * cfg.num_heads + 2 * cfg.num_kv_heads
+    period = 2 * (d * hd * heads + 3 * d * f + 2 * d)        # bf16, swiglu
+    rest = 2 * (cfg.vocab_size * d + d * cfg.mach.num_repetitions
+                * cfg.mach.num_buckets + d)       # embed, MACH head, norm
+    params = shapes.params
+    nbytes = lambda t: sum(x.numel() * x.element_size()       # noqa: E731
+                           for _, x in tree_flatten(t))
+    assert [nbytes(p) // cfg.num_layers for p in params["stacks"]] == [period]
+    assert nbytes({k: v for k, v in params.items() if k != "stacks"}) == rest
+    per_period, whole_tree = got + rest + 2 * period, got + nbytes(params)
+    if arch == "mistral-large-123b":
+        assert period == 2_768_289_792 and rest == 1_207_984_128
+        assert per_period < 80e9 < whole_tree
+    else:
+        assert period == 88_088_576 and rest == 198_184_960
+        assert per_period < whole_tree / 5

@@ -4,6 +4,10 @@ mesh paths beside the single-device port, and write what they measured
 for the test process to hold.  No JAX here: each rank imports only
 torch and the port.
 
+``GatherCount`` and ``gather_bounds`` (the bytes a sharded step holds
+gathered, and their bound) serve the card's tests and ``chip_smoke.py``
+too.
+
 ``spawn_world(world, name, directory, timeout)`` starts ``world``
 processes (``spawn``), each running ``RANK_FNS[name](rank, directory)``
 inside a process group on a file store, and joins them by a deadline,
@@ -19,6 +23,7 @@ import io
 import multiprocessing
 import os
 import time
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -71,10 +76,15 @@ def _rank_main(rank, world, store, name, directory):
 # ----------------------------------------------------------------- pieces
 
 def model_config(arch, **overrides):
-    """The smoke config of ``arch`` in float32 (params and activations)."""
+    """The smoke config of ``arch`` in float32 (params and activations),
+    with ``remat="full"`` (the full configs' default: the sharded step's
+    gathers run inside each recomputed period) and at least 4 layers (so
+    two periods are below the whole stack)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch, smoke=True),
-                               dtype=torch.float32, **overrides)
+    cfg = get_config(arch, smoke=True)
+    return dataclasses.replace(cfg, dtype=torch.float32, remat="full",
+                               num_layers=max(4, cfg.num_layers),
+                               **overrides)
 
 
 def train_config(**kw):
@@ -105,10 +115,71 @@ def _metrics(m):
     return {k: float(v) for k, v in m.items()}
 
 
+class GatherCount:
+    """Within the block, ``partitioning.materialize`` (which the model
+    calls by its module attribute) counts the bytes of the whole tensors
+    it makes of ``DTensor`` leaves that are alive at once.  A whole
+    tensor in new memory (a world of 2 or more) counts until its storage
+    is freed, wherever autograd keeps it; one that aliases its shard (a
+    world of one, where gathering moves nothing) counts until its Python
+    object dies, so it measures the schedule, not new bytes.  ``peak`` is
+    the most at once, ``calls`` the gathered leaves."""
+
+    def __init__(self):
+        self.alive = self.peak = self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.sharding import partitioning
+        self._module, self._wrapped = partitioning, partitioning.materialize
+        partitioning.materialize = self._counted
+        return self
+
+    def __exit__(self, *exc):
+        self._module.materialize = self._wrapped
+        return False
+
+    def _free(self, n):
+        self.alive -= n
+
+    def _counted(self, tree):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.checkpoint import tree_flatten
+        out = self._wrapped(tree)
+        for (_, x), (_, whole) in zip(tree_flatten(tree), tree_flatten(out)):
+            if isinstance(x, DTensor):
+                n = whole.numel() * whole.element_size()
+                storage = whole.untyped_storage()
+                shard = x.to_local().untyped_storage()
+                owner = whole if storage.data_ptr() == shard.data_ptr() \
+                    else storage
+                self.alive += n
+                self.calls += 1
+                self.peak = max(self.peak, self.alive)
+                weakref.finalize(owner, self._free, n)
+        return out
+
+
+def gather_bounds(params) -> dict:
+    """Whole bytes of a params tree: ``whole`` (every leaf), ``bound``
+    (the leaves outside the layer stacks plus two of the largest
+    period)."""
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in _tensor_leaves(tree))
+
+    stacked = [k for k in ("stacks", "enc_stacks") if k in params]
+    period = max(nbytes(p_list) // _tensor_leaves(p_list)[0].shape[0]
+                 for k in stacked for p_list in params[k])
+    rest = nbytes({k: v for k, v in params.items() if k not in stacked})
+    return {"whole": nbytes(params), "bound": rest + 2 * period,
+            "period": period, "rest": rest}
+
+
 def sharded_vs_one_device(model_cfg, tcfg, mesh, steps_batches, rules=None):
     """The same steps through ``Trainer(mesh=)`` and the single-device
     ``Trainer`` from one seed: per step both metrics dicts, then the
-    gathered final params and the single device's."""
+    gathered final params and the single device's; ``gathered``: the
+    sharded steps' ``GatherCount`` peak beside ``gather_bounds``."""
     from repro_torch.models import LanguageModel
     from repro_torch.sharding import gather
     from repro_torch.train import Trainer
@@ -117,13 +188,16 @@ def sharded_vs_one_device(model_cfg, tcfg, mesh, steps_batches, rules=None):
     single = Trainer(model, tcfg)
     gen = lambda: torch.Generator().manual_seed(0)   # noqa: E731
     st, rs = sharded.init_state(gen(), "cpu"), single.init_state(gen(), "cpu")
-    metrics = []
+    metrics, count = [], GatherCount()
     for b in steps_batches:
-        st, m = sharded.step_fn(st, b)
+        with count:
+            st, m = sharded.step_fn(st, b)
         rs, rm = single.step_fn(rs, b)
         metrics.append((_metrics(m), _metrics(rm)))
     return {"metrics": metrics, "params": gather(st.params),
-            "want": rs.params, "state": st}
+            "want": rs.params, "state": st,
+            "gathered": dict(gather_bounds(rs.params), peak=count.peak,
+                             calls=count.calls)}
 
 
 def _mesh(shape, names=("data", "model")):
@@ -171,7 +245,7 @@ def world2(rank, directory):
     tiny = model_config("tinyllama-1.1b")
     adamw = sharded_vs_one_device(tiny, train_config(), mesh,
                                   batches(tiny, 3))
-    out["adamw"] = {k: adamw[k] for k in ("metrics", "params", "want")}
+    out["adamw"] = _strip(adamw)
     out["adafactor"] = _strip(sharded_vs_one_device(
         tiny, train_config(optimizer="adafactor", peak_lr=1e-2), mesh,
         batches(tiny, 1)))
@@ -186,12 +260,26 @@ def world2(rank, directory):
     fused = model_config("recurrentgemma-2b", mach_fused_loss=True)
     out["fused"] = _strip(sharded_vs_one_device(fused, train_config(), mesh,
                                                 batches(fused, 2)))
+    for case, arch in (("xlstm", "xlstm-350m"),
+                       ("encdec", "seamless-m4t-large-v2"),
+                       ("vision", "paligemma-3b")):
+        cfg = model_config(arch)
+        out[case] = _strip(sharded_vs_one_device(cfg, train_config(), mesh,
+                                                 batches(cfg, 2)))
     bf16 = dataclasses.replace(tiny, dtype=torch.bfloat16,
                                param_dtype=torch.bfloat16)
     out["bf16"] = _strip(sharded_vs_one_device(bf16, train_config(), mesh,
                                                batches(bf16, 2)))
     out["mesh_view"] = resolve_spec(
         mesh, ShardingRules().table(mesh), ("embed", "mlp"), (64, 128))
+    out["init"] = {
+        "adamw": init_matches_placing_all(tiny, train_config(), mesh),
+        "master": init_matches_placing_all(
+            bf16, train_config(master_weights=True), mesh),
+        "adafactor": init_matches_placing_all(
+            tiny, train_config(optimizer="adafactor"), mesh)}
+    out["collectives"] = step_collectives(tiny, mesh)
+    out["unstack"] = unstack_collectives(tiny, mesh)
 
     # the sharded AdamW state saved at world 2, blocking and not
     ckpt = os.path.join(directory, "ckpt_world2")
@@ -231,7 +319,94 @@ def world2(rank, directory):
 
 
 def _strip(res):
-    return {k: res[k] for k in ("metrics", "params", "want")}
+    return {k: res[k] for k in ("metrics", "params", "want", "gathered")}
+
+
+def init_matches_placing_all(model_cfg, tcfg, mesh) -> list:
+    """``Trainer.init_state`` (params placed first, the optimizer state
+    built on them) against placing a whole drawn state: per leaf, whether
+    both are ``DTensor``s with equal placements and local shards."""
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import place
+    from repro_torch.train import Trainer
+    from repro_torch.train.train_state import new_train_state
+    trainer = Trainer(LanguageModel(model_cfg), tcfg, mesh=mesh)
+    gen = lambda: torch.Generator().manual_seed(3)   # noqa: E731
+    got = trainer.init_state(gen(), "cpu")
+    want = place(new_train_state(trainer.model.init(gen(), "cpu"),
+                                 trainer.opt), trainer.state_shardings)
+    same = []
+    for g, w in zip(_tensor_leaves(got), _tensor_leaves(want)):
+        same.append(type(g).__name__ == type(w).__name__ == "DTensor"
+                    and g.placements == w.placements
+                    and g.dtype == w.dtype
+                    and torch.equal(g.to_local(), w.to_local()))
+    return same
+
+
+def unstack_collectives(model_cfg, mesh) -> dict:
+    """``transformer.unstack`` of a placed stack (the layer dim
+    replicated): the collectives it ran (``CommDebugMode``) and whether
+    each slice is a ``DTensor`` on its leaf's placements less the layer
+    dim."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.models import LanguageModel, transformer
+    from repro_torch.train import Trainer
+    trainer = Trainer(LanguageModel(model_cfg), train_config(), mesh=mesh)
+    stack = trainer.init_state(torch.Generator().manual_seed(0),
+                               "cpu").params["stacks"][0]
+    n = _tensor_leaves(stack)[0].shape[0]
+    with CommDebugMode() as comms:
+        slices = transformer.unstack(stack, n)
+    local = all(
+        tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+              for p in leaf.placements) == tuple(s.placements)
+        for layer in slices
+        for leaf, s in zip(_tensor_leaves(stack), _tensor_leaves(layer)))
+    return {"collectives": comms.get_total_counts(), "placements": local,
+            "layers": len(slices)}
+
+
+def step_collectives(model_cfg, mesh) -> dict:
+    """Two sharded steps with ``partitioning.gather`` and
+    ``DTensor.full_tensor`` watched: how often the whole-tree gather ran,
+    and the shape of every tensor made whole by ``full_tensor``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import partitioning
+    from repro_torch.train import Trainer, trainer as trainer_mod
+    trainer = Trainer(LanguageModel(model_cfg), train_config(), mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0), "cpu")
+    seen = {"gather": 0, "full_tensor": []}
+    gather, full_tensor = partitioning.gather, DTensor.full_tensor
+
+    def counted_gather(tree):
+        seen["gather"] += 1
+        return gather(tree)
+
+    def counted_full(self, *a, **kw):
+        seen["full_tensor"].append(tuple(self.shape))
+        return full_tensor(self, *a, **kw)
+
+    patched = [(partitioning, "gather", counted_gather),
+               (trainer_mod, "gather", counted_gather),
+               (DTensor, "full_tensor", counted_full)]
+    saved = [(obj, name, getattr(obj, name, None)) for obj, name, _ in patched]
+    try:
+        for obj, name, fn in patched:
+            setattr(obj, name, fn)
+        for b in batches(model_cfg, 2):
+            state, _ = trainer.step_fn(state, b)
+    finally:
+        for obj, name, fn in saved:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+    return seen
 
 
 def world4(rank, directory):
@@ -257,6 +432,11 @@ def world4(rank, directory):
     pod = _mesh((2, 2, 1), ("pod", "data", "model"))
     out["pod"] = _strip(sharded_vs_one_device(
         tiny, train_config(), pod, batches(tiny, 2, global_batch=8)))
+    out["mesh4x1_microbatches"] = _strip(sharded_vs_one_device(
+        tiny, train_config(num_microbatches=2), m41,
+        batches(tiny, 2, global_batch=8, weighted=True, seed=5)))
+    out["init"] = {"adamw": init_matches_placing_all(tiny, train_config(),
+                                                     m22)}
 
     # the world-2 checkpoint into world-4 templates and by shardings=
     model = LanguageModel(tiny)
@@ -291,6 +471,18 @@ def world4(rank, directory):
     dist.all_gather_object(rows, (tuple(pd.get_coordinate()),
                                   local[:, 0].div(3).long().tolist()))
     out["pod_data_rows"] = rows
+
+    # materialize a dim over (pod, data): whole, and its gradient (rank r
+    # weighs it by r + 1) summed over both axes onto the shards
+    from repro_torch.sharding import activate, materialize
+    xd = distribute_tensor(x, pd, placements(spec, pd),
+                           src_data_rank=None).requires_grad_(True)
+    with activate(pd, ShardingRules(), batch_axes=("pod", "data")):
+        whole = materialize({"x": xd})["x"]
+        grad, = torch.autograd.grad((whole * x * (rank + 1)).sum(), [xd])
+    out["two_axes"] = {"whole": torch.equal(whole, x),
+                       "placements": grad.placements == xd.placements,
+                       "grad": torch.equal(grad.full_tensor(), x * 10)}
     return out
 
 
