@@ -329,6 +329,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    engine's first tokens equal the loop's batch-1 prefills' picks; each
    engine run's kernel-10 launches as its encoder frames and prompts take
    the flash branch.
+   xlstm-350m runs here at 4 of its 24 layers (two (mLSTM, sLSTM)
+   periods, every width: its sLSTM's eager loop took most of the phase).
    Then each model trained 3 AdamW steps (remat) through
    ``Trainer.step_fn``: seamless on 2 x 4,096 tokens with 1,024 frames a
    row, paligemma on 2 x (3,840 + 256 patches), xlstm-350m (MACH) on 2 x
@@ -379,13 +381,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    directory), a (1, 1) ``("data", "model")`` mesh, the FSDP rules:
    kernel 10 held to plain and timed at tinyllama-1.1b's training shape
    (2 x 4,096, 32 / 4 heads of 64, causal, bf16, forward and backward);
+   kernels 3 and 4 as each rank of tinyllama-1.1b's head split by
+   repetition 2, 4 and 8 ways launches them (8,192 rows, d 2,048, R 8,
+   B 2,048, bf16), on each repetition range in turn against the whole
+   kernels: summed losses at float32 rtol 1e-6, kernel 3's dlogits and
+   kernel 4's lse bit for bit, kernel 4's dW columns and summed dh by
+   phase 5's bf16 rule, each range's ms beside the whole kernel's.
    tinyllama-1.1b with the MACH head (B=2,048, R=8; kernel 3) at full
    width, bf16 params and float32 moments, 2 x 4,096 tokens, 4 AdamW
-   steps through the unsharded ``Trainer``, then, launch counters from
-   0, through ``Trainer(mesh=)`` (the state ``DTensor``s, placed as it
-   is built; each layer period's params gathered inside the recomputed
-   period) from the same seed: losses, params and moments bit for bit,
-   kernels 3 and 10 launched, the gathered bytes alive at once (counted
+   steps through the unsharded ``Trainer`` and 2 with the fused loss
+   over the in-loss selection (c_sel 512; kernel 4), then, launch
+   counters from 0, both through ``Trainer(mesh=)`` (the state
+   ``DTensor``s, placed as it is built; each layer period's params
+   gathered inside the recomputed period; the head split by repetition,
+   n = 1) from the same seed: losses, params and moments bit for bit
+   (fused: the first loss, as kernel 4's atomics part the runs after
+   it), kernels 3, 4 and 10 launched, the gathered bytes alive at once (counted
    on the first step) within the leaves outside the stacks plus two
    periods, ms a step, the steps' and the init's peak memory both ways
    against what the phase expects (printed).  The sharded state
@@ -400,8 +411,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 18. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
    launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's,
    rows 1, 2, 3 and 10 on phase 15's and kernel 10's new modes, rows 2,
-   3, 5, 6, 9 and 10 on phase 16's, rows 3 and 10 on phase 17's), then
-   the device line, last.
+   3, 5, 6, 9 and 10 on phase 16's, rows 3, 4 and 10 on phase 17's, with
+   rows 3 and 4's times per repetition range), then the device line,
+   last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -5206,6 +5218,12 @@ ENC_TRAIN_FRAMES = 1024      # launch/train.py's seq_len // 4 at 4,096
 # XLSTM_FINITE_T every loss and gradient norm is held, the 24-layer
 # backward checked on the card.
 XLSTM_FINITE_T = 64
+# xlstm-350m's depth on phase 15's path: two of its 12 (mLSTM, sLSTM)
+# periods, every width.  The sLSTM's eager scan took most of the phase
+# at all 24 layers (a 1,024-token training step ~32 s, a 2,048-token
+# prefill ~5 s); each kernel of the path (1, 2, 3) runs at the head,
+# whose shape depth does not change, and the block checks read layer 0.
+XLSTM_LAYERS = 4
 OTHER_TRAIN = [
     (ENCDEC_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ, True, OTHER_TRAIN_STEPS),
     (VLM_ARCH, "auto", TRAIN_BATCH, TRAIN_SEQ - 256, True,
@@ -5308,6 +5326,14 @@ def _direct_greedy_waves(model, params, prompts, max_new, feats, dev):
         for i in wave:
             out[i] = toks[i][:max_new[i]]
     return out
+
+
+def _xlstm_cut(cfg):
+    """xlstm-350m at XLSTM_LAYERS layers on phase 15's path; the other
+    models as they are."""
+    if cfg.name != XLSTM_ARCH:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=XLSTM_LAYERS)
 
 
 def _model_on_card(dev, cfg):
@@ -5472,7 +5498,8 @@ def _xlstm_blocks_check(dev, served) -> dict:
 
 
 def _other_train(dev, arch, mach, batch, seq, hold_all, steps, smi) -> dict:
-    """``arch`` at full width and depth (bf16, remat) trained ``steps``
+    """``arch`` at full width and depth (xlstm-350m at XLSTM_LAYERS
+    layers; bf16, remat) trained ``steps``
     AdamW steps through ``Trainer.step_fn`` on
     SyntheticLMStream batches of ``batch`` x ``seq`` tokens (enc-dec:
     ENC_TRAIN_FRAMES frames a row; vision: 256 patches a row): kernel 3
@@ -5487,7 +5514,7 @@ def _other_train(dev, arch, mach, batch, seq, hold_all, steps, smi) -> dict:
     from repro_torch.models import frontends
     from repro_torch.train import TrainConfig, Trainer
 
-    cfg = get_config(arch, mach=mach)
+    cfg = _xlstm_cut(get_config(arch, mach=mach))
     model = LanguageModel(cfg)
     trainer = Trainer(model, TrainConfig(
         total_steps=OTHER_TRAIN_STEPS, warmup_steps=2, peak_lr=3e-4,
@@ -5547,7 +5574,9 @@ def _other_train(dev, arch, mach, batch, seq, hold_all, steps, smi) -> dict:
         cut += (f"; the gradient norm is non-finite from step {bad}, so the "
                 f"steps after it run on non-finite parameters and their ms "
                 f"is the time of such steps")
-    print(f"other train: {cfg.name} (mach={mach}, every layer and width, "
+    depth = ("every layer" if cfg.num_layers == get_config(arch).num_layers
+             else f"{cfg.num_layers} layers")
+    print(f"other train: {cfg.name} (mach={mach}, {depth} and every width, "
           f"{n_params:,} params, bf16, remat={cfg.remat}), {batch} x {seq} "
           f"text tokens{f' + {prefix} patches' if prefix else ''}"
           f"{f', {ENC_TRAIN_FRAMES} frames a row' if cfg.num_encoder_layers else ''}"
@@ -5588,7 +5617,8 @@ def _summary(served) -> dict:
 def phase_other_archs(dev) -> dict:
     """Kernels 1 and 2 vs plain at the three models' MACH heads (xlstm's
     with mach="on"), each timed at N=4 beside its bound; then,
-    launch counters from 0, xlstm-350m with its OAA head through the
+    launch counters from 0, xlstm-350m (cut to XLSTM_LAYERS layers) with
+    its OAA head through the
     contiguous and lockstep engines and with a MACH head (B=2048 R=8 over
     50,304) through the contiguous one, seamless and paligemma through the
     contiguous and paged engines, each MACH run also through the direct
@@ -5609,12 +5639,13 @@ def phase_other_archs(dev) -> dict:
     contiguous_lockstep = {"contiguous": {}, "lockstep": {"scheduler":
                                                           "lockstep"}}
     contiguous_paged = {"contiguous": {}, "paged": {"page_size": DENSE_PAGE}}
-    xl_oaa = _other_engines(dev, get_config(XLSTM_ARCH), DENSE_PROMPTS,
-                            contiguous_lockstep, smi, direct=False)
+    xl_oaa = _other_engines(dev, _xlstm_cut(get_config(XLSTM_ARCH)),
+                            DENSE_PROMPTS, contiguous_lockstep, smi,
+                            direct=False)
     out["xlstm_oaa"] = _summary(xl_oaa)
     del xl_oaa
-    xl = _other_engines(dev, get_config(XLSTM_ARCH, mach="on"), DENSE_PROMPTS,
-                        {"contiguous": {}}, smi)
+    xl = _other_engines(dev, _xlstm_cut(get_config(XLSTM_ARCH, mach="on")),
+                        DENSE_PROMPTS, {"contiguous": {}}, smi)
     out["xlstm_mach"] = _summary(xl)
     out["xlstm_blocks"] = _uncounted(lambda: _xlstm_blocks_check(dev, xl))
     del xl
@@ -6110,20 +6141,147 @@ MD_LAUNCH_STEPS = 3
 MD_FLASH = [("tinyllama train", MD_BATCH, MD_SEQ, MD_SEQ, 32, 4, 64, True,
              True, torch.bfloat16)]
 MD_KERNELS = ("mach_xent_fwd", "mach_xent_bwd", "flash_attention",
-              "flash_attention_bwd")
+              "flash_attention_bwd", "dense_fwd", "dense_bwd")
+# the fused sharded run: kernel 4 over the in-loss bucket selection (c_sel
+# of B = 2,048 buckets, every step), MD_FUSED_STEPS steps each way
+MD_SELECT = (512, 1)
+MD_FUSED_STEPS = 3
+# the head split by repetition as each rank launches kernels 3 and 4:
+# tinyllama-1.1b's head at the path's rows (N, d, R, B), bf16, split n ways
+MD_HEAD = (MD_BATCH * MD_SEQ, 2048, 8, 2048)
+MD_SPLITS = (2, 4, 8)
 
 
 def _md_launchers() -> dict:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_fused_xent as mfx
     from repro_torch.kernels import mach_xent as mx
     return {"mach_xent_fwd": mx.mach_xent_cuda_fwd,
             "mach_xent_bwd": mx.mach_xent_cuda_bwd,
             "flash_attention": fa.flash_attention_cuda,
-            "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda,
+            "dense_fwd": mfx.dense_fwd_cuda, "dense_bwd": mfx.dense_bwd_cuda}
 
 
-def _md_train(label, trainer, stream, dev, smi, count=None):
-    """MD_STEPS steps from seed 0's state: (the state, losses, gradient
+def _md_bf16_rule(got, want) -> tuple[float, float]:
+    """Phase 5's bf16 rule: (largest error over the largest entry,
+    relative L2 error), held to BF16_GRAD_MAX and BF16_GRAD_L2."""
+    err = got.float() - want.float()
+    return (float(err.abs().max() / want.float().abs().max()),
+            float(err.norm() / want.float().norm()))
+
+
+def _md_per_range(dev, smi) -> dict:
+    """Kernels 3 and 4 as each rank of tinyllama-1.1b's head split n ways
+    by repetition launches them (MD_HEAD, bf16; n in MD_SPLITS), on each
+    of the n repetition ranges in turn, against the whole-R kernels on
+    the same inputs: the per-token losses summed over the ranges at
+    float32 rtol 1e-6; kernel 3's dlogits the whole kernel's columns bit
+    for bit (one warp a head); kernel 4's lse the whole kernel's columns
+    bit for bit, its dW columns and the dh summed over the ranges (in
+    float32) by phase 5's bf16 rule (kernel 4 sums dW and dh across
+    blocks by float atomics, in an order that changes from run to run).
+    Each range's forward and backward ms (CUDA events) beside the whole
+    kernel's and its own bound.  Not counted on the path."""
+    from repro_torch.kernels import mach_fused_xent as mfx
+    from repro_torch.kernels import mach_xent as mx
+    n_rows, d, r, b = MD_HEAD
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(29)
+    logits = (torch.randn((n_rows, r, b), generator=gen, device=dev)
+              * 3).to(bf16)
+    h = torch.randn((n_rows, d), generator=gen, device=dev).to(bf16)
+    w = (torch.randn((d, r * b), generator=gen, device=dev)
+         / d ** 0.5).to(bf16)
+    y = torch.randint(0, b, (n_rows, r), generator=gen, device=dev,
+                      dtype=torch.int32)
+    g = torch.rand((n_rows,), generator=gen, device=dev) + 0.5
+    loss3 = mx.mach_xent_cuda_fwd(logits, y)
+    dlogits = mx.mach_xent_cuda_bwd(logits, y, g)
+    loss4, lse = mfx.dense_fwd_cuda(h, w, None, y, b)
+    dh, dw, _ = mfx.dense_bwd_cuda(h, w, None, y, lse, g, b)
+
+    def times(lg, yy, ww):
+        _, ls = mfx.dense_fwd_cuda(h, ww, None, yy, b)
+        return {"xent_fwd": kernel_ms(lambda: mx.mach_xent_cuda_fwd(lg, yy)),
+                "xent_bwd": kernel_ms(
+                    lambda: mx.mach_xent_cuda_bwd(lg, yy, g)),
+                "dense_fwd": kernel_ms(
+                    lambda: mfx.dense_fwd_cuda(h, ww, None, yy, b)),
+                "dense_bwd": kernel_ms(
+                    lambda: mfx.dense_bwd_cuda(h, ww, None, yy, ls, g, b))}
+
+    def bounds(reps):
+        logit_bytes = n_rows * reps * b * 2
+        flop = 2 * n_rows * d * reps * b
+        return {"xent_fwd": logit_bytes / HBM_BYTES_PER_S * 1e3,
+                "xent_bwd": 2 * logit_bytes / HBM_BYTES_PER_S * 1e3,
+                "dense_fwd": flop / BF16_TOPS_PER_S * 1e3,
+                "dense_bwd": 3 * flop / BF16_TOPS_PER_S * 1e3}
+
+    out = {"whole": {"ms": times(logits, y, w), "bound_ms": bounds(r)},
+           "shape": f"N={n_rows} d={d} R={r} B={b} bfloat16"}
+    for n in MD_SPLITS:
+        per = r // n
+        sum3, sum4 = torch.zeros_like(loss3), torch.zeros_like(loss4)
+        dh_sum = torch.zeros((n_rows, d), dtype=torch.float32, device=dev)
+        ranges, dw_rule = [], (0.0, 0.0)
+        for k in range(n):
+            r0, r1 = k * per, (k + 1) * per
+            pl, py = logits[:, r0:r1].contiguous(), y[:, r0:r1].contiguous()
+            pw = w[:, r0 * b:r1 * b].contiguous()
+            sum3 += mx.mach_xent_cuda_fwd(pl, py)
+            if not torch.equal(mx.mach_xent_cuda_bwd(pl, py, g),
+                               dlogits[:, r0:r1]):
+                fail(f"multidevice: kernel 3's dlogits on repetitions "
+                     f"[{r0}, {r1}) of {n} ranges differ from the whole "
+                     f"kernel's columns")
+            part_loss, part_lse = mfx.dense_fwd_cuda(h, pw, None, py, b)
+            sum4 += part_loss
+            if not torch.equal(part_lse, lse[:, r0:r1]):
+                fail(f"multidevice: kernel 4's lse on repetitions "
+                     f"[{r0}, {r1}) differs from the whole kernel's")
+            part_dh, part_dw, _ = mfx.dense_bwd_cuda(h, pw, None, py,
+                                                     part_lse, g, b)
+            rule = _md_bf16_rule(part_dw, dw[:, r0 * b:r1 * b])
+            dw_rule = tuple(max(a, c) for a, c in zip(dw_rule, rule))
+            dh_sum += part_dh.float()
+            ranges.append({"reps": [r0, r1], "ms": times(pl, py, pw)})
+        dh_rule = _md_bf16_rule(dh_sum.to(bf16), dh)
+        loss_rel = [float(((a - c).abs() / c.abs()).max())
+                    for a, c in ((sum3, loss3), (sum4, loss4))]
+        mean = {k: statistics.mean(x["ms"][k] for x in ranges)
+                for k in out["whole"]["ms"]}
+        res = {"ranges": ranges, "mean_ms": mean, "bound_ms": bounds(per),
+               "loss_rel_err": {"xent": loss_rel[0], "dense": loss_rel[1]},
+               "dw_rule": dw_rule, "dh_rule": dh_rule}
+        out[f"n={n}"] = res
+        share = {k: mean[k] / out["whole"]["ms"][k] for k in mean}
+        print(f"multidevice: head split {n} ways ({per} of {r} repetitions a "
+              f"rank, {out['shape']}): per range ms (mean of {n}) "
+              + ", ".join(f"{k} {mean[k]:.4f} ({share[k]:.3f} of the whole "
+                          f"{out['whole']['ms'][k]:.4f}; bound "
+                          f"{res['bound_ms'][k]:.4f})" for k in mean)
+              + f"; summed losses rel err kernel 3 {loss_rel[0]:.2e}, kernel "
+              f"4 {loss_rel[1]:.2e}; dlogits and lse bit for bit; dW "
+              f"{dw_rule[0]:.2e} / {dw_rule[1]:.2e}, summed dh "
+              f"{dh_rule[0]:.2e} / {dh_rule[1]:.2e} (largest / rel L2) "
+              f"[{smi}]", flush=True)
+        if max(loss_rel) > 1e-6:
+            fail(f"multidevice: losses summed over {n} repetition ranges "
+                 f"off the whole kernels' by {loss_rel}")
+        if max(dw_rule[0], dh_rule[0]) > BF16_GRAD_MAX or \
+                max(dw_rule[1], dh_rule[1]) > BF16_GRAD_L2:
+            fail(f"multidevice: kernel 4 over {n} ranges outside the bf16 "
+                 f"rule: dW {dw_rule}, dh {dh_rule}")
+    del logits, dlogits, h, w, dh, dw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_train(label, trainer, stream, dev, smi, count=None,
+              steps=MD_STEPS):
+    """``steps`` steps from seed 0's state: (the state, losses, gradient
     norms, ms a step (host clock, synchronized), the steps' peak GiB and
     the init's).  ``count`` (a ``GatherCount``) watches the first step,
     which the median leaves out."""
@@ -6136,7 +6294,7 @@ def _md_train(label, trainer, stream, dev, smi, count=None):
     init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
     losses, norms, step_ms = [], [], []
-    for s in range(MD_STEPS):
+    for s in range(steps):
         batch = stream.batch_at(s)
         t1 = time.perf_counter()
         with (count if count is not None and s == 0
@@ -6149,7 +6307,7 @@ def _md_train(label, trainer, stream, dev, smi, count=None):
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     ms = statistics.median(step_ms[1:])
     print(f"multidevice: {label}: losses {losses}, gradient norms {norms}; "
-          f"{ms:.3f} ms/step (host clock, median of steps 2..{MD_STEPS}; "
+          f"{ms:.3f} ms/step (host clock, median of steps 2..{steps}; "
           f"the first {step_ms[0]:.3f} ms), "
           f"{MD_BATCH * MD_SEQ / ms * 1e3:.1f} tokens/s, peak {peak:.2f} GiB "
           f"in the steps ({init_peak:.2f} GiB drawing and placing the "
@@ -6264,14 +6422,17 @@ def phase_multidevice(dev) -> dict:
     """The sharded trainer on an NCCL world of one (a ``FileStore`` in a
     temporary directory) and a (1, 1) ``("data", "model")`` mesh with the
     FSDP rules: tinyllama-1.1b (MACH head) at full width, 2 x 4,096
-    tokens, MD_STEPS steps through the unsharded ``Trainer`` and then,
-    launch counters from 0, through ``Trainer(mesh=)`` from the same seed
-    (each layer period's params gathered inside the recomputed period,
-    the state placed as it is built): losses, params and moments bit for
-    bit, kernels 3 and 10 launched, the gathered bytes alive at once
-    within the leaves outside the stacks plus two periods; ms a step, the
-    steps' peak and the init's both ways.  Kernel 10 held to plain at the
-    path's shape first (not counted).  The sharded state saved and restored
+    tokens, MD_STEPS steps through the unsharded ``Trainer``, and
+    MD_FUSED_STEPS with the fused loss over the in-loss selection, then,
+    launch counters from 0, both through ``Trainer(mesh=)`` from the same
+    seed (each layer period's params gathered inside the recomputed
+    period, the head split by repetition with n = 1, the state placed as
+    it is built): losses, params and moments bit for bit (fused: the
+    first loss), kernels 3, 4 and 10 launched, the gathered bytes alive
+    at once within the leaves outside the stacks plus two periods; ms a
+    step, the steps' peak and the init's both ways.  Kernel 10 held to
+    plain at the path's shape first, and kernels 3 and 4 on each
+    repetition range of the head split 2, 4 and 8 ways (not counted).  The sharded state saved and restored
     unsharded, the unsharded one restored sharded, bit for bit; then the
     torchrun entry point, and gradient compression on the card against
     the CPU."""
@@ -6293,11 +6454,14 @@ def phase_multidevice(dev) -> dict:
 
     t0 = time.perf_counter()
     smi = _nvidia_smi()
-    out = {"flash": _flash_times(dev, smi, MD_FLASH)}
+    out = {"flash": _flash_times(dev, smi, MD_FLASH),
+           "per_range": _md_per_range(dev, smi)}
     torch.cuda.empty_cache()
     cfg = get_config(MD_ARCH, mach="on")
+    fused_cfg = dataclasses.replace(cfg, mach_fused_loss=True,
+                                    mach_bucket_select=MD_SELECT)
     tcfg = launch_train.train_config(MD_STEPS, 3e-4)
-    model = LanguageModel(cfg)
+    model, fused_model = LanguageModel(cfg), LanguageModel(fused_cfg)
     stream = launch_train.data_stream(cfg, MD_SEQ, MD_BATCH, 0, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
         dist.init_process_group("nccl", init_method=f"file://{root}/store",
@@ -6318,15 +6482,28 @@ def phase_multidevice(dev) -> dict:
                 "unsharded Trainer", Trainer(model, tcfg), stream, dev, smi)
             host = _md_host(state)
             del state
+            fused_label = (f"the fused loss over the selection (c_sel "
+                           f"{MD_SELECT[0]} of {cfg.mach.num_buckets})")
+            state, out["unsharded_fused"] = _md_train(
+                f"unsharded Trainer, {fused_label}",
+                Trainer(fused_model, tcfg), stream, dev, smi,
+                steps=MD_FUSED_STEPS)
+            del state
             launchers = _md_launchers()
             for fn in launchers.values():
                 fn.launches = 0
+            state, out["sharded_fused"] = _md_train(
+                f"sharded Trainer(mesh=), {fused_label}",
+                Trainer(fused_model, tcfg, mesh=mesh, rules=rules), stream,
+                dev, smi, steps=MD_FUSED_STEPS)
+            del state
             count = GatherCount()
             sharded, out["sharded"] = _md_train(
                 "sharded Trainer(mesh=)", Trainer(model, tcfg, mesh=mesh,
                                                   rules=rules),
                 stream, dev, smi, count)
             out["launches"] = {n: fn.launches for n, fn in launchers.items()}
+            _md_hold_fused(out)
             out["gathered"] = dict(gather_bounds(host.params),
                                    peak=count.peak, calls=count.calls)
             _md_report(out, smi)
@@ -6402,6 +6579,26 @@ def phase_multidevice(dev) -> dict:
     return out
 
 
+def _md_hold_fused(out) -> None:
+    """The fused runs over the in-loss selection: the first step's loss
+    the same bits sharded and unsharded (at world 1 the head split's
+    n = 1: the same selection, and kernel 4's forward is deterministic);
+    every loss and gradient norm finite.  Later steps are printed, not
+    held: kernel 4 sums dW by float atomics, so its runs part in the last
+    bits from the first update."""
+    sh, un = out["sharded_fused"], out["unsharded_fused"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(sh["losses"],
+                                                   un["losses"]))
+    print(f"multidevice: fused over the selection, sharded vs unsharded: "
+          f"first loss {'the same bits' if sh['losses'][0] == un['losses'][0] else 'differs'}, "
+          f"largest relative loss difference over {MD_FUSED_STEPS} steps "
+          f"{rel:.3e}", flush=True)
+    if sh["losses"][0] != un["losses"][0]:
+        fail(f"multidevice: the fused sharded step's first loss "
+             f"{sh['losses'][0]} is not the unsharded one's "
+             f"{un['losses'][0]}")
+
+
 # what phase 17 expects of the per-period sharded step at world 1
 MD_STEP_SLOWDOWN = 0.03          # at most +3% on the unsharded step
 MD_STEP_PEAK_GIB = 16.86 + 0.25  # the whole-tree gathering step's peak
@@ -6443,13 +6640,35 @@ def _md_report(out, smi) -> None:
 
 
 def _add_multidevice_launches(rows, md) -> None:
-    """Rows 3 and 10 gain their launches on phase 17's sharded path; row
-    10 its check and times at that path's shape."""
+    """Rows 3, 4 (its LM-head row) and 10 gain their launches on phase
+    17's sharded path; row 10 its check and times at that path's shape;
+    rows 3 and 4 their times on each repetition range of the head split
+    2, 4 and 8 ways, beside the whole kernel's."""
+    per = md["per_range"]
+    kinds = {"mach_xent_fwd": "xent_fwd", "mach_xent_bwd": "xent_bwd"}
     for row in rows:
-        if row["name"] in md["launches"]:
-            row["launches_multidevice"] = md["launches"][row["name"]]
-        if row["name"] == "flash_attention":
+        name = row["name"]
+        if name in md["launches"]:
+            row["launches_multidevice"] = md["launches"][name]
+        if name == "flash_attention":
             row["multidevice_shape"] = md["flash"]
+        if name == "mach_fused_xent_dense" and "train_step_ms" not in row:
+            row["launches_multidevice"] = (md["launches"]["dense_fwd"]
+                                           + md["launches"]["dense_bwd"])
+            kinds_here = ("dense_fwd", "dense_bwd")
+        elif name in kinds:
+            kinds_here = (kinds[name],)
+        else:
+            continue
+        row["per_range_multidevice"] = {
+            "shape": per["shape"],
+            "whole_ms": {k: per["whole"]["ms"][k] for k in kinds_here},
+            **{split: {"ms": {k: [x["ms"][k] for x in per[split]["ranges"]]
+                              for k in kinds_here},
+                       "bound_ms": {k: per[split]["bound_ms"][k]
+                                    for k in kinds_here},
+                       "loss_rel_err": per[split]["loss_rel_err"]}
+               for split in per if split.startswith("n=")}}
 
 
 def _leaves(tree):

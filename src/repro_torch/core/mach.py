@@ -383,11 +383,15 @@ class MACHOutputHead(MACHHead):
         k = _normal((self.dim, self.out_features), generator, device)
         return {"kernel": (k * scale).to(self.dtype)}
 
-    def apply(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        """(..., d) hidden states -> (..., R, B) logits."""
+    def apply(self, params: dict, h: torch.Tensor,
+              reps: Optional[tuple] = None) -> torch.Tensor:
+        """(..., d) hidden states -> (..., R, B) logits.  With ``reps`` =
+        (r0, r1) the kernel holds only those repetitions' columns (a
+        rank's shard of a head split by repetition, ``sharding.
+        repetition_range``) and the logits are (..., r1 − r0, B)."""
         out = h @ params["kernel"].to(h.dtype)
-        return out.reshape(out.shape[:-1] + (self.cfg.num_repetitions,
-                                             self.cfg.num_buckets))
+        r = self.cfg.num_repetitions if reps is None else reps[1] - reps[0]
+        return out.reshape(out.shape[:-1] + (r, self.cfg.num_buckets))
 
     def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return self.apply(params, h)
@@ -395,13 +399,19 @@ class MACHOutputHead(MACHHead):
     def fused_loss(self, params: dict, h: torch.Tensor, labels: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
                    bucket_select: Optional[tuple] = None,
-                   bucket_proxy: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   bucket_proxy: Optional[torch.Tensor] = None,
+                   reps: Optional[tuple] = None) -> torch.Tensor:
         """Logit-free counterpart of ``loss``: the projection is fused
         into the hashed cross-entropy (``ops.mach_fused_xent``), so the
         (…, R, B) logits never exist; gradients reach h and the kernel.
-        ``bucket_select`` / ``bucket_proxy`` as on ``MACHHead.fused_loss``."""
+        ``bucket_select`` / ``bucket_proxy`` as on ``MACHHead.fused_loss``;
+        ``reps`` as on ``apply`` (the loss of those repetitions, on the
+        hashed labels' rows [r0, r1))."""
         from repro_torch.kernels import ops  # deferred: kernels import core
-        hashed = self.cfg.hash_labels(labels).movedim(0, -1)
+        hashed = self.cfg.hash_labels(labels)
+        if reps is not None:
+            hashed = hashed[reps[0]:reps[1]]
+        hashed = hashed.movedim(0, -1)
         nll = ops.mach_fused_xent(h, params["kernel"], hashed,
                                   num_buckets=self.cfg.num_buckets,
                                   bucket_select=bucket_select,

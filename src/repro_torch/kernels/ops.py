@@ -244,8 +244,8 @@ def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
                     hashed_labels: torch.Tensor, *, num_buckets: int,
                     bias: Optional[torch.Tensor] = None,
                     bucket_select: Optional[tuple] = None,
-                    bucket_proxy: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    bucket_proxy: Optional[torch.Tensor] = None,
+                    split=None) -> torch.Tensor:
     """Logit-free fused projection + R-head CE on dense inputs.
 
     h (..., d), w (d, R·B) and optional bias (R·B,), all float32 or all
@@ -268,13 +268,27 @@ def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
     ``refresh_every`` steps); without it the proxy is computed here from
     the batch mean.  Selection itself runs on every call.  With c_sel >=
     num_buckets, or ``bucket_select=None``, this is the unselected path.
+
+    ``split`` (a ``sharding.HeadSplit``: a sharded step's head on this
+    rank) makes the selection the global batch's: w and the labels are
+    then the rank's repetitions, h the rows it computes them on, and the
+    proxy and the label buckets reduce over the other ranks
+    (``mach_bucket_proxy`` / ``mach_select_buckets`` with ``split``), so
+    the rank's (R_local, c_sel) selection is its rows of one device's.
+    A cached ``bucket_proxy`` (computed on whole params outside the
+    step) is refused there.
     """
     if bucket_select is not None and bucket_select[0] < num_buckets:
+        if split is not None and bucket_proxy is not None:
+            raise ValueError("a cached bucket_proxy under a mesh: the "
+                             "in-loss proxy is the global batch's; a "
+                             "cached one is not ported (ROADMAP.md §1)")
         proxy = bucket_proxy if bucket_proxy is not None else \
-            mach_bucket_proxy(h, w, num_buckets=num_buckets, bias=bias)
+            mach_bucket_proxy(h, w, num_buckets=num_buckets, bias=bias,
+                              split=split)
         selected = mach_select_buckets(proxy, hashed_labels,
                                        num_buckets=num_buckets,
-                                       c_sel=bucket_select[0])
+                                       c_sel=bucket_select[0], split=split)
         return mach_fused_xent_selected(h, w, hashed_labels, selected,
                                         num_buckets=num_buckets, bias=bias)
     lead, d = h.shape[:-1], h.shape[-1]
@@ -348,28 +362,52 @@ def mach_fused_xent_csr(indptr: torch.Tensor, indices: torch.Tensor,
 def mach_bucket_proxy(h: Optional[torch.Tensor] = None,
                       w: Optional[torch.Tensor] = None, *, num_buckets: int,
                       bias: Optional[torch.Tensor] = None,
-                      csr: Optional[tuple] = None) -> torch.Tensor:
+                      csr: Optional[tuple] = None,
+                      split=None) -> torch.Tensor:
     """(R, B) float32 bucket proxy scores: the logits of the batch-mean
     activation.  Dense: ``h`` (..., d); sparse: ``csr=(indptr, indices,
     values)`` in its place (the mean is a scatter-add, never a densified
-    batch).  No gradient flows through it: the proxy only ranks buckets."""
+    batch).  No gradient flows through it: the proxy only ranks buckets.
+    With ``split`` (dense only): h's float32 row sum and row count summed
+    over ``split.reduced`` (the ranks of the batch's other rows), then
+    divided, projected onto the rank's columns w (d, R_local·B); where
+    those ranks are this one alone, the batch mean as on one device."""
     with torch.no_grad():
         if csr is not None:
+            if split is not None:
+                raise ValueError("a CSR bucket proxy under a mesh is not "
+                                 "ported")
             return ref.mach_bucket_proxy_csr_ref(*csr, w, num_buckets,
                                                  bias=bias)
-        return ref.mach_bucket_proxy_ref(h.reshape(-1, h.shape[-1]), w,
-                                         num_buckets, bias=bias)
+        h2 = h.reshape(-1, h.shape[-1])
+        if split is None or not split.moves(split.reduced):
+            return ref.mach_bucket_proxy_ref(h2, w, num_buckets, bias=bias)
+        h2 = h2.to(torch.float32)
+        total = split.sum_rows(torch.cat([h2.sum(dim=0),
+                                          h2.new_tensor([h2.shape[0]])]))
+        return ref.proxy_logits(total[:-1] / total[-1], w, num_buckets,
+                                bias)
 
 
 def mach_select_buckets(proxy_scores: torch.Tensor,
                         hashed_labels: torch.Tensor, *, num_buckets: int,
-                        c_sel: int) -> torch.Tensor:
+                        c_sel: int, split=None) -> torch.Tensor:
     """Top-``c_sel`` bucket columns per repetition by proxy score, the
     batch's label buckets force-included -> (R, c_sel) int32, ascending;
-    ties to the lower bucket id, as ``jax.lax.top_k`` breaks them."""
-    lbl = hashed_labels.reshape(-1, hashed_labels.shape[-1])
-    return ref.mach_select_buckets_ref(proxy_scores, lbl.to(torch.int32),
-                                       num_buckets, c_sel)
+    ties to the lower bucket id, as ``jax.lax.top_k`` breaks them.  With
+    ``split``, proxy and labels hold the rank's repetitions: the label
+    buckets are marked over ``split.reduced`` (the batch's other rows)
+    and the boost ``max − min + 1`` is taken over ``split.head`` (every
+    repetition, as one device takes it), so each rank selects its rows
+    of one device's selection."""
+    lbl = hashed_labels.reshape(-1, hashed_labels.shape[-1]).to(torch.int32)
+    if split is None:
+        return ref.mach_select_buckets_ref(proxy_scores, lbl, num_buckets,
+                                           c_sel)
+    proxy = proxy_scores.to(torch.float32)
+    present = split.max_rows(ref.bucket_presence(lbl, *proxy.shape))
+    top = split.max_head(torch.stack([proxy.max(), -proxy.min()]))
+    return ref.select_boosted(proxy, present, top[0] + top[1] + 1.0, c_sel)
 
 
 def _apply_bucket_selection(w, bias, lbl, selected, num_buckets):

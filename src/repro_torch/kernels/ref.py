@@ -166,8 +166,9 @@ def mach_fused_xent_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
 # Dynamic bucket selection (the training-time cut of the C axis).
 # ---------------------------------------------------------------------------
 
-def _proxy_scores(xbar: torch.Tensor, w: torch.Tensor, num_buckets: int,
-                  bias: torch.Tensor = None) -> torch.Tensor:
+def proxy_logits(xbar: torch.Tensor, w: torch.Tensor, num_buckets: int,
+                 bias: torch.Tensor = None) -> torch.Tensor:
+    """The logits of one activation ``xbar`` (d,) in float32, (R, B)."""
     scores = xbar @ w.to(torch.float32)
     if bias is not None:
         scores = scores + bias.to(torch.float32)
@@ -179,8 +180,8 @@ def mach_bucket_proxy_ref(h2: torch.Tensor, w: torch.Tensor, num_buckets: int,
     """Per-repetition bucket proxy scores of a dense batch: the logits of
     the batch-mean activation, ``mean_n(h) @ W + bias`` in float32,
     reshaped (R, B).  One d·R·B matvec, 1/N of the full projection."""
-    return _proxy_scores(h2.to(torch.float32).mean(dim=0), w, num_buckets,
-                         bias)
+    return proxy_logits(h2.to(torch.float32).mean(dim=0), w, num_buckets,
+                        bias)
 
 
 def mach_bucket_proxy_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
@@ -192,7 +193,7 @@ def mach_bucket_proxy_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
     n = indptr.shape[0] - 1
     xbar = torch.zeros((w.shape[0],), dtype=torch.float32, device=w.device)
     xbar = xbar.index_add(0, indices.long(), values.to(torch.float32))
-    return _proxy_scores(xbar / max(n, 1), w, num_buckets, bias)
+    return proxy_logits(xbar / max(n, 1), w, num_buckets, bias)
 
 
 def mach_select_buckets_ref(proxy_scores: torch.Tensor,
@@ -204,15 +205,30 @@ def mach_select_buckets_ref(proxy_scores: torch.Tensor,
     + 1`` (float32) lifts every label bucket above every other while
     keeping proxy order within each group; ties go to the lower bucket id,
     as ``jax.lax.top_k`` breaks them (a stable descending sort)."""
-    r, b = proxy_scores.shape
-    if not 1 <= c_sel <= b:
-        raise ValueError(f"need 1 <= c_sel <= num_buckets, got "
-                         f"c_sel={c_sel}, num_buckets={b}")
     proxy = proxy_scores.to(torch.float32)
-    rows = torch.arange(r, device=proxy.device).expand(hashed_labels.shape)
-    present = torch.zeros((r, b), dtype=torch.float32, device=proxy.device)
-    present[rows, hashed_labels.long()] = 1.0
+    present = bucket_presence(hashed_labels, *proxy.shape)
     span = proxy.max() - proxy.min() + 1.0
+    return select_boosted(proxy, present, span, c_sel)
+
+
+def bucket_presence(hashed_labels: torch.Tensor, r: int, b: int
+                    ) -> torch.Tensor:
+    """(R, B) float32: 1 at every bucket a label of (N, R) hits."""
+    rows = torch.arange(r, device=hashed_labels.device).expand(
+        hashed_labels.shape)
+    present = torch.zeros((r, b), dtype=torch.float32,
+                          device=hashed_labels.device)
+    present[rows, hashed_labels.long()] = 1.0
+    return present
+
+
+def select_boosted(proxy: torch.Tensor, present: torch.Tensor,
+                   span: torch.Tensor, c_sel: int) -> torch.Tensor:
+    """Each row's top ``c_sel`` of ``proxy + present * span`` (float32),
+    ties to the lower id, ascending -> (R, c_sel) int32."""
+    if not 1 <= c_sel <= proxy.shape[1]:
+        raise ValueError(f"need 1 <= c_sel <= num_buckets, got "
+                         f"c_sel={c_sel}, num_buckets={proxy.shape[1]}")
     _, idx = topk_lowest_id(proxy + present * span, c_sel)
     return torch.sort(idx, dim=-1).values
 

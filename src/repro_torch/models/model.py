@@ -238,7 +238,9 @@ class LanguageModel:
         activations' dtype; with ``mach_fused_loss``, through
         ``ops.mach_fused_xent`` (kernel 4), so the (B, L, R·B) logits
         never exist, over the ``mach_bucket_select`` selection if set
-        (ignored otherwise, as in the JAX package).  The fused op reads
+        (ignored otherwise, as in the JAX package).  Under a sharded
+        step each rank computes the repetitions its shard of the head
+        holds, where they are whole (``_mach_per_token``).  The fused op reads
         h and the head kernel in float32 whatever their dtypes, so where
         they differ both are promoted to the wider one (bf16 to float32
         is exact).  OAA head: the softmax CE of float32 logits, the
@@ -268,18 +270,8 @@ class LanguageModel:
             picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
             per_tok = torch.logsumexp(logits, dim=-1) - picked
         else:
-            hashed = cfg.mach.hash_labels(labels).movedim(0, -1)  # (B, L, R)
-            if cfg.mach_fused_loss:
-                kernel = partitioning.materialize(
-                    params["mach_head"])["kernel"]
-                dt = torch.promote_types(h.dtype, kernel.dtype)
-                per_tok = ops.mach_fused_xent(
-                    h.to(dt), kernel.to(dt), hashed,
-                    num_buckets=cfg.mach.num_buckets,
-                    bucket_select=cfg.mach_bucket_select,
-                    bucket_proxy=batch.get("bucket_proxy"))
-            else:
-                per_tok = ops.mach_xent(self.mach_logits(params, h), hashed)
+            per_tok = self._mach_per_token(params, h, labels,
+                                           batch.get("bucket_proxy"))
         total = torch.sum(weights)
         loss = torch.sum(per_tok * weights) / torch.clamp(total, min=1.0)
         metrics = {"loss": loss, "tokens": total}
@@ -288,6 +280,46 @@ class LanguageModel:
             loss = loss + cfg.lb_loss_coef * aux["load_balance"] \
                 + cfg.z_loss_coef * aux["router_z"]
         return loss, metrics
+
+    def _mach_per_token(self, params: dict, h: torch.Tensor,
+                        labels: torch.Tensor,
+                        bucket_proxy: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, L) float32: each next token's summed R-head CE (kernel 3 on
+        the logits, or kernel 4 fused).  Under a sharded step whose head
+        splits by repetition (``partitioning.head_split``) the rank
+        gathers the head over every mesh axis but those that split its
+        columns, computes its own repetitions on the rows going into the
+        head, and the per-token partial sums come out of the head summed
+        over the ranks of the other repetitions; the selection
+        (``mach_bucket_select``) is then the global batch's
+        (``ops.mach_fused_xent(split=)``).  Elsewhere under a mesh the
+        head is gathered whole; on one device nothing moves."""
+        cfg = self.cfg
+        split = partitioning.head_split(params["mach_head"]["kernel"],
+                                        cfg.mach.num_repetitions)
+        reps = None
+        if split is None:
+            head = partitioning.materialize(params["mach_head"])
+        else:
+            head = partitioning.materialize(params["mach_head"],
+                                            keep=split.head)
+            h, labels = split.into(h), split.gather_rows(labels)
+            reps = (split.r0, split.r1)
+        hashed = cfg.mach.hash_labels(labels)                  # (R, B, L)
+        if reps is not None:
+            hashed = hashed[reps[0]:reps[1]]
+        hashed = hashed.movedim(0, -1)                         # (B, L, R)
+        if cfg.mach_fused_loss:
+            kernel = head["kernel"]
+            dt = torch.promote_types(h.dtype, kernel.dtype)
+            per_tok = ops.mach_fused_xent(
+                h.to(dt), kernel.to(dt), hashed,
+                num_buckets=cfg.mach.num_buckets,
+                bucket_select=cfg.mach_bucket_select,
+                bucket_proxy=bucket_proxy, split=split)
+        else:
+            per_tok = ops.mach_xent(self.head.apply(head, h, reps), hashed)
+        return per_tok if split is None else split.out_of(per_tok)
 
     # --------------------------------------------------------------- serving
     def _init_kind_cache(self, kind: str, n: int, batch: int, max_len: int,

@@ -27,9 +27,21 @@ rules read only a mesh's axis names and sizes, so they run on a
 ``DeviceMesh`` and on any object with a ``shape`` dict and
 ``axis_names`` (the JAX tests' ``FakeMesh``).
 
+The MACH head splits by repetition, the paper's parallelism: where the
+mesh axes that split its ``mach_rb`` dim, n ranks in all, divide R,
+rank k of them owns repetitions [k·R/n, (k+1)·R/n), whose columns its
+shard holds (``repetition_range``).  A sharded step then computes the
+head's loss there only (``head_split``): ``materialize(keep=)`` gathers
+the head over every other axis, the rows go into the head and the
+per-token partial losses come out of it summed (``HeadSplit.into`` /
+``out_of``, the Megatron pattern).  Where n does not divide R (a shard
+boundary inside a repetition, e.g. R = 8 on the (16, 16) mesh) the head
+is gathered whole and every rank computes every repetition.
+
 Where the port differs (ROADMAP.md §3): ``constrain`` is the identity,
-since the model runs on whole per-rank tensors; the trainer computes on
-the ``model`` axis as data-parallel replicas and refuses ``sp``.
+since the model runs on whole per-rank tensors; apart from the MACH
+head the trainer computes on the ``model`` axis as data-parallel
+replicas, and it refuses ``sp``.
 """
 
 from __future__ import annotations
@@ -330,7 +342,7 @@ def place(tree, shardings) -> Any:
     return tree_unflatten(tree, out)
 
 
-def materialize(tree) -> Any:
+def materialize(tree, keep: tuple = ()) -> Any:
     """Every ``DTensor`` leaf whole for its use here, the rest (plain
     tensors: one device) as they are.  The model calls it where it reads
     a param, so under FSDP a rank holds a leaf whole only while it uses
@@ -339,16 +351,16 @@ def materialize(tree) -> Any:
     rank's rows give a share of the batch's gradient; the other axes
     hold replicas) onto the leaf's own placements — a reduce-scatter on
     the axes that split it, an all-reduce on those that do not — as it
-    leaves this use.  A collective: every rank of the mesh calls it, in
-    the same order.  Raises on a ``DTensor`` outside a step's activation
-    on its mesh."""
+    leaves this use.  On the mesh dims in ``keep`` the leaf stays this
+    rank's shard, and its gradient there is taken as whole: neither
+    summed nor sliced (a head split by repetition: each rank's columns
+    are its own).  A collective: every rank of the mesh calls it, in the
+    same order.  Raises on a ``DTensor`` outside a step's activation on
+    its mesh."""
     leaves = tree_leaves(tree)
     if not any(isinstance(x, DTensor) for x in leaves):
         return tree
-    act = _ACTIVE[-1] if _ACTIVE else None
-    if act is None or act.batch_axes is None:
-        raise ValueError("materialize: a DTensor param outside a train "
-                         "step's activate(mesh, rules, batch_axes=)")
+    act = _active_step()
     mesh = act.entry[0]
     summed = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
                    if a in act.batch_axes)
@@ -358,38 +370,47 @@ def materialize(tree) -> Any:
             if x.device_mesh != mesh:
                 raise ValueError("materialize: a leaf on another mesh than "
                                  "the active one")
-            x = _Gather.apply(x, summed)
+            x = _Gather.apply(x, summed, tuple(keep))
         out.append(x)
     return tree_unflatten(tree, out)
 
 
+def _active_step():
+    act = _ACTIVE[-1] if _ACTIVE else None
+    if act is None or act.batch_axes is None:
+        raise ValueError("materialize: a DTensor param outside a train "
+                         "step's activate(mesh, rules, batch_axes=)")
+    return act
+
+
 class _Gather(torch.autograd.Function):
     """A ``DTensor`` -> its whole tensor, all-gathered from the local
-    shard over each mesh dim that splits it (the minor dim first, so a
-    tensor dim over two mesh dims comes back major first, as ``DTensor``
-    splits it).  Backward: the whole gradient, summed over the mesh dims
-    ``summed`` and cut to the shard — a reduce-scatter where a summed
-    dim splits the leaf, an all-reduce where it does not, a local slice
-    where an unsummed dim splits it — as a ``DTensor`` on the leaf's
-    placements.  A mesh dim of one rank moves nothing.  The same result
-    as ``redistribute`` to ``Replicate()`` and ``to_local`` with
+    shard over each mesh dim that splits it but those in ``kept`` (the
+    minor dim first, so a tensor dim over two mesh dims comes back major
+    first, as ``DTensor`` splits it).  Backward: the whole gradient,
+    summed over the mesh dims ``summed`` and cut to the shard — a
+    reduce-scatter where a summed dim splits the leaf, an all-reduce
+    where it does not, a local slice where an unsummed dim splits it —
+    as a ``DTensor`` on the leaf's placements; a kept dim is left as it
+    is.  A mesh dim of one rank moves nothing.  The same result as
+    ``redistribute`` to ``Replicate()`` and ``to_local`` with
     ``Partial("sum")`` gradient placements, without ``DTensor``'s
     per-call dispatch, whose host time made tinyllama-1.1b's step 6.8%
     slower at world 1 on an H100 (the redistribute, its backward and the
     per-layer selects of every leaf)."""
 
     @staticmethod
-    def forward(ctx, x: DTensor, summed: tuple):
+    def forward(ctx, x: DTensor, summed: tuple, kept: tuple):
         # the gradient takes x's spec (mesh, placements, global shape,
         # stride and dtype) as it is: ``DTensor.from_local`` would build
         # a new one, host time on every use of every leaf
-        ctx.spec, ctx.summed = x._spec, summed
+        ctx.spec, ctx.summed, ctx.kept = x._spec, summed, kept
         mesh = x.device_mesh
         whole = x.to_local()               # its local tensor (no grad here)
         for i in reversed(range(mesh.ndim)):
             p = x.placements[i]
             n = mesh.size(i)
-            if isinstance(p, Shard) and n > 1:
+            if isinstance(p, Shard) and n > 1 and i not in kept:
                 whole = whole.contiguous()
                 parts = whole.new_empty((n * whole.shape[0],)
                                         + tuple(whole.shape[1:]))
@@ -405,7 +426,7 @@ class _Gather(torch.autograd.Function):
         mesh = ctx.spec.mesh
         for i, p in enumerate(ctx.spec.placements):
             n = mesh.size(i)
-            if n == 1:
+            if n == 1 or i in ctx.kept:
                 continue
             if i in ctx.summed and isinstance(p, Shard):
                 out = torch.empty_like(g.narrow(p.dim, 0, g.shape[p.dim] // n),
@@ -419,4 +440,217 @@ class _Gather(torch.autograd.Function):
                 torch.distributed.all_reduce(g, group=mesh.get_group(i))
             elif isinstance(p, Shard):
                 g = g.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
-        return DTensor(g, ctx.spec, requires_grad=False), None
+        return DTensor(g, ctx.spec, requires_grad=False), None, None
+
+
+# ---------------------------------------------------------------------------
+# The MACH head split by repetition over the mesh axes of its ``mach_rb``
+# dim (the JAX package shards that dim over ``model``, or ``(pod,
+# model)`` with ``mach_pod_parallel``, "exactly like a vocab-sharded
+# softmax").
+# ---------------------------------------------------------------------------
+
+def _shard_index(mesh, dims) -> tuple[int, int]:
+    """(this rank's index, the count) over mesh dims ``dims``, the first
+    major (``DTensor``'s order for a tensor dim over several mesh dims)."""
+    coord = mesh.get_coordinate()
+    k, n = 0, 1
+    for i in dims:
+        k, n = k * mesh.size(i) + coord[i], n * mesh.size(i)
+    return k, n
+
+
+def repetition_shards(mesh, spec_entry, num_repetitions: int
+                      ) -> Optional[int]:
+    """The number n of ranks that split a MACH head's R·B dim, placed by
+    ``spec_entry`` (its spec's entry: ``None``, an axis or a tuple of
+    axes) on ``mesh`` (a ``DeviceMesh`` or a ``FakeMesh``), where n
+    divides R, so each owns R / n whole repetitions; None where it does
+    not (a shard boundary inside a repetition)."""
+    n = _axis_size(_view(mesh), spec_axes(spec_entry))
+    return n if num_repetitions % n == 0 else None
+
+
+def repetition_range(leaf, num_repetitions: int
+                     ) -> Optional[tuple[int, int]]:
+    """This rank's repetitions [r0, r1) of a MACH head leaf whose last
+    dim holds the R·B columns, repetition major: where the mesh dims that
+    split that dim, n ranks in all, divide R, rank k of them (major first
+    over those dims) owns [k·R/n, (k+1)·R/n), exactly the columns of its
+    local shard.  None for a plain tensor (one device) and where n does
+    not divide R."""
+    if not isinstance(leaf, DTensor):
+        return None
+    dims = _head_dims(leaf)
+    k, n = _shard_index(leaf.device_mesh, dims)
+    if num_repetitions % n:
+        return None
+    per = num_repetitions // n
+    return k * per, (k + 1) * per
+
+
+def _head_dims(leaf: DTensor) -> tuple:
+    last = leaf.dim() - 1
+    return tuple(i for i, p in enumerate(leaf.placements)
+                 if isinstance(p, Shard) and p.dim == last)
+
+
+def head_split(leaf, num_repetitions: int) -> Optional["HeadSplit"]:
+    """How a sharded step computes the MACH head whose kernel is
+    ``leaf`` (d, R·B): None on one device (a plain tensor), else a
+    ``HeadSplit`` on this rank's repetitions (``repetition_range``), or
+    on all R with no head dims where the split does not apply (the head
+    gathered whole, as every other param).  Raises outside a step's
+    activation, as ``materialize`` does."""
+    if not isinstance(leaf, DTensor):
+        return None
+    act = _active_step()
+    mesh = leaf.device_mesh
+    batch = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+                  if a in act.batch_axes)
+    reps = repetition_range(leaf, num_repetitions)
+    if reps is None:
+        return HeadSplit(mesh, 0, num_repetitions, (), batch)
+    return HeadSplit(mesh, reps[0], reps[1], _head_dims(leaf), batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """A sharded step's MACH head on this rank: repetitions [r0, r1), the
+    mesh dims ``head`` that split its columns (kept by its gather) and
+    ``batch`` that split the step's rows.  The rank computes its
+    repetitions on the rows of every rank of ``rows`` = batch ∩ head
+    (``pod`` under ``mach_pod_parallel``, else none), so the per-token
+    partial losses sum over ``summed`` = head − batch; sums over the
+    rows (the bucket selection's batch mean and label buckets) reduce
+    over ``reduced`` = batch − head.  With one rank on every such dim,
+    ``into`` and ``out_of`` are the identity."""
+    mesh: Any
+    r0: int
+    r1: int
+    head: tuple
+    batch: tuple
+
+    @property
+    def rows(self) -> tuple:
+        return tuple(i for i in self.head if i in self.batch)
+
+    @property
+    def summed(self) -> tuple:
+        return tuple(i for i in self.head if i not in self.batch)
+
+    @property
+    def reduced(self) -> tuple:
+        return tuple(i for i in self.batch if i not in self.head)
+
+    def moves(self, dims) -> bool:
+        """Whether any mesh dim of ``dims`` has more than one rank."""
+        return any(self.mesh.size(i) > 1 for i in dims)
+
+    def into(self, h: torch.Tensor) -> torch.Tensor:
+        """The hidden states (rows, ...) going into the head: gathered
+        over ``rows``; the backward sums dh over ``summed`` (every rank
+        of the head's repetitions) and hands each rank of ``rows`` its
+        rows' share."""
+        if not self.moves(self.rows + self.summed):
+            return h
+        return _IntoHead.apply(h, self)
+
+    def out_of(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-token partial losses (rows, ...) leaving the head: summed
+        over ``summed``, and each rank of ``rows`` keeps its own rows'
+        sum; the backward gathers the gradient's rows back."""
+        if not self.moves(self.rows + self.summed):
+            return x
+        return _OutOfHead.apply(x, self)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (rows, ...), no gradient, gathered over ``rows`` as
+        ``into`` gathers h (the labels of the rows the head computes)."""
+        return _gather_rows(x, self.mesh, self.rows)
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``reduced`` (no gradient)."""
+        return _all_reduce(x, self.mesh, self.reduced)
+
+    def max_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s largest entries over ``reduced`` (no gradient)."""
+        return _all_reduce(x, self.mesh, self.reduced,
+                           torch.distributed.ReduceOp.MAX)
+
+    def max_head(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s largest entries over ``head`` (no gradient)."""
+        return _all_reduce(x, self.mesh, self.head,
+                           torch.distributed.ReduceOp.MAX)
+
+
+def _all_reduce(x, mesh, dims, op=torch.distributed.ReduceOp.SUM):
+    """``x`` reduced over each mesh dim of ``dims`` in turn (a copy)."""
+    x = x.contiguous().clone()
+    for i in dims:
+        if mesh.size(i) > 1:
+            torch.distributed.all_reduce(x, op=op, group=mesh.get_group(i))
+    return x
+
+
+def _gather_rows(x, mesh, dims):
+    """``x``'s rows (dim 0) all-gathered over ``dims``, the minor dim
+    first, so the rows come out major first (as a batch splits them)."""
+    for i in reversed(dims):
+        n = mesh.size(i)
+        if n > 1:
+            x = x.contiguous()
+            parts = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+            torch.distributed.all_gather_into_tensor(
+                parts, x, group=mesh.get_group(i))
+            x = parts
+    return x
+
+
+def _scatter_rows(x, mesh, dims):
+    """``x``'s rows (dim 0) reduce-scattered over ``dims``, the major dim
+    first: each rank keeps the sum of its own rows (``_gather_rows``'s
+    adjoint)."""
+    for i in dims:
+        n = mesh.size(i)
+        if n > 1:
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            torch.distributed.reduce_scatter_tensor(
+                out, x.contiguous(), group=mesh.get_group(i))
+            x = out
+    return x
+
+
+class _IntoHead(torch.autograd.Function):
+    """h into a head split by repetition: rows gathered over the split's
+    ``rows``; backward: dh summed over ``summed``, then reduce-scattered
+    over ``rows`` (plain collectives, as ``_Gather``)."""
+
+    @staticmethod
+    def forward(ctx, h, split: HeadSplit):
+        ctx.split = split
+        out = _gather_rows(h, split.mesh, split.rows)
+        return out.view_as(out)          # a new tensor even where h is
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        g = _all_reduce(g, s.mesh, s.summed)
+        return _scatter_rows(g, s.mesh, s.rows), None
+
+
+class _OutOfHead(torch.autograd.Function):
+    """Per-token partial losses out of a head split by repetition: summed
+    over the split's ``summed``, reduce-scattered over ``rows``;
+    backward: the gradient's rows gathered over ``rows``."""
+
+    @staticmethod
+    def forward(ctx, x, split: HeadSplit):
+        ctx.split = split
+        return _scatter_rows(_all_reduce(x, split.mesh, split.summed),
+                             split.mesh, split.rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        return _gather_rows(g, s.mesh, s.rows), None

@@ -16,9 +16,13 @@ remat), so every kernel sees plain whole tensors as on one device and a
 rank holds about one period whole at a time, as JAX's scan does.  The
 backward reduce-scatters each use's gradient onto its param's
 placements as it leaves the use; clipping and the optimizer run on the
-``DTensor`` state.  The loss is the global batch's weighted mean, as on
-one device; at world size 1 the step computes the same bits as the
-single-device one.
+``DTensor`` state.  The MACH head is the exception: where the mesh axes
+that split its R·B columns divide R, each rank computes only its own
+repetitions (kernel 3 or 4 on R/n heads) and the per-token losses are
+summed over those ranks (``sharding.head_split``), the rest of the
+model running on ``model`` as replicas.  The loss is the global batch's
+weighted mean, as on one device; at world size 1 the step computes the
+same bits as the single-device one.
 """
 
 from __future__ import annotations
@@ -80,8 +84,11 @@ class DataParallel:
     """The mesh half of a sharded train step: which rows of the global
     batch this rank computes, the global weighted mean as each rank's
     share of the loss, the mesh axes the rows split on (the model's
-    gathers sum their gradients over them), and the metrics summed over
-    the ranks that hold different rows.
+    gathers sum their gradients over them; a MACH head split by
+    repetition reads them too), and the metrics summed over the ranks
+    that hold different rows.  The loss reaches it whole on every rank
+    of a row shard: a split head's partial losses are summed before the
+    weighted mean.
 
     ``group_size``: an MoE model's token groups, whose per-group means
     (``load_balance``, ``router_z``) equal one device's only where no
@@ -187,7 +194,9 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple],
     ``grad_norm`` (before clipping) and ``lr``; the loss's own (an MoE
     model's ``load_balance`` and ``router_z``) pass through.  With
     ``data_parallel`` the state is sharded on its mesh and ``batch`` is
-    the global batch, the same on every rank."""
+    the global batch, the same on every rank; the step runs the loss
+    inside ``activate(mesh, rules, batch_axes)``, where the model
+    gathers its params and splits its MACH head by repetition."""
     opt, sched = make_optimizer_from_config(tcfg)
     dp = data_parallel
 
@@ -227,9 +236,11 @@ class Trainer:
     proxy scores, recomputed every ``refresh_every`` steps (the second
     entry of ``model.cfg.mach_bucket_select``, else every step) under
     ``torch.no_grad`` and injected as ``batch["bucket_proxy"]``.  Without
-    it the loss recomputes the proxy each step.  Not under a mesh: the
-    selection forces the batch's label buckets in, so a rank's selection
-    is another function than the global batch's (ROADMAP.md §1)."""
+    it the loss recomputes the proxy each step; under a mesh that proxy,
+    the label buckets it forces in and so the selection are the global
+    batch's (``ops.mach_fused_xent(split=)``).  ``bucket_proxy_fn`` is
+    refused under a mesh: it runs outside the step on whole params
+    (ROADMAP.md §1)."""
 
     def __init__(self, model, tcfg: TrainConfig,
                  loss_fn: Optional[Callable] = None,
@@ -247,11 +258,12 @@ class Trainer:
             if rules.sp:
                 raise ValueError("sequence parallelism (rules.sp) is not "
                                  "ported yet (ROADMAP.md §1)")
-            if bucket_proxy_fn is not None or \
-                    getattr(cfg, "mach_bucket_select", None) is not None:
-                raise ValueError("mach_bucket_select under a mesh: a "
-                                 "rank-local selection is another function "
-                                 "than the global one (ROADMAP.md §1)")
+            if bucket_proxy_fn is not None:
+                raise ValueError("bucket_proxy_fn under a mesh: the cached "
+                                 "proxy is computed outside the step on "
+                                 "whole params; the in-loss proxy "
+                                 "(mach_bucket_select without it) is the "
+                                 "global batch's (ROADMAP.md §1)")
             opt, _ = make_optimizer_from_config(tcfg)
             self.state_shardings = state_shardings(mesh, rules, model,
                                                    opt)[1]

@@ -1525,3 +1525,50 @@ def test_world1_nccl_per_period_gathering(dev, tmp_path):
             (count.peak, bounds)
     finally:
         dist.destroy_process_group()
+
+
+def test_head_split_per_range_equals_whole(dev):
+    """The MACH head split by repetition over two ranks, as each rank
+    launches kernels 3 and 4 (bf16, R = 8, B = 2,048): on each half of
+    the repetitions in turn, the per-token losses summed over the halves
+    equal the whole-R kernel's at float32 rtol 1e-6; kernel 3's dlogits
+    are the whole kernel's columns bit for bit (one warp a head); kernel
+    4's dW columns and the dh summed over the halves (in float32) hold
+    by the bf16 gradient rule (its dW and dh are summed across blocks by
+    float atomics, in an order that changes from run to run)."""
+    n_rows, d, r, b, parts = 512, 256, 8, 2048, 2
+    gen = torch.Generator(device=dev).manual_seed(29)
+    logits = (torch.randn((n_rows, r, b), generator=gen, device=dev)
+              * 3).to(torch.bfloat16)
+    h = torch.randn((n_rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((d, r * b), generator=gen, device=dev)
+         / d ** 0.5).to(torch.bfloat16)
+    y = torch.randint(0, b, (n_rows, r), generator=gen, device=dev,
+                      dtype=torch.int32)
+    g = torch.rand((n_rows,), generator=gen, device=dev) + 0.5
+    loss3 = mx.mach_xent_cuda_fwd(logits, y)
+    dlogits = mx.mach_xent_cuda_bwd(logits, y, g)
+    loss4, lse = mfx.dense_fwd_cuda(h, w, None, y, b)
+    dh, dw, _ = mfx.dense_bwd_cuda(h, w, None, y, lse, g, b)
+    sum3 = torch.zeros_like(loss3)
+    sum4 = torch.zeros_like(loss4)
+    dh_sum = torch.zeros((n_rows, d), dtype=torch.float32, device=dev)
+    per = r // parts
+    for k in range(parts):
+        r0, r1 = k * per, (k + 1) * per
+        part_logits = logits[:, r0:r1].contiguous()
+        part_y = y[:, r0:r1].contiguous()
+        sum3 += mx.mach_xent_cuda_fwd(part_logits, part_y)
+        assert torch.equal(mx.mach_xent_cuda_bwd(part_logits, part_y, g),
+                           dlogits[:, r0:r1])
+        part_w = w[:, r0 * b:r1 * b].contiguous()
+        part_loss, part_lse = mfx.dense_fwd_cuda(h, part_w, None, part_y, b)
+        sum4 += part_loss
+        assert torch.equal(part_lse, lse[:, r0:r1])
+        part_dh, part_dw, _ = mfx.dense_bwd_cuda(h, part_w, None, part_y,
+                                                 part_lse, g, b)
+        _assert_bf16_grads_close([part_dw], [dw[:, r0 * b:r1 * b]])
+        dh_sum += part_dh.float()
+    torch.testing.assert_close(sum3, loss3, rtol=1e-6, atol=0)
+    torch.testing.assert_close(sum4, loss4, rtol=1e-6, atol=0)
+    _assert_bf16_grads_close([dh_sum.to(torch.bfloat16)], [dh])

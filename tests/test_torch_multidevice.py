@@ -6,7 +6,9 @@ checkpoint held against the unsharded port and the JAX package's
 model uses it (``partitioning.materialize``), a layer period at a time:
 the worlds count the gathered bytes alive at once against the leaves
 outside the layer stacks plus two periods.  The smoke configs run with
-``remat="full"`` and at least 4 layers (``model_config``).
+``remat="full"`` and at least 4 layers (``model_config``).  The smoke
+tinyllama with a MACH head (``mach_model_config``: R = 4, B = 16) holds
+the head split by repetition and the bucket selection under a mesh.
 
 Each world is spawned once (module fixtures) and runs every check
 inside; the tests read what its rank 0 wrote.  The worlds join by a
@@ -174,15 +176,16 @@ def test_sharded_step_never_gathers_the_whole_tree(world2):
 
 
 @pytest.mark.parametrize("case", ["remat", "no_remat", "microbatches",
-                                  "bf16"])
+                                  "bf16", "fused", "selected"])
 def test_single_device_step_bits_unchanged(case, monkeypatch):
     """On one device ``materialize`` hands back its argument, so a step
     is bit for bit the step of a model without the gathers: losses,
     metrics, params and moments after two steps (remat on and off, two
-    microbatches, bf16 with master weights)."""
+    microbatches, bf16 with master weights, a MACH head with the fused
+    loss, and with its in-loss bucket selection)."""
     import dataclasses
     from repro_torch.sharding import partitioning
-    from torch_multidevice_ranks import batches
+    from torch_multidevice_ranks import batches, mach_model_config
     cfg = model_config("tinyllama-1.1b")
     tc = train_config(num_microbatches=2 if case == "microbatches" else 1)
     if case == "no_remat":
@@ -191,6 +194,9 @@ def test_single_device_step_bits_unchanged(case, monkeypatch):
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
                                   param_dtype=torch.bfloat16)
         tc = train_config(master_weights=True)
+    if case in ("fused", "selected"):
+        cfg = mach_model_config(mach_fused_loss=True, mach_bucket_select=(
+            12, 1) if case == "selected" else None)
     data = batches(cfg, 2, weighted=True)
 
     def run():
@@ -212,6 +218,130 @@ def test_single_device_step_bits_unchanged(case, monkeypatch):
             assert g.dtype == w.dtype and torch.equal(g, w), path
         else:
             assert g == w, path
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_head_on_a_repetition_range(n):
+    """``MACHOutputHead.apply`` and ``fused_loss`` on a rank's columns
+    (``reps`` = (r0, r1)): the logits are the whole head's repetitions
+    [r0, r1); the weighted mean losses of the n ranges sum to the whole
+    head's at float32 rtol 1e-6."""
+    from repro_torch.configs import default_mach_head
+    from repro_torch.core.mach import MACHOutputHead
+    head = MACHOutputHead(default_mach_head(256, "on", num_buckets=16,
+                                            num_repetitions=4), 64)
+    gen = torch.Generator().manual_seed(n)
+    params = head.init(gen, "cpu")
+    h = torch.randn((3, 5, 64), generator=gen)
+    labels = torch.randint(0, 256, (3, 5), generator=gen)
+    weights = (torch.rand((3, 5), generator=gen) < 0.7).float()
+    whole = head.apply(params, h)
+    total = torch.zeros(())
+    per = 4 // n
+    for k in range(n):
+        r0, r1 = k * per, (k + 1) * per
+        part = {"kernel": params["kernel"][:, r0 * 16:r1 * 16]}
+        assert torch.equal(head.apply(part, h, (r0, r1)),
+                           whole[..., r0:r1, :])
+        total = total + head.fused_loss(part, h, labels, weights,
+                                        reps=(r0, r1))
+    torch.testing.assert_close(total, head.fused_loss(params, h, labels,
+                                                      weights),
+                               rtol=1e-6, atol=0)
+
+
+# the MACH head split by repetition: (world, case) -> the mesh axes that
+# split its columns (none where they do not divide R: the head gathered)
+HEAD_CASES = {
+    ("world2", "split12"): ("model",), ("world2", "split12_fused"): ("model",),
+    ("world2", "r3"): (), ("world2", "select12"): ("model",),
+    ("world4", "split22"): ("model",), ("world4", "split22_fused"): ("model",),
+    ("world4", "split14"): ("model",), ("world4", "split14_fused"): ("model",),
+    ("world4", "pod_split"): ("pod", "model"),
+    ("world4", "pod_split_fused"): ("pod", "model"),
+    ("world4", "select22"): ("model",)}
+
+
+@pytest.mark.parametrize("world,case", list(HEAD_CASES))
+def test_head_split_matches_one_device(request, world, case):
+    """The smoke tinyllama with a MACH head (R = 4, B = 16; R = 3 in
+    ``r3``) through the sharded step, each rank computing its own
+    repetitions, against one device: meshes (1, 2), (2, 2), (1, 4) and
+    (2, 1, 2) with ``mach_pod_parallel``, unfused (kernel 3's plain
+    version) and fused (kernel 4's); ``r3`` takes the gathered head;
+    ``select*`` the fused loss over the in-loss bucket selection."""
+    assert _hold(request.getfixturevalue(world)[case]) <= OFF_SHARE
+
+
+@pytest.mark.parametrize("world,case", list(HEAD_CASES))
+def test_head_split_gathers_and_computes_its_repetitions(request, world,
+                                                         case):
+    """Counted around the step (``HeadCount``): rank k of the n ranks on
+    the axes that split the head's columns (major first) takes
+    repetitions [k·R/n, (k+1)·R/n), as ``repetition_range`` of its head
+    leaf says (None for R = 3 on two ranks); the head is gathered over the other
+    axes only, d·R·B/n float32 bytes; every kernel call (``ops.mach_xent``,
+    or ``ops.mach_fused_xent`` on the fused paths) sees R/n repetitions.
+    R = 3 on two ``model`` ranks: n = 1, the head gathered whole."""
+    res = request.getfixturevalue(world)[case]
+    axes = HEAD_CASES[(world, case)]
+    r = 3 if case == "r3" else 4
+    d, b = 64, 16
+    n = int(np.prod([res["shape"][a] for a in axes]))
+    per = r // n
+    fused = case.endswith("_fused") or case.startswith("select")
+    names = list(res["shape"])
+    for rank in res["head"]:
+        k = 0
+        for a in axes:
+            k = k * res["shape"][a] + rank["coord"][names.index(a)]
+        assert rank["splits"] and \
+            set(rank["splits"]) == {(k * per, (k + 1) * per, axes)}, rank
+        assert rank["range"] == ((k * per, (k + 1) * per) if axes
+                                 else None), rank
+        assert rank["gathers"] and \
+            set(rank["gathers"]) == {((d, per * b), d * per * b * 4)}, rank
+        used, unused = (rank["fused"], rank["xent"]) if fused else \
+            (rank["xent"], rank["fused"])
+        assert used and set(used) == {per} and not unused, rank
+
+
+@pytest.mark.parametrize("world,case", [("world2", "select12"),
+                                        ("world4", "select22")])
+def test_selection_under_a_mesh_is_the_global_one(request, world, case):
+    """``mach_bucket_select=(12, 1)`` under a mesh ((1, 2) and (2, 2)):
+    each rank's selected bucket ids, every step, equal its rows of one
+    device's selection exactly.  The gap between each repetition's 12th
+    and 13th boosted proxy score on one device (printed) lies above what
+    float32 reassociation can move: (N + d + 2)·eps·max((mean |h|) @ |W|)
+    for the proxy, eps·(span + max |proxy|) for the boost, twice (both
+    scores)."""
+    res = request.getfixturevalue(world)[case]
+    eps = float(torch.finfo(torch.float32).eps)
+    steps = len(res["one"])
+    assert steps == 2 and len(res["one_proxies"]) == steps
+    for step, ((proxy, labels, sel), (n, d, scale)) in enumerate(
+            zip(res["one"], res["one_proxies"])):
+        c_sel = sel.shape[1]
+        lbl = labels.reshape(-1, labels.shape[-1]).long()
+        present = torch.zeros_like(proxy)
+        present[torch.arange(proxy.shape[0]).expand(lbl.shape), lbl] = 1.0
+        span = proxy.max() - proxy.min() + 1.0
+        ranked = torch.sort(proxy + present * span, dim=-1,
+                            descending=True).values
+        gaps = (ranked[:, c_sel - 1] - ranked[:, c_sel]).tolist()
+        tol = 2 * ((n + d + 2) * eps * scale
+                   + eps * float(span + proxy.abs().max()))
+        print(f"{world} {case} step {step}: gaps between the {c_sel}th and "
+              f"{c_sel + 1}th scores by repetition {gaps}; reassociation "
+              f"bound {tol:.3e}; label buckets {present.sum(1).tolist()}")
+        assert min(gaps) > tol
+        # the label buckets leave room in the selection: the boost decides
+        assert float(present.sum(1).min()) < c_sel
+        for rank in res["head"]:
+            r0, r1, _ = rank["splits"][step]
+            assert torch.equal(rank["selected"][step], sel[r0:r1]), \
+                (step, rank["coord"])
 
 
 def test_world2_checkpoint_restores_at_world_1(world2, directory):

@@ -398,3 +398,43 @@ def test_production_mesh_sizes_under_fsdp(arch, per_rank):
     else:
         assert period == 88_088_576 and rest == 198_184_960
         assert per_period < whole_tree / 5
+
+
+# an NVIDIA H100 node: 8 cards on NVLink as one model-parallel group
+H100_NODE = FakeMesh({"data": 1, "model": 8})
+HEAD_MESHES = {"16x16": (MESH1, RULES), "2x16x16": (MESH2, RULES),
+               "2x16x16_pod_parallel": (
+                   MESH2, ShardingRules(mach_pod_parallel=True)),
+               "1x8": (H100_NODE, RULES)}
+
+
+@pytest.mark.parametrize("mesh_name", list(HEAD_MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_mach_head_splits_by_repetition_where_it_divides(arch, mesh_name):
+    """Every config's MACH head (``mach="on"``: R = 8, B = 2,048, bf16)
+    placed by the rules (held to JAX's spec): whether the mesh axes that
+    split its R·B columns, n ranks, divide R (``repetition_shards``), and
+    the head bytes a rank gathers in a step, d·R·B·2 / n where it splits,
+    else the whole d·R·B·2.  On (16, 16) and (2, 16, 16), with or without
+    ``mach_pod_parallel``, n is 16 or 32 > R = 8: no config splits.  On
+    an 8-card H100 node, (1, 8), each rank owns one repetition:
+    tinyllama-1.1b's 67,108,864-byte head is 8,388,608 a rank."""
+    from repro_torch.sharding import repetition_shards
+    mesh, rules = HEAD_MESHES[mesh_name]
+    cfg = get_config(arch, mach="on")
+    r, b, d = cfg.mach.num_repetitions, cfg.mach.num_buckets, cfg.d_model
+    spec = _spec(mesh, ("embed", "mach_rb"), (d, r * b), rules)
+    cols = spec[1] if len(spec) > 1 else None
+    n = repetition_shards(mesh, cols, r)
+    whole = d * r * b * 2
+    if mesh_name == "1x8":
+        assert cols == "model" and n == 8
+    else:
+        assert n is None
+        assert cols == (("pod", "model") if "pod_parallel" in mesh_name
+                        else "model")
+    gathered = whole // n if n else whole
+    assert gathered == {"1x8": d * b * 2}.get(mesh_name, whole)
+    if arch == "tinyllama-1.1b":
+        assert whole == 67_108_864
+        assert gathered == (8_388_608 if n else whole)

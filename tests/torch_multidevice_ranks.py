@@ -141,11 +141,11 @@ class GatherCount:
     def _free(self, n):
         self.alive -= n
 
-    def _counted(self, tree):
+    def _counted(self, tree, *args, **kw):
         from torch.distributed.tensor import DTensor
 
         from repro_torch.checkpoint import tree_flatten
-        out = self._wrapped(tree)
+        out = self._wrapped(tree, *args, **kw)
         for (_, x), (_, whole) in zip(tree_flatten(tree), tree_flatten(out)):
             if isinstance(x, DTensor):
                 n = whole.numel() * whole.element_size()
@@ -175,11 +175,14 @@ def gather_bounds(params) -> dict:
             "period": period, "rest": rest}
 
 
-def sharded_vs_one_device(model_cfg, tcfg, mesh, steps_batches, rules=None):
+def sharded_vs_one_device(model_cfg, tcfg, mesh, steps_batches, rules=None,
+                          watch=None):
     """The same steps through ``Trainer(mesh=)`` and the single-device
     ``Trainer`` from one seed: per step both metrics dicts, then the
     gathered final params and the single device's; ``gathered``: the
-    sharded steps' ``GatherCount`` peak beside ``gather_bounds``."""
+    sharded steps' ``GatherCount`` peak beside ``gather_bounds``.
+    ``watch``: a pair of context managers around each sharded and each
+    single-device step (``HeadCount``s)."""
     from repro_torch.models import LanguageModel
     from repro_torch.sharding import gather
     from repro_torch.train import Trainer
@@ -189,15 +192,135 @@ def sharded_vs_one_device(model_cfg, tcfg, mesh, steps_batches, rules=None):
     gen = lambda: torch.Generator().manual_seed(0)   # noqa: E731
     st, rs = sharded.init_state(gen(), "cpu"), single.init_state(gen(), "cpu")
     metrics, count = [], GatherCount()
+    on_mesh, on_one = watch or (contextlib.nullcontext(),
+                                contextlib.nullcontext())
     for b in steps_batches:
-        with count:
+        with count, on_mesh:
             st, m = sharded.step_fn(st, b)
-        rs, rm = single.step_fn(rs, b)
+        with on_one:
+            rs, rm = single.step_fn(rs, b)
         metrics.append((_metrics(m), _metrics(rm)))
     return {"metrics": metrics, "params": gather(st.params),
             "want": rs.params, "state": st,
             "gathered": dict(gather_bounds(rs.params), peak=count.peak,
                              calls=count.calls)}
+
+
+class HeadCount:
+    """Within the block, what a step does with the MACH head: the rank's
+    ``partitioning.head_split`` (its repetitions and the mesh axes kept
+    by the head's gather), the shape and bytes of every gathered head
+    kernel (``partitioning.materialize`` of a tree whose ``kernel`` is
+    (d, ·)), the repetitions each ``ops.mach_xent`` (the logits' R) and
+    ``ops.mach_fused_xent`` call (the labels' R) sees, each
+    ``ops.mach_select_buckets`` call's proxy, labels and selection, and
+    each ``ops.mach_bucket_proxy`` call's rows, depth and scale.  The
+    model and ``ops`` call all six by their module attributes."""
+
+    def __init__(self, d_model: int):
+        self.d_model = d_model
+        self.splits, self.gathers, self.xent, self.fused = [], [], [], []
+        self.selections, self.proxies = [], []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.sharding import partitioning
+        self._saved = [(partitioning, "head_split"),
+                       (partitioning, "materialize"), (ops, "mach_xent"),
+                       (ops, "mach_fused_xent"), (ops, "mach_select_buckets"),
+                       (ops, "mach_bucket_proxy")]
+        self._saved = [(m, n, getattr(m, n)) for m, n in self._saved]
+        (_, _, split), (_, _, mat), (_, _, xent), (_, _, fused), \
+            (_, _, select), (_, _, proxy_fn) = self._saved
+
+        def head_split(leaf, r):
+            out = split(leaf, r)
+            if out is not None:
+                names = out.mesh.mesh_dim_names
+                self.splits.append((out.r0, out.r1,
+                                    tuple(names[i] for i in out.head)))
+            return out
+
+        def materialize(tree, *args, **kw):
+            out = mat(tree, *args, **kw)
+            if isinstance(out, dict) and set(out) == {"kernel"} and \
+                    out["kernel"].shape[0] == self.d_model:
+                k = out["kernel"]
+                self.gathers.append((tuple(k.shape),
+                                     k.numel() * k.element_size()))
+            return out
+
+        def mach_xent(logits, hashed, *args, **kw):
+            self.xent.append(logits.shape[-2])
+            return xent(logits, hashed, *args, **kw)
+
+        def mach_fused_xent(h, w, hashed, *args, **kw):
+            self.fused.append(hashed.shape[-1])
+            return fused(h, w, hashed, *args, **kw)
+
+        def mach_select_buckets(proxy, hashed, *args, **kw):
+            out = select(proxy, hashed, *args, **kw)
+            self.selections.append((proxy.clone(), hashed.clone(),
+                                    out.clone()))
+            return out
+
+        def mach_bucket_proxy(h, w, *args, **kw):
+            # the largest (mean |h|) @ |W|: the scale of the proxy's
+            # float32 rounding, beside the rows and depth it sums over
+            h2 = h.detach().reshape(-1, h.shape[-1]).float()
+            scale = h2.abs().mean(dim=0) @ w.detach().float().abs()
+            self.proxies.append((h2.shape[0], h2.shape[1],
+                                 float(scale.max())))
+            return proxy_fn(h, w, *args, **kw)
+
+        for (m, n, _), fn in zip(self._saved, (head_split, materialize,
+                                               mach_xent, mach_fused_xent,
+                                               mach_select_buckets,
+                                               mach_bucket_proxy)):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+        return False
+
+    def summary(self) -> dict:
+        return {"splits": self.splits, "gathers": self.gathers,
+                "xent": self.xent, "fused": self.fused,
+                "selected": [sel for _, _, sel in self.selections]}
+
+
+def mach_model_config(num_repetitions=4, **overrides):
+    """The smoke tinyllama-1.1b (``model_config``) with a MACH head of
+    R x 16 buckets over its 256 tokens."""
+    from repro_torch.configs import default_mach_head
+    return model_config("tinyllama-1.1b", mach=default_mach_head(
+        256, "on", num_buckets=16, num_repetitions=num_repetitions),
+        **overrides)
+
+
+def head_split_case(model_cfg, mesh, data, rules=None) -> dict:
+    """``sharded_vs_one_device`` with a ``HeadCount`` around both steps:
+    ``head`` holds every rank's sharded count (gathered to each rank, with
+    its mesh coordinate and ``repetition_range`` of its head leaf), ``one`` the single device's selections with
+    their proxies and labels, ``one_proxies`` its proxies' sizes."""
+    from repro_torch.sharding import repetition_range
+    on_mesh = HeadCount(model_cfg.d_model)
+    on_one = HeadCount(model_cfg.d_model)
+    full = sharded_vs_one_device(model_cfg, train_config(), mesh, data,
+                                 rules, (on_mesh, on_one))
+    res = _strip(full)
+    reps = repetition_range(full["state"].params["mach_head"]["kernel"],
+                            model_cfg.mach.num_repetitions)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, dict(on_mesh.summary(), range=reps,
+                                       coord=tuple(mesh.get_coordinate())))
+    res["head"] = ranks
+    res["one"] = on_one.selections
+    res["one_proxies"] = on_one.proxies
+    res["shape"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return res
 
 
 def _mesh(shape, names=("data", "model")):
@@ -270,6 +393,7 @@ def world2(rank, directory):
                                param_dtype=torch.bfloat16)
     out["bf16"] = _strip(sharded_vs_one_device(bf16, train_config(), mesh,
                                                batches(bf16, 2)))
+    out.update(head_split_world2())
     out["mesh_view"] = resolve_spec(
         mesh, ShardingRules().table(mesh), ("embed", "mlp"), (64, 128))
     out["init"] = {
@@ -315,6 +439,46 @@ def world2(rank, directory):
         "--global-batch", "4", "--ckpt-dir", ck])
     out["serve"] = _stdout(launch_serve.main, ["--local", "--device", "cpu",
                                                "--requests", "3"])
+    return out
+
+
+def head_split_world2() -> dict:
+    """Mesh (1, 2): the MACH head split by repetition (R = 4), unfused
+    and fused; R = 3, which 2 does not divide (the gathered head); the
+    in-loss bucket selection (c_sel = 12 of 16 on 4-token rows, so the
+    label buckets do not fill every selection)."""
+    m12 = _mesh((1, 2))
+    split, r3 = mach_model_config(), mach_model_config(3)
+    sel = mach_model_config(mach_fused_loss=True,
+                            mach_bucket_select=(12, 1))
+    return {
+        "split12": head_split_case(split, m12, batches(split, 2)),
+        "split12_fused": head_split_case(
+            dataclasses.replace(split, mach_fused_loss=True), m12,
+            batches(split, 2)),
+        "r3": head_split_case(r3, m12, batches(r3, 2)),
+        "select12": head_split_case(sel, m12, batches(sel, 2, seq=4))}
+
+
+def head_split_world4() -> dict:
+    """Meshes (2, 2) and (1, 4) with the MACH head split by repetition,
+    unfused and fused; (2, 1, 2) with ``mach_pod_parallel`` (the head
+    over (pod, model)); the in-loss bucket selection on (2, 2)."""
+    from repro_torch.sharding import ShardingRules
+    split = mach_model_config()
+    fused = dataclasses.replace(split, mach_fused_loss=True)
+    sel = mach_model_config(mach_fused_loss=True,
+                            mach_bucket_select=(12, 1))
+    m22, m14 = _mesh((2, 2)), _mesh((1, 4))
+    pod = _mesh((2, 1, 2), ("pod", "data", "model"))
+    pod_rules = ShardingRules(mach_pod_parallel=True)
+    out = {}
+    for name, mesh, rules in (("split22", m22, None), ("split14", m14, None),
+                              ("pod_split", pod, pod_rules)):
+        out[name] = head_split_case(split, mesh, batches(split, 2), rules)
+        out[name + "_fused"] = head_split_case(fused, mesh,
+                                               batches(fused, 2), rules)
+    out["select22"] = head_split_case(sel, m22, batches(sel, 2, seq=4))
     return out
 
 
@@ -437,6 +601,7 @@ def world4(rank, directory):
         batches(tiny, 2, global_batch=8, weighted=True, seed=5)))
     out["init"] = {"adamw": init_matches_placing_all(tiny, train_config(),
                                                      m22)}
+    out.update(head_split_world4())
 
     # the world-2 checkpoint into world-4 templates and by shardings=
     model = LanguageModel(tiny)
