@@ -6150,6 +6150,11 @@ MD_FUSED_STEPS = 3
 # tinyllama-1.1b's head at the path's rows (N, d, R, B), bf16, split n ways
 MD_HEAD = (MD_BATCH * MD_SEQ, 2048, 8, 2048)
 MD_SPLITS = (2, 4, 8)
+# the decoder split by heads and hidden as each rank launches kernel 10:
+# tinyllama-1.1b's training attention (B, T, H, KV, hd), bf16, causal
+MD_FLASH_SHAPE = (MD_BATCH, MD_SEQ, 32, 4, 64)
+# one tinyllama-1.1b decoder layer timed at a rank's shapes, n ways
+MD_LAYER_SPLITS = (1, 2, 4, 8)
 
 
 def _md_launchers() -> dict:
@@ -6275,6 +6280,217 @@ def _md_per_range(dev, smi) -> dict:
             fail(f"multidevice: kernel 4 over {n} ranges outside the bf16 "
                  f"rule: dW {dw_rule}, dh {dh_rule}")
     del logits, dlogits, h, w, dh, dw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_flash_per_rank(dev, smi) -> dict:
+    """Kernel 10 as each rank of tinyllama-1.1b's decoder split n ways
+    launches it (MD_FLASH_SHAPE, n in MD_SPLITS): on each rank's query
+    heads [k·H/n, (k+1)·H/n) and the kv heads they read
+    (``sharding.kv_heads``) in turn, forward and backward, against the
+    whole kernel on the same inputs.  Held: the output and dq by phase
+    7's rule (2 bf16 ulps of each row's scale), dk and dv summed over the
+    ranks that share a kv head (in float32) by phase 9's; reported: which
+    of out, lse, dq and (where a rank owns whole groups) dk and dv are
+    the whole kernel's heads bit for bit.  Each rank's forward and
+    backward ms (CUDA events) beside the whole kernel's and its own
+    bound.  Not counted on the path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.sharding import kv_heads
+    b, t, h, kv, hd = MD_FLASH_SHAPE
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(30)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                   for shape in ((b, t, h, hd), (b, t, kv, hd),
+                                 (b, t, kv, hd), (b, t, h, hd)))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+
+    def times(qq, kk, vv, oo, dd, ll):
+        return {"fwd": kernel_ms(lambda: fa.flash_attention_cuda(
+                    qq, kk, vv, return_lse=True), iters=10),
+                "bwd": kernel_ms(lambda: fa.flash_attention_bwd_cuda(
+                    qq, kk, vv, oo, dd, ll), iters=5)}
+
+    def bounds(heads, kv_local):
+        return {"fwd": _flash_bound(b, t, t, heads, kv_local, hd, True, None,
+                                    False, bf16)[0],
+                "bwd": _flash_bound(b, t, t, heads, kv_local, hd, True, None,
+                                    True, bf16)[0]}
+
+    res = {"whole": {"ms": times(q, k, v, out, do, lse),
+                     "bound_ms": bounds(h, kv)},
+           "shape": f"q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, {hd}) "
+                    f"bfloat16, causal"}
+    for n in MD_SPLITS:
+        per = h // n
+        dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device=dev)
+        dv_sum = torch.zeros_like(dk_sum)
+        ranks, ulps = [], {"out": 0.0, "dq": 0.0}
+        same = {"out": True, "lse": True, "dq": True, "dk": True, "dv": True}
+        for rank in range(n):
+            q0, q1 = rank * per, (rank + 1) * per
+            k0, k1 = kv_heads(q0, q1, h, kv)
+            rq, rdo = q[:, :, q0:q1].contiguous(), do[:, :, q0:q1].contiguous()
+            rk, rv = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+            r_out, r_lse = fa.flash_attention_cuda(rq, rk, rv,
+                                                   return_lse=True)
+            r_dq, r_dk, r_dv = fa.flash_attention_bwd_cuda(rq, rk, rv, r_out,
+                                                           rdo, r_lse)
+            torch.cuda.synchronize()
+            ulps["out"] = max(ulps["out"], _bf16_row_ulps(
+                r_out, out[:, :, q0:q1]))
+            ulps["dq"] = max(ulps["dq"], _bf16_backward_ulps(
+                r_dq, dq[:, :, q0:q1]))
+            same["out"] &= torch.equal(r_out, out[:, :, q0:q1])
+            same["lse"] &= torch.equal(r_lse, lse[:, q0:q1])
+            same["dq"] &= torch.equal(r_dq, dq[:, :, q0:q1])
+            if per >= h // kv:                     # whole groups of G
+                same["dk"] &= torch.equal(r_dk, dk[:, :, k0:k1])
+                same["dv"] &= torch.equal(r_dv, dv[:, :, k0:k1])
+            else:
+                same["dk"] = same["dv"] = None     # summed over ranks
+            dk_sum[:, :, k0:k1] += r_dk.float()
+            dv_sum[:, :, k0:k1] += r_dv.float()
+            ranks.append({"heads": [q0, q1], "kv_heads": [k0, k1],
+                          "ms": times(rq, rk, rv, r_out, rdo, r_lse)})
+        ulps["dk"] = _bf16_backward_ulps(dk_sum.to(bf16), dk)
+        ulps["dv"] = _bf16_backward_ulps(dv_sum.to(bf16), dv)
+        mean = {key: statistics.mean(r["ms"][key] for r in ranks)
+                for key in ("fwd", "bwd")}
+        kv_local = ranks[0]["kv_heads"][1] - ranks[0]["kv_heads"][0]
+        out_n = {"ranks": ranks, "mean_ms": mean,
+                 "bound_ms": bounds(per, kv_local), "bf16_ulps": ulps,
+                 "bit_for_bit": same}
+        res[f"n={n}"] = out_n
+        share = {key: mean[key] / res["whole"]["ms"][key] for key in mean}
+        print(f"multidevice: kernel 10 on a rank's heads, {n} ways ({per} "
+              f"of {h} query heads, {kv_local} kv head(s) a rank, "
+              f"{res['shape']}): ms a rank (mean of {n}) "
+              + ", ".join(f"{key} {mean[key]:.4f} ({share[key]:.3f} of the "
+                          f"whole {res['whole']['ms'][key]:.4f}; bound "
+                          f"{out_n['bound_ms'][key]:.4f})" for key in mean)
+              + f"; bf16 ulps from the whole {ulps}; bit for bit {same} "
+              f"[{smi}]", flush=True)
+        if max(ulps.values()) > 2.0:
+            fail(f"multidevice: kernel 10 on {n} ranks' heads off the whole "
+                 f"kernel by {ulps} bf16 ulps")
+    del q, k, v, do, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return res
+
+
+def _md_rank_block(params, cfg, n, rank, mesh):
+    """One decoder block as rank ``rank`` of n holds and splits it on the
+    ``model`` dim of ``mesh``: (its params, its ``BlockSplit``).  The
+    params: its query heads of q and o and its columns of wi, wg and wo
+    (the shards a split block's gather keeps), k and v whole; the split:
+    those heads and columns, and the kv heads [k0, k1) that
+    ``apply_block`` cuts from k and v (``sharding.kv_heads``).  On a
+    world-1 mesh its ``into`` and ``out_of`` are the identity."""
+    from repro_torch.sharding import BlockSplit, RangeSplit, kv_heads
+    h, kv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    q0, q1 = rank * h // n, (rank + 1) * h // n
+    c0, c1 = rank * f // n, (rank + 1) * f // n
+    names = mesh.mesh_dim_names
+    dims, batch = (names.index("model"),), (names.index("data"),)
+    split = BlockSplit(RangeSplit(mesh, q0, q1, dims, batch),
+                       kv_heads(q0, q1, h, kv),
+                       RangeSplit(mesh, c0, c1, dims, batch))
+    a, m = params["attn"], params["mlp"]
+    cut = lambda x, *idx: {"kernel": x["kernel"][idx].contiguous()}  # noqa: E731
+    local = {"norm1": params["norm1"], "norm2": params["norm2"],
+             "attn": {"q": cut(a["q"], slice(None), slice(q0, q1)),
+                      "k": a["k"], "v": a["v"],
+                      "o": cut(a["o"], slice(q0, q1))},
+             "mlp": {key: cut(m[key], slice(None), slice(c0, c1))
+                     for key in ("wi", "wg")}
+             | {"wo": cut(m["wo"], slice(c0, c1))}}
+    return local, split
+
+
+def _md_layer_times(dev, smi, mesh) -> dict:
+    """One tinyllama-1.1b decoder layer (bf16 params and activations,
+    MD_BATCH x MD_SEQ tokens) forward and backward (every input's and
+    param's gradient) through ``transformer.apply_block(split=)`` at rank
+    0's shapes of the split n ways (n in MD_LAYER_SPLITS;
+    ``_md_rank_block``, on the world-1 ``mesh``, so no collectives): what
+    a rank computes.  Rank 0's output at n = 1 is held to the whole
+    layer's bit for bit; for n > 1 the ranks' partial attention and MLP
+    outputs (``_self_attention(kv=)`` and ``apply_mlp`` on each rank's
+    params), summed in bf16 as the split's all-reduces sum them, are
+    reported against the whole layer in bf16 ulps of each row's scale
+    (not held: each sum rounds in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, transformer
+    cfg = get_config(MD_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    block = transformer.tree_map(
+        lambda x: x.to(cfg.param_dtype),
+        transformer.init_block(gen, cfg, "attn", dev))
+    x = torch.randn((MD_BATCH, MD_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
+    pos = torch.arange(MD_SEQ, dtype=torch.int32,
+                       device=dev)[None].expand(MD_BATCH, -1)
+    with torch.no_grad():
+        whole = transformer.apply_block(block, cfg, "attn", x, pos)[0]
+    out = {"shape": f"{MD_ARCH} layer, {MD_BATCH} x {MD_SEQ} tokens, bf16"}
+    for n in MD_LAYER_SPLITS:
+        local, split = _md_rank_block(block, cfg, n, 0, mesh)
+        local = transformer.tree_map(
+            lambda z: z.detach().clone().requires_grad_(True), local)
+        leaves = _leaves(local)
+        xg = x.detach().clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y = transformer.apply_block(local, cfg, "attn", xg, pos,
+                                        split=split)[0]
+            return torch.autograd.grad(y, [xg] + leaves, dy)
+
+        ms = kernel_ms(fwd_bwd, iters=5, warmup=2)
+        with torch.no_grad():
+            if n == 1:
+                got = transformer.apply_block(local, cfg, "attn", x, pos,
+                                              split=split)[0]
+                if not torch.equal(got, whole):
+                    fail("multidevice: rank 0's layer at n = 1 is not the "
+                         "whole layer bit for bit")
+                ulps = 0.0
+            else:
+                ranks = [_md_rank_block(block, cfg, n, r, mesh)
+                         for r in range(n)]
+                h = layers.apply_norm(block["norm1"], x, cfg.norm)
+                attn = None
+                for r, s in ranks:
+                    part = transformer._self_attention(
+                        r["attn"], cfg, h, pos, None, None, kv=s.kv)[0]
+                    attn = part if attn is None else attn + part
+                x1 = x + attn
+                h2 = layers.apply_norm(block["norm2"], x1, cfg.norm)
+                mlp = None
+                for r, _ in ranks:
+                    part = layers.apply_mlp(r["mlp"], h2, cfg.activation)
+                    mlp = part if mlp is None else mlp + part
+                ulps = _bf16_row_ulps(x1 + mlp, whole)
+                del ranks, h, attn, x1, h2, mlp
+        out[f"n={n}"] = {"ms": ms, "sum_bf16_row_ulps": ulps}
+        del local, leaves, xg
+        torch.cuda.empty_cache()
+    base = out["n=1"]["ms"]
+    print(f"multidevice: one decoder layer forward + backward at rank 0's "
+          f"shapes ({out['shape']}): "
+          + ", ".join(f"n={n} {out[f'n={n}']['ms']:.3f} ms "
+                      f"({out[f'n={n}']['ms'] / base:.3f} of n=1, expected "
+                      f"{1 / n:.3f}-{min(1.0, 2 / n):.3f})"
+                      for n in MD_LAYER_SPLITS)
+          + "; n=1 == the whole layer bit for bit; the ranks' summed "
+          f"partials {', '.join(str(round(out[f'n={n}']['sum_bf16_row_ulps'], 2)) for n in MD_LAYER_SPLITS[1:])} "
+          f"bf16 ulps of the row scale from it (n = "
+          f"{', '.join(str(n) for n in MD_LAYER_SPLITS[1:])}) [{smi}]",
+          flush=True)
+    del block, x, dy, whole
     torch.cuda.empty_cache()
     return out
 
@@ -6426,13 +6642,17 @@ def phase_multidevice(dev) -> dict:
     MD_FUSED_STEPS with the fused loss over the in-loss selection, then,
     launch counters from 0, both through ``Trainer(mesh=)`` from the same
     seed (each layer period's params gathered inside the recomputed
-    period, the head split by repetition with n = 1, the state placed as
-    it is built): losses, params and moments bit for bit (fused: the
-    first loss), kernels 3, 4 and 10 launched, the gathered bytes alive
-    at once within the leaves outside the stacks plus two periods; ms a
-    step, the steps' peak and the init's both ways.  Kernel 10 held to
-    plain at the path's shape first, and kernels 3 and 4 on each
-    repetition range of the head split 2, 4 and 8 ways (not counted).  The sharded state saved and restored
+    period, the head split by repetition and the decoder by heads and
+    hidden with n = 1, the state placed as it is built): losses, params
+    and moments bit for bit (fused: the first loss), kernels 3, 4 and 10
+    launched, the gathered bytes alive at once within the leaves outside
+    the stacks plus two periods; ms a step, the steps' peak and the
+    init's both ways.  Kernel 10 held to plain at the path's shape
+    first, kernels 3 and 4 on each repetition range of the head split 2,
+    4 and 8 ways, kernel 10 on each rank's heads of the decoder split 2,
+    4 and 8 ways, and one decoder layer timed at a rank's shapes through
+    ``apply_block(split=)`` on the world-1 mesh (none counted).  The
+    sharded state saved and restored
     unsharded, the unsharded one restored sharded, bit for bit; then the
     torchrun entry point, and gradient compression on the card against
     the CPU."""
@@ -6455,7 +6675,8 @@ def phase_multidevice(dev) -> dict:
     t0 = time.perf_counter()
     smi = _nvidia_smi()
     out = {"flash": _flash_times(dev, smi, MD_FLASH),
-           "per_range": _md_per_range(dev, smi)}
+           "per_range": _md_per_range(dev, smi),
+           "flash_per_rank": _md_flash_per_rank(dev, smi)}
     torch.cuda.empty_cache()
     cfg = get_config(MD_ARCH, mach="on")
     fused_cfg = dataclasses.replace(cfg, mach_fused_loss=True,
@@ -6470,6 +6691,7 @@ def phase_multidevice(dev) -> dict:
             mesh = init_device_mesh("cuda", (1, 1),
                                     mesh_dim_names=("data", "model"))
             rules = ShardingRules(fsdp=True, sp=False)
+            out["layer"] = _md_layer_times(dev, smi, mesh)
             print(f"multidevice: {MD_ARCH} (MACH B={cfg.mach.num_buckets} "
                   f"R={cfg.mach.num_repetitions}, {cfg.num_layers} layers, "
                   f"{cfg.param_dtype} params, float32 moments, "
@@ -6641,9 +6863,11 @@ def _md_report(out, smi) -> None:
 
 def _add_multidevice_launches(rows, md) -> None:
     """Rows 3, 4 (its LM-head row) and 10 gain their launches on phase
-    17's sharded path; row 10 its check and times at that path's shape;
-    rows 3 and 4 their times on each repetition range of the head split
-    2, 4 and 8 ways, beside the whole kernel's."""
+    17's sharded path; row 10 its check and times at that path's shape,
+    on each rank's heads of the decoder split 2, 4 and 8 ways, and one
+    decoder layer's at rank 0's shapes; rows 3 and 4 their times on each
+    repetition range of the head split 2, 4 and 8 ways, beside the whole
+    kernel's."""
     per = md["per_range"]
     kinds = {"mach_xent_fwd": "xent_fwd", "mach_xent_bwd": "xent_bwd"}
     for row in rows:
@@ -6652,6 +6876,8 @@ def _add_multidevice_launches(rows, md) -> None:
             row["launches_multidevice"] = md["launches"][name]
         if name == "flash_attention":
             row["multidevice_shape"] = md["flash"]
+            row["per_rank_multidevice"] = md["flash_per_rank"]
+            row["layer_per_rank_multidevice"] = md["layer"]
         if name == "mach_fused_xent_dense" and "train_step_ms" not in row:
             row["launches_multidevice"] = (md["launches"]["dense_fwd"]
                                            + md["launches"]["dense_bwd"])

@@ -269,7 +269,7 @@ def mach_fused_xent(h: torch.Tensor, w: torch.Tensor,
     the batch mean.  Selection itself runs on every call.  With c_sel >=
     num_buckets, or ``bucket_select=None``, this is the unselected path.
 
-    ``split`` (a ``sharding.HeadSplit``: a sharded step's head on this
+    ``split`` (a ``sharding.RangeSplit``: a sharded step's head on this
     rank) makes the selection the global batch's: w and the labels are
     then the rank's repetitions, h the rows it computes them on, and the
     proxy and the label buckets reduce over the other ranks
@@ -397,7 +397,7 @@ def mach_select_buckets(proxy_scores: torch.Tensor,
     ties to the lower bucket id, as ``jax.lax.top_k`` breaks them.  With
     ``split``, proxy and labels hold the rank's repetitions: the label
     buckets are marked over ``split.reduced`` (the batch's other rows)
-    and the boost ``max − min + 1`` is taken over ``split.head`` (every
+    and the boost ``max − min + 1`` is taken over ``split.dims`` (every
     repetition, as one device takes it), so each rank selects its rows
     of one device's selection."""
     lbl = hashed_labels.reshape(-1, hashed_labels.shape[-1]).to(torch.int32)
@@ -406,7 +406,7 @@ def mach_select_buckets(proxy_scores: torch.Tensor,
                                            c_sel)
     proxy = proxy_scores.to(torch.float32)
     present = split.max_rows(ref.bucket_presence(lbl, *proxy.shape))
-    top = split.max_head(torch.stack([proxy.max(), -proxy.min()]))
+    top = split.max_split(torch.stack([proxy.max(), -proxy.min()]))
     return ref.select_boosted(proxy, present, top[0] + top[1] + 1.0, c_sel)
 
 

@@ -12,7 +12,11 @@ Every read of a param goes through ``partitioning.materialize``, the
 identity on plain tensors; under FSDP (a sharded train step's
 ``DTensor`` params) it gathers the leaf whole at its use and the
 backward reduce-scatters its gradient (``apply_stacks`` does so a layer
-period at a time).
+period at a time).  Where the ``model`` mesh axis splits them, a rank
+keeps its shard of the MACH head (its repetitions) and of each decoder
+block's attention and MLP (its query heads and hidden columns), computes
+those alone and sums the partial results over the split's ranks
+(``partitioning.head_split``, ``partitioning.block_split``).
 
 Public surface:
   init(generator, device)                      -> params
@@ -302,7 +306,7 @@ class LanguageModel:
             head = partitioning.materialize(params["mach_head"])
         else:
             head = partitioning.materialize(params["mach_head"],
-                                            keep=split.head)
+                                            keep=split.dims)
             h, labels = split.into(h), split.gather_rows(labels)
             reps = (split.r0, split.r1)
         hashed = cfg.mach.hash_labels(labels)                  # (R, B, L)

@@ -221,11 +221,19 @@ def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attention(params: dict, cfg: ModelConfig, x, positions, window,
-                    cache, causal: bool = True, per_slot: bool = False):
-    """Returns (attn_out, cache); a given cache is updated in place."""
+                    cache, causal: bool = True, per_slot: bool = False,
+                    kv: Optional[tuple] = None):
+    """Returns (attn_out, cache); a given cache is updated in place.
+    ``params`` may hold a rank's query heads of q and o (a split block);
+    ``kv`` then names the heads [k0, k1) of the whole k and v it reads (a
+    ``BlockSplit``'s ``kv``; None: k and v as given)."""
     q = layers.dense(params["q"], x)
-    k = layers.dense(params["k"], x)
-    v = layers.dense(params["v"], x)
+    k_p, v_p = params["k"], params["v"]
+    if kv is not None:
+        k_p, v_p = ({"kernel": p["kernel"][:, kv[0]:kv[1]]}
+                    for p in (k_p, v_p))
+    k = layers.dense(k_p, x)
+    v = layers.dense(v_p, x)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
     if isinstance(cache, attn_lib.PagedKVCache):     # paged slot decode
@@ -275,11 +283,20 @@ def cross_kv(params_block: dict, x_enc: torch.Tensor):
 
 def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
                 cache=None, enc_kv=None, decode: bool = False,
-                per_slot: bool = False):
+                per_slot: bool = False,
+                split: Optional[partitioning.BlockSplit] = None):
     """Pre-norm residual block.  Returns (x, cache, aux): aux holds an MoE
     block's losses, empty for the other kinds.  ``enc_kv`` is an
     ``xattn`` block's (k, v); ``decode`` picks the xLSTM blocks' step
-    form."""
+    form.  ``split`` (a sharded step's ``partitioning.block_split`` of
+    ``params``, which then hold the rank's shards) runs the
+    self-attention on the rank's query heads and the MLP on its hidden
+    columns: the normed input goes into each (dh summed over the split's
+    ranks in the backward) and each output comes out summed over them,
+    so the residual stream stays whole; None (one device, and every
+    cache path) runs the block whole."""
+    attn_split = split.attn if split is not None else None
+    mlp_split = split.mlp if split is not None else None
     h = layers.apply_norm(params["norm1"], x, cfg.norm)
     if kind == "mlstm":
         out, cache = xlstm.apply_mlstm_block(params["mlstm"], h, cache,
@@ -292,9 +309,14 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
     if kind == "rglru":
         out, cache = recurrent.apply_rglru_block(params["rglru"], h, cache)
     elif kind in ("attn", "attn_local", "moe", "enc", "xattn"):
+        if attn_split is not None:
+            h = attn_split.into(h)
         out, cache = _self_attention(params["attn"], cfg, h, positions,
                                      cfg.block_window(kind), cache,
-                                     causal=kind != "enc", per_slot=per_slot)
+                                     causal=kind != "enc", per_slot=per_slot,
+                                     kv=split.kv if attn_split else None)
+        if attn_split is not None:
+            out = attn_split.out_of(out)
     else:
         raise ValueError(kind)
     x = x + out
@@ -309,7 +331,12 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
             capacity_factor=cfg.capacity_factor,
             group_size=cfg.moe_group_size)
         return x + out2, cache, aux
-    return x + layers.apply_mlp(params["mlp"], h2, cfg.activation), cache, {}
+    if mlp_split is not None:
+        h2 = mlp_split.into(h2)
+    out2 = layers.apply_mlp(params["mlp"], h2, cfg.activation)
+    if mlp_split is not None:
+        out2 = mlp_split.out_of(out2)
+    return x + out2, cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +428,44 @@ def _add_aux(total: dict, aux: dict) -> dict:
     return {k: v + aux.get(k, 0.0) for k, v in total.items()}
 
 
+def materialize_period(layer_params: list, splits: list) -> list:
+    """One period's params for its use here, each block by its split
+    (``partitioning.block_split``, None on one device): a split
+    attention's q, k, v and o and a split MLP's wi, wg and wo are
+    gathered keeping the split's mesh dims (``materialize(keep=)``; a k
+    or v replicated there has its gradient summed there), every other
+    leaf whole (``partitioning.materialize``).  One gather for the
+    leaves gathered whole and one for each split's mesh dims."""
+    parts = [{key: s.dims for key, s in (("attn", split.attn),
+                                         ("mlp", split.mlp)) if s}
+             if split is not None else {} for split in splits]
+    if not any(parts):
+        return partitioning.materialize(layer_params)
+    out = partitioning.materialize([
+        {key: v for key, v in lp.items() if key not in part}
+        for lp, part in zip(layer_params, parts)])
+    for dims in sorted({d for part in parts for d in part.values()}):
+        kept = partitioning.materialize([
+            {key: lp[key] for key, d in part.items() if d == dims}
+            for lp, part in zip(layer_params, parts)], keep=dims)
+        for block, kept_block in zip(out, kept):
+            block.update(kept_block)
+    return out
+
+
 def _apply_period(layer_params: list, cfg: ModelConfig, period: tuple, x,
-                  positions, layer_enc: Optional[list] = None):
+                  positions, layer_enc: Optional[list], splits: list):
     """One period of the pattern without caches (the remat unit), its
-    params gathered here (``partitioning.materialize``), so a recompute
-    gathers them again.  Returns (x, the period's aux sums)."""
-    layer_params = partitioning.materialize(layer_params)
+    params gathered here (``materialize_period``), so a recompute
+    gathers them again, and the split blocks' sums over their ranks run
+    again too: every rank recomputes the same periods in the same order,
+    so their collectives match.  Returns (x, the period's aux sums)."""
+    layer_params = materialize_period(layer_params, splits)
     aux = dict.fromkeys(AUX_KEYS, 0.0)
     for pi, (lp, kind) in enumerate(zip(layer_params, period)):
         ek = layer_enc[pi] if layer_enc is not None else None
-        x, _, block_aux = apply_block(lp, cfg, kind, x, positions, enc_kv=ek)
+        x, _, block_aux = apply_block(lp, cfg, kind, x, positions, enc_kv=ek,
+                                      split=splits[pi])
         aux = _add_aux(aux, block_aux)
     return x, aux
 
@@ -432,11 +487,17 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
     about one period whole.  With caches (serving) or ``remat="none"`` the same gather
     runs, and autograd keeps what the period's backward needs of the
     gathered weights until then (every period's, when gradients are
-    on)."""
+    on).  Where a block's attention or MLP splits on the ``model`` mesh
+    axis (``partitioning.block_split``), the rank gathers and computes
+    only its heads and columns (``apply_block(split=)``).  A cache path
+    never splits: ``DTensor`` params are read only inside a train step
+    (``materialize`` raises elsewhere), and served params are whole."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()
     aux = dict.fromkeys(AUX_KEYS, 0.0)
     for si, ((period, n), p_list) in enumerate(zip(plan_stacks(layout), params)):
         slices = unstack(p_list, n)
+        # every period of a stack has its leaves' placements and shapes
+        splits = [partitioning.block_split(lp) for lp in slices[0]]
         for li in range(n):
             layer_params = slices[li]
             layer_enc = ([tree_map(lambda v: v[li], e) for e in enc_kvs[si]]
@@ -444,16 +505,16 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
             if remat:
                 x, period_aux = checkpoint(_apply_period, layer_params, cfg,
                                            period, x, positions, layer_enc,
-                                           use_reentrant=False)
+                                           splits, use_reentrant=False)
                 aux = _add_aux(aux, period_aux)
                 continue
-            layer_params = partitioning.materialize(layer_params)
+            layer_params = materialize_period(layer_params, splits)
             for pi, kind in enumerate(period):
                 lc = (tree_map(lambda v: v[li], caches[si][pi])
                       if caches is not None else None)
                 ek = layer_enc[pi] if layer_enc is not None else None
                 x, _, block_aux = apply_block(layer_params[pi], cfg, kind, x,
                                               positions, lc, ek, decode,
-                                              per_slot)
+                                              per_slot, splits[pi])
                 aux = _add_aux(aux, block_aux)
     return x, caches, aux

@@ -1,19 +1,23 @@
 """Logical-axis partitioning onto a ``torch.distributed`` ``DeviceMesh``
 (the JAX package's ``repro.sharding``)."""
 
-from repro_torch.sharding.partitioning import (HeadSplit, NamedSharding,
-                                               ShardingRules, activate,
-                                               active, batch_shardings,
+from repro_torch.sharding.partitioning import (BlockSplit, NamedSharding,
+                                               RangeSplit, ShardingRules,
+                                               activate, active,
+                                               batch_shardings, block_split,
                                                constrain, gather,
-                                               head_split, materialize,
+                                               head_split, kv_heads,
+                                               materialize,
                                                params_shardings, place,
                                                placements,
                                                repetition_range,
                                                repetition_shards,
-                                               resolve_spec, state_shardings)
+                                               resolve_spec, split_plan,
+                                               state_shardings)
 
-__all__ = ["HeadSplit", "NamedSharding", "ShardingRules", "activate",
-           "active", "batch_shardings", "constrain", "gather", "head_split",
-           "materialize", "params_shardings", "place", "placements",
-           "repetition_range", "repetition_shards", "resolve_spec",
+__all__ = ["BlockSplit", "NamedSharding", "RangeSplit", "ShardingRules",
+           "activate", "active", "batch_shardings", "block_split",
+           "constrain", "gather", "head_split", "kv_heads", "materialize",
+           "params_shardings", "place", "placements", "repetition_range",
+           "repetition_shards", "resolve_spec", "split_plan",
            "state_shardings"]

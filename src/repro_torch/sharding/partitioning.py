@@ -27,21 +27,41 @@ rules read only a mesh's axis names and sizes, so they run on a
 ``DeviceMesh`` and on any object with a ``shape`` dict and
 ``axis_names`` (the JAX tests' ``FakeMesh``).
 
-The MACH head splits by repetition, the paper's parallelism: where the
-mesh axes that split its ``mach_rb`` dim, n ranks in all, divide R,
-rank k of them owns repetitions [k·R/n, (k+1)·R/n), whose columns its
-shard holds (``repetition_range``).  A sharded step then computes the
-head's loss there only (``head_split``): ``materialize(keep=)`` gathers
-the head over every other axis, the rows go into the head and the
-per-token partial losses come out of it summed (``HeadSplit.into`` /
-``out_of``, the Megatron pattern).  Where n does not divide R (a shard
-boundary inside a repetition, e.g. R = 8 on the (16, 16) mesh) the head
-is gathered whole and every rank computes every repetition.
+Two parts of a model split by the placements of their params (Megatron's
+tensor parallelism, where JAX's XLA partitions the same products).
+Rank k of the n ranks on the mesh dims that shard a param's split dim
+(major first, ``shard_range``) computes its own range of that dim: the
+param's gather keeps those dims (``materialize(keep=)``), the rows go
+into the split (``RangeSplit.into``: the identity forward, dh summed
+over the split's ranks backward) and the partial results come out of it
+summed (``RangeSplit.out_of``).
+- The MACH head by repetition: where the mesh dims that split its
+  ``mach_rb`` dim divide R, rank k owns repetitions [k·R/n, (k+1)·R/n),
+  whose columns its shard holds (``repetition_range``, ``head_split``);
+  the per-token partial losses come out summed.  Where n does not
+  divide R (a shard boundary inside a repetition, e.g. R = 8 on the
+  (16, 16) mesh) the head is gathered whole and every rank computes
+  every repetition.
+- A decoder block's self-attention by query heads and its dense MLP by
+  hidden columns (``block_split``): the attention splits where q's and
+  o's heads dims are sharded over the same mesh dims m (and k and v are
+  each sharded on their kv-heads dim over m, or replicated over m); the
+  MLP where wi's (and wg's) last dim and wo's first dim are.  Under
+  GQA a rank reads the kv heads its query heads read: its own shard of
+  k and v, or, where the rules leave them replicated, those heads cut
+  from the whole k and v, whose gradient is then summed over m
+  (``kv_heads``); the attention then splits only where a rank's H/n
+  query heads hold whole groups or lie inside one.  The block's two outputs come out summed over m; the
+  residual stream stays whole on every rank.  Elsewhere (a dim the
+  rules leave replicated, e.g. recurrentgemma's 10 heads on 8 ranks)
+  that part runs whole on every rank, as do the MoE experts, the RG-LRU,
+  the xLSTM blocks, the cross-attention, the embedding and the OAA head.
+With one rank on the split's dims ``into`` and ``out_of`` are the
+identity, and on one device (plain tensors) nothing splits.
 
 Where the port differs (ROADMAP.md §3): ``constrain`` is the identity,
-since the model runs on whole per-rank tensors; apart from the MACH
-head the trainer computes on the ``model`` axis as data-parallel
-replicas, and it refuses ``sp``.
+since the model runs on whole per-rank tensors, or on the ranges a
+split gives a rank; the trainer refuses ``sp``.
 """
 
 from __future__ import annotations
@@ -351,26 +371,30 @@ def materialize(tree, keep: tuple = ()) -> Any:
     rank's rows give a share of the batch's gradient; the other axes
     hold replicas) onto the leaf's own placements — a reduce-scatter on
     the axes that split it, an all-reduce on those that do not — as it
-    leaves this use.  On the mesh dims in ``keep`` the leaf stays this
-    rank's shard, and its gradient there is taken as whole: neither
-    summed nor sliced (a head split by repetition: each rank's columns
-    are its own).  A collective: every rank of the mesh calls it, in the
-    same order.  Raises on a ``DTensor`` outside a step's activation on
-    its mesh."""
+    leaves this use.  ``keep`` names the mesh dims of a split use (a
+    ``RangeSplit``'s ``dims``), where each rank computes its own range:
+    a leaf sharded on such a dim stays this rank's shard there, and its
+    gradient there is taken as whole, neither summed nor sliced (each
+    rank's columns are its own); a leaf replicated there is whole, and
+    its gradient, this rank's part of the split use, is summed there too
+    (k and v cut to a rank's kv heads).  A collective: every rank of the
+    mesh calls it, in the same order.  Raises on a ``DTensor`` outside a
+    step's activation on its mesh."""
     leaves = tree_leaves(tree)
     if not any(isinstance(x, DTensor) for x in leaves):
         return tree
     act = _active_step()
     mesh = act.entry[0]
+    keep = tuple(keep)
     summed = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
-                   if a in act.batch_axes)
+                   if a in act.batch_axes or i in keep)
     out = []
     for x in leaves:
         if isinstance(x, DTensor):
             if x.device_mesh != mesh:
                 raise ValueError("materialize: a leaf on another mesh than "
                                  "the active one")
-            x = _Gather.apply(x, summed, tuple(keep))
+            x = _Gather.apply(x, summed, keep)
         out.append(x)
     return tree_unflatten(tree, out)
 
@@ -391,10 +415,10 @@ class _Gather(torch.autograd.Function):
     summed over the mesh dims ``summed`` and cut to the shard — a
     reduce-scatter where a summed dim splits the leaf, an all-reduce
     where it does not, a local slice where an unsummed dim splits it —
-    as a ``DTensor`` on the leaf's placements; a kept dim is left as it
-    is.  A mesh dim of one rank moves nothing.  The same result as
-    ``redistribute`` to ``Replicate()`` and ``to_local`` with
-    ``Partial("sum")`` gradient placements, without ``DTensor``'s
+    as a ``DTensor`` on the leaf's placements; a kept dim that splits the
+    leaf is left as it is.  A mesh dim of one rank moves nothing.  The
+    same result as ``redistribute`` to ``Replicate()`` and ``to_local``
+    with ``Partial("sum")`` gradient placements, without ``DTensor``'s
     per-call dispatch, whose host time made tinyllama-1.1b's step 6.8%
     slower at world 1 on an H100 (the redistribute, its backward and the
     per-layer selects of every leaf)."""
@@ -426,7 +450,7 @@ class _Gather(torch.autograd.Function):
         mesh = ctx.spec.mesh
         for i, p in enumerate(ctx.spec.placements):
             n = mesh.size(i)
-            if n == 1 or i in ctx.kept:
+            if n == 1 or (i in ctx.kept and isinstance(p, Shard)):
                 continue
             if i in ctx.summed and isinstance(p, Shard):
                 out = torch.empty_like(g.narrow(p.dim, 0, g.shape[p.dim] // n),
@@ -444,10 +468,11 @@ class _Gather(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# The MACH head split by repetition over the mesh axes of its ``mach_rb``
-# dim (the JAX package shards that dim over ``model``, or ``(pod,
-# model)`` with ``mach_pod_parallel``, "exactly like a vocab-sharded
-# softmax").
+# Split computation: the MACH head by repetition over the mesh axes of its
+# ``mach_rb`` dim (the JAX package shards that dim over ``model``, or
+# ``(pod, model)`` with ``mach_pod_parallel``, "exactly like a
+# vocab-sharded softmax"), a decoder block's self-attention by heads and
+# its MLP by hidden columns over those of ``heads`` and ``mlp``.
 # ---------------------------------------------------------------------------
 
 def _shard_index(mesh, dims) -> tuple[int, int]:
@@ -458,6 +483,20 @@ def _shard_index(mesh, dims) -> tuple[int, int]:
     for i in dims:
         k, n = k * mesh.size(i) + coord[i], n * mesh.size(i)
     return k, n
+
+
+def shard_range(leaf, dim: int) -> Optional[tuple[int, int, tuple]]:
+    """(k, n, dims) of tensor dim ``dim`` of a ``DTensor`` leaf: the mesh
+    dims that shard it (in the mesh's order, the first major), n ranks
+    in all, this rank the k-th of them, so its shard holds the k-th of
+    n equal ranges of the dim.  None for a plain tensor (one device)."""
+    if not isinstance(leaf, DTensor):
+        return None
+    dim %= leaf.dim()
+    dims = tuple(i for i, p in enumerate(leaf.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+    k, n = _shard_index(leaf.device_mesh, dims)
+    return k, n, dims
 
 
 def repetition_shards(mesh, spec_entry, num_repetitions: int
@@ -479,90 +518,204 @@ def repetition_range(leaf, num_repetitions: int
     over those dims) owns [k·R/n, (k+1)·R/n), exactly the columns of its
     local shard.  None for a plain tensor (one device) and where n does
     not divide R."""
-    if not isinstance(leaf, DTensor):
+    sr = shard_range(leaf, -1)
+    if sr is None or num_repetitions % sr[1]:
         return None
-    dims = _head_dims(leaf)
-    k, n = _shard_index(leaf.device_mesh, dims)
-    if num_repetitions % n:
-        return None
+    k, n, _ = sr
     per = num_repetitions // n
     return k * per, (k + 1) * per
 
 
-def _head_dims(leaf: DTensor) -> tuple:
-    last = leaf.dim() - 1
-    return tuple(i for i, p in enumerate(leaf.placements)
-                 if isinstance(p, Shard) and p.dim == last)
+def _step_batch(mesh) -> tuple:
+    """The mesh dims of the active step's ``batch_axes``."""
+    act = _active_step()
+    return tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+                 if a in act.batch_axes)
 
 
-def head_split(leaf, num_repetitions: int) -> Optional["HeadSplit"]:
+def head_split(leaf, num_repetitions: int) -> Optional["RangeSplit"]:
     """How a sharded step computes the MACH head whose kernel is
     ``leaf`` (d, R·B): None on one device (a plain tensor), else a
-    ``HeadSplit`` on this rank's repetitions (``repetition_range``), or
-    on all R with no head dims where the split does not apply (the head
+    ``RangeSplit`` on this rank's repetitions (``repetition_range``), or
+    on all R with no split dims where the split does not apply (the head
     gathered whole, as every other param).  Raises outside a step's
     activation, as ``materialize`` does."""
     if not isinstance(leaf, DTensor):
         return None
-    act = _active_step()
     mesh = leaf.device_mesh
-    batch = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
-                  if a in act.batch_axes)
+    batch = _step_batch(mesh)
     reps = repetition_range(leaf, num_repetitions)
     if reps is None:
-        return HeadSplit(mesh, 0, num_repetitions, (), batch)
-    return HeadSplit(mesh, reps[0], reps[1], _head_dims(leaf), batch)
+        return RangeSplit(mesh, 0, num_repetitions, (), batch)
+    return RangeSplit(mesh, reps[0], reps[1], shard_range(leaf, -1)[2], batch)
+
+
+def kv_heads(q0: int, q1: int, num_heads: int, num_kv_heads: int
+             ) -> tuple[int, int]:
+    """The kv heads [k0, k1) that query heads [q0, q1) read under GQA
+    (query head i reads kv head i // G, G = H / KV): a rank's heads hold
+    whole groups (G divides q1 - q0) or lie inside one (q1 - q0 divides
+    G), so the kernels' grouping of the local heads (each local kv head
+    serving the next (q1 - q0) / (k1 - k0) query heads) reads exactly
+    those; ``split_plan`` keeps the attention whole elsewhere."""
+    g, per = num_heads // num_kv_heads, q1 - q0
+    if per % g and g % per:
+        raise ValueError(f"query heads [{q0}, {q1}) in groups of {g} "
+                         f"straddle a group")
+    return q0 // g, (q1 - 1) // g + 1
 
 
 @dataclasses.dataclass(frozen=True)
-class HeadSplit:
-    """A sharded step's MACH head on this rank: repetitions [r0, r1), the
-    mesh dims ``head`` that split its columns (kept by its gather) and
-    ``batch`` that split the step's rows.  The rank computes its
-    repetitions on the rows of every rank of ``rows`` = batch ∩ head
-    (``pod`` under ``mach_pod_parallel``, else none), so the per-token
-    partial losses sum over ``summed`` = head − batch; sums over the
-    rows (the bucket selection's batch mean and label buckets) reduce
-    over ``reduced`` = batch − head.  With one rank on every such dim,
+class BlockSplit:
+    """A sharded step's decoder block on this rank (``block_split``):
+    ``attn`` its self-attention's query heads [r0, r1) over the mesh dims
+    ``attn.dims`` (None: the attention runs whole), ``kv`` the kv heads
+    [k0, k1) of the whole k and v it reads (``kv_heads``; None where its
+    shards of k and v are those heads), ``mlp`` the MLP's hidden columns [r0, r1)
+    (None: the MLP runs whole).  The rank's shards of q, o, wi, wg and wo
+    hold exactly its ranges."""
+    attn: Optional["RangeSplit"]
+    kv: Optional[tuple[int, int]]
+    mlp: Optional["RangeSplit"]
+
+
+def dim_axes(leaf: DTensor) -> tuple:
+    """A ``DTensor``'s layout: per tensor dim, the mesh axes that shard
+    it (a tuple of names in the mesh's order, ``()`` where none do), as
+    ``spec_axes`` reads a spec's entries."""
+    names = leaf.device_mesh.mesh_dim_names
+    return tuple(tuple(names[i] for i, p in enumerate(leaf.placements)
+                       if isinstance(p, Shard) and p.dim == d)
+                 for d in range(leaf.dim()))
+
+
+def split_plan(mesh, attn: Optional[dict], mlp: Optional[dict],
+               num_heads: int, num_kv_heads: int
+               ) -> tuple[tuple, bool, tuple]:
+    """Which parts of a decoder block split on ``mesh`` (a ``DeviceMesh``
+    or a ``FakeMesh``), from its leaves' layouts (``dim_axes``, or a
+    spec's entries): ``attn`` maps q (d, H, hd), k, v (d, KV, hd) and o
+    (H, hd, d), ``mlp`` maps wi, [wg] (d, F) and wo (F, d), each to its
+    layout (None: the block has no such part).  Returns (the attention's
+    mesh axes, whether k and v are split with it, the MLP's mesh axes),
+    ``()`` for a part that runs whole.
+    - The attention splits over the axes m that shard q's heads dim where
+      they shard o's too, and k and v each on their kv-heads dim, or
+      shard neither (replicated over m: the rank cuts its kv heads, so
+      its H/n query heads must hold whole GQA groups or lie inside one).
+    - The MLP splits over the axes that shard wi's and wg's last dims
+      where they shard wo's first too."""
+    a_axes, kv_split, m_axes = (), False, ()
+    if attn is not None:
+        m = attn["q"][1]
+        if m and attn["o"][0] == m:
+            kv = [attn["k"], attn["v"]]
+            per = num_heads // _axis_size(_view(mesh), m)
+            g = num_heads // num_kv_heads
+            if all(x[1] == m for x in kv):
+                a_axes, kv_split = m, True
+            elif not any(a in axes for x in kv for axes in x for a in m) \
+                    and (per % g == 0 or g % per == 0):
+                a_axes = m
+    if mlp is not None:
+        m = mlp["wi"][-1]
+        if m and mlp.get("wg", mlp["wi"])[-1] == m and mlp["wo"][0] == m:
+            m_axes = m
+    return a_axes, kv_split, m_axes
+
+
+def block_split(params: dict) -> Optional[BlockSplit]:
+    """How a sharded step computes the block whose params are ``params``
+    (one period's slice, ``DTensor`` leaves): None on one device (plain
+    tensors) and for a block with neither self-attention nor MLP; else
+    a ``BlockSplit`` by the placements alone (``split_plan``): rank k of
+    the n ranks on a split's mesh axes computes query heads [k·H/n,
+    (k+1)·H/n) and the kv heads they read (``kv_heads``), or hidden
+    columns [k·F/n, (k+1)·F/n).  Raises outside a step's activation, as
+    ``materialize`` does."""
+    parts = {key: params[key] for key in ("attn", "mlp") if key in params}
+    first = next(iter(tree_leaves(parts)), None)
+    if not isinstance(first, DTensor):
+        return None
+    mesh = first.device_mesh
+    batch = _step_batch(mesh)
+    kernels = {key: {name: leaf["kernel"] for name, leaf in part.items()}
+               for key, part in parts.items()}
+    heads = (kernels["attn"]["q"].shape[1], kernels["attn"]["k"].shape[1]) \
+        if "attn" in kernels else (1, 1)
+    a_axes, kv_split, m_axes = split_plan(mesh, *(
+        {name: dim_axes(x) for name, x in kernels[key].items()}
+        if key in kernels else None for key in ("attn", "mlp")), *heads)
+
+    def split(leaf, dim):            # the plan's axes shard this dim
+        k, n, dims = shard_range(leaf, dim)
+        per = leaf.shape[dim] // n
+        return RangeSplit(mesh, k * per, (k + 1) * per, dims, batch)
+
+    attn = mlp = kv = None
+    if a_axes:
+        q, k = kernels["attn"]["q"], kernels["attn"]["k"]
+        attn = split(q, 1)
+        if not kv_split:
+            kv = kv_heads(attn.r0, attn.r1, q.shape[1], k.shape[1])
+    if m_axes:
+        mlp = split(kernels["mlp"]["wo"], 0)
+    return BlockSplit(attn, kv, mlp)
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeSplit:
+    """A sharded step's split computation on this rank: [r0, r1), the
+    range it computes of the split dim (a MACH head's repetitions, an
+    attention's query heads, an MLP's hidden columns), the mesh dims
+    ``dims`` that shard that dim (kept by its params' gather) and
+    ``batch`` that split the step's rows.  The rank computes its range
+    on the rows of every rank of ``rows`` = batch ∩ dims (``pod`` for a
+    MACH head under ``mach_pod_parallel``, else none), so the partial
+    results sum over ``summed`` = dims − batch; sums over the rows (the
+    bucket selection's batch mean and label buckets) reduce over
+    ``reduced`` = batch − dims.  With one rank on every such dim,
     ``into`` and ``out_of`` are the identity."""
     mesh: Any
     r0: int
     r1: int
-    head: tuple
+    dims: tuple
     batch: tuple
 
     @property
     def rows(self) -> tuple:
-        return tuple(i for i in self.head if i in self.batch)
+        return tuple(i for i in self.dims if i in self.batch)
 
     @property
     def summed(self) -> tuple:
-        return tuple(i for i in self.head if i not in self.batch)
+        return tuple(i for i in self.dims if i not in self.batch)
 
     @property
     def reduced(self) -> tuple:
-        return tuple(i for i in self.batch if i not in self.head)
+        return tuple(i for i in self.batch if i not in self.dims)
 
     def moves(self, dims) -> bool:
         """Whether any mesh dim of ``dims`` has more than one rank."""
         return any(self.mesh.size(i) > 1 for i in dims)
 
     def into(self, h: torch.Tensor) -> torch.Tensor:
-        """The hidden states (rows, ...) going into the head: gathered
-        over ``rows``; the backward sums dh over ``summed`` (every rank
-        of the head's repetitions) and hands each rank of ``rows`` its
-        rows' share."""
+        """The hidden states (rows, ...) going into the split computation:
+        gathered over ``rows``; the backward sums dh over ``summed``
+        (every rank of the other ranges) and hands each rank of ``rows``
+        its rows' share (Megatron's f where ``rows`` is empty)."""
         if not self.moves(self.rows + self.summed):
             return h
-        return _IntoHead.apply(h, self)
+        return _IntoSplit.apply(h, self)
 
     def out_of(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-token partial losses (rows, ...) leaving the head: summed
-        over ``summed``, and each rank of ``rows`` keeps its own rows'
-        sum; the backward gathers the gradient's rows back."""
+        """Partial results (rows, ...) leaving the split computation (a
+        head's per-token losses, a block's attention or MLP output):
+        summed over ``summed``, in x's dtype, and each rank of ``rows``
+        keeps its own rows' sum; the backward gathers the gradient's rows
+        back (Megatron's g where ``rows`` is empty)."""
         if not self.moves(self.rows + self.summed):
             return x
-        return _OutOfHead.apply(x, self)
+        return _OutOfSplit.apply(x, self)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (rows, ...), no gradient, gathered over ``rows`` as
@@ -578,9 +731,9 @@ class HeadSplit:
         return _all_reduce(x, self.mesh, self.reduced,
                            torch.distributed.ReduceOp.MAX)
 
-    def max_head(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``'s largest entries over ``head`` (no gradient)."""
-        return _all_reduce(x, self.mesh, self.head,
+    def max_split(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s largest entries over ``dims`` (no gradient)."""
+        return _all_reduce(x, self.mesh, self.dims,
                            torch.distributed.ReduceOp.MAX)
 
 
@@ -621,13 +774,13 @@ def _scatter_rows(x, mesh, dims):
     return x
 
 
-class _IntoHead(torch.autograd.Function):
-    """h into a head split by repetition: rows gathered over the split's
+class _IntoSplit(torch.autograd.Function):
+    """h into a split computation: rows gathered over the split's
     ``rows``; backward: dh summed over ``summed``, then reduce-scattered
     over ``rows`` (plain collectives, as ``_Gather``)."""
 
     @staticmethod
-    def forward(ctx, h, split: HeadSplit):
+    def forward(ctx, h, split: RangeSplit):
         ctx.split = split
         out = _gather_rows(h, split.mesh, split.rows)
         return out.view_as(out)          # a new tensor even where h is
@@ -639,13 +792,13 @@ class _IntoHead(torch.autograd.Function):
         return _scatter_rows(g, s.mesh, s.rows), None
 
 
-class _OutOfHead(torch.autograd.Function):
-    """Per-token partial losses out of a head split by repetition: summed
-    over the split's ``summed``, reduce-scattered over ``rows``;
-    backward: the gradient's rows gathered over ``rows``."""
+class _OutOfSplit(torch.autograd.Function):
+    """Partial results out of a split computation: summed over the
+    split's ``summed``, reduce-scattered over ``rows``; backward: the
+    gradient's rows gathered over ``rows``."""
 
     @staticmethod
-    def forward(ctx, x, split: HeadSplit):
+    def forward(ctx, x, split: RangeSplit):
         ctx.split = split
         return _scatter_rows(_all_reduce(x, split.mesh, split.summed),
                              split.mesh, split.rows)

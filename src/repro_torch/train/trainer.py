@@ -16,13 +16,19 @@ remat), so every kernel sees plain whole tensors as on one device and a
 rank holds about one period whole at a time, as JAX's scan does.  The
 backward reduce-scatters each use's gradient onto its param's
 placements as it leaves the use; clipping and the optimizer run on the
-``DTensor`` state.  The MACH head is the exception: where the mesh axes
-that split its R·B columns divide R, each rank computes only its own
+``DTensor`` state.  Two parts split on the ``model`` axis instead of
+running there as replicas.  Where the mesh axes that split the MACH
+head's R·B columns divide R, each rank computes only its own
 repetitions (kernel 3 or 4 on R/n heads) and the per-token losses are
-summed over those ranks (``sharding.head_split``), the rest of the
-model running on ``model`` as replicas.  The loss is the global batch's
-weighted mean, as on one device; at world size 1 the step computes the
-same bits as the single-device one.
+summed over those ranks (``sharding.head_split``).  Where the rules
+shard a decoder block's ``heads`` (and ``mlp``) dims, each rank
+computes its self-attention on its H/n query heads (kernel 10 on them)
+and its MLP on its d_ff/n columns, and the two outputs are summed over
+those ranks (``sharding.block_split``).  The embedding, the OAA head,
+the MoE experts, the RG-LRU, the xLSTM blocks and the cross-attention
+run on ``model`` as replicas.  The loss is the global batch's weighted
+mean, as on one device; at world size 1 the step computes the same bits
+as the single-device one.
 """
 
 from __future__ import annotations

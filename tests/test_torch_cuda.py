@@ -1572,3 +1572,49 @@ def test_head_split_per_range_equals_whole(dev):
     torch.testing.assert_close(sum3, loss3, rtol=1e-6, atol=0)
     torch.testing.assert_close(sum4, loss4, rtol=1e-6, atol=0)
     _assert_bf16_grads_close([dh_sum.to(torch.bfloat16)], [dh])
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_flash_attention_per_rank_heads_equals_whole(dev, n):
+    """Kernel 10 as each of n ``model`` ranks of a split decoder launches
+    it (tinyllama-1.1b's 32 query heads over 4 kv heads of 64, causal,
+    bf16): on its query heads [k·32/n, (k+1)·32/n) and the kv heads they
+    read (``sharding.kv_heads``), forward and backward.  The output, the
+    lse and dq are the whole kernel's heads bit for bit (heads are
+    independent); dk and dv are the whole kernel's kv heads bit for bit
+    where a rank owns whole groups of 8 (n = 2, 4), and at n = 8, where
+    two ranks share a kv head, their sum (in float32) holds to the whole
+    kernel's by the backward rule above (2 bf16 ulps of the row scale
+    plus 2^-20 of the largest entry)."""
+    from repro_torch.sharding import kv_heads
+    b, t, h, kv, hd = 1, 512, 32, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(n)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd),
+                                 (b, t, h, hd)))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device=dev)
+    dv_sum = torch.zeros_like(dk_sum)
+    per = h // n
+    for rank in range(n):
+        q0, q1 = rank * per, (rank + 1) * per
+        k0, k1 = kv_heads(q0, q1, h, kv)
+        rq, rdo = q[:, :, q0:q1].contiguous(), do[:, :, q0:q1].contiguous()
+        rk, rv = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+        r_out, r_lse = fa.flash_attention_cuda(rq, rk, rv, return_lse=True)
+        assert torch.equal(r_out, out[:, :, q0:q1])
+        assert torch.equal(r_lse, lse[:, q0:q1])
+        r_dq, r_dk, r_dv = fa.flash_attention_bwd_cuda(rq, rk, rv, r_out,
+                                                       rdo, r_lse)
+        assert torch.equal(r_dq, dq[:, :, q0:q1])
+        if per >= h // kv:
+            assert torch.equal(r_dk, dk[:, :, k0:k1])
+            assert torch.equal(r_dv, dv[:, :, k0:k1])
+        dk_sum[:, :, k0:k1] += r_dk.float()
+        dv_sum[:, :, k0:k1] += r_dv.float()
+    for got, w in ((dk_sum, dk), (dv_sum, dv)):
+        tol = 2 * _bf16_row_ulp(w) + 2.0 ** -20 * w.float().abs().max()
+        assert torch.all((got.to(torch.bfloat16).float() - w.float()).abs()
+                         <= tol)

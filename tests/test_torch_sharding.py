@@ -438,3 +438,105 @@ def test_mach_head_splits_by_repetition_where_it_divides(arch, mesh_name):
     if arch == "tinyllama-1.1b":
         assert whole == 67_108_864
         assert gathered == (8_388_608 if n else whole)
+
+
+SPLIT_MESHES = {"1x8": H100_NODE, "16x16": MESH1}
+
+
+def _dims(spec, ndim: int) -> tuple:
+    """A stacked leaf's spec as ``dim_axes`` reads a ``DTensor``: the mesh
+    axes of each tensor dim, the stacked layer dim left out."""
+    from repro_torch.sharding.partitioning import spec_axes
+    entries = tuple(spec) + (None,) * (ndim - len(spec))
+    return tuple(spec_axes(e) for e in entries[1:])
+
+
+@pytest.mark.parametrize("mesh_name", list(SPLIT_MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decoder_splits_where_the_rules_divide(arch, mesh_name):
+    """Every full config's decoder (and encoder) blocks placed by the
+    rules on an 8-card node (1, 8) and on (16, 16): ``split_plan`` of
+    each block's attention and MLP layouts splits the attention over
+    ``model`` exactly where n = |model| divides H, with k and v split too
+    where n divides KV (else replicated, each rank cutting its kv heads,
+    where its H/n heads hold whole GQA groups or lie inside one), and
+    the MLP where n divides d_ff.  tinyllama-1.1b on (1, 8) splits
+    heads and MLP and keeps its 4 kv heads whole; recurrentgemma-2b keeps
+    its 10 heads whole and splits d_ff 7,680 on both; paligemma-3b's 8
+    heads split on (1, 8) and not on (16, 16), its d_ff 16,384 on both;
+    xlstm-350m has no block that splits."""
+    from repro_torch.sharding import split_plan
+    mesh = SPLIT_MESHES[mesh_name]
+    cfg = get_config(arch)
+    model = LanguageModel(cfg)
+    shapes = model.init(device="meta")
+    shard = params_shardings(mesh, RULES, model.param_axes(), shapes)
+    n = mesh.shape["model"]
+    plans = []
+    for key in ("stacks", "enc_stacks"):
+        for blocks, specs in zip(shapes.get(key, []), shard.get(key, [])):
+            for block, spec in zip(blocks, specs):
+                parts = {part: {name: _dims(spec[part][name]["kernel"].spec,
+                                            leaf["kernel"].dim())
+                                for name, leaf in block[part].items()}
+                         for part in ("attn", "mlp") if part in block}
+                if not parts:
+                    continue
+                plan = split_plan(mesh, parts.get("attn"), parts.get("mlp"),
+                                  cfg.num_heads, cfg.num_kv_heads)
+                per, g = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
+                heads = "attn" in parts and cfg.num_heads % n == 0 and (
+                    cfg.num_kv_heads % n == 0 or per % g == 0 or g % per == 0)
+                want = (("model",) if heads else (),
+                        heads and cfg.num_kv_heads % n == 0,
+                        ("model",) if "mlp" in parts and cfg.d_ff % n == 0
+                        else ())
+                assert plan == want, (key, plan, want)
+                plans.append(plan)
+    assert bool(plans) == (arch != "xlstm-350m")
+    split_all = (("model",), False, ("model",))
+    examples = {("tinyllama-1.1b", "1x8"): {split_all},
+                ("recurrentgemma-2b", "1x8"): {((), False, ("model",))},
+                ("recurrentgemma-2b", "16x16"): {((), False, ("model",))},
+                ("paligemma-3b", "1x8"): {split_all},
+                ("paligemma-3b", "16x16"): {((), False, ("model",))}}
+    if (arch, mesh_name) in examples:
+        assert set(plans) == examples[(arch, mesh_name)]
+
+
+@pytest.mark.parametrize("h,g", [(32, 1), (32, 4), (32, 8), (32, 32),
+                                 (96, 12), (24, 3)])
+def test_kv_heads_of_each_rank(h, g):
+    """H query heads in groups of G (tinyllama's G = 8, mistral-large's
+    12, MHA's 1, MQA's 32), on every n dividing H, with k and v
+    replicated on ``model``: where a rank's H/n heads hold whole groups
+    or lie inside one, ``split_plan`` splits the attention and rank k's
+    query heads [k·H/n, (k+1)·H/n) are handed the kv heads [k0, k1) of
+    ``kv_heads``, grouped as the kernels group them (local query head j
+    reads local kv head j // (H/n / (k1 - k0))), each the kv head i // G
+    of its global head i.  Where they straddle a group (G = 12 and G = 3
+    at n = 3, 6 and 12) ``split_plan`` keeps the attention whole and
+    ``kv_heads`` refuses the range."""
+    from repro_torch.sharding import kv_heads, split_plan
+    kv = h // g
+    replicated = {"q": ((), ("model",), ()), "o": (("model",), (), ()),
+                  "k": ((), (), ()), "v": ((), (), ())}
+    straddled = []
+    for n in (d for d in range(1, h + 1) if h % d == 0):
+        per = h // n
+        plan = split_plan(FakeMesh({"data": 1, "model": n}), replicated,
+                          None, h, kv)
+        if per % g and g % per:
+            straddled.append(n)
+            assert plan == ((), False, ()), (n, plan)
+            with pytest.raises(ValueError):
+                kv_heads(0, per, h, kv)
+            continue
+        assert plan == (("model",), False, ()), (n, plan)
+        for k in range(n):
+            k0, k1 = kv_heads(k * per, (k + 1) * per, h, kv)
+            assert per % (k1 - k0) == 0, (n, k, k0, k1)
+            group = per // (k1 - k0)
+            assert all(k0 + j // group == (k * per + j) // g
+                       for j in range(per)), (n, k, k0, k1)
+    assert straddled == ([3, 6, 12] if g in (3, 12) else []), straddled

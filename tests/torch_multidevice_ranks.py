@@ -121,12 +121,13 @@ class GatherCount:
     it makes of ``DTensor`` leaves that are alive at once.  A whole
     tensor in new memory (a world of 2 or more) counts until its storage
     is freed, wherever autograd keeps it; one that aliases its shard (a
-    world of one, where gathering moves nothing) counts until its Python
-    object dies, so it measures the schedule, not new bytes.  ``peak`` is
-    the most at once, ``calls`` the gathered leaves."""
+    world of one, where gathering moves nothing, or a shard kept by a
+    split use) counts until its Python object dies, so it measures the
+    schedule, not new bytes.  ``peak`` is the most at once, ``calls`` the
+    gathered leaves, ``bytes`` all their bytes."""
 
     def __init__(self):
-        self.alive = self.peak = self.calls = 0
+        self.alive = self.peak = self.calls = self.bytes = 0
 
     def __enter__(self):
         from repro_torch.sharding import partitioning
@@ -155,6 +156,7 @@ class GatherCount:
                     else storage
                 self.alive += n
                 self.calls += 1
+                self.bytes += n
                 self.peak = max(self.peak, self.alive)
                 weakref.finalize(owner, self._free, n)
         return out
@@ -238,7 +240,7 @@ class HeadCount:
             if out is not None:
                 names = out.mesh.mesh_dim_names
                 self.splits.append((out.r0, out.r1,
-                                    tuple(names[i] for i in out.head)))
+                                    tuple(names[i] for i in out.dims)))
             return out
 
         def materialize(tree, *args, **kw):
@@ -291,6 +293,110 @@ class HeadCount:
                 "selected": [sel for _, _, sel in self.selections]}
 
 
+class SplitCount:
+    """Within the block, what a sharded step does with its decoder: for
+    every period ``transformer.materialize_period`` gathers, each block's
+    split it is handed (the attention's query heads [r0, r1) and mesh axes, the kv
+    heads it cuts from the whole k and v, the MLP's columns and axes;
+    None where the block runs whole), the local shape of every leaf it
+    hands the block, and the bytes the period's gathers made (a
+    ``GatherCount`` around the call); the query and kv heads of every
+    ``attention.attend`` call and the hidden columns of every
+    ``layers.apply_mlp`` call.  The model calls all three by their
+    module attributes."""
+
+    def __init__(self):
+        self.periods, self.attend, self.mlp = [], [], []
+
+    def __enter__(self):
+        from repro_torch.models import attention, layers, transformer
+        self._count = GatherCount().__enter__()
+        self._saved = [(m, n, getattr(m, n)) for m, n in (
+            (transformer, "materialize_period"), (attention, "attend"),
+            (layers, "apply_mlp"))]
+        (_, _, period_fn), (_, _, attend), (_, _, mlp) = self._saved
+
+        def materialize_period(layer_params, splits):
+            before = self._count.bytes
+            params = period_fn(layer_params, splits)
+            self.periods.append((
+                tuple(_split_summary(s) for s in splits),
+                [_shapes(p) for p in params], self._count.bytes - before))
+            return params
+
+        def counted_attend(q, k, *args, **kw):
+            self.attend.append((q.shape[2], k.shape[2]))
+            return attend(q, k, *args, **kw)
+
+        def apply_mlp(params, x, *args, **kw):
+            self.mlp.append(params["wi"]["kernel"].shape[-1])
+            return mlp(params, x, *args, **kw)
+
+        for (m, n, _), fn in zip(self._saved, (materialize_period,
+                                               counted_attend, apply_mlp)):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+        self._count.__exit__(*exc)
+        return False
+
+    def summary(self) -> dict:
+        return {"periods": self.periods, "attend": sorted(set(self.attend)),
+                "mlp": sorted(set(self.mlp))}
+
+
+def _split_summary(split):
+    if split is None:
+        return None
+
+    def part(s):
+        return None if s is None else (
+            s.r0, s.r1, tuple(s.mesh.mesh_dim_names[i] for i in s.dims))
+    return part(split.attn), split.kv, part(split.mlp)
+
+
+def _shapes(tree):
+    from repro_torch.checkpoint import tree_flatten
+    return {path: tuple(x.shape) for path, x in tree_flatten(tree)}
+
+
+def split_case(model_cfg, mesh, data, tcfg=None, rules=None) -> dict:
+    """``sharded_vs_one_device`` with a ``SplitCount`` around the sharded
+    steps: ``split`` holds every rank's count (gathered to each rank)
+    with its mesh coordinate, ``shape`` the mesh's axis sizes."""
+    on_mesh = SplitCount()
+    full = sharded_vs_one_device(model_cfg, tcfg or train_config(), mesh,
+                                 data, rules,
+                                 (on_mesh, contextlib.nullcontext()))
+    res = _strip(full)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, dict(on_mesh.summary(),
+                                       coord=tuple(mesh.get_coordinate())))
+    res["split"] = ranks
+    res["shape"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return res
+
+
+class _Nested:
+    """Context managers entered in order as one, and left in reverse."""
+
+    def __init__(self, *managers):
+        self.managers = managers
+
+    def __enter__(self):
+        for m in self.managers:
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for m in reversed(self.managers):
+            m.__exit__(*exc)
+        return False
+
+
 def mach_model_config(num_repetitions=4, **overrides):
     """The smoke tinyllama-1.1b (``model_config``) with a MACH head of
     R x 16 buckets over its 256 tokens."""
@@ -301,22 +407,28 @@ def mach_model_config(num_repetitions=4, **overrides):
 
 
 def head_split_case(model_cfg, mesh, data, rules=None) -> dict:
-    """``sharded_vs_one_device`` with a ``HeadCount`` around both steps:
-    ``head`` holds every rank's sharded count (gathered to each rank, with
-    its mesh coordinate and ``repetition_range`` of its head leaf), ``one`` the single device's selections with
-    their proxies and labels, ``one_proxies`` its proxies' sizes."""
+    """``sharded_vs_one_device`` with a ``HeadCount`` around both steps
+    and a ``SplitCount`` around the sharded ones: ``head`` holds every
+    rank's sharded head count (gathered to each rank, with its mesh
+    coordinate and ``repetition_range`` of its head leaf), ``split`` its
+    decoder count (``split_case``), ``one`` the single device's
+    selections with their proxies and labels, ``one_proxies`` its
+    proxies' sizes."""
     from repro_torch.sharding import repetition_range
-    on_mesh = HeadCount(model_cfg.d_model)
-    on_one = HeadCount(model_cfg.d_model)
+    on_mesh, on_one, decoder = (HeadCount(model_cfg.d_model),
+                                HeadCount(model_cfg.d_model), SplitCount())
     full = sharded_vs_one_device(model_cfg, train_config(), mesh, data,
-                                 rules, (on_mesh, on_one))
+                                 rules, (_Nested(on_mesh, decoder), on_one))
     res = _strip(full)
     reps = repetition_range(full["state"].params["mach_head"]["kernel"],
                             model_cfg.mach.num_repetitions)
-    ranks = [None] * dist.get_world_size()
-    dist.all_gather_object(ranks, dict(on_mesh.summary(), range=reps,
-                                       coord=tuple(mesh.get_coordinate())))
-    res["head"] = ranks
+    coord = tuple(mesh.get_coordinate())
+    res["head"] = [None] * dist.get_world_size()
+    dist.all_gather_object(res["head"], dict(on_mesh.summary(), range=reps,
+                                             coord=coord))
+    res["split"] = [None] * dist.get_world_size()
+    dist.all_gather_object(res["split"], dict(decoder.summary(),
+                                              coord=coord))
     res["one"] = on_one.selections
     res["one_proxies"] = on_one.proxies
     res["shape"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -355,7 +467,8 @@ class _FailOnce:
 
 def world2(rank, directory):
     """Mesh (2, 1): AdamW, Adafactor, uneven weights, MoE, the fused MACH
-    loss, a bf16 run, checkpoints, a restart, the entry points."""
+    loss, a bf16 run, checkpoints, a restart, the entry points; (1, 2):
+    the MACH head and the decoder split."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
@@ -394,6 +507,7 @@ def world2(rank, directory):
     out["bf16"] = _strip(sharded_vs_one_device(bf16, train_config(), mesh,
                                                batches(bf16, 2)))
     out.update(head_split_world2())
+    out.update(decoder_split_world2(tiny, bf16))
     out["mesh_view"] = resolve_spec(
         mesh, ShardingRules().table(mesh), ("embed", "mlp"), (64, 128))
     out["init"] = {
@@ -446,7 +560,8 @@ def head_split_world2() -> dict:
     """Mesh (1, 2): the MACH head split by repetition (R = 4), unfused
     and fused; R = 3, which 2 does not divide (the gathered head); the
     in-loss bucket selection (c_sel = 12 of 16 on 4-token rows, so the
-    label buckets do not fill every selection)."""
+    label buckets do not fill every selection); the decoder split by
+    heads and hidden with each."""
     m12 = _mesh((1, 2))
     split, r3 = mach_model_config(), mach_model_config(3)
     sel = mach_model_config(mach_fused_loss=True,
@@ -458,6 +573,18 @@ def head_split_world2() -> dict:
             batches(split, 2)),
         "r3": head_split_case(r3, m12, batches(r3, 2)),
         "select12": head_split_case(sel, m12, batches(sel, 2, seq=4))}
+
+
+def decoder_split_world2(tiny, bf16) -> dict:
+    """Mesh (1, 2): the decoder split by heads and hidden — the smoke
+    tinyllama (k and v split with q), its bf16 run, and recurrentgemma-2b
+    (H = 2, KV = 1: the attention split, k and v cut from the whole, the
+    MLP split, the RG-LRU whole)."""
+    m12 = _mesh((1, 2))
+    rg = model_config("recurrentgemma-2b")
+    return {"tp12": split_case(tiny, m12, batches(tiny, 2)),
+            "tp12_bf16": split_case(bf16, m12, batches(bf16, 2)),
+            "tp12_rg": split_case(rg, m12, batches(rg, 2))}
 
 
 def head_split_world4() -> dict:
@@ -574,7 +701,8 @@ def step_collectives(model_cfg, mesh) -> dict:
 
 
 def world4(rank, directory):
-    """Meshes (4, 1), (2, 2) and (2, 2, 1) with a pod axis; the world-2
+    """Meshes (4, 1), (2, 2) (the decoder split) and (2, 2, 1) with a pod
+    axis; (1, 4) with the decoder split four ways; the world-2
     checkpoint restored here; a state moved between meshes; the rows a
     rank holds of a dim over (pod, data)."""
     from torch.distributed.tensor import distribute_tensor
@@ -591,8 +719,10 @@ def world4(rank, directory):
     m41, m22 = _mesh((4, 1)), _mesh((2, 2))
     out["mesh4x1"] = _strip(sharded_vs_one_device(tiny, train_config(), m41,
                                                   data))
-    out["mesh2x2"] = _strip(sharded_vs_one_device(tiny, train_config(), m22,
-                                                  data))
+    # (2, 2): FSDP over data and the decoder split over model together
+    out["mesh2x2"] = split_case(tiny, m22, data)
+    # (1, 4): two ranks a kv head, each cutting it from the whole k and v
+    out["tp14"] = split_case(tiny, _mesh((1, 4)), batches(tiny, 2))
     pod = _mesh((2, 2, 1), ("pod", "data", "model"))
     out["pod"] = _strip(sharded_vs_one_device(
         tiny, train_config(), pod, batches(tiny, 2, global_batch=8)))
