@@ -400,8 +400,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the first step) within the leaves outside the stacks plus two
    periods, ms a step, the steps' and the init's peak memory both ways
    against what the phase expects (printed).  The sharded state
-   saved (gathered, rank 0 writes) and restored unsharded, the unsharded
-   one restored onto the mesh, both bit for bit, with their times.  Then
+   saved (gathered, rank 0 writes) and restored unsharded and onto the
+   mesh, both bit for bit, with their times.  One
+   qwen2-moe-a2.7b MoE block (2 x 4,096 tokens) at each rank's shapes
+   for n = 2, 4 (by expert: 30 and 15 of its 60 experts) and 8 (by
+   columns: 176 of every expert's 1,408), built with the port's
+   ``MoESplit`` / ``RangeSplit`` on the world-1 mesh: the n ranks'
+   float32 partial outputs summed held to the whole block at rtol 1e-5,
+   rank 0's bf16 forward + backward timed beside the whole block's, the
+   expert bytes a rank gathers.  Then phase 14's qwen2-moe-a2.7b cut (4
+   layers, bf16, its MACH head) trained 3 AdamW steps on 2 x 4,096
+   tokens unsharded and, launch counters from 0, through
+   ``Trainer(mesh=)`` (every MoE block's experts split by expert, n =
+   1): losses, params and moments bit for bit, kernels 3 and 10
+   launched, ms a step and the peaks both ways.  Then
    ``torchrun --standalone --nproc_per_node=1 -m
    repro_torch.launch.train --local-mesh --full --seq-len 4096
    --global-batch 2 --steps 3`` with ``--ckpt-dir`` in the temporary
@@ -411,9 +423,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 18. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
    launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's,
    rows 1, 2, 3 and 10 on phase 15's and kernel 10's new modes, rows 2,
-   3, 5, 6, 9 and 10 on phase 16's, rows 3, 4 and 10 on phase 17's, with
-   rows 3 and 4's times per repetition range), then the device line,
-   last.
+   3, 5, 6, 9 and 10 on phase 16's, rows 3, 4 and 10 on phase 17's, rows
+   3 and 10 on its sharded qwen2-moe run, with rows 3 and 4's times per
+   repetition range), then the device line, last.  Every phase prints
+   its wall time, and the script its total.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -6155,6 +6168,15 @@ MD_SPLITS = (2, 4, 8)
 MD_FLASH_SHAPE = (MD_BATCH, MD_SEQ, 32, 4, 64)
 # one tinyllama-1.1b decoder layer timed at a rank's shapes, n ways
 MD_LAYER_SPLITS = (1, 2, 4, 8)
+# the MoE experts split at world 1: phase 14's qwen2-moe-a2.7b cut
+# (MOE_CUT layers, bf16, remat) trained MOE_TRAIN_STEPS AdamW steps on
+# MD_BATCH x MD_SEQ tokens, unsharded and sharded; and one qwen2-moe MoE
+# block at each rank's shapes, n -> how the rules split its 60 experts
+# on n ``model`` ranks (n divides E: by expert; else by d_ff columns)
+MD_MOE_SPLITS = {2: "experts", 4: "experts", 8: "columns"}
+# the n ranks' float32 partial outputs summed, against the whole block:
+# rtol, and atol of the largest entry
+MD_MOE_F32_RTOL = 1e-5
 
 
 def _md_launchers() -> dict:
@@ -6495,6 +6517,229 @@ def _md_layer_times(dev, smi, mesh) -> dict:
     return out
 
 
+class _SplitMoECalls:
+    """Within the block, counts ``moe.apply_moe`` calls (the model calls
+    it by its module attribute) by how their ``split`` splits the
+    experts: "experts", "columns", "whole" (a split that leaves them
+    whole) or "unsplit" (no split: one device)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.counts = dict.fromkeys(("experts", "columns", "whole",
+                                     "unsplit"), 0)
+        self.ranges = set()
+        self._module, self._fn = moe, moe.apply_moe
+
+        def counted(params, x, *args, split=None, **kw):
+            if split is None:
+                how = "unsplit"
+            elif split.experts is not None:
+                how = "experts"
+            elif split.columns is not None:
+                how = "columns"
+            else:
+                how = "whole"
+            self.counts[how] += 1
+            if split is not None and split.routed is not None:
+                self.ranges.add((how, split.routed.r0, split.routed.r1))
+            return self._fn(params, x, *args, split=split, **kw)
+
+        moe.apply_moe = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._module.apply_moe = self._fn
+        return False
+
+
+def _md_moe_train(dev, smi, mesh, rules) -> dict:
+    """Phase 14's qwen2-moe-a2.7b cut (MOE_CUT layers at full width,
+    bf16, remat, its MACH head) trained MOE_TRAIN_STEPS AdamW steps on
+    MD_BATCH x MD_SEQ tokens from seed 0's state through the unsharded
+    ``Trainer``, then, launch counters from 0, through ``Trainer(mesh=)``
+    on the world-1 ``mesh``: each MoE block's experts split by expert
+    with n = 1 (the rules shard E = 60 on a ``model`` axis of one), the
+    attention by heads and the shared MLP by columns, the head by
+    repetition.  Losses, params and moments the same bits (compared on
+    the card); kernels 3 and 10 launched; ms a step and the peak both
+    ways."""
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import gather
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CUT)
+    model = LanguageModel(cfg)
+    tcfg = TrainConfig(total_steps=MOE_TRAIN_STEPS, warmup_steps=2,
+                       peak_lr=3e-4, log_every=MOE_TRAIN_STEPS)
+    stream = launch_train.data_stream(cfg, MD_SEQ, MD_BATCH, 0, dev)
+    label = (f"{MOE_ARCH} cut to {MOE_CUT} layers ({cfg.num_experts} "
+             f"experts of d_ff {cfg.moe_d_ff}, top-{cfg.experts_top_k}, "
+             f"{cfg.num_shared_experts} shared of {cfg.shared_d_ff}; MACH "
+             f"B={cfg.mach.num_buckets} R={cfg.mach.num_repetitions})")
+    with _SplitMoECalls() as one:
+        unsharded, un = _md_train(f"{label}, unsharded Trainer",
+                                  Trainer(model, tcfg), stream, dev, smi,
+                                  steps=MOE_TRAIN_STEPS)
+    # the unsharded state stays on the card for the comparison: the
+    # sharded run's peak includes it
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    kernels = {name: fn for name, fn in _md_launchers().items()
+               if name in MOE_KERNELS}
+    for fn in kernels.values():
+        fn.launches = 0
+    with _SplitMoECalls() as split:
+        sharded, sh = _md_train(f"{label}, sharded Trainer(mesh=)",
+                                Trainer(model, tcfg, mesh=mesh, rules=rules),
+                                stream, dev, smi, steps=MOE_TRAIN_STEPS)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    n_moe = cfg.layout().count("moe")
+    per_step = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
+                "flash_attention": 2 * n_moe, "flash_attention_bwd": n_moe}
+    for name, want in per_step.items():
+        if launches[name] != want * MOE_TRAIN_STEPS:
+            fail(f"multidevice moe: {name} launched {launches[name]} times "
+                 f"in the sharded run, expected {want} a step")
+    # forward and remat's recompute of every MoE block, every step
+    calls = 2 * n_moe * MOE_TRAIN_STEPS
+    if split.counts["experts"] != calls or one.counts["unsplit"] != calls \
+            or split.ranges != {("experts", 0, cfg.num_experts)}:
+        fail(f"multidevice moe: the MoE blocks ran {split.counts} sharded "
+             f"({split.ranges}) and {one.counts} unsharded, expected "
+             f"{calls} calls split by expert over all {cfg.num_experts}")
+    differ = []
+    for (path, x), (_, y) in zip(tree_flatten(gather(sharded)),
+                                 tree_flatten(unsharded)):
+        same = torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+        if not same:
+            differ.append(path)
+    torch.cuda.synchronize()
+    same = not differ and sh["losses"] == un["losses"]
+    slower = sh["step_ms"] / un["step_ms"] - 1.0
+    print(f"multidevice moe: sharded vs unsharded after {MOE_TRAIN_STEPS} "
+          f"steps: losses "
+          f"{'equal' if sh['losses'] == un['losses'] else 'differ'}, "
+          f"params and moments "
+          f"{'the same bits' if not differ else f'differ at {differ[:4]}'}; "
+          f"{un['step_ms']:.3f} ms a step unsharded, {sh['step_ms']:.3f} "
+          f"sharded ({slower:+.2%}), peak {un['peak_gib']:.2f} / "
+          f"{sh['peak_gib']:.2f} GiB (the latter with the unsharded "
+          f"state's {resident:.2f} GiB kept); MoE blocks split by expert "
+          f"(n = 1) {split.counts['experts']} calls; launches on the "
+          f"sharded path "
+          f"{launches} (a step: {per_step}) [{smi}]", flush=True)
+    del sharded, unsharded
+    torch.cuda.empty_cache()
+    if not same:
+        fail(f"multidevice moe: at world size 1 the sharded step is not the "
+             f"single-device step bit for bit ({differ[:8]})")
+    return {"unsharded": un, "sharded": sh, "same_bits": same,
+            "launches": launches, "launches_per_step": per_step,
+            "calls": split.counts, "resident_gib": resident}
+
+
+def _md_moe_block(dev, smi, mesh) -> dict:
+    """One qwen2-moe-a2.7b MoE block (its full widths, routed and shared
+    experts) on MD_BATCH x MD_SEQ tokens at each rank's shapes for n in
+    MD_MOE_SPLITS, built with the port's own ``MoESplit`` /
+    ``RangeSplit`` on the world-1 ``mesh`` (``moe_rank_block``, whose
+    ``into`` and ``out_of`` are the identity there, so each rank's
+    ``apply_moe(split=)`` returns its partial output): in float32 the n
+    ranks' partial outputs summed on the card held to the whole block at
+    rtol MD_MOE_F32_RTOL (atol of the largest entry), the aux losses the
+    whole block's bit for bit; in bf16 rank 0's forward + backward (every
+    input's and param's gradient) timed beside the whole block's; the
+    expert bytes a rank gathers (bf16, one layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+    from torch_multidevice_ranks import moe_rank_block
+
+    cfg = get_config(MOE_ARCH)
+    kw = _moe_kwargs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    params = moe.init_moe(gen, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                          cfg.num_shared_experts, cfg.shared_d_ff, dev,
+                          cfg.activation)
+    x = torch.randn((MD_BATCH, MD_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    names = mesh.mesh_dim_names
+    dims, batch = (names.index("model"),), (names.index("data"),)
+    expert_keys = ("wi", "wg", "wo", "shared")
+    out = {"shape": f"{MOE_ARCH} block, {MD_BATCH} x {MD_SEQ} tokens"}
+    with torch.no_grad():
+        whole, aux = moe.apply_moe(params, x, **kw)
+        for n, how in MD_MOE_SPLITS.items():
+            total = torch.zeros_like(whole)
+            for rank in range(n):
+                local, split = moe_rank_block(params, how, n, rank, mesh,
+                                              dims, batch)
+                y, rank_aux = moe.apply_moe(local, x, split=split, **kw)
+                if not all(torch.equal(rank_aux[k], aux[k]) for k in aux):
+                    fail(f"multidevice moe block n={n}: rank {rank}'s aux "
+                         f"losses are not the whole block's")
+                total += y
+                del local, y
+            torch.cuda.synchronize()
+            scale = float(whole.abs().max())
+            err = float((total - whole).abs().max())
+            out[f"n={n}"] = {"split": how, "max_abs_err": err,
+                             "largest": scale}
+            if not torch.allclose(total, whole, rtol=MD_MOE_F32_RTOL,
+                                  atol=MD_MOE_F32_RTOL * scale):
+                fail(f"multidevice moe block n={n} ({how}): the ranks' "
+                     f"float32 partials summed are {err:.3e} from the whole "
+                     f"block (largest {scale:.3e}), past rtol "
+                     f"{MD_MOE_F32_RTOL}")
+            del total
+    del whole
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    torch.cuda.empty_cache()
+    x16 = x.to(torch.bfloat16)
+    dy = torch.randn(x16.shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def timed(local, split):
+        local = tree_map(lambda z: z.detach().clone().requires_grad_(True),
+                         local)
+        leaves = _leaves(local)
+        xg = x16.detach().clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y, _ = moe.apply_moe(local, xg, split=split, **kw)
+            return torch.autograd.grad(y, [xg] + leaves, dy)
+
+        nbytes = sum(t.numel() * t.element_size() for key in expert_keys
+                     if key in local for t in _leaves(local[key]))
+        return kernel_ms(fwd_bwd, iters=5, warmup=2), nbytes
+
+    out["whole"] = dict(zip(("ms", "expert_bytes"), timed(p16, None)))
+    for n, how in MD_MOE_SPLITS.items():
+        local, split = moe_rank_block(p16, how, n, 0, mesh, dims, batch)
+        ms, nbytes = timed(local, split)
+        out[f"n={n}"].update(ms=ms, expert_bytes=nbytes)
+        del local
+        torch.cuda.empty_cache()
+    base = out["whole"]
+    print(f"multidevice: one MoE block at rank 0's shapes ({out['shape']}; "
+          f"float32 sums of the n ranks' partials against the whole block "
+          f"at rtol {MD_MOE_F32_RTOL}, bf16 forward + backward timed): "
+          f"whole {base['ms']:.3f} ms, experts {base['expert_bytes']:,} "
+          f"bytes; " + "; ".join(
+              f"n={n} {how} {out[f'n={n}']['ms']:.3f} ms "
+              f"({out[f'n={n}']['ms'] / base['ms']:.3f} of whole), experts "
+              f"{out[f'n={n}']['expert_bytes']:,} bytes, float32 sum max "
+              f"abs err {out[f'n={n}']['max_abs_err']:.3e} (largest "
+              f"{out[f'n={n}']['largest']:.3e})"
+              for n, how in MD_MOE_SPLITS.items()) + f" [{smi}]",
+          flush=True)
+    del p16, x, x16, dy
+    torch.cuda.empty_cache()
+    return out
+
+
 def _md_train(label, trainer, stream, dev, smi, count=None,
               steps=MD_STEPS):
     """``steps`` steps from seed 0's state: (the state, losses, gradient
@@ -6652,10 +6897,12 @@ def phase_multidevice(dev) -> dict:
     4 and 8 ways, kernel 10 on each rank's heads of the decoder split 2,
     4 and 8 ways, and one decoder layer timed at a rank's shapes through
     ``apply_block(split=)`` on the world-1 mesh (none counted).  The
-    sharded state saved and restored
-    unsharded, the unsharded one restored sharded, bit for bit; then the
-    torchrun entry point, and gradient compression on the card against
-    the CPU."""
+    sharded state saved once and restored unsharded and onto the mesh,
+    bit for bit; one qwen2-moe-a2.7b MoE block at each rank's shapes
+    (``_md_moe_block``) and phase 14's qwen2-moe cut sharded against
+    unsharded, its experts split by expert with n = 1 (``_md_moe_train``,
+    launch counters from 0 for its sharded run); then the torchrun entry
+    point, and gradient compression on the card against the CPU."""
     import shutil
     import tempfile
 
@@ -6748,14 +6995,17 @@ def phase_multidevice(dev) -> dict:
                 fail(f"multidevice: at world size 1 the sharded step is not "
                      f"the single-device step bit for bit ({diffs})")
 
-            need = 2.2 * sum(x.numel() * x.element_size()
+            need = 1.1 * sum(x.numel() * x.element_size()
                              for x in _leaves(host.params)
                              + _leaves(host.opt_state)
                              if isinstance(x, torch.Tensor))
             free = shutil.disk_usage(root).free
             if free < need:
                 fail(f"multidevice: {free / 1e9:.1f} GB free under {root}, "
-                     f"the two checkpoints need {need / 1e9:.1f}")
+                     f"the checkpoint needs {need / 1e9:.1f}")
+            # one checkpoint, written by the sharded state, read back both
+            # ways: the file holds each leaf whole, as an unsharded save
+            # writes it (phase 16 writes tinyllama-1.1b's unsharded)
             mgr = CheckpointManager(os.path.join(root, "ckpt"), keep=2)
             times = {}
             t1 = time.perf_counter()
@@ -6768,10 +7018,7 @@ def phase_multidevice(dev) -> dict:
             back = _md_diffs(restored, host)
             del restored
             t1 = time.perf_counter()
-            mgr.save(MD_STEPS + 1, host)
-            times["save_unsharded_s"] = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            restored, _ = mgr.restore(sharded, MD_STEPS + 1)
+            restored, _ = mgr.restore(sharded, MD_STEPS)
             torch.cuda.synchronize()
             times["restore_sharded_s"] = time.perf_counter() - t1
             forth = _md_diffs(restored, host)
@@ -6779,16 +7026,23 @@ def phase_multidevice(dev) -> dict:
                          for x in _leaves(restored.params))
             del restored, sharded
             out["checkpoint"] = dict(times, sharded_to_unsharded=back,
-                                     unsharded_to_sharded=forth)
+                                     onto_the_mesh=forth)
             print(f"multidevice: checkpoint sharded -> unsharded "
-                  f"{'bit for bit' if not back else back}, unsharded -> "
-                  f"sharded {'bit for bit' if not forth else forth} "
+                  f"{'bit for bit' if not back else back}, -> sharded "
+                  f"{'bit for bit' if not forth else forth} "
                   f"(restored as DTensors: {placed}); "
                   + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
                   + f" [{smi}]", flush=True)
             if back or forth or not placed:
                 fail(f"multidevice: a checkpoint did not restore across "
                      f"meshes bit for bit ({back}, {forth}, {placed})")
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            out["moe_block"] = _md_moe_block(dev, smi, mesh)
+            out["moe"] = _md_moe_train(dev, smi, mesh, rules)
+            out["moe_seconds"] = time.perf_counter() - t1
+            print(f"multidevice: the MoE experts' parts in "
+                  f"{out['moe_seconds']:.1f} s", flush=True)
         finally:
             dist.destroy_process_group()
         del host
@@ -6863,7 +7117,8 @@ def _md_report(out, smi) -> None:
 
 def _add_multidevice_launches(rows, md) -> None:
     """Rows 3, 4 (its LM-head row) and 10 gain their launches on phase
-    17's sharded path; row 10 its check and times at that path's shape,
+    17's sharded path, rows 3 and 10 on its sharded qwen2-moe path; row
+    10 its check and times at that path's shape,
     on each rank's heads of the decoder split 2, 4 and 8 ways, and one
     decoder layer's at rank 0's shapes; rows 3 and 4 their times on each
     repetition range of the head split 2, 4 and 8 ways, beside the whole
@@ -6874,6 +7129,8 @@ def _add_multidevice_launches(rows, md) -> None:
         name = row["name"]
         if name in md["launches"]:
             row["launches_multidevice"] = md["launches"][name]
+        if name in md["moe"]["launches"]:
+            row["launches_multidevice_moe"] = md["moe"]["launches"][name]
         if name == "flash_attention":
             row["multidevice_shape"] = md["flash"]
             row["per_rank_multidevice"] = md["flash_per_rank"]
@@ -6933,6 +7190,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
 
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {len(_build.SOURCES)} kernel libraries in "
@@ -6955,7 +7213,9 @@ def main() -> int:
           f"abs err {cand_checks['max_abs_err']:.3e}, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     rows, odp = phase_main_path(dev)
+    print(f"main path: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         row["checks_by_mapping"] = mappings[row["name"]]
     t0 = time.perf_counter()
@@ -6968,10 +7228,15 @@ def main() -> int:
     checks = phase_xent_vs_plain(dev)
     print(f"fused xent vs plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
     rows += phase_training(dev, checks)
+    print(f"training: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     dense_launches = next(row["launches"] for row in rows
                           if row["name"] == "mach_fused_xent_dense")
+    t0 = time.perf_counter()
     rows.append(phase_dense_lm_head(dev, checks, dense_launches, smi))
+    print(f"dense LM head: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     lm_checks = phase_lm_kernels_vs_plain(dev)
@@ -7040,6 +7305,8 @@ def main() -> int:
     md = phase_multidevice(dev)
     print(f"multidevice: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_multidevice_launches(rows, md)
+    print(f"all phases: {time.perf_counter() - t_script:.1f} s, the build "
+          f"included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

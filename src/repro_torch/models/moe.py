@@ -21,22 +21,37 @@ Where JAX dispatches and combines through (S, E, C) one-hots, this
 gathers: each kept choice owns a unique (expert, slot) row of the
 (E, C, d) expert input, and each token gathers its kept choices' expert
 outputs back, weights them by the gate rounded to the activations'
-dtype and sums over K in float32, rounded once.  No float atomics, so
-the bits do not change from run to run.  The experts are batched matrix
-products (``torch.bmm``), as JAX's einsums, which sit outside any Pallas
-kernel.  ``moe_ref`` is a plain sequential version of the same function
-(a loop over tokens and choices with per-expert counters) that the tests
-hold ``apply_moe`` against.
+dtype and sums over K in float32, rounded once.  In the backward the
+dispatch gathers each token's kept rows and sums them (``_Dispatch``),
+and the combine's gather adds each expert row's one kept gradient to
+zeros (a dropped choice weighs 0), so no sum depends on the order of
+float atomics and the bits do not change from run to run.  The experts
+are batched matrix products (``torch.bmm``), as JAX's einsums, which
+sit outside any Pallas kernel.  ``moe_ref`` is a plain sequential
+version of the same function (a loop over tokens and choices with
+per-expert counters) that the tests hold ``apply_moe`` against.
+
+In a sharded step the experts split over the ``model`` mesh axis as the
+placements of their params say (``sharding.MoESplit``,
+``apply_moe(split=)``), where JAX's XLA partitions the same einsums: a
+rank computes its E/n experts (EP) or every expert's d_ff/n columns
+(expert TP), and the shared experts' MLP on its columns.  Every rank routes the whole input,
+so the routing and the aux losses are one device's on every rank; each
+rank's float32 partial output is summed over the split's ranks before
+the one rounding to x's dtype.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+
+if TYPE_CHECKING:
+    from repro_torch.sharding.partitioning import MoESplit
 
 
 def init_moe(generator, d_model: int, moe_d_ff: int, num_experts: int,
@@ -155,47 +170,110 @@ def _aux(r: Routing, num_experts: int) -> dict:
     return {"load_balance": lb.mean(), "router_z": z.mean()}
 
 
-def _shared(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
-    sh = layers.apply_mlp(params["shared"], x, activation)
+def _shared(params: dict, x: torch.Tensor, activation: str,
+            split=None) -> torch.Tensor:
+    """The shared experts' MLP times its sigmoid gate; ``split`` (a
+    ``RangeSplit``: the rank's columns of the MLP, whose partial output
+    comes out summed) leaves the gate on the whole x."""
+    h = split.into(x) if split is not None else x
+    sh = layers.apply_mlp(params["shared"], h, activation)
+    if split is not None:
+        sh = split.out_of(sh)
     return sh * torch.sigmoid(layers.dense(params["shared_gate"], x))
+
+
+class _Dispatch(torch.autograd.Function):
+    """The expert input (G, R, d): for each of the R expert rows, the
+    token row of xg (G, S, d) that ``owner`` (G, R) names, a zero row
+    where it names S (an empty slot).  Backward: each token's gradient is
+    the sum over its K choices of the rows its kept ones own (``row``
+    (G, S, K) into the R rows, ``kept`` (G, S, K)), gathered and summed in
+    a fixed order.  The gather's own backward scatter-adds the R rows
+    onto the tokens: on the card with float atomics, which sum a token's
+    K rows in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, xg, owner, row, kept):
+        g, _, d = xg.shape
+        ctx.save_for_backward(torch.where(kept, row, 0), kept)
+        xz = torch.cat([xg, xg.new_zeros((g, 1, d))], 1)          # (G, S+1, d)
+        return torch.gather(xz, 1, owner[..., None].expand(-1, -1, d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        row, kept = ctx.saved_tensors
+        g, s, k = row.shape
+        d = grad.shape[-1]
+        picked = torch.gather(grad, 1, row.reshape(g, s * k, 1)
+                              .expand(-1, -1, d)).reshape(g, s, k, d)
+        dx = torch.where(kept[..., None], picked, 0).sum(2)
+        return dx, None, None, None
 
 
 def apply_moe(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
               activation: str = "swiglu", capacity_factor: float = 1.25,
-              group_size: int = 1024, renormalize: bool = True):
-    """x (B, T, d) -> (y (B, T, d), {"load_balance", "router_z"})."""
+              group_size: int = 1024, renormalize: bool = True,
+              split: Optional["MoESplit"] = None):
+    """x (B, T, d) -> (y (B, T, d), {"load_balance", "router_z"}).
+
+    ``split`` (a sharded step's ``sharding.MoESplit``; ``params`` then
+    hold the rank's shards of the expert kernels, the router and
+    ``shared_gate`` whole): the routing reads the whole x, as on one
+    device; the expert input is dispatched from x gone into the split
+    (dx summed over the split's ranks backward), and so are the gates
+    (dgate summed), since a rank's combine reads only its own experts
+    (EP: experts [r0, r1), the others' choices weigh 0 and read a zero
+    row) or columns (expert TP: every expert's hidden columns [r0, r1)).
+    The float32 partial output comes out summed over the split's ranks,
+    then rounds once to x's dtype.  With every expert and column (one
+    rank, or ``split`` None) the ops are one device's, bit for bit."""
     b, t, d = x.shape
     r = route(params, x, num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor, group_size=group_size,
               renormalize=renormalize)
-    xg, _ = _group(x, group_size)
+    routed = split.routed if split is not None else None
+    e0, e1 = (split.experts.r0, split.experts.r1) \
+        if split is not None and split.experts is not None \
+        else (0, num_experts)
+    xg, _ = _group(routed.into(x) if routed is not None else x, group_size)
     g, s, _ = xg.shape
     cap = r.cap
     # dispatch: each kept choice names its token in its own row e·cap +
     # slot of the group's (E·cap) expert rows; rows left unfilled name the
-    # zero row s, dropped choices write to a sink column past the rows
+    # zero row s, dropped choices write to a sink column past the rows; a
+    # rank of an EP split reads only its experts' rows [e0·cap, e1·cap)
     row = r.experts * cap + r.slot.clamp(max=cap - 1)             # (G, S, K)
     tok = torch.arange(s, device=x.device)[None, :, None].expand_as(row)
     owner = torch.full((g, num_experts * cap + 1), s, dtype=torch.long,
                        device=x.device)
     owner.scatter_(1, torch.where(r.keep, row, num_experts * cap)
                    .reshape(g, -1), tok.reshape(g, -1))
-    xz = torch.cat([xg, xg.new_zeros((g, 1, d))], 1)              # (G, S+1, d)
-    xe = torch.gather(xz, 1, owner[:, :-1, None].expand(-1, -1, d))
-    xe = xe.reshape(g, num_experts, cap, d).transpose(0, 1) \
-        .reshape(num_experts, g * cap, d)
+    ne = e1 - e0
+    keep = r.keep
+    if ne < num_experts:
+        # the other ranks' choices weigh 0 and read the zero row ne·cap
+        local = (r.experts >= e0) & (r.experts < e1)
+        keep = keep & local
+        row = torch.where(local, row - e0 * cap, ne * cap)
+    xe = _Dispatch.apply(xg, owner[:, e0 * cap:e1 * cap], row, keep)
+    xe = xe.reshape(g, ne, cap, d).transpose(0, 1).reshape(ne, g * cap, d)
     ye = _expert_ffn(params, xe, activation)                      # (E, G·cap, d)
-    ye = ye.reshape(num_experts, g, cap, d).transpose(0, 1) \
-        .reshape(g, num_experts * cap, d)
+    ye = ye.reshape(ne, g, cap, d).transpose(0, 1).reshape(g, ne * cap, d)
+    if ne < num_experts:
+        ye = torch.cat([ye, ye.new_zeros((g, 1, d))], 1)
+    gates = routed.into(r.gates) if routed is not None else r.gates
     # combine: each token's kept choices, gate rounded to x's dtype, summed
-    # over K in float32 and rounded once
+    # over K (and the split's ranks) in float32 and rounded once
     picked = torch.gather(ye, 1, row.reshape(g, -1)[..., None]
                           .expand(-1, -1, d)).reshape(g, s, top_k, d)
-    w = torch.where(r.keep, r.gates.to(x.dtype), 0).float()
-    y = torch.sum(picked.float() * w[..., None], dim=2).to(x.dtype)
-    y = y.reshape(g * s, d)[:r.n].reshape(b, t, d)
+    w = torch.where(keep, gates.to(x.dtype), 0).float()
+    y = torch.sum(picked.float() * w[..., None], dim=2)
+    if routed is not None:
+        y = routed.out_of(y)
+    y = y.to(x.dtype).reshape(g * s, d)[:r.n].reshape(b, t, d)
     if "shared" in params:
-        y = y + _shared(params, x, activation)
+        y = y + _shared(params, x, activation,
+                        split.shared if split is not None else None)
     return y, _aux(r, num_experts)
 
 

@@ -293,8 +293,9 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
     self-attention on the rank's query heads and the MLP on its hidden
     columns: the normed input goes into each (dh summed over the split's
     ranks in the backward) and each output comes out summed over them,
-    so the residual stream stays whole; None (one device, and every
-    cache path) runs the block whole."""
+    so the residual stream stays whole; an MoE block's experts run on
+    the rank's experts or columns (``moe.apply_moe(split=)``).  None (one
+    device, and every cache path) runs the block whole."""
     attn_split = split.attn if split is not None else None
     mlp_split = split.mlp if split is not None else None
     h = layers.apply_norm(params["norm1"], x, cfg.norm)
@@ -329,7 +330,8 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
             params["moe"], h2, num_experts=cfg.num_experts,
             top_k=cfg.experts_top_k, activation=cfg.activation,
             capacity_factor=cfg.capacity_factor,
-            group_size=cfg.moe_group_size)
+            group_size=cfg.moe_group_size,
+            split=split.moe if split is not None else None)
         return x + out2, cache, aux
     if mlp_split is not None:
         h2 = mlp_split.into(h2)
@@ -428,28 +430,73 @@ def _add_aux(total: dict, aux: dict) -> dict:
     return {k: v + aux.get(k, 0.0) for k, v in total.items()}
 
 
+def _kept_parts(block: dict, split) -> dict:
+    """The parts of one block's params that its split computes on the
+    rank's ranges: each part's path (a tuple of keys) -> the split's
+    mesh dims, which its gather keeps."""
+    if split is None:
+        return {}
+    parts = {(key,): s.dims for key, s in (("attn", split.attn),
+                                           ("mlp", split.mlp)) if s}
+    if split.moe is not None:
+        routed, shared = split.moe.routed, split.moe.shared
+        if routed is not None:
+            parts.update({("moe", key): routed.dims
+                          for key in ("wi", "wg", "wo")
+                          if key in block["moe"]})
+        if shared is not None:
+            parts[("moe", "shared")] = shared.dims
+    return parts
+
+
+def _pick(tree: dict, paths, keep: bool) -> dict:
+    """``tree`` with only (``keep``) or without the subtrees at
+    ``paths``."""
+    heads = {p[0] for p in paths}
+    out = {}
+    for key, value in tree.items():
+        if (key,) in paths:
+            if keep:
+                out[key] = value
+        elif key in heads:
+            sub = _pick(value, [p[1:] for p in paths if p[0] == key], keep)
+            if sub:
+                out[key] = sub
+        elif not keep:
+            out[key] = value
+    return out
+
+
+def _merge(dst: dict, src: dict) -> None:
+    for key, value in src.items():
+        if isinstance(value, dict) and isinstance(dst.get(key), dict):
+            _merge(dst[key], value)
+        else:
+            dst[key] = value
+
+
 def materialize_period(layer_params: list, splits: list) -> list:
     """One period's params for its use here, each block by its split
     (``partitioning.block_split``, None on one device): a split
-    attention's q, k, v and o and a split MLP's wi, wg and wo are
-    gathered keeping the split's mesh dims (``materialize(keep=)``; a k
-    or v replicated there has its gradient summed there), every other
-    leaf whole (``partitioning.materialize``).  One gather for the
-    leaves gathered whole and one for each split's mesh dims."""
-    parts = [{key: s.dims for key, s in (("attn", split.attn),
-                                         ("mlp", split.mlp)) if s}
-             if split is not None else {} for split in splits]
+    attention's q, k, v and o, a split MLP's wi, wg and wo and a split
+    MoE block's expert kernels (and its shared MLP's) are gathered
+    keeping the split's mesh dims (``materialize(keep=)``; a k or v
+    replicated there has its gradient summed there), every other leaf
+    whole (``partitioning.materialize``), the router and ``shared_gate``
+    too: their gradient is one device's on every rank (the gates go into
+    the split), so it is summed over the batch axes only.  One gather
+    for the leaves gathered whole and one for each split's mesh dims."""
+    parts = [_kept_parts(lp, split) for lp, split in zip(layer_params, splits)]
     if not any(parts):
         return partitioning.materialize(layer_params)
-    out = partitioning.materialize([
-        {key: v for key, v in lp.items() if key not in part}
-        for lp, part in zip(layer_params, parts)])
+    out = partitioning.materialize([_pick(lp, list(part), keep=False)
+                                    for lp, part in zip(layer_params, parts)])
     for dims in sorted({d for part in parts for d in part.values()}):
         kept = partitioning.materialize([
-            {key: lp[key] for key, d in part.items() if d == dims}
+            _pick(lp, [p for p, d in part.items() if d == dims], keep=True)
             for lp, part in zip(layer_params, parts)], keep=dims)
         for block, kept_block in zip(out, kept):
-            block.update(kept_block)
+            _merge(block, kept_block)
     return out
 
 
@@ -487,9 +534,10 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
     about one period whole.  With caches (serving) or ``remat="none"`` the same gather
     runs, and autograd keeps what the period's backward needs of the
     gathered weights until then (every period's, when gradients are
-    on).  Where a block's attention or MLP splits on the ``model`` mesh
-    axis (``partitioning.block_split``), the rank gathers and computes
-    only its heads and columns (``apply_block(split=)``).  A cache path
+    on).  Where a block's attention, MLP or experts split on the
+    ``model`` mesh axis (``partitioning.block_split``), the rank gathers
+    and computes only its heads, columns or experts
+    (``apply_block(split=)``).  A cache path
     never splits: ``DTensor`` params are read only inside a train step
     (``materialize`` raises elsewhere), and served params are whole."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()

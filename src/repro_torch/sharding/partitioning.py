@@ -27,7 +27,7 @@ rules read only a mesh's axis names and sizes, so they run on a
 ``DeviceMesh`` and on any object with a ``shape`` dict and
 ``axis_names`` (the JAX tests' ``FakeMesh``).
 
-Two parts of a model split by the placements of their params (Megatron's
+Three parts of a model split by the placements of their params (Megatron's
 tensor parallelism, where JAX's XLA partitions the same products).
 Rank k of the n ranks on the mesh dims that shard a param's split dim
 (major first, ``shard_range``) computes its own range of that dim: the
@@ -54,8 +54,20 @@ summed (``RangeSplit.out_of``).
   query heads hold whole groups or lie inside one.  The block's two outputs come out summed over m; the
   residual stream stays whole on every rank.  Elsewhere (a dim the
   rules leave replicated, e.g. recurrentgemma's 10 heads on 8 ranks)
-  that part runs whole on every rank, as do the MoE experts, the RG-LRU,
-  the xLSTM blocks, the cross-attention, the embedding and the OAA head.
+  that part runs whole on every rank, as do the RG-LRU, the xLSTM
+  blocks, the cross-attention, the embedding and the OAA head.
+- An MoE block's routed experts by expert or by columns
+  (``expert_plan``): by expert (EP) where wi's, wg's and wo's expert
+  dims are sharded over the same mesh dims m (the rules shard them from
+  ``experts`` where n divides E), rank k owning experts [k·E/n,
+  (k+1)·E/n); else by columns (expert TP) where wi's and wg's last dims
+  and wo's hidden dim are (the rules shard ``mlp`` there where n divides
+  d_ff), rank k owning every expert's columns [k·F/n, (k+1)·F/n); else
+  the experts run whole.  The shared experts' MLP splits by the dense
+  MLP's rule; the router and ``shared_gate`` never split.  Every rank
+  routes the whole input, so the routing is the same on every rank of
+  m; the gates go into the split (dgate summed over m backward) and the
+  float32 partial outputs come out summed.
 With one rank on the split's dims ``into`` and ``out_of`` are the
 identity, and on one device (plain tensors) nothing splits.
 
@@ -472,7 +484,9 @@ class _Gather(torch.autograd.Function):
 # ``mach_rb`` dim (the JAX package shards that dim over ``model``, or
 # ``(pod, model)`` with ``mach_pod_parallel``, "exactly like a
 # vocab-sharded softmax"), a decoder block's self-attention by heads and
-# its MLP by hidden columns over those of ``heads`` and ``mlp``.
+# its MLP by hidden columns over those of ``heads`` and ``mlp``, an MoE
+# block's experts by expert or by columns over those of ``experts`` or
+# ``mlp``.
 # ---------------------------------------------------------------------------
 
 def _shard_index(mesh, dims) -> tuple[int, int]:
@@ -566,17 +580,39 @@ def kv_heads(q0: int, q1: int, num_heads: int, num_kv_heads: int
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESplit:
+    """A sharded step's MoE block on this rank (``block_split``): its
+    routed experts by expert (``experts``: the rank's experts [r0, r1),
+    EP) or by columns (``columns``: every expert's hidden columns [r0,
+    r1), expert TP), at most one of the two (neither: the experts run
+    whole), and ``shared`` the shared experts' MLP by hidden columns
+    (None: it runs whole, or the block has none).  The rank's shards of
+    wi, wg and wo (and of the shared MLP's) hold exactly its ranges; the
+    router and ``shared_gate`` are whole."""
+    experts: Optional["RangeSplit"] = None
+    columns: Optional["RangeSplit"] = None
+    shared: Optional["RangeSplit"] = None
+
+    @property
+    def routed(self) -> Optional["RangeSplit"]:
+        """The routed experts' split, either mode (None: whole)."""
+        return self.experts if self.experts is not None else self.columns
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSplit:
     """A sharded step's decoder block on this rank (``block_split``):
     ``attn`` its self-attention's query heads [r0, r1) over the mesh dims
     ``attn.dims`` (None: the attention runs whole), ``kv`` the kv heads
     [k0, k1) of the whole k and v it reads (``kv_heads``; None where its
     shards of k and v are those heads), ``mlp`` the MLP's hidden columns [r0, r1)
-    (None: the MLP runs whole).  The rank's shards of q, o, wi, wg and wo
-    hold exactly its ranges."""
+    (None: the MLP runs whole), ``moe`` an MoE block's experts (None:
+    they run whole, or the block has none).  The rank's shards of q, o,
+    wi, wg and wo hold exactly its ranges."""
     attn: Optional["RangeSplit"]
     kv: Optional[tuple[int, int]]
     mlp: Optional["RangeSplit"]
+    moe: Optional[MoESplit] = None
 
 
 def dim_axes(leaf: DTensor) -> tuple:
@@ -624,23 +660,44 @@ def split_plan(mesh, attn: Optional[dict], mlp: Optional[dict],
     return a_axes, kv_split, m_axes
 
 
+def expert_plan(experts: Optional[dict]) -> tuple[str, tuple]:
+    """How an MoE block's routed experts split, from the layouts of wi,
+    [wg] (E, d, F) and wo (E, F, d) (``dim_axes``, or a spec's entries;
+    None: no experts): ("experts", m) where the mesh axes m shard the
+    expert dim of all of them (EP), else ("columns", m) where m shard
+    wi's and wg's last dim and wo's hidden dim (expert TP), else ("",
+    ()): the experts run whole.  The rules never shard both on one axis,
+    so EP, where n divides E, leaves the columns whole."""
+    if experts is None:
+        return "", ()
+    wi, wo = experts["wi"], experts["wo"]
+    wg = experts.get("wg", wi)
+    if wi[0] and wg[0] == wi[0] and wo[0] == wi[0]:
+        return "experts", wi[0]
+    if wi[-1] and wg[-1] == wi[-1] and wo[1] == wi[-1]:
+        return "columns", wi[-1]
+    return "", ()
+
+
 def block_split(params: dict) -> Optional[BlockSplit]:
     """How a sharded step computes the block whose params are ``params``
     (one period's slice, ``DTensor`` leaves): None on one device (plain
-    tensors) and for a block with neither self-attention nor MLP; else
-    a ``BlockSplit`` by the placements alone (``split_plan``): rank k of
-    the n ranks on a split's mesh axes computes query heads [k·H/n,
-    (k+1)·H/n) and the kv heads they read (``kv_heads``), or hidden
-    columns [k·F/n, (k+1)·F/n).  Raises outside a step's activation, as
-    ``materialize`` does."""
-    parts = {key: params[key] for key in ("attn", "mlp") if key in params}
+    tensors) and for a block with neither self-attention, MLP nor MoE;
+    else a ``BlockSplit`` by the placements alone (``split_plan``,
+    ``expert_plan``): rank k of the n ranks on a split's mesh axes
+    computes query heads [k·H/n, (k+1)·H/n) and the kv heads they read
+    (``kv_heads``), hidden columns [k·F/n, (k+1)·F/n), experts [k·E/n,
+    (k+1)·E/n) or every expert's columns [k·F/n, (k+1)·F/n).  Raises
+    outside a step's activation, as ``materialize`` does."""
+    parts = {key: params[key] for key in ("attn", "mlp", "moe")
+             if key in params}
     first = next(iter(tree_leaves(parts)), None)
     if not isinstance(first, DTensor):
         return None
     mesh = first.device_mesh
     batch = _step_batch(mesh)
     kernels = {key: {name: leaf["kernel"] for name, leaf in part.items()}
-               for key, part in parts.items()}
+               for key, part in parts.items() if key != "moe"}
     heads = (kernels["attn"]["q"].shape[1], kernels["attn"]["k"].shape[1]) \
         if "attn" in kernels else (1, 1)
     a_axes, kv_split, m_axes = split_plan(mesh, *(
@@ -660,7 +717,30 @@ def block_split(params: dict) -> Optional[BlockSplit]:
             kv = kv_heads(attn.r0, attn.r1, q.shape[1], k.shape[1])
     if m_axes:
         mlp = split(kernels["mlp"]["wo"], 0)
-    return BlockSplit(attn, kv, mlp)
+    moe = _moe_split(mesh, parts["moe"], split) if "moe" in parts else None
+    return BlockSplit(attn, kv, mlp, moe)
+
+
+def _moe_split(mesh, params: dict, split) -> Optional[MoESplit]:
+    """An MoE block's ``MoESplit`` by ``expert_plan`` and, for its shared
+    MLP, ``split_plan``'s MLP rule (``split(leaf, dim)``: the range of
+    ``dim`` the leaf's shard holds); None where nothing splits."""
+    experts = {name: params[name]["kernel"] for name in ("wi", "wg", "wo")
+               if name in params}
+    how, _ = expert_plan({name: dim_axes(x) for name, x in experts.items()})
+    routed = split(experts["wo"], 0 if how == "experts" else 1) \
+        if how else None
+    shared = None
+    if "shared" in params:
+        kernels = {name: leaf["kernel"]
+                   for name, leaf in params["shared"].items()}
+        if split_plan(mesh, None, {name: dim_axes(x)
+                                   for name, x in kernels.items()}, 1, 1)[2]:
+            shared = split(kernels["wo"], 0)
+    if routed is None and shared is None:
+        return None
+    return MoESplit(routed if how == "experts" else None,
+                    routed if how == "columns" else None, shared)
 
 
 @dataclasses.dataclass(frozen=True)

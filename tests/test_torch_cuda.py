@@ -45,7 +45,9 @@ Flash attention also runs non-causal with S != T (cross-attention) and
 S == T (the encoder), forward and backward, at those tolerances; the
 smoke xLSTM and enc-dec models run on the card against the CPU.  The
 sharded train step on an NCCL world of one equals the single-device
-step bit for bit.
+step bit for bit, the smoke qwen2-moe's with its experts split by expert
+(n = 1) too; an MoE block's per-rank partial outputs (by expert and by
+columns) sum to the whole block's.
 
 Marked ``cuda``: skips without a GPU.  Needs neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -1525,6 +1527,129 @@ def test_world1_nccl_per_period_gathering(dev, tmp_path):
             (count.peak, bounds)
     finally:
         dist.destroy_process_group()
+
+
+def test_world1_nccl_moe_split_same_bits(dev, tmp_path):
+    """The smoke qwen2-moe-a2.7b (bf16, 4 layers, remat) through
+    ``Trainer(mesh=)`` on an NCCL world of one: every MoE block's experts
+    split by expert with n = 1 (all 6 on the one ``model`` rank), its
+    shared MLP by columns, its attention by heads; three steps, every
+    metric, param and moment the single-device step's bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import gather
+    from repro_torch.train import TrainConfig, Trainer
+    from torch_multidevice_ranks import SplitCount
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                                  num_layers=4, remat="full",
+                                  dtype=torch.bfloat16,
+                                  param_dtype=torch.bfloat16)
+        tc = TrainConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+        model = LanguageModel(cfg)
+        sharded, single = Trainer(model, tc, mesh=mesh), Trainer(model, tc)
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+        st, rs = sharded.init_state(gen(), dev), single.init_state(gen(), dev)
+        stream = launch_train.data_stream(cfg, 64, 4, 0, dev)
+        count = SplitCount()
+        for s in range(3):
+            with count:
+                st, m = sharded.step_fn(st, stream.batch_at(s))
+            rs, rm = single.step_fn(rs, stream.batch_at(s))
+            assert {k: float(v) for k, v in m.items()} == \
+                {k: float(v) for k, v in rm.items()}, s
+        for (path, got), (_, want) in zip(tree_flatten(gather(st)),
+                                          tree_flatten(rs)):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(got, want), path
+            else:
+                assert got == want, path
+        moe = count.summary()["moe"]
+        assert moe and set(moe) == {(("experts", (0, 6, ("model",)),
+                                      (0, 96, ("model",))),)}, set(moe)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("how,n", [("experts", 2), ("experts", 4),
+                                   ("columns", 8)])
+def test_moe_block_per_rank_partials_sum_to_whole(dev, how, n):
+    """An MoE block (12 experts of d_ff 48, top-2, swiglu, 2 shared of
+    96, float32) as each of n ``model`` ranks computes it: its experts
+    (12 over 2 and 4 ranks) or every expert's columns (48 over 8), and
+    its shared MLP's columns, from ``apply_moe(split=)`` on its shards
+    with no split dims (``moe_rank_block``: the partial handed back as
+    it is).  The n partials summed equal the whole block at rtol 1e-5
+    (atol 1e-5 of the largest entry); every rank's aux losses are the
+    whole block's bit for bit."""
+    from repro_torch.models import moe
+    from torch_multidevice_ranks import moe_rank_block
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(5), 64,
+                          48, 12, 2, 96, dev, "swiglu")
+    x = torch.randn((2, 64, 64), generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev)
+    kw = dict(num_experts=12, top_k=2, activation="swiglu",
+              capacity_factor=1.25, group_size=32)
+    whole, aux = moe.apply_moe(params, x, **kw)
+    total = torch.zeros_like(whole)
+    for rank in range(n):
+        local, split = moe_rank_block(params, how, n, rank)
+        y, rank_aux = moe.apply_moe(local, x, split=split, **kw)
+        assert all(torch.equal(rank_aux[k], aux[k]) for k in aux)
+        total += y
+    torch.testing.assert_close(total, whole, rtol=1e-5,
+                               atol=1e-5 * float(whole.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_backward_same_bits_run_to_run(dev, dtype):
+    """An MoE block (32 experts of d_ff 256, top-4, swiglu, 2 shared of
+    512; 2 x 2,048 tokens of d 512 in groups of 512, so each token's 4
+    rows meet in its gradient) forward and backward twice on the card:
+    the output and every gradient (x and each param) the same bits.
+    The dispatch's backward gathers and sums each token's rows
+    (``moe._Dispatch``); a scatter-add there sums them by float atomics
+    in an order that changes from run to run."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+    params = tree_map(lambda p: p.to(dtype), moe.init_moe(
+        torch.Generator(device=dev).manual_seed(7), 512, 256, 32, 2, 512,
+        dev, "swiglu"))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 2048, 512), generator=gen, device=dev).to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    kw = dict(num_experts=32, top_k=4, activation="swiglu",
+              capacity_factor=1.25, group_size=512)
+
+    def run():
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        xg = x.detach().clone().requires_grad_(True)
+        y, aux = moe.apply_moe(p, xg, **kw)
+        loss = (y.float() * dy.float()).sum() + aux["load_balance"] \
+            + aux["router_z"]
+        leaves = [xg] + [t for t in _tree_leaves(p)]
+        return [y] + list(torch.autograd.grad(loss, leaves))
+
+    first, second = run(), run()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
 
 
 def test_head_split_per_range_equals_whole(dev):

@@ -20,7 +20,20 @@ than a group, a decode-sized pool at capacity 1 whose rows collide;
 swiglu, geglu and a plain gelu; shared experts on and off.  Hand-built:
 token-major capacity order, and all-zero rows, which route to experts
 0..k-1.
+
+The block split over the ``model`` mesh axis as a sharded step splits
+it (``apply_moe(split=)``): each rank's float32 partial output on its
+experts (EP) or its columns of every expert (expert TP), with its
+columns of the shared MLP, summed over the ranks, against JAX's
+``apply_moe`` (rtol 1e-5, atol 1e-5 of the largest entry) and the port's
+whole block (rtol 1e-6, atol 1e-6 of the largest: at most 1.4e-7 of the
+largest measured), the aux losses the whole block's bit for bit on every
+rank; and on a ``gloo`` world of one, the split block through
+``block_split`` and ``materialize_period`` is the whole block bit for
+bit, forward and gradients.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +44,7 @@ import torch
 from repro_torch.convert import _to_tensor
 from repro_torch.models import moe
 from repro_torch.models.transformer import tree_map
+from torch_multidevice_ranks import moe_rank_block
 from torch_reference import jax_lm  # noqa: F401  (fixture)
 
 RTOL = 1e-5
@@ -219,3 +233,169 @@ def test_init_moe_tree_matches_jax(jax_lm):
         assert abs(got - want) < 0.02 * want, (key, got, want)
     plain = moe.init_moe(None, D, F_FF, 4, 0, 0, "cpu", "gelu")
     assert sorted(plain) == ["router", "wi", "wo"]
+
+
+# the experts split n ways: (how, n) -- by expert (6 experts over 2 and 3
+# ranks) or by columns (24 columns over 2 and 4; the shared MLP's 48 too)
+SPLITS = (("experts", 2), ("experts", 3), ("columns", 2), ("columns", 4))
+SPLIT_RTOL = 1e-6
+
+
+class FakeMesh:
+    """The mesh a split names: axis sizes and names only (no collective
+    runs: the ranks' partials are summed here)."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+@pytest.mark.parametrize("shape", ["whole groups", "padded group"])
+@pytest.mark.parametrize("how,n", SPLITS, ids=lambda v: str(v))
+def test_split_partials_sum_to_jax(jax_lm, how, n, shape):
+    """Six experts, top-2, swiglu, two shared experts, float32: rank k's
+    partial output is ``apply_moe(split=)`` on its shards
+    (``moe_rank_block``: experts [k·E/n, (k+1)·E/n) or every expert's
+    columns [k·F/n, (k+1)·F/n), the shared MLP's columns, the router and
+    ``shared_gate`` whole) with no split dims, so ``into`` and ``out_of``
+    hand the partial back as it is.  The n partials summed equal JAX's
+    ``apply_moe`` and the port's whole block; every rank's aux losses are
+    the whole block's bit for bit (each routes the whole input)."""
+    b, t, group, e, k = SHAPES[shape]
+    jparams, params = _pair(jax_lm, "float32", "swiglu", 2, e)
+    jx, x = _inputs(b, t, "float32", seed=n)
+    kw = dict(num_experts=e, top_k=k, activation="swiglu",
+              capacity_factor=1.25, group_size=group)
+    jy, _ = jax_lm.transformer.moe_lib.apply_moe(
+        jax.tree.map(jnp.asarray, jparams), jx, **kw)
+    whole, aux = moe.apply_moe(params, x, **kw)
+    mesh = FakeMesh({"data": 1, "model": n})
+    total = torch.zeros_like(whole)
+    for rank in range(n):
+        local, split = moe_rank_block(params, how, n, rank, mesh)
+        assert (split.experts if how == "experts" else split.columns) \
+            is split.routed and split.shared is not None
+        y, rank_aux = moe.apply_moe(local, x, split=split, **kw)
+        assert y.dtype == torch.float32 and y.shape == x.shape
+        for key in aux:
+            assert torch.equal(rank_aux[key], aux[key]), key
+        total += y
+    _close(total, jy, "float32")
+    np.testing.assert_allclose(
+        total.numpy(), whole.numpy(), rtol=SPLIT_RTOL,
+        atol=SPLIT_RTOL * float(whole.abs().max()))
+
+
+@pytest.mark.parametrize("how", ["experts", "columns"])
+def test_world1_split_block_is_the_whole_block(how, tmp_path):
+    """The smoke qwen2-moe-a2.7b's block (float32) on a ``gloo`` world of
+    one, mesh (1, 1): its params placed by the rules (the experts
+    sharded on ``model`` by expert) or with the expert kernels sharded
+    there by columns (wi's and wg's last dim, wo's hidden dim), split by
+    ``block_split`` and gathered by ``materialize_period`` inside a
+    step's activation.  ``apply_block(split=)`` equals the unsplit
+    block bit for bit: its output, aux losses, and the gradients of
+    x and of every param."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.sharding import (NamedSharding, ShardingRules, activate,
+                                      block_split, params_shardings, place)
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                              dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    block = transformer.init_block(gen, cfg, "moe", "cpu")
+    x = torch.randn((2, 16, cfg.d_model), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+    pos = torch.arange(16)[None].expand(2, -1)
+
+    def run(params, split=None):
+        leaves = [leaf.requires_grad_(True) for _, leaf in
+                  tree_flatten(params)]
+        xg = x.clone().requires_grad_(True)
+        used = transformer.materialize_period([params], [split])[0] \
+            if split is not None else params
+        y, _, aux = transformer.apply_block(used, cfg, "moe", xg, pos,
+                                            split=split)
+        loss = (y * dy).sum() + aux["load_balance"] + aux["router_z"]
+        grads = torch.autograd.grad(loss, [xg] + leaves)
+        return [y, aux["load_balance"], aux["router_z"]] + [
+            g.to_local() if isinstance(g, DTensor) else g for g in grads]
+
+    want = run(transformer.tree_map(lambda t: t.clone(), block))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = ShardingRules()
+        shard = params_shardings(mesh, rules,
+                                 transformer.block_axes(cfg, "moe"), block)
+        if how == "columns":
+            for key in ("wi", "wg", "wo"):
+                shard["moe"][key]["kernel"] = NamedSharding(
+                    mesh, (None, "model", "data") if key == "wo"
+                    else (None, "data", "model"))
+        placed = place(block, shard)
+        with activate(mesh, rules, batch_axes=("data",)):
+            split = block_split(placed)
+            assert split.attn is not None and split.moe is not None
+            assert split.moe.routed is (split.moe.experts if how == "experts"
+                                        else split.moe.columns)
+            assert (split.moe.routed.r0, split.moe.routed.r1) == (
+                0, cfg.num_experts if how == "experts" else cfg.moe_d_ff)
+            assert (split.moe.shared.r0, split.moe.shared.r1) == (
+                0, cfg.shared_d_ff)
+            got = run(placed, split)
+    finally:
+        dist.destroy_process_group()
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("top_k,dtype", [(2, torch.float32), (4, torch.float32),
+                                         (4, torch.bfloat16)])
+def test_dispatch_backward_is_the_gather_transpose(top_k, dtype):
+    """The dispatch's backward (``moe._Dispatch``: each token's kept rows
+    gathered and summed over its K choices, no scatter-add) against
+    autograd of the plain gather on the same routing (8 experts, groups
+    of 16 over 3 groups, capacity 0.5 so choices drop): exactly equal at
+    top-2 in float32 (a sum of two terms does not depend on its order),
+    else at rtol 1e-6 (float32) or within a bf16 ulp (the gather's
+    scatter-add rounds each add to bf16, the sum rounds once); the
+    forward equal."""
+    gen = torch.Generator().manual_seed(top_k)
+    e, d, group = 8, 16, 16
+    params = moe.init_moe(gen, d, 8, e, 0, 0, "cpu", "swiglu")
+    x = torch.randn((3, group, d), generator=gen).to(dtype)
+    r = moe.route(params, x, num_experts=e, top_k=top_k,
+                  capacity_factor=0.5, group_size=group)
+    assert not bool(r.keep.all())
+    g, s, cap = 3, group, r.cap
+    row = r.experts * cap + r.slot.clamp(max=cap - 1)
+    owner = torch.full((g, e * cap + 1), s, dtype=torch.long)
+    owner.scatter_(1, torch.where(r.keep, row, e * cap).reshape(g, -1),
+                   torch.arange(s)[None, :, None].expand_as(row)
+                   .reshape(g, -1))
+    xg = x.reshape(g, s, d)
+    up = torch.randn((g, e * cap, d), generator=gen).to(dtype)
+    xa = xg.clone().requires_grad_(True)
+    got = moe._Dispatch.apply(xa, owner[:, :-1], row, r.keep)
+    dx, = torch.autograd.grad(got, xa, up)
+    xb = xg.clone().requires_grad_(True)
+    xz = torch.cat([xb, xb.new_zeros((g, 1, d))], 1)
+    want = torch.gather(xz, 1, owner[:, :-1, None].expand(-1, -1, d))
+    dw, = torch.autograd.grad(want, xb, up)
+    assert torch.equal(got, want)
+    if top_k == 2 and dtype == torch.float32:
+        assert torch.equal(dx, dw)
+    elif dtype == torch.float32:
+        torch.testing.assert_close(dx, dw, rtol=1e-6, atol=1e-6)
+    else:
+        ulp = dw.float().abs().clamp(min=2.0 ** -100) * 2.0 ** -7
+        assert bool(((dx.float() - dw.float()).abs() <= ulp).all())

@@ -13,7 +13,12 @@ Where ``model`` has more than one rank the decoder splits by heads and
 hidden (``partitioning.block_split``): (1, 2), (1, 4) and (2, 2) with
 the smoke tinyllama, with and without its MACH head, (2, 1, 2) with
 ``mach_pod_parallel``, (1, 2) in bf16 and with recurrentgemma-2b, each
-rank's heads, columns and gathered bytes counted (``SplitCount``).
+rank's heads, columns and gathered bytes counted (``SplitCount``).  The
+MoE experts split on ``model`` too: the smoke qwen2-moe-a2.7b by 3 of
+its 6 experts a rank on (1, 2) and (2, 2), by 12 of every expert's 48
+columns on (1, 4), the smoke mixtral-8x22b by one of its 4 experts a
+rank on (1, 4); each rank's experts or columns, shared-MLP columns,
+gathered bytes, routing and first-step gradients counted.
 
 Each world is spawned once (module fixtures) and runs every check
 inside; the tests read what its rank 0 wrote.  The worlds join by a
@@ -41,7 +46,14 @@ fused) and 0.0234% of recurrentgemma-2b's past 1e-6 of their leaf's
 largest (``tools/split_noise_floor.py``).  So the cases whose floor
 lies above 0.01% are held at twice it, rounded up: the MACH head's
 split cases, whose decoder splits too, at 0.025% (``MACH_OFF_SHARE``),
-recurrentgemma-2b's split case at 0.05% (``RG_OFF_SHARE``).
+recurrentgemma-2b's split case at 0.05% (``RG_OFF_SHARE``).  The MoE
+split cases sum each rank's float32 partial expert outputs too; they
+are held at twice their config's floor (0.0119% qwen2-moe-a2.7b, 48 of
+403,776 entries; 0.0079% mixtral-8x22b, 30 of 378,432), rounded up to
+two digits: 0.024% (``QWEN_MOE_OFF_SHARE``) and 0.016%
+(``MIXTRAL_OFF_SHARE``); their first-step gradients within 1e-5 of
+each leaf's largest entry (``MOE_GRAD_RTOL``; at most 2.9e-6 measured,
+the mixtral router's on (1, 4)).
 bf16 (params and activations): the first step's loss at rtol 1e-6 (rows
 are independent until the loss's float32 sums), the gradient norm and
 later metrics at rtol 2^-6, the params within 2·Σlr: the ranks' bf16
@@ -76,6 +88,9 @@ OFF_SHARE = 1e-4
 XLSTM_OFF_SHARE = 1e-3
 MACH_OFF_SHARE = 2.5e-4
 RG_OFF_SHARE = 5e-4
+QWEN_MOE_OFF_SHARE = 2.4e-4
+MIXTRAL_OFF_SHARE = 1.6e-4
+MOE_GRAD_RTOL = 1e-5
 WORLD_TIMEOUT = 240
 
 
@@ -470,6 +485,151 @@ def test_decoder_split_computes_its_heads_and_columns(request, world, case):
         kv_local = kv // n if kv_cut is None else kv_cut[1] - kv_cut[0]
         assert rank["attend"] == [(per, kv_local)], rank["attend"]
         assert rank["mlp"] == [f // n], rank["mlp"]
+
+
+# the MoE experts split on ``model``: (world, case) -> (arch, how the
+# experts split, the share bound, the float32 bytes a rank gathers of
+# one period, of the whole period's)
+MOE_CASES = {
+    ("world2", "moe12"): ("qwen2-moe-a2.7b", "experts", QWEN_MOE_OFF_SHARE,
+                          182_528, 362_752),
+    ("world4", "moe14"): ("qwen2-moe-a2.7b", "columns", QWEN_MOE_OFF_SHARE,
+                          92_416, 362_752),
+    ("world4", "moe14_mixtral"): ("mixtral-8x22b", "experts",
+                                  MIXTRAL_OFF_SHARE, 99_840, 345_600),
+    ("world4", "moe22"): ("qwen2-moe-a2.7b", "experts", QWEN_MOE_OFF_SHARE,
+                          182_528, 362_752)}
+
+
+@pytest.mark.parametrize("world,case", list(MOE_CASES))
+def test_moe_split_matches_one_device(request, world, case):
+    """The smoke qwen2-moe-a2.7b with its experts split by expert on
+    (1, 2) and (2, 2) and by columns on (1, 4), and the smoke
+    mixtral-8x22b by expert on (1, 4) (the attention and the shared MLP
+    split too), against one device: every metric (the aux losses too)
+    at rtol 1e-6, the params after two AdamW steps by the share past
+    1e-6 of their leaf's largest, at twice the config's one-ulp floor."""
+    bound = MOE_CASES[(world, case)][2]
+    assert _hold(request.getfixturevalue(world)[case]) <= bound
+
+
+@pytest.mark.parametrize("world,case", list(MOE_CASES))
+def test_moe_split_gradients_match_one_device(request, world, case):
+    """The first step's gradients (before clipping), made whole, against
+    one device's, leaf by leaf within ``MOE_GRAD_RTOL`` of the leaf's
+    largest entry: the router's and ``shared_gate``'s among them, which
+    are one device's on every rank (the gates' gradient is summed over
+    the split before it reaches the router), so they are not summed over
+    ``model`` again."""
+    res = request.getfixturevalue(world)[case]
+    got, want = tree_flatten(res["grads"]), tree_flatten(res["want_grads"])
+    assert [p for p, _ in got] == [p for p, _ in want]
+    paths = " ".join(p for p, _ in want)
+    assert "['router']" in paths
+    assert ("['shared_gate']" in paths) == MOE_CASES[(world, case)][
+        0].startswith("qwen2")
+    for (path, g), (_, w) in zip(got, want):
+        assert type(g) is torch.Tensor and g.shape == w.shape, path
+        err = float((g - w).abs().max())
+        assert err <= MOE_GRAD_RTOL * float(w.abs().max()), (path, err)
+
+
+@pytest.mark.parametrize("world,case", list(MOE_CASES))
+def test_moe_split_routes_the_same_on_every_model_rank(request, world,
+                                                        case):
+    """Every rank routes the whole input: each ``moe.route`` call's
+    expert ids and kept mask (every layer, forward and remat's
+    recompute, both steps) are the same on every ``model`` rank of a
+    ``data`` row shard, exactly."""
+    res = request.getfixturevalue(world)[case]
+    names = list(res["shape"])
+    by_rows = {}
+    for rank in res["split"]:
+        rows = rank["coord"][names.index("data")]
+        by_rows.setdefault(rows, []).append(rank["routing"])
+    assert len(by_rows) == res["shape"]["data"]
+    for shards in by_rows.values():
+        first = shards[0]
+        assert first and len(shards) == res["shape"]["model"]
+        for other in shards[1:]:
+            assert len(other) == len(first)
+            for (e0, k0), (e1, k1) in zip(first, other):
+                assert torch.equal(e0, e1) and torch.equal(k0, k1)
+
+
+def _moe_local_shape(path, shape, moe, n):
+    """A MoE leaf's shape on a rank of n whose experts split as ``moe``
+    (``SplitCount``'s (mode, routed range, shared range))."""
+    mode, _, shared = moe
+    shape = list(shape)
+    if path.startswith("['moe']['shared']"):
+        if shared:
+            shape[0 if "['wo']" in path else -1] //= n
+    elif any(f"['moe']['{key}']" in path for key in ("wi", "wg", "wo")):
+        if mode == "experts":
+            shape[0] //= n
+        elif mode == "columns":
+            shape[1 if "['wo']" in path else -1] //= n
+    return tuple(shape)
+
+
+@pytest.mark.parametrize("world,case", list(MOE_CASES))
+def test_moe_split_computes_its_experts_or_columns(request, world, case):
+    """Counted around the sharded steps (``SplitCount``): rank k of the n
+    ``model`` ranks takes experts [k·E/n, (k+1)·E/n) where n divides E
+    (qwen2-moe's 6 on 2, mixtral's 4 on 4), else every expert's columns
+    [k·F/n, (k+1)·F/n) (qwen2-moe's 48 on 4), the shared MLP's columns
+    [k·Fs/n, (k+1)·Fs/n) and its attention heads; each period's leaves
+    come gathered at those shapes, the router and ``shared_gate`` whole;
+    the period's gathered bytes are their sum, the arithmetic's (e.g.
+    182,528 of qwen2-moe's 362,752 a period at n = 2); every expert call
+    sees its E/n experts' or F/n columns' kernels and G·cap rows an
+    expert, every attention call H/n heads and every shared MLP call
+    Fs/n columns."""
+    from repro_torch.models.moe import capacity
+    res = request.getfixturevalue(world)[case]
+    arch, mode, _, period_bytes, whole_bytes = MOE_CASES[(world, case)]
+    cfg = model_config(arch)
+    e, f, fs = cfg.num_experts, cfg.moe_d_ff, cfg.shared_d_ff
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    n, rows = res["shape"]["model"], res["shape"]["data"]
+    names = list(res["shape"])
+    per, g = h // n, h // kv
+    whole = _period_leaves(res["want"])
+    assert sum(int(np.prod(shape)) * size for b in whole[1]
+               for shape, size in b.values()) == whole_bytes
+    group = cfg.moe_group_size
+    groups = 4 // rows * 16 // group          # the rank's rows of 4 x 16
+    cap = capacity(group, cfg.experts_top_k, cfg.capacity_factor, e)
+    for rank in res["split"]:
+        k = rank["coord"][names.index("model")]
+        size = e if mode == "experts" else f
+        routed = (k * size // n, (k + 1) * size // n, ("model",))
+        shared = (k * fs // n, (k + 1) * fs // n, ("model",)) if fs else None
+        heads = (k * per, (k + 1) * per, ("model",))
+        kv_cut = None if kv % n == 0 else (k * per // g,
+                                           ((k + 1) * per - 1) // g + 1)
+        assert rank["periods"] and len(rank["moe"]) == len(rank["periods"])
+        for moe_split, (splits, shapes, nbytes) in zip(rank["moe"],
+                                                        rank["periods"]):
+            assert moe_split == ((mode, routed, shared),), moe_split
+            assert splits == ((heads, kv_cut, None),), splits
+            total = 0
+            for (path, (shape, size)) in whole[1][0].items():
+                want = _moe_local_shape(path, _local_shape(
+                    path, shape, splits[0], n), moe_split[0], n)
+                assert shapes[0][path] == want, (path, shapes[0][path], want)
+                total += int(np.prod(want)) * size
+            assert set(shapes[0]) == set(whole[1][0])
+            assert nbytes == total == period_bytes, (nbytes, total)
+        local_e = e // n if mode == "experts" else e
+        local_f = f if mode == "experts" else f // n
+        assert rank["experts"] == [((local_e, d, local_f),
+                                    (local_e, groups * cap, d))], \
+            rank["experts"]
+        kv_local = kv // n if kv_cut is None else kv_cut[1] - kv_cut[0]
+        assert rank["attend"] == [(per, kv_local)], rank["attend"]
+        assert rank["mlp"] == ([fs // n] if fs else []), rank["mlp"]
 
 
 def test_world2_checkpoint_restores_at_world_1(world2, directory):

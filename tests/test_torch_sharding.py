@@ -504,6 +504,83 @@ def test_decoder_splits_where_the_rules_divide(arch, mesh_name):
         assert set(plans) == examples[(arch, mesh_name)]
 
 
+# (arch, mesh) -> how the experts split (``expert_plan``) and the range
+# a rank owns of the split dim: experts on (1, 8) where 8 divides E, else
+# every expert's d_ff columns
+MOE_SPLITS = {("mixtral-8x22b", "1x8"): ("experts", 1),
+              ("mixtral-8x22b", "16x16"): ("columns", 1024),
+              ("qwen2-moe-a2.7b", "1x8"): ("columns", 176),
+              ("qwen2-moe-a2.7b", "16x16"): ("columns", 88)}
+# one layer's routed experts (wi, wg, wo), bf16 bytes: whole, and what a
+# rank gathers (its shards kept on ``model``) by mesh
+MOE_LAYER_BYTES = {"mixtral-8x22b": (4_831_838_208, {"1x8": 603_979_776,
+                                                     "16x16": 301_989_888}),
+                   "qwen2-moe-a2.7b": (1_038_090_240,
+                                       {"1x8": 129_761_280,
+                                        "16x16": 64_880_640})}
+
+
+@pytest.mark.parametrize("mesh_name", list(SPLIT_MESHES))
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen2-moe-a2.7b"])
+def test_moe_splits_where_the_rules_divide(arch, mesh_name):
+    """The full MoE configs' blocks placed by the rules (held to JAX's
+    spec by ``test_every_param_spec_matches_jax``) on an 8-card node
+    (1, 8) and on (16, 16): ``expert_plan`` of the expert kernels' layouts
+    splits by expert where n = |model| divides E (mixtral's 8 experts on
+    (1, 8), one a rank), else by columns where n divides d_ff (mixtral's
+    16,384 on (16, 16), 1,024 a rank; qwen2-moe's 60 experts divide by
+    neither 8 nor 16, so its 1,408 columns split, 176 and 88 a rank);
+    the shared experts' MLP by columns (qwen2-moe's 5,632: 704 and 352 a
+    rank); the router and ``shared_gate`` never on ``model``.  One
+    layer's experts are 4.83 GB (mixtral) and 1.04 GB (qwen2-moe) in
+    bf16; a rank gathers 1/n of them."""
+    from repro_torch.sharding import expert_plan, split_plan
+    from repro_torch.sharding.partitioning import spec_axes
+    mesh = SPLIT_MESHES[mesh_name]
+    cfg = get_config(arch)
+    model = LanguageModel(cfg)
+    shapes = model.init(device="meta")
+    shard = params_shardings(mesh, RULES, model.param_axes(), shapes)
+    n = mesh.shape["model"]
+    e, f, fs = cfg.num_experts, cfg.moe_d_ff, cfg.shared_d_ff
+    mode, per = MOE_SPLITS[(arch, mesh_name)]
+    assert mode == ("experts" if e % n == 0 else "columns")
+    assert per == (e if mode == "experts" else f) // n
+    whole, by_mesh = MOE_LAYER_BYTES[arch]
+    blocks = 0
+    for p_list, s_list in zip(shapes["stacks"], shard["stacks"]):
+        for block, spec in zip(p_list, s_list):
+            moe, ms = block["moe"], spec["moe"]
+            names = [k for k in ("wi", "wg", "wo") if k in moe]
+            layouts = {k: _dims(ms[k]["kernel"].spec, moe[k]["kernel"].dim())
+                       for k in names}
+            assert expert_plan(layouts) == (mode, ("model",)), layouts
+            for key in ("router", "shared_gate"):
+                if key in ms:
+                    assert all("model" not in spec_axes(entry)
+                               for entry in ms[key]["kernel"].spec), key
+            if fs:
+                shared = {k: _dims(ms["shared"][k]["kernel"].spec,
+                                   moe["shared"][k]["kernel"].dim())
+                          for k in moe["shared"]}
+                assert split_plan(mesh, None, shared, 1, 1)[2] == \
+                    (("model",) if fs % n == 0 else ())
+                assert fs // n == {8: 704, 16: 352}[n]
+            nbytes = [moe[k]["kernel"].numel() // moe[k]["kernel"].shape[0]
+                      * moe[k]["kernel"].element_size() for k in names]
+            assert sum(nbytes) == whole
+            kept = 0
+            for k, size in zip(names, nbytes):
+                split = {a for entry in ms[k]["kernel"].spec
+                         for a in spec_axes(entry)}
+                kept += size // n if "model" in split else size
+            assert kept == by_mesh[mesh_name] == whole // n
+            blocks += moe["wi"]["kernel"].shape[0]       # stacked layers
+    assert blocks == cfg.num_layers
+    # the rules put E on ``model`` only where n divides it
+    assert expert_plan(None) == ("", ())
+
+
 @pytest.mark.parametrize("h,g", [(32, 1), (32, 4), (32, 8), (32, 32),
                                  (96, 12), (24, 3)])
 def test_kv_heads_of_each_rank(h, g):

@@ -302,19 +302,25 @@ class SplitCount:
     hands the block, and the bytes the period's gathers made (a
     ``GatherCount`` around the call); the query and kv heads of every
     ``attention.attend`` call and the hidden columns of every
-    ``layers.apply_mlp`` call.  The model calls all three by their
+    ``layers.apply_mlp`` call.  For MoE blocks, per period each block's
+    ``MoESplit`` (``moe``: the mode, its range and axes, the shared
+    MLP's columns and axes), the expert kernel and expert input shapes
+    of every ``moe._expert_ffn`` call, and the expert ids and kept mask
+    of every ``moe.route`` call.  The model calls all five by their
     module attributes."""
 
     def __init__(self):
         self.periods, self.attend, self.mlp = [], [], []
+        self.moe, self.experts, self.routing = [], [], []
 
     def __enter__(self):
-        from repro_torch.models import attention, layers, transformer
+        from repro_torch.models import attention, layers, moe, transformer
         self._count = GatherCount().__enter__()
         self._saved = [(m, n, getattr(m, n)) for m, n in (
             (transformer, "materialize_period"), (attention, "attend"),
-            (layers, "apply_mlp"))]
-        (_, _, period_fn), (_, _, attend), (_, _, mlp) = self._saved
+            (layers, "apply_mlp"), (moe, "_expert_ffn"), (moe, "route"))]
+        (_, _, period_fn), (_, _, attend), (_, _, mlp), (_, _, ffn), \
+            (_, _, route) = self._saved
 
         def materialize_period(layer_params, splits):
             before = self._count.bytes
@@ -322,6 +328,7 @@ class SplitCount:
             self.periods.append((
                 tuple(_split_summary(s) for s in splits),
                 [_shapes(p) for p in params], self._count.bytes - before))
+            self.moe.append(tuple(_moe_summary(s) for s in splits))
             return params
 
         def counted_attend(q, k, *args, **kw):
@@ -332,8 +339,19 @@ class SplitCount:
             self.mlp.append(params["wi"]["kernel"].shape[-1])
             return mlp(params, x, *args, **kw)
 
+        def expert_ffn(params, xe, *args, **kw):
+            self.experts.append((tuple(params["wi"]["kernel"].shape),
+                                 tuple(xe.shape)))
+            return ffn(params, xe, *args, **kw)
+
+        def counted_route(*args, **kw):
+            r = route(*args, **kw)
+            self.routing.append((r.experts.clone(), r.keep.clone()))
+            return r
+
         for (m, n, _), fn in zip(self._saved, (materialize_period,
-                                               counted_attend, apply_mlp)):
+                                               counted_attend, apply_mlp,
+                                               expert_ffn, counted_route)):
             setattr(m, n, fn)
         return self
 
@@ -345,17 +363,101 @@ class SplitCount:
 
     def summary(self) -> dict:
         return {"periods": self.periods, "attend": sorted(set(self.attend)),
-                "mlp": sorted(set(self.mlp))}
+                "mlp": sorted(set(self.mlp)), "moe": self.moe,
+                "experts": sorted(set(self.experts)),
+                "routing": self.routing}
+
+
+def _range(s):
+    return None if s is None else (
+        s.r0, s.r1, tuple(s.mesh.mesh_dim_names[i] for i in s.dims))
 
 
 def _split_summary(split):
     if split is None:
         return None
+    return _range(split.attn), split.kv, _range(split.mlp)
 
-    def part(s):
-        return None if s is None else (
-            s.r0, s.r1, tuple(s.mesh.mesh_dim_names[i] for i in s.dims))
-    return part(split.attn), split.kv, part(split.mlp)
+
+def _moe_summary(split):
+    """A block's ``MoESplit`` as (mode, the routed range, the shared
+    MLP's range), None where the block has none."""
+    if split is None or split.moe is None:
+        return None
+    m = split.moe
+    mode = "experts" if m.experts is not None else (
+        "columns" if m.columns is not None else None)
+    return mode, _range(m.routed), _range(m.shared)
+
+
+class GradCapture:
+    """Within the block, the first gradients a train step clips
+    (``trainer.clip_by_global_norm``'s argument, which the step calls
+    by its module attribute), made whole (``gather``: under a mesh a
+    collective every rank's step calls) and copied: ``first``."""
+
+    def __init__(self):
+        self.first = None
+
+    def __enter__(self):
+        from repro_torch.checkpoint import tree_flatten, tree_unflatten
+        from repro_torch.sharding import gather
+        from repro_torch.train import trainer
+        self._module, self._clip = trainer, trainer.clip_by_global_norm
+
+        def clip(grads, *args, **kw):
+            if self.first is None:
+                whole = gather(grads)
+                self.first = tree_unflatten(whole, [
+                    x.detach().clone() for _, x in tree_flatten(whole)])
+            return self._clip(grads, *args, **kw)
+
+        trainer.clip_by_global_norm = clip
+        return self
+
+    def __exit__(self, *exc):
+        self._module.clip_by_global_norm = self._clip
+        return False
+
+
+def moe_rank_block(params, mode, n, rank, mesh=None, dims=(), batch=()):
+    """An MoE block's params (``moe.init_moe``'s tree) as rank ``rank``
+    of n holds them where its experts split by ``mode`` ("experts": EP,
+    the rank's experts [k·E/n, (k+1)·E/n); "columns": expert TP, every
+    expert's hidden columns [k·F/n, (k+1)·F/n)) and its shared MLP by
+    columns: (the rank's params, the ``MoESplit`` over the mesh dims
+    ``dims`` of ``mesh``, the step's rows over ``batch``).  The router
+    and ``shared_gate`` stay whole.  With no dims, or on a world-1 mesh,
+    ``into`` and ``out_of`` are the identity: ``apply_moe(split=)`` then
+    returns the rank's partial output."""
+    from repro_torch.sharding import MoESplit, RangeSplit
+
+    def ranks(size):
+        return rank * size // n, (rank + 1) * size // n
+
+    def cut(leaf, *idx):
+        return {"kernel": leaf["kernel"][idx].contiguous()}
+
+    wi = params["wi"]["kernel"]
+    r0, r1 = ranks(wi.shape[0] if mode == "experts" else wi.shape[-1])
+    local = dict(params)
+    for key in ("wi", "wg", "wo"):
+        if key in params:
+            local[key] = cut(params[key], slice(r0, r1)) \
+                if mode == "experts" else \
+                cut(params[key], slice(None), slice(r0, r1)) \
+                if key == "wo" else cut(params[key], ..., slice(r0, r1))
+    routed = RangeSplit(mesh, r0, r1, dims, batch)
+    shared = None
+    if "shared" in params:
+        s0, s1 = ranks(params["shared"]["wo"]["kernel"].shape[0])
+        local["shared"] = {
+            key: cut(leaf, slice(s0, s1)) if key == "wo"
+            else cut(leaf, slice(None), slice(s0, s1))
+            for key, leaf in params["shared"].items()}
+        shared = RangeSplit(mesh, s0, s1, dims, batch)
+    return local, MoESplit(routed if mode == "experts" else None,
+                           routed if mode == "columns" else None, shared)
 
 
 def _shapes(tree):
@@ -363,17 +465,25 @@ def _shapes(tree):
     return {path: tuple(x.shape) for path, x in tree_flatten(tree)}
 
 
-def split_case(model_cfg, mesh, data, tcfg=None, rules=None) -> dict:
+def split_case(model_cfg, mesh, data, tcfg=None, rules=None,
+               grads=False) -> dict:
     """``sharded_vs_one_device`` with a ``SplitCount`` around the sharded
     steps: ``split`` holds every rank's count (gathered to each rank)
-    with its mesh coordinate, ``shape`` the mesh's axis sizes."""
-    on_mesh = SplitCount()
+    with its mesh coordinate, ``shape`` the mesh's axis sizes; with
+    ``grads``, ``grads`` and ``want_grads`` the first step's gradients,
+    sharded (made whole) and on one device (``GradCapture``)."""
+    count = on_mesh = SplitCount()
+    on_one = contextlib.nullcontext()
+    if grads:
+        captured, on_one = GradCapture(), GradCapture()
+        on_mesh = _Nested(count, captured)
     full = sharded_vs_one_device(model_cfg, tcfg or train_config(), mesh,
-                                 data, rules,
-                                 (on_mesh, contextlib.nullcontext()))
+                                 data, rules, (on_mesh, on_one))
     res = _strip(full)
+    if grads:
+        res["grads"], res["want_grads"] = captured.first, on_one.first
     ranks = [None] * dist.get_world_size()
-    dist.all_gather_object(ranks, dict(on_mesh.summary(),
+    dist.all_gather_object(ranks, dict(count.summary(),
                                        coord=tuple(mesh.get_coordinate())))
     res["split"] = ranks
     res["shape"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -468,7 +578,7 @@ class _FailOnce:
 def world2(rank, directory):
     """Mesh (2, 1): AdamW, Adafactor, uneven weights, MoE, the fused MACH
     loss, a bf16 run, checkpoints, a restart, the entry points; (1, 2):
-    the MACH head and the decoder split."""
+    the MACH head, the decoder split and the MoE experts split."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
@@ -508,6 +618,11 @@ def world2(rank, directory):
                                                batches(bf16, 2)))
     out.update(head_split_world2())
     out.update(decoder_split_world2(tiny, bf16))
+    qwen = model_config("qwen2-moe-a2.7b")
+    # (1, 2): 3 of qwen2-moe's 6 experts a rank (EP), its shared MLP and
+    # attention split too
+    out["moe12"] = split_case(qwen, _mesh((1, 2)), batches(qwen, 2),
+                              grads=True)
     out["mesh_view"] = resolve_spec(
         mesh, ShardingRules().table(mesh), ("embed", "mlp"), (64, 128))
     out["init"] = {
@@ -609,6 +724,20 @@ def head_split_world4() -> dict:
     return out
 
 
+def moe_split_world4(m22) -> dict:
+    """The MoE experts split on ``model``: qwen2-moe on (1, 4), where 4
+    does not divide its 6 experts, by 12 of every expert's 48 columns
+    (expert TP); mixtral on (1, 4) by one of its 4 experts a rank (EP),
+    its attention cutting a kv head from the whole k and v; qwen2-moe
+    on (2, 2), FSDP on ``data`` and 3 experts a rank on ``model``."""
+    qwen, mix = model_config("qwen2-moe-a2.7b"), model_config("mixtral-8x22b")
+    m14 = _mesh((1, 4))
+    return {"moe14": split_case(qwen, m14, batches(qwen, 2), grads=True),
+            "moe14_mixtral": split_case(mix, m14, batches(mix, 2),
+                                        grads=True),
+            "moe22": split_case(qwen, m22, batches(qwen, 2), grads=True)}
+
+
 def _strip(res):
     return {k: res[k] for k in ("metrics", "params", "want", "gathered")}
 
@@ -702,7 +831,8 @@ def step_collectives(model_cfg, mesh) -> dict:
 
 def world4(rank, directory):
     """Meshes (4, 1), (2, 2) (the decoder split) and (2, 2, 1) with a pod
-    axis; (1, 4) with the decoder split four ways; the world-2
+    axis; (1, 4) with the decoder split four ways; the MoE experts split
+    on (1, 4) and (2, 2); the world-2
     checkpoint restored here; a state moved between meshes; the rows a
     rank holds of a dim over (pod, data)."""
     from torch.distributed.tensor import distribute_tensor
@@ -732,6 +862,7 @@ def world4(rank, directory):
     out["init"] = {"adamw": init_matches_placing_all(tiny, train_config(),
                                                      m22)}
     out.update(head_split_world4())
+    out.update(moe_split_world4(m22))
 
     # the world-2 checkpoint into world-4 templates and by shardings=
     model = LanguageModel(tiny)

@@ -2,15 +2,18 @@
 beside how far one float32 ulp moves them on one device.
 
 For the smoke tinyllama-1.1b, the same with its MACH head (unfused, and
-with the fused loss), and recurrentgemma-2b (float32, ``remat="full"``, at least 4
-layers, two AdamW steps; ``tests/torch_multidevice_ranks.py``'s configs
-and data), it prints the share of param entries that end more than 1e-6
+with the fused loss), recurrentgemma-2b, qwen2-moe-a2.7b and
+mixtral-8x22b (float32, ``remat="full"``, at least 4 layers, two AdamW
+steps; ``tests/torch_multidevice_ranks.py``'s configs and data), it
+prints the share of param entries that end more than 1e-6
 of their leaf's largest entry away from the plain single-device run
 (the measure of ``test_torch_multidevice.py``'s ``_hold``):
 - "one ulp": one device, every block's output moved up by one float32
   ulp (``torch.nextafter``) in the forward and in remat's recompute;
 - "split (1, 2)": ``Trainer(mesh=)`` on a CPU ``gloo`` world of two
-  ranks, mesh (1, 2), the decoder split by heads and hidden.
+  ranks, mesh (1, 2), the decoder split by heads and hidden (and the
+  MoE configs' experts by expert: 3 of qwen2-moe's 6 a rank, 2 of
+  mixtral's 4).
 Entries whose two-step update is set by float32 noise (a gradient that
 cancels to about Adam's eps once clipped) make up both shares.  No
 timing: a CPU run.
@@ -33,7 +36,7 @@ import torch  # noqa: E402
 import torch_multidevice_ranks as ranks  # noqa: E402
 
 CASES = ("tinyllama-1.1b", "tinyllama-1.1b MACH", "tinyllama-1.1b MACH fused",
-         "recurrentgemma-2b")
+         "recurrentgemma-2b", "qwen2-moe-a2.7b", "mixtral-8x22b")
 
 
 def _config(case):
