@@ -6177,17 +6177,34 @@ MD_MOE_SPLITS = {2: "experts", 4: "experts", 8: "columns"}
 # the n ranks' float32 partial outputs summed, against the whole block:
 # rtol, and atol of the largest entry
 MD_MOE_F32_RTOL = 1e-5
+# the RG-LRU split by channels: kernel 9 as each rank launches it at
+# recurrentgemma-2b's training shape (B, T, W), float32 as ``_rglru``
+# feeds it; one RG-LRU block at a rank's shapes (MD_LAYER_SPLITS); its
+# one-period cut (rglru, rglru, attn_local) at full width with the MACH
+# head, MD_RG_STEPS AdamW steps unsharded and sharded at world 1
+MD_RG_ARCH = "recurrentgemma-2b"
+MD_SCAN_SHAPE = (MD_BATCH, MD_SEQ, 2560)
+MD_RG_STEPS = 3
+MD_RG_KERNELS = ("lru_scan", "lru_scan_bwd", "mach_xent_fwd",
+                 "mach_xent_bwd", "flash_attention", "flash_attention_bwd")
+# the enc-dec's cross-attention split by heads: kernel 10 at
+# seamless-m4t-large-v2's training cross shape (B, T queries, S keys, H,
+# KV, hd), bf16, non-causal, on a rank's H/n heads and KV/n kv heads
+MD_XATTN_SHAPE = (MD_BATCH, MD_SEQ, 1024, 16, 16, 64)
 
 
 def _md_launchers() -> dict:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
     from repro_torch.kernels import mach_fused_xent as mfx
     from repro_torch.kernels import mach_xent as mx
     return {"mach_xent_fwd": mx.mach_xent_cuda_fwd,
             "mach_xent_bwd": mx.mach_xent_cuda_bwd,
             "flash_attention": fa.flash_attention_cuda,
             "flash_attention_bwd": fa.flash_attention_bwd_cuda,
-            "dense_fwd": mfx.dense_fwd_cuda, "dense_bwd": mfx.dense_bwd_cuda}
+            "dense_fwd": mfx.dense_fwd_cuda, "dense_bwd": mfx.dense_bwd_cuda,
+            "lru_scan": ls.lru_scan_cuda,
+            "lru_scan_bwd": ls.lru_scan_bwd_cuda}
 
 
 def _md_bf16_rule(got, want) -> tuple[float, float]:
@@ -6552,63 +6569,46 @@ class _SplitMoECalls:
         return False
 
 
-def _md_moe_train(dev, smi, mesh, rules) -> dict:
-    """Phase 14's qwen2-moe-a2.7b cut (MOE_CUT layers at full width,
-    bf16, remat, its MACH head) trained MOE_TRAIN_STEPS AdamW steps on
+def _md_cut_train(dev, smi, mesh, rules, cfg, label, kernels, per_step,
+                  calls, steps) -> dict:
+    """``cfg`` (a full-width cut) trained ``steps`` AdamW steps on
     MD_BATCH x MD_SEQ tokens from seed 0's state through the unsharded
-    ``Trainer``, then, launch counters from 0, through ``Trainer(mesh=)``
-    on the world-1 ``mesh``: each MoE block's experts split by expert
-    with n = 1 (the rules shard E = 60 on a ``model`` axis of one), the
-    attention by heads and the shared MLP by columns, the head by
-    repetition.  Losses, params and moments the same bits (compared on
-    the card); kernels 3 and 10 launched; ms a step and the peak both
-    ways."""
+    ``Trainer``, then, the ``kernels`` (``_md_launchers`` names) counted
+    from 0, through ``Trainer(mesh=)`` on the world-1 ``mesh``, each
+    run inside a fresh ``calls()`` (a context manager counting how the
+    blocks split).  Losses, params and moments compared on the card;
+    fails unless they are the same bits and every kernel launched
+    ``per_step`` times a step.  Returns both runs, the launches, both
+    ``calls`` counters and the unsharded state's GiB (kept on the card
+    for the comparison: the sharded run's peak includes it)."""
     from repro_torch.checkpoint import tree_flatten
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.models import LanguageModel
     from repro_torch.sharding import gather
     from repro_torch.train import TrainConfig, Trainer
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CUT)
     model = LanguageModel(cfg)
-    tcfg = TrainConfig(total_steps=MOE_TRAIN_STEPS, warmup_steps=2,
-                       peak_lr=3e-4, log_every=MOE_TRAIN_STEPS)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, peak_lr=3e-4,
+                       log_every=steps)
     stream = launch_train.data_stream(cfg, MD_SEQ, MD_BATCH, 0, dev)
-    label = (f"{MOE_ARCH} cut to {MOE_CUT} layers ({cfg.num_experts} "
-             f"experts of d_ff {cfg.moe_d_ff}, top-{cfg.experts_top_k}, "
-             f"{cfg.num_shared_experts} shared of {cfg.shared_d_ff}; MACH "
-             f"B={cfg.mach.num_buckets} R={cfg.mach.num_repetitions})")
-    with _SplitMoECalls() as one:
+    with calls() as one:
         unsharded, un = _md_train(f"{label}, unsharded Trainer",
                                   Trainer(model, tcfg), stream, dev, smi,
-                                  steps=MOE_TRAIN_STEPS)
-    # the unsharded state stays on the card for the comparison: the
-    # sharded run's peak includes it
+                                  steps=steps)
     resident = torch.cuda.memory_allocated(dev) / 2**30
-    kernels = {name: fn for name, fn in _md_launchers().items()
-               if name in MOE_KERNELS}
-    for fn in kernels.values():
+    counted = {name: fn for name, fn in _md_launchers().items()
+               if name in kernels}
+    for fn in counted.values():
         fn.launches = 0
-    with _SplitMoECalls() as split:
+    with calls() as split:
         sharded, sh = _md_train(f"{label}, sharded Trainer(mesh=)",
                                 Trainer(model, tcfg, mesh=mesh, rules=rules),
-                                stream, dev, smi, steps=MOE_TRAIN_STEPS)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    n_moe = cfg.layout().count("moe")
-    per_step = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
-                "flash_attention": 2 * n_moe, "flash_attention_bwd": n_moe}
+                                stream, dev, smi, steps=steps)
+    launches = {name: fn.launches for name, fn in counted.items()}
     for name, want in per_step.items():
-        if launches[name] != want * MOE_TRAIN_STEPS:
-            fail(f"multidevice moe: {name} launched {launches[name]} times "
-                 f"in the sharded run, expected {want} a step")
-    # forward and remat's recompute of every MoE block, every step
-    calls = 2 * n_moe * MOE_TRAIN_STEPS
-    if split.counts["experts"] != calls or one.counts["unsplit"] != calls \
-            or split.ranges != {("experts", 0, cfg.num_experts)}:
-        fail(f"multidevice moe: the MoE blocks ran {split.counts} sharded "
-             f"({split.ranges}) and {one.counts} unsharded, expected "
-             f"{calls} calls split by expert over all {cfg.num_experts}")
+        if launches[name] != want * steps:
+            fail(f"multidevice {cfg.name}: {name} launched {launches[name]} "
+                 f"times in the sharded run, expected {want} a step")
     differ = []
     for (path, x), (_, y) in zip(tree_flatten(gather(sharded)),
                                  tree_flatten(unsharded)):
@@ -6618,7 +6618,7 @@ def _md_moe_train(dev, smi, mesh, rules) -> dict:
     torch.cuda.synchronize()
     same = not differ and sh["losses"] == un["losses"]
     slower = sh["step_ms"] / un["step_ms"] - 1.0
-    print(f"multidevice moe: sharded vs unsharded after {MOE_TRAIN_STEPS} "
+    print(f"multidevice {cfg.name}: sharded vs unsharded after {steps} "
           f"steps: losses "
           f"{'equal' if sh['losses'] == un['losses'] else 'differ'}, "
           f"params and moments "
@@ -6626,18 +6626,296 @@ def _md_moe_train(dev, smi, mesh, rules) -> dict:
           f"{un['step_ms']:.3f} ms a step unsharded, {sh['step_ms']:.3f} "
           f"sharded ({slower:+.2%}), peak {un['peak_gib']:.2f} / "
           f"{sh['peak_gib']:.2f} GiB (the latter with the unsharded "
-          f"state's {resident:.2f} GiB kept); MoE blocks split by expert "
-          f"(n = 1) {split.counts['experts']} calls; launches on the "
-          f"sharded path "
+          f"state's {resident:.2f} GiB kept); launches on the sharded path "
           f"{launches} (a step: {per_step}) [{smi}]", flush=True)
     del sharded, unsharded
     torch.cuda.empty_cache()
     if not same:
-        fail(f"multidevice moe: at world size 1 the sharded step is not the "
-             f"single-device step bit for bit ({differ[:8]})")
+        fail(f"multidevice {cfg.name}: at world size 1 the sharded step is "
+             f"not the single-device step bit for bit ({differ[:8]})")
     return {"unsharded": un, "sharded": sh, "same_bits": same,
             "launches": launches, "launches_per_step": per_step,
-            "calls": split.counts, "resident_gib": resident}
+            "one": one, "split": split, "resident_gib": resident}
+
+
+def _md_moe_train(dev, smi, mesh, rules) -> dict:
+    """Phase 14's qwen2-moe-a2.7b cut (MOE_CUT layers at full width,
+    bf16, remat, its MACH head) through ``_md_cut_train`` for
+    MOE_TRAIN_STEPS steps: each MoE block's experts split by expert
+    with n = 1 (the rules shard E = 60 on a ``model`` axis of one), the
+    attention by heads and the shared MLP by columns, the head by
+    repetition; kernels 3 and 10 counted."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CUT)
+    label = (f"{MOE_ARCH} cut to {MOE_CUT} layers ({cfg.num_experts} "
+             f"experts of d_ff {cfg.moe_d_ff}, top-{cfg.experts_top_k}, "
+             f"{cfg.num_shared_experts} shared of {cfg.shared_d_ff}; MACH "
+             f"B={cfg.mach.num_buckets} R={cfg.mach.num_repetitions})")
+    n_moe = cfg.layout().count("moe")
+    per_step = {"mach_xent_fwd": 1, "mach_xent_bwd": 1,
+                "flash_attention": 2 * n_moe, "flash_attention_bwd": n_moe}
+    res = _md_cut_train(dev, smi, mesh, rules, cfg, label, MOE_KERNELS,
+                        per_step, _SplitMoECalls, MOE_TRAIN_STEPS)
+    one, split = res.pop("one"), res.pop("split")
+    # forward and remat's recompute of every MoE block, every step
+    calls = 2 * n_moe * MOE_TRAIN_STEPS
+    print(f"multidevice moe: MoE blocks split by expert (n = 1) "
+          f"{split.counts['experts']} calls", flush=True)
+    if split.counts["experts"] != calls or one.counts["unsplit"] != calls \
+            or split.ranges != {("experts", 0, cfg.num_experts)}:
+        fail(f"multidevice moe: the MoE blocks ran {split.counts} sharded "
+             f"({split.ranges}) and {one.counts} unsharded, expected "
+             f"{calls} calls split by expert over all {cfg.num_experts}")
+    return dict(res, calls=split.counts)
+
+
+class _SplitRGLRUCalls:
+    """Within the block, the ``recurrent.apply_rglru_block`` calls (the
+    model calls it by its module attribute): ``split`` those with a
+    split, their channel ranges in ``ranges``, ``whole`` the rest."""
+
+    def __enter__(self):
+        from repro_torch.models import recurrent
+        self.split = self.whole = 0
+        self.ranges = set()
+        self._module, self._fn = recurrent, recurrent.apply_rglru_block
+
+        def counted(params, x, state=None, split=None):
+            if split is None:
+                self.whole += 1
+            else:
+                self.split += 1
+                self.ranges.add((split.r0, split.r1))
+            return self._fn(params, x, state, split=split)
+
+        recurrent.apply_rglru_block = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._module.apply_rglru_block = self._fn
+        return False
+
+
+def _md_rglru_train(dev, smi, mesh, rules) -> dict:
+    """recurrentgemma-2b's one period, (rglru, rglru, attn_local), at
+    full width with its MACH head (bf16, remat) through
+    ``_md_cut_train`` for MD_RG_STEPS steps: each RG-LRU block split by
+    channels with n = 1 (the rules shard W = 2,560 on a ``model`` axis
+    of one), the MLP by columns, the head by repetition (the 10 heads
+    whole); kernels 9, 3 and 10 counted."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MD_RG_ARCH)
+    cfg = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern))
+    label = (f"{MD_RG_ARCH} cut to one period {cfg.block_pattern} (RG-LRU "
+             f"width {cfg.resolved_rnn_width}; MACH "
+             f"B={cfg.mach.num_buckets} R={cfg.mach.num_repetitions})")
+    n_rg = cfg.layout().count("rglru")
+    n_attn = cfg.num_layers - n_rg
+    per_step = {"lru_scan": 2 * n_rg, "lru_scan_bwd": n_rg,
+                "mach_xent_fwd": 1, "mach_xent_bwd": 1,
+                "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    res = _md_cut_train(dev, smi, mesh, rules, cfg, label, MD_RG_KERNELS,
+                        per_step, _SplitRGLRUCalls, MD_RG_STEPS)
+    one, split = res.pop("one"), res.pop("split")
+    calls = 2 * n_rg * MD_RG_STEPS
+    w = cfg.resolved_rnn_width
+    print(f"multidevice {MD_RG_ARCH}: RG-LRU blocks split by channels (n = "
+          f"1, channels {sorted(split.ranges)}) {split.split} calls, "
+          f"kernel 9 launched {res['launches']['lru_scan']} + "
+          f"{res['launches']['lru_scan_bwd']} (fwd + bwd) on the split "
+          f"path", flush=True)
+    if split.split != calls or split.whole or one.whole != calls \
+            or split.ranges != {(0, w)}:
+        fail(f"multidevice {MD_RG_ARCH}: the RG-LRU blocks ran {split.split} "
+             f"split ({split.ranges}) and {split.whole} whole sharded, "
+             f"{one.whole} unsharded; expected {calls} split over all {w} "
+             f"channels")
+    return dict(res, calls={"split": split.split, "whole": split.whole})
+
+
+def _md_scan_per_rank(dev, smi) -> dict:
+    """Kernel 9 as each rank of recurrentgemma-2b's RG-LRU split n ways
+    by channels launches it (MD_SCAN_SHAPE, float32; n in MD_SPLITS):
+    forward and backward on each rank's channels [k·W/n, (k+1)·W/n) in
+    turn, against the whole kernels on the same inputs: h, da, dx and
+    dh0 must be the whole kernels' channels bit for bit (every channel's
+    recurrence is its own, and each step rounds its product and its sum
+    alone, as the plain version does).  Each rank's forward and backward
+    ms (CUDA events; mean of the n) beside the whole kernel's and its
+    own bound.  Not counted on the path."""
+    from repro_torch.kernels import lru_scan as ls
+    b, t, w = MD_SCAN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(41)
+    a = torch.rand((b, t, w), generator=gen, device=dev) * 0.5 + 0.5
+    x = torch.randn((b, t, w), generator=gen, device=dev)
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+    dh = torch.randn((b, t, w), generator=gen, device=dev)
+    h = ls.lru_scan_cuda(a, x, h0)
+    whole_bwd = ls.lru_scan_bwd_cuda(a, h, h0, dh)
+
+    def times(aa, xx, hh0, hh, ddh):
+        return {"fwd": kernel_ms(lambda: ls.lru_scan_cuda(aa, xx, hh0)),
+                "bwd": kernel_ms(lambda: ls.lru_scan_bwd_cuda(aa, hh, hh0,
+                                                              ddh))}
+
+    def bounds(d):
+        return {"fwd": (3 * b * t * d * 4 + b * d * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                "bwd": (5 * b * t * d * 4 + 2 * b * d * 4)
+                / HBM_BYTES_PER_S * 1e3}
+
+    res = {"whole": {"ms": times(a, x, h0, h, dh), "bound_ms": bounds(w)},
+           "shape": f"(B, T, W)=({b}, {t}, {w}) float32"}
+    for n in MD_SPLITS:
+        per = w // n
+        ranks = []
+        for k in range(n):
+            c = slice(k * per, (k + 1) * per)
+            ra, rx, rh0, rdh = (z[..., c].contiguous()
+                                for z in (a, x, h0, dh))
+            rh = ls.lru_scan_cuda(ra, rx, rh0)
+            got = (rh,) + ls.lru_scan_bwd_cuda(ra, rh, rh0, rdh)
+            torch.cuda.synchronize()
+            for name, g, want in zip(("h", "da", "dx", "dh0"), got,
+                                     (h,) + whole_bwd):
+                if not torch.equal(g, want[..., c]):
+                    fail(f"multidevice: kernel 9 on channels [{c.start}, "
+                         f"{c.stop}) of {n} ranges: {name} is not the whole "
+                         f"kernel's bit for bit (max err "
+                         f"{float((g - want[..., c]).abs().max()):.3e})")
+            ranks.append({"channels": [c.start, c.stop],
+                          "ms": times(ra, rx, rh0, rh, rdh)})
+            del ra, rx, rh0, rdh, rh, got
+        mean = {key: statistics.mean(r["ms"][key] for r in ranks)
+                for key in ("fwd", "bwd")}
+        out_n = {"ranks": ranks, "mean_ms": mean, "bound_ms": bounds(per),
+                 "bit_for_bit": True}
+        res[f"n={n}"] = out_n
+        print(f"multidevice: kernel 9 on a rank's channels, {n} ways ({per} "
+              f"of {w}, {res['shape']}): ms a rank (mean of {n}) "
+              + ", ".join(f"{key} {mean[key]:.4f} "
+                          f"({mean[key] / res['whole']['ms'][key]:.3f} of "
+                          f"the whole {res['whole']['ms'][key]:.4f}; bound "
+                          f"{out_n['bound_ms'][key]:.4f})" for key in mean)
+              + f"; h, da, dx, dh0 the whole kernels' bit for bit [{smi}]",
+              flush=True)
+    del a, x, h0, dh, h, whole_bwd
+    torch.cuda.empty_cache()
+    return res
+
+
+def _md_xattn_per_rank(dev, smi) -> dict:
+    """Kernel 10 as each rank of seamless-m4t-large-v2's cross-attention
+    split n ways by heads launches it (MD_XATTN_SHAPE: H/n query and
+    KV/n kv heads; n in MD_SPLITS) and whole, non-causal at S != T, bf16,
+    forward and backward, each held to the plain version by phases 7
+    and 9's rules and timed beside its bound (``_flash_times``; every
+    rank's shape is the same, MHA).  Not counted on the path."""
+    b, t, s, h, kv, hd = MD_XATTN_SHAPE
+    cases = [(f"seamless cross {h // n} of {h} heads", b, t, s, h // n,
+              kv // n, hd, False, True, torch.bfloat16)
+             for n in (1,) + MD_SPLITS]
+    rows = _flash_times(dev, smi, cases)
+    res = {"shape": f"q ({b}, {t}, H/n, {hd}), k/v ({b}, {s}, KV/n, {hd}) "
+                    f"bfloat16, non-causal"}
+    for n, row in zip((1,) + MD_SPLITS, rows.values()):
+        res["whole" if n == 1 else f"n={n}"] = {
+            key: row[key] for key in ("ms", "bwd_ms", "bound_ms",
+                                      "bwd_bound_ms", "plain_ms",
+                                      "bwd_plain_ms", "library_ms",
+                                      "bwd_library_ms", "bf16_row_ulps",
+                                      "bwd_ulps", "max_abs_err")}
+    whole = res["whole"]
+    print(f"multidevice: kernel 10 on a rank's cross-attention heads "
+          f"({res['shape']}), held to plain: " + "; ".join(
+              f"n={n} fwd {res[f'n={n}']['ms']:.4f} "
+              f"({res[f'n={n}']['ms'] / whole['ms']:.3f} of the whole "
+              f"{whole['ms']:.4f}; bound {res[f'n={n}']['bound_ms']:.4f}), "
+              f"bwd {res[f'n={n}']['bwd_ms']:.4f} "
+              f"({res[f'n={n}']['bwd_ms'] / whole['bwd_ms']:.3f} of "
+              f"{whole['bwd_ms']:.4f}; bound "
+              f"{res[f'n={n}']['bwd_bound_ms']:.4f})" for n in MD_SPLITS)
+          + f" [{smi}]", flush=True)
+    return res
+
+
+def _md_rglru_block(dev, smi, mesh) -> dict:
+    """One recurrentgemma-2b RG-LRU block (kind "rglru": the RG-LRU and
+    its MLP; full width, bf16 params and activations, MD_BATCH x MD_SEQ
+    tokens) forward and backward (every input's and param's gradient)
+    through ``transformer.apply_block(split=)`` at rank 0's shapes of
+    the split n ways (n in MD_LAYER_SPLITS): its channels of every
+    RG-LRU leaf and its MLP columns, a ``BlockSplit`` of the port's
+    ``RangeSplit``s on the world-1 ``mesh`` (no collectives; each gate's
+    partial is cut to the rank's channels, what it computes).  At n = 1
+    the output must be the whole block's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.sharding import BlockSplit, RangeSplit
+    from torch_multidevice_ranks import rglru_channels
+
+    cfg = get_config(MD_RG_ARCH)
+    w, f = cfg.resolved_rnn_width, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(43)
+    block = transformer.tree_map(
+        lambda z: z.to(cfg.param_dtype),
+        transformer.init_block(gen, cfg, "rglru", dev))
+    x = torch.randn((MD_BATCH, MD_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
+    pos = torch.arange(MD_SEQ, dtype=torch.int32,
+                       device=dev)[None].expand(MD_BATCH, -1)
+    names = mesh.mesh_dim_names
+    dims, batch = (names.index("model"),), (names.index("data"),)
+    with torch.no_grad():
+        whole = transformer.apply_block(block, cfg, "rglru", x, pos)[0]
+    out = {"shape": f"{MD_RG_ARCH} RG-LRU block (W {w}, d_ff {f}), "
+                    f"{MD_BATCH} x {MD_SEQ} tokens, bf16"}
+    for n in MD_LAYER_SPLITS:
+        c1, m1 = w // n, f // n
+        m = block["mlp"]
+        local = {"norm1": block["norm1"], "norm2": block["norm2"],
+                 "rglru": rglru_channels(block["rglru"], 0, c1),
+                 "mlp": {key: {"kernel": m[key]["kernel"][:, :m1]
+                               .contiguous()} for key in ("wi", "wg")}
+                 | {"wo": {"kernel": m["wo"]["kernel"][:m1].contiguous()}}}
+        split = BlockSplit(None, None, RangeSplit(mesh, 0, m1, dims, batch),
+                           rglru=RangeSplit(mesh, 0, c1, dims, batch))
+        local = transformer.tree_map(
+            lambda z: z.detach().clone().requires_grad_(True), local)
+        leaves = _leaves(local)
+        xg = x.detach().clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y = transformer.apply_block(local, cfg, "rglru", xg, pos,
+                                        split=split)[0]
+            return torch.autograd.grad(y, [xg] + leaves, dy)
+
+        ms = kernel_ms(fwd_bwd, iters=5, warmup=2)
+        with torch.no_grad():
+            got = transformer.apply_block(local, cfg, "rglru", x, pos,
+                                          split=split)[0]
+        if not torch.isfinite(got.float()).all():
+            fail(f"multidevice: rank 0's RG-LRU block at n = {n} is not "
+                 f"finite")
+        if n == 1 and not torch.equal(got, whole):
+            fail("multidevice: rank 0's RG-LRU block at n = 1 is not the "
+                 "whole block bit for bit")
+        out[f"n={n}"] = {"ms": ms}
+        del local, leaves, xg, got
+        torch.cuda.empty_cache()
+    base = out["n=1"]["ms"]
+    print(f"multidevice: one RG-LRU block forward + backward at rank 0's "
+          f"shapes ({out['shape']}): "
+          + ", ".join(f"n={n} {out[f'n={n}']['ms']:.3f} ms "
+                      f"({out[f'n={n}']['ms'] / base:.3f} of n=1)"
+                      for n in MD_LAYER_SPLITS)
+          + f"; n=1 == the whole block bit for bit [{smi}]", flush=True)
+    del block, x, dy, whole
+    torch.cuda.empty_cache()
+    return out
 
 
 def _md_moe_block(dev, smi, mesh) -> dict:
@@ -6923,7 +7201,9 @@ def phase_multidevice(dev) -> dict:
     smi = _nvidia_smi()
     out = {"flash": _flash_times(dev, smi, MD_FLASH),
            "per_range": _md_per_range(dev, smi),
-           "flash_per_rank": _md_flash_per_rank(dev, smi)}
+           "flash_per_rank": _md_flash_per_rank(dev, smi),
+           "scan_per_rank": _md_scan_per_rank(dev, smi),
+           "xattn_per_rank": _md_xattn_per_rank(dev, smi)}
     torch.cuda.empty_cache()
     cfg = get_config(MD_ARCH, mach="on")
     fused_cfg = dataclasses.replace(cfg, mach_fused_loss=True,
@@ -6939,6 +7219,7 @@ def phase_multidevice(dev) -> dict:
                                     mesh_dim_names=("data", "model"))
             rules = ShardingRules(fsdp=True, sp=False)
             out["layer"] = _md_layer_times(dev, smi, mesh)
+            out["rglru_block"] = _md_rglru_block(dev, smi, mesh)
             print(f"multidevice: {MD_ARCH} (MACH B={cfg.mach.num_buckets} "
                   f"R={cfg.mach.num_repetitions}, {cfg.num_layers} layers, "
                   f"{cfg.param_dtype} params, float32 moments, "
@@ -6958,7 +7239,8 @@ def phase_multidevice(dev) -> dict:
                 Trainer(fused_model, tcfg), stream, dev, smi,
                 steps=MD_FUSED_STEPS)
             del state
-            launchers = _md_launchers()
+            launchers = {name: fn for name, fn in _md_launchers().items()
+                         if name in MD_KERNELS}
             for fn in launchers.values():
                 fn.launches = 0
             state, out["sharded_fused"] = _md_train(
@@ -7043,6 +7325,10 @@ def phase_multidevice(dev) -> dict:
             out["moe_seconds"] = time.perf_counter() - t1
             print(f"multidevice: the MoE experts' parts in "
                   f"{out['moe_seconds']:.1f} s", flush=True)
+            t1 = time.perf_counter()
+            out["rglru"] = _md_rglru_train(dev, smi, mesh, rules)
+            print(f"multidevice: the RG-LRU cut in "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
         finally:
             dist.destroy_process_group()
         del host
@@ -7117,10 +7403,13 @@ def _md_report(out, smi) -> None:
 
 def _add_multidevice_launches(rows, md) -> None:
     """Rows 3, 4 (its LM-head row) and 10 gain their launches on phase
-    17's sharded path, rows 3 and 10 on its sharded qwen2-moe path; row
-    10 its check and times at that path's shape,
-    on each rank's heads of the decoder split 2, 4 and 8 ways, and one
-    decoder layer's at rank 0's shapes; rows 3 and 4 their times on each
+    17's sharded path, rows 3 and 10 on its sharded qwen2-moe path, rows
+    3, 9 and 10 on its sharded recurrentgemma-2b cut; row 10 its check
+    and times at that path's shape, on each rank's heads of the decoder
+    split and of seamless's cross-attention split 2, 4 and 8 ways, and
+    one decoder layer's at rank 0's shapes; row 9 its times on each
+    rank's channels of the RG-LRU split 2, 4 and 8 ways and one RG-LRU
+    block's at rank 0's shapes; rows 3 and 4 their times on each
     repetition range of the head split 2, 4 and 8 ways, beside the whole
     kernel's."""
     per = md["per_range"]
@@ -7131,9 +7420,15 @@ def _add_multidevice_launches(rows, md) -> None:
             row["launches_multidevice"] = md["launches"][name]
         if name in md["moe"]["launches"]:
             row["launches_multidevice_moe"] = md["moe"]["launches"][name]
+        if name in md["rglru"]["launches"]:
+            row["launches_multidevice_rglru"] = md["rglru"]["launches"][name]
+        if name == "lru_scan":
+            row["per_rank_multidevice"] = md["scan_per_rank"]
+            row["block_per_rank_multidevice"] = md["rglru_block"]
         if name == "flash_attention":
             row["multidevice_shape"] = md["flash"]
             row["per_rank_multidevice"] = md["flash_per_rank"]
+            row["cross_per_rank_multidevice"] = md["xattn_per_rank"]
             row["layer_per_rank_multidevice"] = md["layer"]
         if name == "mach_fused_xent_dense" and "train_step_ms" not in row:
             row["launches_multidevice"] = (md["launches"]["dense_fwd"]

@@ -167,15 +167,32 @@ class LanguageModel:
         output, stacked on the layer axis like the params: a loop over
         that axis where the JAX package ``vmap``s ``cross_kv``.  Each
         layer's k / v weights are gathered at their use; autograd keeps
-        them to the backward (as the ``vmap`` holds every layer's)."""
-        out = []
+        them to the backward (as the ``vmap`` holds every layer's).
+        Where a sharded step splits the cross-attention by heads
+        (``partitioning.block_split``'s ``xattn``), the rank gathers k and
+        v keeping the split's mesh dims and computes only its kv heads
+        (cut by ``xkv`` from a whole k and v): the encoder output goes
+        into the split once for every layer, so the backward sums its
+        gradient over the split's ranks once."""
+        out, into = [], {}
         for p_list in params["stacks"]:
             st = []
             for pp in p_list:
                 n = pp["xattn"]["k"]["kernel"].shape[0]
-                kv = {w: pp["xattn"][w] for w in ("k", "v")}
-                kvs = [cross_kv({"xattn": partitioning.materialize(layer)},
-                                enc_out) for layer in unstack(kv, n)]
+                slices = unstack({"xattn": pp["xattn"]}, n)
+                split = partitioning.block_split(slices[0])
+                xs = split.xattn if split is not None else None
+                if xs is None:
+                    kvs = [cross_kv({"xattn": partitioning.materialize(
+                        {w: layer["xattn"][w] for w in ("k", "v")})},
+                        enc_out) for layer in slices]
+                else:
+                    if xs.dims not in into:
+                        into[xs.dims] = xs.into(enc_out)
+                    kvs = [cross_kv({"xattn": partitioning.materialize(
+                        {w: layer["xattn"][w] for w in ("k", "v")},
+                        keep=xs.dims)}, into[xs.dims], split.xkv)
+                        for layer in slices]
                 st.append(tuple(torch.stack(x) for x in zip(*kvs)))
             out.append(st)
         return out

@@ -11,7 +11,10 @@ RG-LRU (paper eq. 1-4):
 
 The recurrence runs through ``kernels/ops.lru_scan`` (kernel 9 on the
 card).  Decode carries (conv tail, h) as state.  A state passed in is
-updated in place and returned.
+updated in place and returned.  Under a sharded step the block may run
+on a rank's channels (``apply_rglru_block(split=)``): every channel's
+recurrence is its own, so kernel 9 on a rank's channels does the whole
+kernel's work on them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.sharding import partitioning
 
 _C = 8.0
 _CONV_W = 4
@@ -77,12 +81,22 @@ def _causal_conv(params: dict, x: torch.Tensor, tail: Optional[torch.Tensor]
     return y, xp[:, -(_CONV_W - 1):]
 
 
-def _rglru(params: dict, xi: torch.Tensor, h0: torch.Tensor
+def _gate(params: dict, xi: torch.Tensor,
+          split: Optional[partitioning.RangeSplit]) -> torch.Tensor:
+    """A gate's pre-activation: xi @ W; on a split, the rank's rows of W
+    give a partial (B, T, W), summed onto the rank's channels."""
+    g = layers.dense(params, xi)
+    return g if split is None else split.onto_range(g)
+
+
+def _rglru(params: dict, xi: torch.Tensor, h0: torch.Tensor,
+           split: Optional[partitioning.RangeSplit] = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """xi: (B, T, W) conv output; h0: (B, W).  Returns (h_seq in xi's
-    dtype, h_last float32)."""
-    r = torch.sigmoid(layers.dense(params["gate_a"], xi).to(torch.float32))
-    i = torch.sigmoid(layers.dense(params["gate_x"], xi).to(torch.float32))
+    dtype, h_last float32).  ``split``: xi and ``params`` hold the rank's
+    channels (gate_a's and gate_x's rows)."""
+    r = torch.sigmoid(_gate(params["gate_a"], xi, split).to(torch.float32))
+    i = torch.sigmoid(_gate(params["gate_x"], xi, split).to(torch.float32))
     log_a = -_C * F.softplus(params["lam"]["log"]) * r          # (B, T, W)
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -92,10 +106,20 @@ def _rglru(params: dict, xi: torch.Tensor, h0: torch.Tensor
 
 
 def apply_rglru_block(params: dict, x: torch.Tensor,
-                      state: Optional[RecurrentState] = None
+                      state: Optional[RecurrentState] = None,
+                      split: Optional[partitioning.RangeSplit] = None
                       ) -> tuple[torch.Tensor, RecurrentState]:
     """x: (B, T, d_model) -> (y, state).  ``state=None`` starts at zero
-    and returns a new state; a given state is updated in place."""
+    and returns a new state; a given state is updated in place.
+
+    ``split`` (a sharded step's ``BlockSplit.rglru``, no state; then
+    ``params`` hold the rank's shards) computes the rank's channels
+    [r0, r1): x goes into the split (dx summed over its ranks in the
+    backward), lin_y, lin_x, the conv, Λ and kernel 9 run on its W/n
+    channels, the gates on its rows (``_gate``), and the partial output
+    of its rows of lin_out comes out summed, so y is whole."""
+    if split is not None:
+        x = split.into(x)
     b = x.shape[0]
     w = params["lin_y"]["kernel"].shape[1]
     ybr = layers.gelu(layers.dense(params["lin_y"], x))
@@ -104,8 +128,10 @@ def apply_rglru_block(params: dict, x: torch.Tensor,
     h0 = state.h if state is not None else torch.zeros(
         (b, w), dtype=torch.float32, device=x.device)
     xc, new_tail = _causal_conv(params["conv"], xbr, tail)
-    hseq, h_last = _rglru(params, xc, h0)
+    hseq, h_last = _rglru(params, xc, h0, split)
     out = layers.dense(params["lin_out"], hseq * ybr)
+    if split is not None:
+        out = split.out_of(out)
     if state is None:
         return out, RecurrentState(conv=new_tail, h=h_last)
     state.conv.copy_(new_tail)

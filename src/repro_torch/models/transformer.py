@@ -274,11 +274,19 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_kv):
     return _out_proj(params, out)
 
 
-def cross_kv(params_block: dict, x_enc: torch.Tensor):
+def cross_kv(params_block: dict, x_enc: torch.Tensor,
+             kv: Optional[tuple] = None):
     """One ``xattn`` block's cross-attention (k, v) from the encoder
-    output (B, S, d): each (B, S, KV, hd)."""
-    return (layers.dense(params_block["xattn"]["k"], x_enc),
-            layers.dense(params_block["xattn"]["v"], x_enc))
+    output (B, S, d): each (B, S, KV, hd); ``kv`` (a ``BlockSplit``'s
+    ``xkv``) the heads [k0, k1) cut from the whole k and v."""
+    k_p, v_p = params_block["xattn"]["k"], params_block["xattn"]["v"]
+    if kv is not None:
+        k_p, v_p = ({"kernel": p["kernel"][:, kv[0]:kv[1]]}
+                    for p in (k_p, v_p))
+    return layers.dense(k_p, x_enc), layers.dense(v_p, x_enc)
+
+
+_WHOLE = partitioning.BlockSplit(None, None, None)
 
 
 def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
@@ -289,15 +297,18 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
     block's losses, empty for the other kinds.  ``enc_kv`` is an
     ``xattn`` block's (k, v); ``decode`` picks the xLSTM blocks' step
     form.  ``split`` (a sharded step's ``partitioning.block_split`` of
-    ``params``, which then hold the rank's shards) runs the
-    self-attention on the rank's query heads and the MLP on its hidden
-    columns: the normed input goes into each (dh summed over the split's
-    ranks in the backward) and each output comes out summed over them,
-    so the residual stream stays whole; an MoE block's experts run on
-    the rank's experts or columns (``moe.apply_moe(split=)``).  None (one
+    ``params``, which then hold the rank's shards) runs the self- and
+    the cross-attention on the rank's query heads and the MLP on its
+    hidden columns: the normed input goes into each (dh summed over the
+    split's ranks in the backward) and each output comes out summed over
+    them, so the residual stream stays whole (``enc_kv`` then holds the
+    rank's cross kv heads); an MoE block's experts run on the rank's
+    experts or columns (``moe.apply_moe(split=)``), an RG-LRU block on its
+    channels (``recurrent.apply_rglru_block(split=)``).  None (one
     device, and every cache path) runs the block whole."""
-    attn_split = split.attn if split is not None else None
-    mlp_split = split.mlp if split is not None else None
+    if split is None:
+        split = _WHOLE
+    attn_split, mlp_split = split.attn, split.mlp
     h = layers.apply_norm(params["norm1"], x, cfg.norm)
     if kind == "mlstm":
         out, cache = xlstm.apply_mlstm_block(params["mlstm"], h, cache,
@@ -308,14 +319,15 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
                                              decode=decode)
         return x + out, cache, {}
     if kind == "rglru":
-        out, cache = recurrent.apply_rglru_block(params["rglru"], h, cache)
+        out, cache = recurrent.apply_rglru_block(params["rglru"], h, cache,
+                                                 split=split.rglru)
     elif kind in ("attn", "attn_local", "moe", "enc", "xattn"):
         if attn_split is not None:
             h = attn_split.into(h)
         out, cache = _self_attention(params["attn"], cfg, h, positions,
                                      cfg.block_window(kind), cache,
                                      causal=kind != "enc", per_slot=per_slot,
-                                     kv=split.kv if attn_split else None)
+                                     kv=split.kv)
         if attn_split is not None:
             out = attn_split.out_of(out)
     else:
@@ -323,15 +335,19 @@ def apply_block(params: dict, cfg: ModelConfig, kind: str, x, positions,
     x = x + out
     if kind == "xattn":
         hx = layers.apply_norm(params["norm_x"], x, cfg.norm)
-        x = x + _cross_attention(params["xattn"], cfg, hx, enc_kv)
+        if split.xattn is not None:
+            hx = split.xattn.into(hx)
+        out = _cross_attention(params["xattn"], cfg, hx, enc_kv)
+        if split.xattn is not None:
+            out = split.xattn.out_of(out)
+        x = x + out
     h2 = layers.apply_norm(params["norm2"], x, cfg.norm)
     if kind == "moe":
         out2, aux = moe_lib.apply_moe(
             params["moe"], h2, num_experts=cfg.num_experts,
             top_k=cfg.experts_top_k, activation=cfg.activation,
             capacity_factor=cfg.capacity_factor,
-            group_size=cfg.moe_group_size,
-            split=split.moe if split is not None else None)
+            group_size=cfg.moe_group_size, split=split.moe)
         return x + out2, cache, aux
     if mlp_split is not None:
         h2 = mlp_split.into(h2)
@@ -436,8 +452,9 @@ def _kept_parts(block: dict, split) -> dict:
     mesh dims, which its gather keeps."""
     if split is None:
         return {}
-    parts = {(key,): s.dims for key, s in (("attn", split.attn),
-                                           ("mlp", split.mlp)) if s}
+    parts = {(key,): s.dims for key, s in (
+        ("attn", split.attn), ("mlp", split.mlp), ("rglru", split.rglru),
+        ("xattn", split.xattn)) if s}
     if split.moe is not None:
         routed, shared = split.moe.routed, split.moe.shared
         if routed is not None:
@@ -477,9 +494,10 @@ def _merge(dst: dict, src: dict) -> None:
 
 def materialize_period(layer_params: list, splits: list) -> list:
     """One period's params for its use here, each block by its split
-    (``partitioning.block_split``, None on one device): a split
-    attention's q, k, v and o, a split MLP's wi, wg and wo and a split
-    MoE block's expert kernels (and its shared MLP's) are gathered
+    (``partitioning.block_split``, None on one device): a split self- or
+    cross-attention's q, k, v and o, a split MLP's wi, wg and wo, a split
+    MoE block's expert kernels (and its shared MLP's) and a split RG-LRU
+    block's leaves are gathered
     keeping the split's mesh dims (``materialize(keep=)``; a k or v
     replicated there has its gradient summed there), every other leaf
     whole (``partitioning.materialize``), the router and ``shared_gate``
@@ -534,10 +552,11 @@ def apply_stacks(params: list, cfg: ModelConfig, layout: list, x, positions,
     about one period whole.  With caches (serving) or ``remat="none"`` the same gather
     runs, and autograd keeps what the period's backward needs of the
     gathered weights until then (every period's, when gradients are
-    on).  Where a block's attention, MLP or experts split on the
-    ``model`` mesh axis (``partitioning.block_split``), the rank gathers
-    and computes only its heads, columns or experts
-    (``apply_block(split=)``).  A cache path
+    on).  Where a block's attention, cross-attention, MLP, experts or
+    RG-LRU split on the ``model`` mesh axis
+    (``partitioning.block_split``), the rank gathers and computes only
+    its heads, columns, experts or channels (``apply_block(split=)``).
+    A cache path
     never splits: ``DTensor`` params are read only inside a train step
     (``materialize`` raises elsewhere), and served params are whole."""
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled()

@@ -13,7 +13,8 @@ from repro_torch.sharding.partitioning import (BlockSplit, MoESplit,
                                                placements,
                                                repetition_range,
                                                repetition_shards,
-                                               resolve_spec, split_plan,
+                                               resolve_spec, rglru_plan,
+                                               split_plan,
                                                state_shardings)
 
 __all__ = ["BlockSplit", "MoESplit", "NamedSharding", "RangeSplit",
@@ -21,4 +22,4 @@ __all__ = ["BlockSplit", "MoESplit", "NamedSharding", "RangeSplit",
            "block_split", "constrain", "expert_plan", "gather", "head_split",
            "kv_heads", "materialize", "params_shardings", "place",
            "placements", "repetition_range", "repetition_shards",
-           "resolve_spec", "split_plan", "state_shardings"]
+           "resolve_spec", "rglru_plan", "split_plan", "state_shardings"]

@@ -27,7 +27,7 @@ rules read only a mesh's axis names and sizes, so they run on a
 ``DeviceMesh`` and on any object with a ``shape`` dict and
 ``axis_names`` (the JAX tests' ``FakeMesh``).
 
-Three parts of a model split by the placements of their params (Megatron's
+Five parts of a model split by the placements of their params (Megatron's
 tensor parallelism, where JAX's XLA partitions the same products).
 Rank k of the n ranks on the mesh dims that shard a param's split dim
 (major first, ``shard_range``) computes its own range of that dim: the
@@ -51,11 +51,22 @@ summed (``RangeSplit.out_of``).
   k and v, or, where the rules leave them replicated, those heads cut
   from the whole k and v, whose gradient is then summed over m
   (``kv_heads``); the attention then splits only where a rank's H/n
-  query heads hold whole groups or lie inside one.  The block's two outputs come out summed over m; the
+  query heads hold whole groups or lie inside one.  An ``xattn``
+  block's cross-attention splits by the same rule on its own q, k, v
+  and o; each rank computes its kv heads of the encoder's K/V
+  (``LanguageModel.enc_kvs``), the encoder output going into the split
+  once for every layer.  The block's outputs come out summed over m; the
   residual stream stays whole on every rank.  Elsewhere (a dim the
   rules leave replicated, e.g. recurrentgemma's 10 heads on 8 ranks)
-  that part runs whole on every rank, as do the RG-LRU, the xLSTM
-  blocks, the cross-attention, the embedding and the OAA head.
+  that part runs whole on every rank, as do the xLSTM blocks, the
+  embedding and the OAA head.
+- An RG-LRU block by channels (``rglru_plan``): where every leaf's
+  channel dim is sharded over m (gate_a and gate_x by rows), rank k
+  computes channels [k·W/n, (k+1)·W/n): its columns of lin_y and
+  lin_x, the conv and Λ on them, and kernel 9 on them; its rows of the
+  two gates give partial (.., W) pre-activations, summed and
+  reduce-scattered onto its channels (``RangeSplit.onto_range``), and
+  its rows of lin_out a partial output, summed.
 - An MoE block's routed experts by expert or by columns
   (``expert_plan``): by expert (EP) where wi's, wg's and wo's expert
   dims are sharded over the same mesh dims m (the rules shard them from
@@ -483,9 +494,10 @@ class _Gather(torch.autograd.Function):
 # Split computation: the MACH head by repetition over the mesh axes of its
 # ``mach_rb`` dim (the JAX package shards that dim over ``model``, or
 # ``(pod, model)`` with ``mach_pod_parallel``, "exactly like a
-# vocab-sharded softmax"), a decoder block's self-attention by heads and
-# its MLP by hidden columns over those of ``heads`` and ``mlp``, an MoE
-# block's experts by expert or by columns over those of ``experts`` or
+# vocab-sharded softmax"), a decoder block's self- and cross-attention by
+# heads and its MLP by hidden columns over those of ``heads`` and
+# ``mlp``, an MoE block's experts by expert or by columns over those of
+# ``experts`` or ``mlp``, an RG-LRU block by channels over those of
 # ``mlp``.
 # ---------------------------------------------------------------------------
 
@@ -607,12 +619,19 @@ class BlockSplit:
     [k0, k1) of the whole k and v it reads (``kv_heads``; None where its
     shards of k and v are those heads), ``mlp`` the MLP's hidden columns [r0, r1)
     (None: the MLP runs whole), ``moe`` an MoE block's experts (None:
-    they run whole, or the block has none).  The rank's shards of q, o,
-    wi, wg and wo hold exactly its ranges."""
+    they run whole, or the block has none), ``rglru`` an RG-LRU block's
+    channels [r0, r1) (None: it runs whole, or the block has none),
+    ``xattn`` and ``xkv`` an ``xattn`` block's cross-attention query
+    heads and the kv heads it cuts from the whole cross k and v, as
+    ``attn`` and ``kv``.  The rank's shards of q, o, wi, wg, wo and the
+    RG-LRU's leaves hold exactly its ranges."""
     attn: Optional["RangeSplit"]
     kv: Optional[tuple[int, int]]
     mlp: Optional["RangeSplit"]
     moe: Optional[MoESplit] = None
+    rglru: Optional["RangeSplit"] = None
+    xattn: Optional["RangeSplit"] = None
+    xkv: Optional[tuple[int, int]] = None
 
 
 def dim_axes(leaf: DTensor) -> tuple:
@@ -660,6 +679,25 @@ def split_plan(mesh, attn: Optional[dict], mlp: Optional[dict],
     return a_axes, kv_split, m_axes
 
 
+def rglru_plan(rglru: Optional[dict]) -> tuple:
+    """The mesh axes an RG-LRU block splits over by channels, from its
+    leaves' layouts (``init_rglru_block``'s tree with each leaf's
+    ``dim_axes``, or a spec's entries; None: no such block): the axes m
+    that shard the channel dim of every leaf — lin_y's and lin_x's last
+    dims, the conv's w (4, W) on its last and b on its one, Λ's, the
+    rows (dim 0) of gate_a and gate_x (W, W: the rules give ``model`` to
+    their first ``mlp`` dim only) and of lin_out — else ``()``: it runs
+    whole."""
+    if rglru is None:
+        return ()
+    m = rglru["lin_y"]["kernel"][-1]
+    dims = (rglru["lin_x"]["kernel"][-1], rglru["conv"]["w"][-1],
+            rglru["conv"]["b"][0], rglru["lam"]["log"][0],
+            rglru["gate_a"]["kernel"][0], rglru["gate_x"]["kernel"][0],
+            rglru["lin_out"]["kernel"][0])
+    return m if m and all(x == m for x in dims) else ()
+
+
 def expert_plan(experts: Optional[dict]) -> tuple[str, tuple]:
     """How an MoE block's routed experts split, from the layouts of wi,
     [wg] (E, d, F) and wo (E, F, d) (``dim_axes``, or a spec's entries;
@@ -681,44 +719,63 @@ def expert_plan(experts: Optional[dict]) -> tuple[str, tuple]:
 
 def block_split(params: dict) -> Optional[BlockSplit]:
     """How a sharded step computes the block whose params are ``params``
-    (one period's slice, ``DTensor`` leaves): None on one device (plain
-    tensors) and for a block with neither self-attention, MLP nor MoE;
-    else a ``BlockSplit`` by the placements alone (``split_plan``,
-    ``expert_plan``): rank k of the n ranks on a split's mesh axes
-    computes query heads [k·H/n, (k+1)·H/n) and the kv heads they read
-    (``kv_heads``), hidden columns [k·F/n, (k+1)·F/n), experts [k·E/n,
-    (k+1)·E/n) or every expert's columns [k·F/n, (k+1)·F/n).  Raises
-    outside a step's activation, as ``materialize`` does."""
-    parts = {key: params[key] for key in ("attn", "mlp", "moe")
-             if key in params}
+    (one period's slice, ``DTensor`` leaves; any of its parts alone will
+    do): None on one device (plain tensors) and for a block with none of
+    self-attention, MLP, MoE, RG-LRU or cross-attention; else a
+    ``BlockSplit`` by the placements alone (``split_plan``,
+    ``expert_plan``, ``rglru_plan``): rank k of the n ranks on a split's
+    mesh axes computes query heads [k·H/n, (k+1)·H/n) and the kv heads
+    they read (``kv_heads``) of the self- and of the cross-attention,
+    hidden columns [k·F/n, (k+1)·F/n), experts [k·E/n, (k+1)·E/n) or
+    every expert's columns [k·F/n, (k+1)·F/n), RG-LRU channels [k·W/n,
+    (k+1)·W/n).  Raises outside a step's activation, as ``materialize``
+    does."""
+    parts = {key: params[key] for key in ("attn", "mlp", "moe", "rglru",
+                                          "xattn") if key in params}
     first = next(iter(tree_leaves(parts)), None)
     if not isinstance(first, DTensor):
         return None
     mesh = first.device_mesh
     batch = _step_batch(mesh)
-    kernels = {key: {name: leaf["kernel"] for name, leaf in part.items()}
-               for key, part in parts.items() if key != "moe"}
-    heads = (kernels["attn"]["q"].shape[1], kernels["attn"]["k"].shape[1]) \
-        if "attn" in kernels else (1, 1)
-    a_axes, kv_split, m_axes = split_plan(mesh, *(
-        {name: dim_axes(x) for name, x in kernels[key].items()}
-        if key in kernels else None for key in ("attn", "mlp")), *heads)
+    kernels = {key: {name: leaf["kernel"] for name, leaf in parts[key].items()}
+               for key in ("attn", "mlp", "xattn") if key in parts}
 
     def split(leaf, dim):            # the plan's axes shard this dim
         k, n, dims = shard_range(leaf, dim)
         per = leaf.shape[dim] // n
         return RangeSplit(mesh, k * per, (k + 1) * per, dims, batch)
 
-    attn = mlp = kv = None
-    if a_axes:
-        q, k = kernels["attn"]["q"], kernels["attn"]["k"]
-        attn = split(q, 1)
-        if not kv_split:
-            kv = kv_heads(attn.r0, attn.r1, q.shape[1], k.shape[1])
-    if m_axes:
+    def heads_split(key):            # an attention's (query heads, kv cut)
+        if key not in kernels:
+            return None, None
+        q, k = kernels[key]["q"], kernels[key]["k"]
+        axes, kv_split, _ = split_plan(
+            mesh, {name: dim_axes(x) for name, x in kernels[key].items()},
+            None, q.shape[1], k.shape[1])
+        if not axes:
+            return None, None
+        heads = split(q, 1)
+        return heads, None if kv_split else kv_heads(heads.r0, heads.r1,
+                                                     q.shape[1], k.shape[1])
+
+    attn, kv = heads_split("attn")
+    xattn, xkv = heads_split("xattn")
+    mlp = None
+    if "mlp" in kernels and split_plan(mesh, None, {
+            name: dim_axes(x) for name, x in kernels["mlp"].items()},
+            1, 1)[2]:
         mlp = split(kernels["mlp"]["wo"], 0)
     moe = _moe_split(mesh, parts["moe"], split) if "moe" in parts else None
-    return BlockSplit(attn, kv, mlp, moe)
+    rglru = None
+    if "rglru" in parts and rglru_plan(_tree_map(dim_axes, parts["rglru"])):
+        rglru = split(parts["rglru"]["lin_out"]["kernel"], 0)
+    return BlockSplit(attn, kv, mlp, moe, rglru, xattn, xkv)
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    """``fn`` of every leaf of a tree of dicts."""
+    return {key: _tree_map(fn, value) if isinstance(value, dict)
+            else fn(value) for key, value in tree.items()}
 
 
 def _moe_split(mesh, params: dict, split) -> Optional[MoESplit]:
@@ -747,7 +804,8 @@ def _moe_split(mesh, params: dict, split) -> Optional[MoESplit]:
 class RangeSplit:
     """A sharded step's split computation on this rank: [r0, r1), the
     range it computes of the split dim (a MACH head's repetitions, an
-    attention's query heads, an MLP's hidden columns), the mesh dims
+    attention's query heads, an MLP's hidden columns, an RG-LRU's
+    channels), the mesh dims
     ``dims`` that shard that dim (kept by its params' gather) and
     ``batch`` that split the step's rows.  The rank computes its range
     on the rows of every rank of ``rows`` = batch ∩ dims (``pod`` for a
@@ -796,6 +854,26 @@ class RangeSplit:
         if not self.moves(self.rows + self.summed):
             return x
         return _OutOfSplit.apply(x, self)
+
+    def onto_range(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial results (..., W) of every range, within the split
+        computation (an RG-LRU's gate pre-activations from the rank's
+        rows of gate_a and gate_x): summed over ``summed`` in x's dtype,
+        as XLA's partial-sum dot sums them, so one rank gives x's bits,
+        and each rank keeps its range's W/n entries of the last dim — a
+        reduce-scatter there; the backward all-gathers the gradient's
+        ranges, since every rank's partial reads all W (``out_of`` and a
+        slice would hand each rank only its own range's gradient).  With
+        one rank on ``summed`` there is nothing to sum: x's range [r0,
+        r1), all of W on a mesh (a rank's shapes run on a world of one
+        keep their own range)."""
+        if not self.moves(self.summed):
+            return x if self.r1 - self.r0 == x.shape[-1] else \
+                x[..., self.r0:self.r1]
+        if self.moves(self.rows):
+            raise ValueError("onto_range: a split whose rows are "
+                             "gathered over its own dims")
+        return _OntoRange.apply(x, self)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (rows, ...), no gradient, gathered over ``rows`` as
@@ -852,6 +930,53 @@ def _scatter_rows(x, mesh, dims):
                 out, x.contiguous(), group=mesh.get_group(i))
             x = out
     return x
+
+
+def _scatter_last(x, mesh, dims):
+    """``x``'s last dim reduce-scattered over ``dims``, the major dim
+    first: each rank keeps the sum of its own range of it."""
+    for i in dims:
+        n = mesh.size(i)
+        if n > 1:
+            lead, w = x.shape[:-1], x.shape[-1] // n
+            parts = x.reshape(-1, n, w).transpose(0, 1).reshape(-1, w)
+            out = x.new_empty((parts.shape[0] // n, w))
+            torch.distributed.reduce_scatter_tensor(
+                out, parts.contiguous(), group=mesh.get_group(i))
+            x = out.reshape(lead + (w,))
+    return x
+
+
+def _gather_last(x, mesh, dims):
+    """``x``'s last dim all-gathered over ``dims``, the minor dim first
+    (``_scatter_last``'s adjoint)."""
+    for i in reversed(dims):
+        n = mesh.size(i)
+        if n > 1:
+            lead, w = x.shape[:-1], x.shape[-1]
+            rows = x.reshape(-1, w).contiguous()
+            parts = x.new_empty((n * rows.shape[0], w))
+            torch.distributed.all_gather_into_tensor(
+                parts, rows, group=mesh.get_group(i))
+            x = parts.reshape(n, -1, w).transpose(0, 1).reshape(
+                lead + (n * w,))
+    return x
+
+
+class _OntoRange(torch.autograd.Function):
+    """Partial results onto the rank's range of their last dim: summed
+    and reduce-scattered there over the split's ``summed``; backward: the
+    gradient's ranges all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, split: RangeSplit):
+        ctx.split = split
+        return _scatter_last(x, split.mesh, split.summed)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        return _gather_last(g, s.mesh, s.summed), None
 
 
 class _IntoSplit(torch.autograd.Function):

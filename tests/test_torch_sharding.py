@@ -504,6 +504,69 @@ def test_decoder_splits_where_the_rules_divide(arch, mesh_name):
         assert set(plans) == examples[(arch, mesh_name)]
 
 
+# an RG-LRU block's channels and an ``xattn`` block's cross-attention
+# query heads a rank by mesh, where they split (3 ``model`` ranks divide
+# neither)
+WIDE_MESHES = dict(SPLIT_MESHES, **{"1x3": FakeMesh({"data": 1, "model": 3})})
+WIDE_SPLITS = {("recurrentgemma-2b", "1x8"): ("rglru", 320),
+               ("recurrentgemma-2b", "16x16"): ("rglru", 160),
+               ("seamless-m4t-large-v2", "1x8"): ("xattn", 2),
+               ("seamless-m4t-large-v2", "16x16"): ("xattn", 1)}
+
+
+def _tree_dims(spec_tree, shape_tree):
+    """``_dims`` of every leaf of a block part's spec tree."""
+    if isinstance(shape_tree, dict):
+        return {k: _tree_dims(spec_tree[k], v) for k, v in shape_tree.items()}
+    return _dims(spec_tree.spec, shape_tree.dim())
+
+
+@pytest.mark.parametrize("mesh_name", list(WIDE_MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_rglru_and_cross_attention_split_where_the_rules_divide(arch,
+                                                                mesh_name):
+    """Every full config's blocks placed by the rules on (1, 8), (16,
+    16) and (1, 3): ``rglru_plan`` splits an RG-LRU block over ``model``
+    exactly where n = |model| divides its width W (every leaf's channel
+    dim on ``model``, gate_a's and gate_x's rows only), and
+    ``split_plan`` an ``xattn`` block's cross-attention where n divides
+    H, its K/V with it where n divides KV; recurrentgemma-2b's 2,560
+    channels split 320 and 160 a rank on (1, 8) and (16, 16),
+    seamless-m4t-large-v2's 16 cross heads (KV 16) 2 and 1 a rank; on
+    (1, 3) neither splits."""
+    from repro_torch.sharding import rglru_plan, split_plan
+    mesh = WIDE_MESHES[mesh_name]
+    cfg = get_config(arch)
+    model = LanguageModel(cfg)
+    shapes = model.init(device="meta")
+    shard = params_shardings(mesh, RULES, model.param_axes(), shapes)
+    n = mesh.shape["model"]
+    w, h, kv = cfg.resolved_rnn_width, cfg.num_heads, cfg.num_kv_heads
+    seen = set()
+    for blocks, specs in zip(shapes["stacks"], shard["stacks"]):
+        for block, spec in zip(blocks, specs):
+            if "rglru" in block:
+                dims = _tree_dims(spec["rglru"], block["rglru"])
+                want = ("model",) if w % n == 0 else ()
+                assert rglru_plan(dims) == want, (dims, want)
+                gate = dims["gate_a"]["kernel"]
+                assert gate[1] == () and gate[0] == want
+                if want:
+                    seen.add(("rglru", w // n))
+            if "xattn" in block:
+                dims = {name: _dims(spec["xattn"][name]["kernel"].spec,
+                                    leaf["kernel"].dim())
+                        for name, leaf in block["xattn"].items()}
+                heads = h % n == 0
+                plan = split_plan(mesh, dims, None, h, kv)
+                assert plan == (("model",) if heads else (),
+                                heads and kv % n == 0, ()), plan
+                if heads:
+                    seen.add(("xattn", h // n))
+    want = WIDE_SPLITS.get((arch, mesh_name))
+    assert seen == ({want} if want else set()), seen
+
+
 # (arch, mesh) -> how the experts split (``expert_plan``) and the range
 # a rank owns of the split dim: experts on (1, 8) where 8 divides E, else
 # every expert's d_ff columns

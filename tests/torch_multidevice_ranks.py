@@ -306,21 +306,30 @@ class SplitCount:
     ``MoESplit`` (``moe``: the mode, its range and axes, the shared
     MLP's columns and axes), the expert kernel and expert input shapes
     of every ``moe._expert_ffn`` call, and the expert ids and kept mask
-    of every ``moe.route`` call.  The model calls all five by their
-    module attributes."""
+    of every ``moe.route`` call.  Per period each block's RG-LRU channels
+    and axes (``rglru``) and cross-attention query heads, axes and cut kv
+    heads (``xattn``), None where they run whole or the block has none;
+    the channels of every ``ops.lru_scan`` call (``scan``) and the kv
+    heads of every ``cross_kv`` call (``cross_kv``).  The model calls
+    all seven by their module attributes (``cross_kv`` by the model
+    module's)."""
 
     def __init__(self):
         self.periods, self.attend, self.mlp = [], [], []
         self.moe, self.experts, self.routing = [], [], []
+        self.rglru, self.xattn, self.scan, self.cross_kv = [], [], [], []
 
     def __enter__(self):
-        from repro_torch.models import attention, layers, moe, transformer
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention, layers, model, moe
+        from repro_torch.models import transformer
         self._count = GatherCount().__enter__()
         self._saved = [(m, n, getattr(m, n)) for m, n in (
             (transformer, "materialize_period"), (attention, "attend"),
-            (layers, "apply_mlp"), (moe, "_expert_ffn"), (moe, "route"))]
+            (layers, "apply_mlp"), (moe, "_expert_ffn"), (moe, "route"),
+            (ops, "lru_scan"), (model, "cross_kv"))]
         (_, _, period_fn), (_, _, attend), (_, _, mlp), (_, _, ffn), \
-            (_, _, route) = self._saved
+            (_, _, route), (_, _, scan), (_, _, cross) = self._saved
 
         def materialize_period(layer_params, splits):
             before = self._count.bytes
@@ -329,6 +338,11 @@ class SplitCount:
                 tuple(_split_summary(s) for s in splits),
                 [_shapes(p) for p in params], self._count.bytes - before))
             self.moe.append(tuple(_moe_summary(s) for s in splits))
+            self.rglru.append(tuple(None if s is None else _range(s.rglru)
+                                    for s in splits))
+            self.xattn.append(tuple(
+                None if s is None or s.xattn is None
+                else (_range(s.xattn), s.xkv) for s in splits))
             return params
 
         def counted_attend(q, k, *args, **kw):
@@ -349,9 +363,19 @@ class SplitCount:
             self.routing.append((r.experts.clone(), r.keep.clone()))
             return r
 
+        def lru_scan(a, x, *args, **kw):
+            self.scan.append(x.shape[-1])
+            return scan(a, x, *args, **kw)
+
+        def cross_kv(*args, **kw):
+            k, v = cross(*args, **kw)
+            self.cross_kv.append(k.shape[2])
+            return k, v
+
         for (m, n, _), fn in zip(self._saved, (materialize_period,
                                                counted_attend, apply_mlp,
-                                               expert_ffn, counted_route)):
+                                               expert_ffn, counted_route,
+                                               lru_scan, cross_kv)):
             setattr(m, n, fn)
         return self
 
@@ -365,7 +389,9 @@ class SplitCount:
         return {"periods": self.periods, "attend": sorted(set(self.attend)),
                 "mlp": sorted(set(self.mlp)), "moe": self.moe,
                 "experts": sorted(set(self.experts)),
-                "routing": self.routing}
+                "routing": self.routing, "rglru": self.rglru,
+                "xattn": self.xattn, "scan": sorted(set(self.scan)),
+                "cross_kv": sorted(set(self.cross_kv))}
 
 
 def _range(s):
@@ -458,6 +484,21 @@ def moe_rank_block(params, mode, n, rank, mesh=None, dims=(), batch=()):
         shared = RangeSplit(mesh, s0, s1, dims, batch)
     return local, MoESplit(routed if mode == "experts" else None,
                            routed if mode == "columns" else None, shared)
+
+
+def rglru_channels(params, c0, c1):
+    """An RG-LRU block's params (``recurrent.init_rglru_block``'s tree)
+    as a rank of its split by channels holds them: channels [c0, c1) of
+    every leaf — lin_y's and lin_x's columns, the conv's and Λ's
+    entries, the rows of gate_a, gate_x and lin_out."""
+    c = slice(c0, c1)
+    return {"lin_y": {"kernel": params["lin_y"]["kernel"][:, c].contiguous()},
+            "lin_x": {"kernel": params["lin_x"]["kernel"][:, c].contiguous()},
+            "conv": {"w": params["conv"]["w"][:, c].contiguous(),
+                     "b": params["conv"]["b"][c].contiguous()},
+            "lam": {"log": params["lam"]["log"][c].contiguous()},
+            **{key: {"kernel": params[key]["kernel"][c].contiguous()}
+               for key in ("gate_a", "gate_x", "lin_out")}}
 
 
 def _shapes(tree):
@@ -692,14 +733,44 @@ def head_split_world2() -> dict:
 
 def decoder_split_world2(tiny, bf16) -> dict:
     """Mesh (1, 2): the decoder split by heads and hidden — the smoke
-    tinyllama (k and v split with q), its bf16 run, and recurrentgemma-2b
+    tinyllama (k and v split with q), its bf16 run, recurrentgemma-2b
     (H = 2, KV = 1: the attention split, k and v cut from the whole, the
-    MLP split, the RG-LRU whole)."""
+    MLP split, the RG-LRU on 32 of its 64 channels) and
+    seamless-m4t-large-v2 (the encoder's and decoder's self-attention,
+    the cross-attention and its K/V on 2 of 4 heads)."""
     m12 = _mesh((1, 2))
     rg = model_config("recurrentgemma-2b")
+    seamless = model_config("seamless-m4t-large-v2")
     return {"tp12": split_case(tiny, m12, batches(tiny, 2)),
             "tp12_bf16": split_case(bf16, m12, batches(bf16, 2)),
-            "tp12_rg": split_case(rg, m12, batches(rg, 2))}
+            "tp12_rg": split_case(rg, m12, batches(rg, 2), grads=True),
+            "tp12_seamless": split_case(seamless, m12, batches(seamless, 2),
+                                        grads=True)}
+
+
+# the decoder split on (1, 4) beyond tinyllama: case -> arch
+DECODER_WORLD4 = {"tp14_rg": "recurrentgemma-2b",
+                  "tp14_seamless": "seamless-m4t-large-v2",
+                  "tp14_paligemma": "paligemma-3b",
+                  "tp14_granite": "granite-20b",
+                  "tp14_phi3": "phi3-mini-3.8b",
+                  "tp14_mistral": "mistral-large-123b"}
+
+
+def world4_split(rank, directory):
+    """Mesh (1, 4), a world of its own (each world has its deadline):
+    recurrentgemma-2b (its RG-LRU on 16 of 64 channels, its MLP split,
+    its 2 heads whole), seamless-m4t-large-v2 (one of 4 heads a rank in
+    every attention, the cross K/V with them), paligemma-3b and
+    granite-20b (KV = 1: one query head a rank, the kv head cut from the
+    whole), phi3-mini (k and v split with q) and mistral-large-123b (6
+    heads whole, the MLP split)."""
+    m14 = _mesh((1, 4))
+    out = {}
+    for case, arch in DECODER_WORLD4.items():
+        cfg = model_config(arch)
+        out[case] = split_case(cfg, m14, batches(cfg, 2), grads=True)
+    return out
 
 
 def head_split_world4() -> dict:
@@ -917,4 +988,4 @@ def _tensor_leaves(state):
     return [x for _, x in tree_flatten(state) if isinstance(x, torch.Tensor)]
 
 
-RANK_FNS = {"world2": world2, "world4": world4}
+RANK_FNS = {"world2": world2, "world4": world4, "world4_split": world4_split}

@@ -1,28 +1,39 @@
 """How far a decoder split on ``model`` moves two float32 training steps,
 beside how far one float32 ulp moves them on one device.
 
-For the smoke tinyllama-1.1b, the same with its MACH head (unfused, and
-with the fused loss), recurrentgemma-2b, qwen2-moe-a2.7b and
-mixtral-8x22b (float32, ``remat="full"``, at least 4 layers, two AdamW
-steps; ``tests/torch_multidevice_ranks.py``'s configs and data), it
-prints the share of param entries that end more than 1e-6
-of their leaf's largest entry away from the plain single-device run
-(the measure of ``test_torch_multidevice.py``'s ``_hold``):
-- "one ulp": one device, every block's output moved up by one float32
-  ulp (``torch.nextafter``) in the forward and in remat's recompute;
-- "split (1, 2)": ``Trainer(mesh=)`` on a CPU ``gloo`` world of two
-  ranks, mesh (1, 2), the decoder split by heads and hidden (and the
-  MoE configs' experts by expert: 3 of qwen2-moe's 6 a rank, 2 of
-  mixtral's 4).
+For the smoke configs of ``tests/torch_multidevice_ranks.py`` (float32,
+``remat="full"``, at least 4 layers, two AdamW steps, its data) on the
+meshes the tests split them on — tinyllama-1.1b, the same with its MACH
+head (unfused, and with the fused loss), recurrentgemma-2b, qwen2-moe-a2.7b,
+mixtral-8x22b and seamless-m4t-large-v2 on (1, 2); recurrentgemma-2b,
+seamless-m4t-large-v2, paligemma-3b, granite-20b, phi3-mini-3.8b and
+mistral-large-123b on (1, 4) — it prints the share of param entries
+that end more than 1e-6 of their leaf's largest entry away from the
+plain single-device run (the measure of ``test_torch_multidevice.py``'s
+``_hold``):
+- "one ulp": one device, every block's output, every RG-LRU block's
+  output and every cross-attention's output moved up by one float32 ulp
+  (``torch.nextafter``) in the forward and in remat's recompute: where
+  a split sums partial outputs over its ranks;
+- "split (1, n)": ``Trainer(mesh=)`` on a CPU ``gloo`` world of n ranks,
+  mesh (1, n), the decoder split by heads, hidden and channels, the MoE
+  configs' experts by expert, the MACH head by repetition.
 Entries whose two-step update is set by float32 noise (a gradient that
-cancels to about Adam's eps once clipped) make up both shares.  No
-timing: a CPU run.
+cancels to about Adam's eps once clipped) make up every share, so which
+entries cross, and how many, moves with any change of summation order
+(the BLAS threads too: the ranks' ``THREADS`` here, as in the tests).
 
-    PYTHONPATH=src python tools/split_noise_floor.py
+``--parts`` adds seamless-m4t-large-v2 on (1, 4) with one part of its
+decoder split at a time (``partitioning.block_split``'s fields; the MACH
+head splits by repetition in each): none, the self-attention, the MLP,
+the cross-attention, all.  No timing: a CPU run.
+
+    PYTHONPATH=src python tools/split_noise_floor.py [--parts]
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import tempfile
 from pathlib import Path
@@ -35,8 +46,16 @@ import torch  # noqa: E402
 
 import torch_multidevice_ranks as ranks  # noqa: E402
 
-CASES = ("tinyllama-1.1b", "tinyllama-1.1b MACH", "tinyllama-1.1b MACH fused",
-         "recurrentgemma-2b", "qwen2-moe-a2.7b", "mixtral-8x22b")
+CASES = {2: ("tinyllama-1.1b", "tinyllama-1.1b MACH",
+             "tinyllama-1.1b MACH fused", "recurrentgemma-2b",
+             "qwen2-moe-a2.7b", "mixtral-8x22b", "seamless-m4t-large-v2"),
+         4: ("recurrentgemma-2b", "seamless-m4t-large-v2", "paligemma-3b",
+             "granite-20b", "phi3-mini-3.8b", "mistral-large-123b")}
+# BlockSplit fields each ``--parts`` run keeps (the rest run whole)
+PARTS = {"none": (), "self-attention": ("attn", "kv"), "MLP": ("mlp",),
+         "cross-attention": ("xattn", "xkv"),
+         "all": ("attn", "kv", "mlp", "xattn", "xkv")}
+PARTS_ARCH = "seamless-m4t-large-v2"
 
 
 def _config(case):
@@ -56,10 +75,15 @@ def _off_share(got, want) -> tuple[int, int]:
     return off, total
 
 
+def _up(x):
+    return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+
 def one_ulp(case) -> tuple[int, int]:
-    """(entries off, entries) of one device with every block's output
-    one ulp up, against one device."""
-    from repro_torch.models import LanguageModel, transformer
+    """(entries off, entries) of one device with every block's, RG-LRU
+    block's and cross-attention's output one ulp up, against one
+    device."""
+    from repro_torch.models import LanguageModel, recurrent, transformer
     from repro_torch.train import Trainer
     cfg = _config(case)
     data = ranks.batches(cfg, 2)
@@ -72,24 +96,34 @@ def one_ulp(case) -> tuple[int, int]:
         return state.params
 
     want = run()
-    block = transformer.apply_block
+    saved = (transformer.apply_block, recurrent.apply_rglru_block,
+             transformer._cross_attention)
+    block, rglru, cross = saved
 
-    def moved(*args, **kw):
+    def moved_block(*args, **kw):
         x, cache, aux = block(*args, **kw)
-        return torch.nextafter(x, torch.full_like(x, float("inf"))), cache, aux
+        return _up(x), cache, aux
 
-    transformer.apply_block = moved
+    def moved_rglru(*args, **kw):
+        y, state = rglru(*args, **kw)
+        return _up(y), state
+
+    transformer.apply_block = moved_block
+    recurrent.apply_rglru_block = moved_rglru
+    transformer._cross_attention = lambda *a, **kw: _up(cross(*a, **kw))
     try:
         got = run()
     finally:
-        transformer.apply_block = block
+        (transformer.apply_block, recurrent.apply_rglru_block,
+         transformer._cross_attention) = saved
     return _off_share(got, want)
 
 
 def split_shares(rank, directory):
-    mesh = ranks._mesh((1, 2))
+    n = torch.distributed.get_world_size()
+    mesh = ranks._mesh((1, n))
     out = []
-    for case in CASES:
+    for case in CASES[n]:
         cfg = _config(case)
         res = ranks.sharded_vs_one_device(cfg, ranks.train_config(), mesh,
                                           ranks.batches(cfg, 2))
@@ -97,19 +131,60 @@ def split_shares(rank, directory):
     return out
 
 
-ranks.RANK_FNS["split_noise_floor"] = split_shares
+def part_shares(rank, directory):
+    """``PARTS_ARCH`` on (1, 4), each ``PARTS`` entry's fields of every
+    block's split kept, the rest set to None (the same in
+    ``apply_stacks`` and ``enc_kvs``, which both call ``block_split``)."""
+    from repro_torch.sharding import partitioning
+    mesh = ranks._mesh((1, 4))
+    cfg = _config(PARTS_ARCH)
+    plan = partitioning.block_split
+    out = []
+    for keep in PARTS.values():
+        def block_split(params, keep=keep):
+            split = plan(params)
+            if split is None:
+                return None
+            return dataclasses.replace(split, **{
+                f: None for f in ("attn", "kv", "mlp", "xattn", "xkv")
+                if f not in keep})
+        partitioning.block_split = block_split
+        try:
+            res = ranks.sharded_vs_one_device(cfg, ranks.train_config(),
+                                              mesh, ranks.batches(cfg, 2))
+        finally:
+            partitioning.block_split = plan
+        out.append(_off_share(res["params"], res["want"]))
+    return out
+
+
+for _n in CASES:                # a world of each size, a store each
+    ranks.RANK_FNS[f"split_noise_floor{_n}"] = split_shares
+ranks.RANK_FNS["split_noise_parts"] = part_shares
 
 
 def main() -> int:
     torch.set_num_threads(ranks.THREADS)
     with tempfile.TemporaryDirectory() as directory:
-        split = ranks.spawn_world(2, "split_noise_floor", directory, 600)
-    for case, (s_off, total) in zip(CASES, split):
-        u_off, _ = one_ulp(case)
-        print(f"{case}: of {total:,} param entries after two steps, "
-              f"{u_off} ({u_off / total:.4%}) one ulp moves, {s_off} "
-              f"({s_off / total:.4%}) the split on (1, 2) moves past 1e-6 "
-              f"of their leaf's largest entry", flush=True)
+        split = {n: ranks.spawn_world(n, f"split_noise_floor{n}",
+                                      directory, 900) for n in CASES}
+        parts = (ranks.spawn_world(4, "split_noise_parts", directory, 900)
+                 if "--parts" in sys.argv[1:] else None)
+    floors = {}
+    for n, cases in CASES.items():
+        for case, (s_off, total) in zip(cases, split[n]):
+            if case not in floors:
+                floors[case] = one_ulp(case)[0]
+            u_off = floors[case]
+            print(f"{case} on (1, {n}): of {total:,} param entries after "
+                  f"two steps, past 1e-6 of their leaf's largest entry: "
+                  f"one ulp {u_off} ({u_off / total:.4%}), the split "
+                  f"{s_off} ({s_off / total:.4%})", flush=True)
+    if parts is not None:
+        print(f"{PARTS_ARCH} on (1, 4), the split of one part at a time "
+              f"(the MACH head by repetition in each): " + ", ".join(
+                  f"{name} {off} ({off / total:.4%})"
+                  for name, (off, total) in zip(PARTS, parts)), flush=True)
     return 0
 
 
