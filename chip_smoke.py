@@ -83,10 +83,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ragged N), with and without bias; CSR batches with duplicate ids, a
    row at exactly nnz_max, short and empty rows, at nnz 120 and 1,024
    through both sparse families.  Loss and lse to rtol 1e-5, gradients
-   to rtol 1e-4 / atol 1e-6 (sums in another order; the dense and ELL
-   kernels reduce across blocks with float atomics); each backward runs
-   twice and the largest difference is printed, and the gather family's,
-   which uses no float atomics, must be 0.  The
+   to rtol 1e-4 / atol 1e-6 (sums in another order; the dense kernel
+   reduces across blocks with float atomics); each backward runs twice
+   and the largest difference is printed, and the ELL and gather
+   families', which use no float atomics, must be 0.  The
    dense kernel (3xTF32 on the tensor cores in float32) also runs each
    dense shape with bf16 operands, and the LM head's shape (N=8,192,
    d=2,560, R=8, B=2,048) in bf16 with and without bias, dh asked: loss
@@ -357,18 +357,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``run_with_restarts`` with a non-blocking save after step 4 and a
    failure at step 7 once that save is durable: the resumed state must
    equal the saved one and the three final states each other, bit for
-   bit.  The same at nnz=120 (kernel 5, float atomics): the resumed state
-   equal to the saved one bit for bit, and, as the two uninterrupted runs
-   differ, a third: the restarted run's mean |difference| from the first
-   at most twice the largest of the three pairs' (the largest
-   differences printed beside; they spread too far from run to run to
-   hold, ``_hold_restart``).  tinyllama-1.1b at full width (bf16 params,
+   bit.  The same at nnz=120 (kernel 5, no float atomics either), bit
+   for bit.  tinyllama-1.1b at full width (bf16 params,
    float32 moments, 11 GB a checkpoint) with launch/train.py's
    ``train_config`` and ``data_stream`` on 2 x 2,048 tokens (kernel 10
    forward and backward), 8 steps, the non-blocking save after step 5
    and the failure at step 8: the resumed state bit for bit, the restart
    equal to an uninterrupted run bit for bit where two uninterrupted runs
-   are, else held as at nnz=120.  Printed for each: the state's and the
+   are; where they differ, a third run, and the restarted run's mean
+   |difference| from the first at most twice the largest of the three
+   pairs' (``_hold_restart``; the largest differences printed beside).
+   Printed for each: the state's and the
    checkpoint's bytes, the blocking save's time and GB/s, how long a
    non-blocking save holds the step (the host snapshot), the restore's
    time, ms a step with the write in flight against the same steps
@@ -1624,10 +1623,11 @@ def phase_candidate_gate(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # loss and lse: rtol 1e-5 (f32 products and sums in another order than
-# cuBLAS / torch.logsumexp); gradients rtol 1e-4, atol 1e-6 (the dense and
-# ELL kernels reduce dW, dh and dbias with float atomics across blocks, in
-# an order that changes from run to run; the gather kernels sum each dW
-# row and dbias in a fixed order of their own).  Inputs at the model's own scales: unit
+# cuBLAS / torch.logsumexp); gradients rtol 1e-4, atol 1e-6 (the dense
+# kernel reduces dW, dh and dbias with float atomics across blocks, in an
+# order that changes from run to run; the ELL and gather kernels sum each
+# dW element and dbias in a fixed order of their own, so their backwards
+# return the same bits every run).  Inputs at the model's own scales: unit
 # L2 rows of features (as the data generators make them), dense W at its
 # init scale 1/sqrt(d), and a N(0, 1) bias so each head's softmax is far
 # from uniform; at those scales the f32 order noise of a d-long product
@@ -1870,14 +1870,15 @@ def phase_xent_vs_plain(dev) -> dict:
     for family, s in stats.items():
         if family == "dense_f64":
             continue
-        how = ("no float atomics: must be 0" if family == "gather"
+        how = ("no float atomics: must be 0" if family in ("ell", "gather")
                else "float atomics")
         print(f"fused xent {family}: max abs error vs plain "
               f"{s['max_abs_err']:.3e}; largest backward difference between "
               f"two runs {s['run_to_run']:.3e} ({how})", flush=True)
-    if stats["gather"]["run_to_run"] != 0.0:
-        fail(f"gather backward: two runs differ by up to "
-             f"{stats['gather']['run_to_run']} (it has no float atomics)")
+    for family in ("ell", "gather"):
+        if stats[family]["run_to_run"] != 0.0:
+            fail(f"{family} backward: two runs differ by up to "
+                 f"{stats[family]['run_to_run']} (it has no float atomics)")
     return stats
 
 
@@ -1988,12 +1989,17 @@ def phase_training(dev, checks: dict) -> list[dict]:
         else:
             state = opt.init(params)
         torch.cuda.reset_peak_memory_stats(dev)
+        # the column order is one launch both sparse families share: its
+        # count is taken around each run
+        orders = mfx.gather_column_order_cuda.launches
         params, state, losses, times, first = _train(head, params, batch_at,
                                                      steps, opt, state)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         results[name] = {"params": params, "losses": losses, "times": times,
                          "first": first, "peak_gib": peak, "family": family,
-                         "head": head, "state": state}
+                         "head": head, "state": state,
+                         "column_order": mfx.gather_column_order_cuda.launches
+                         - orders}
         if name == "odp":
             odp_state = state
         print(f"train {name}: {steps} AdamW steps through {family}, losses "
@@ -2086,7 +2092,7 @@ def phase_training(dev, checks: dict) -> list[dict]:
         print(f"train {name}: {step_ms:.3f} ms/step (host clock, median of "
               f"steps 2..{len(res['times'])}); stages: forward kernel "
               f"{ms_fwd:.3f} ms, backward kernel {ms_bwd:.3f} ms (graph "
-              f"{ms_fwd_graph:.3f} + {ms_bwd_graph:.3f}; the dense and ELL "
+              f"{ms_fwd_graph:.3f} + {ms_bwd_graph:.3f}; the dense "
               f"backward's dW zero-fill included), AdamW {ms_adamw:.3f} ms; "
               f"peak "
               f"{res['peak_gib']:.2f} GiB [{smi}]", flush=True)
@@ -2099,10 +2105,11 @@ def phase_training(dev, checks: dict) -> list[dict]:
             + launches[f"{family}_bwd_cuda"],
             "launches_fwd": launches[f"{family}_fwd_cuda"],
             "launches_bwd": launches[f"{family}_bwd_cuda"],
+            # the column order's launches in this family's run
             "launches_bwd_pieces": (
-                {k: launches[f"gather_{k}_cuda"]
-                 for k in ("dlogits", "column_order", "dw")}
-                if family == "gather" else None),
+                {k: launches[f"{family}_{k}_cuda"] for k in ("dlogits", "dw")}
+                | {"column_order": res["column_order"]}
+                if family != "dense" else None),
             "max_abs_err": err,
             "ms": ms_fwd + ms_bwd, "ms_fwd": ms_fwd, "ms_bwd": ms_bwd,
             "ms_graph": ms_fwd_graph + ms_bwd_graph,
@@ -3717,13 +3724,17 @@ class _StepTimes:
         self.ms.append(seconds * 1e3)
 
 
-def _selection_kernel_checks(dev) -> dict:
+def _selection_kernel_checks(dev, trained) -> dict:
     """Kernels 4-6 at B' = c_sel on gathered columns against their plain
     versions, forward and backward (gradients through the column gather
     to the full W and bias), and the gathered W's unselected columns'
     gradients exactly zero; the selection itself equal to the CPU's.
-    Then each family's forward and backward times at B' = c_sel and at
-    B on the same inputs (the workload's R = 8, c_sel = 512)."""
+    Then, at the workload's R = 8, c_sel = 512: kernel 5 against its
+    plain version at B on the same inputs too, and each family's forward
+    and backward times, bounds and library calls at B' = c_sel and at B
+    on the same inputs; kernel 5's on ``trained``, the (CSR batch, hashed
+    labels) that the nnz = 64 runs train first (every row 64 slots, Zipf
+    background features)."""
     from repro_torch.kernels import mach_fused_xent as mfx
     from repro_torch.kernels import ops
 
@@ -3796,19 +3807,36 @@ def _selection_kernel_checks(dev) -> dict:
             out[family]["max_abs_err"] = max(out[family]["max_abs_err"], err)
             out[family]["cases"] += 1
             if (r, c_sel) == (SELECT["R"], SELECT["c_sel"]):
+                if family == "ell":      # selection off: the whole B
+                    out[family]["max_abs_err_full_b"] = _compare(
+                        f"ell at B={b} (selection off)",
+                        _loss_and_grads(lambda: kern_fn(*inputs, wl, bl, y, b),
+                                        leaves, g),
+                        _loss_and_grads(lambda: plain_fn(*inputs, wl, bl, y,
+                                                         b), leaves, g), names)
+                timed = (inputs, hl if family == "dense" else batch, y,
+                         selected)
+                if family == "ell":      # the traffic phase 11 trains
+                    tx, ty = trained
+                    timed = (ops.csr_to_ell(tx.indptr, tx.indices, tx.values,
+                                            tx.nnz_max, d), tx, ty,
+                             ops.mach_select_buckets(proxy, ty, num_buckets=b,
+                                                     c_sel=c_sel))
                 out[family].update(_selection_times(
-                    family, inputs, wl.detach(), bl.detach(), y, selected, g,
-                    b, c_sel))
+                    family, timed[0], timed[1], wl.detach(), bl.detach(),
+                    timed[2], timed[3], g, b, c_sel))
             print(f"{tag}: kernel == plain, forward and backward (max abs "
                   f"err {err:.3e}); unselected columns' gradients exactly 0",
                   flush=True)
     return out
 
 
-def _selection_times(family, inputs, w, bias, y, selected, g, b, c_sel
+def _selection_times(family, inputs, x, w, bias, y, selected, g, b, c_sel
                      ) -> dict:
     """A family's forward and backward kernel times (CUDA events) at
-    B' = c_sel over the gathered columns, and at B on the same inputs."""
+    B' = c_sel over the gathered columns, and at B on the same inputs,
+    each with its bound and its library call (``_library_xent`` on ``x``,
+    the dense h or the CSR batch: forward and backward to W and bias)."""
     from repro_torch.kernels import mach_fused_xent as mfx
     from repro_torch.kernels import ops
 
@@ -3835,6 +3863,15 @@ def _selection_times(family, inputs, w, bias, y, selected, g, b, c_sel
         res[f"ms_bwd_{key}"] = kernel_ms(lambda: bwd(
             *[t.detach() for t in inputs], wk, bk, lk, lse, g, nb, **kw),
             iters=10)
+        leaves = [t.detach().requires_grad_(True) for t in (wk, bk)]
+        res[f"library_ms_{key}"] = kernel_ms(lambda: _library_xent(
+            family, x.detach() if family == "dense" else x, *leaves, lk, nb,
+            n, r, d), iters=3, warmup=1)
+        print(f"selection times {family} at {key} B={nb}: forward "
+              f"{res[f'ms_fwd_{key}']:.4f} + backward {res[f'ms_bwd_{key}']:.4f}"
+              f" ms, bound {res[f'bound_ms_{key}']:.4f}, library "
+              f"{res[f'library_ms_{key}']:.4f} ms [{_nvidia_smi()}]",
+              flush=True)
     return res
 
 
@@ -3920,9 +3957,12 @@ def phase_selection(dev) -> dict:
               f"{off['peak_gib']:.2f} GiB, losses "
               f"{[round(v, 4) for v in off['losses']]} (host clock, median "
               f"of steps 2..{SELECT_STEPS}) [{_nvidia_smi()}]", flush=True)
+    tx, ty = data[64].batch_at(0, p["N"], format="csr")
+    trained = (tx, head.cfg.hash_labels(ty).movedim(0, -1)
+               .to(torch.int32).contiguous())
     del data
     torch.cuda.empty_cache()
-    checks = _selection_kernel_checks(dev)
+    checks = _selection_kernel_checks(dev, trained)
     return {"runs": runs, "checks": checks}
 
 
@@ -5196,8 +5236,13 @@ def _add_new_path_launches(rows, fused, selection) -> None:
             "ms_fwd_selected": chk["ms_fwd_selected"],
             "ms_bwd_selected": chk["ms_bwd_selected"],
             "ms_full_b_same_inputs": chk["ms_fwd_full"] + chk["ms_bwd_full"],
+            "ms_fwd_full_b": chk["ms_fwd_full"],
+            "ms_bwd_full_b": chk["ms_bwd_full"],
             "bound_ms_selected": chk["bound_ms_selected"],
             "bound_ms_full_b": chk["bound_ms_full"],
+            "library_ms_selected": chk["library_ms_selected"],
+            "library_ms_full_b": chk["library_ms_full"],
+            "max_abs_err_full_b": chk.get("max_abs_err_full_b"),
             "selected_shape": (f"{label}: N={SELECT['N']} d={SELECT['d']} "
                                f"R={SELECT['R']} B'={SELECT['c_sel']} of "
                                f"B={SELECT['B']}, float32, with bias"),
@@ -6046,19 +6091,16 @@ def phase_checkpoint(dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
         print(f"checkpoint: directory {root}, "
               f"{shutil.disk_usage(root).free / 1e9:.1f} GB free", flush=True)
-        out["odp_nnz1024"] = _odp_restart(dev, 1024, os.path.join(root, "a"),
-                                          smi)
-        counted("odp_nnz1024")
-        a = out["odp_nnz1024"]
-        if not (a["two_runs_same_bits"] and a["restart_same_bits"]):
-            fail(f"checkpoint ODP nnz=1024: the runs' final states differ "
-                 f"(uninterrupted runs {a['runs_max_diff']}, restart "
-                 f"{a['restart_max_diff']}): a nondeterministic op on a "
-                 f"path the JAX test calls bit-exact")
-        out["odp_nnz120"] = _odp_restart(dev, 120, os.path.join(root, "b"),
-                                         smi)
-        counted("odp_nnz120")
-        _hold_restart("ODP nnz=120", out["odp_nnz120"])
+        for nnz, sub in ((1024, "a"), (120, "b")):
+            key = f"odp_nnz{nnz}"
+            out[key] = _odp_restart(dev, nnz, os.path.join(root, sub), smi)
+            counted(key)
+            a = out[key]
+            if not (a["two_runs_same_bits"] and a["restart_same_bits"]):
+                fail(f"checkpoint ODP nnz={nnz}: the runs' final states "
+                     f"differ (uninterrupted runs {a['runs_max_diff']}, "
+                     f"restart {a['restart_max_diff']}): a nondeterministic "
+                     f"op on a path the JAX test calls bit-exact")
         need = 3.2 * _lm_state_bytes()
         free = shutil.disk_usage(root).free
         if free < need:
@@ -6112,13 +6154,13 @@ def phase_checkpoint(dev) -> dict:
 
 
 def _hold_restart(label, res) -> None:
-    """Where runs differ from run to run (float atomics): the restarted
-    run's mean |difference| from the first uninterrupted run at most twice
-    the largest of the three uninterrupted runs' pairs.  The mean, not
-    the largest difference: over 5 ODP nnz=120 runs of 7 steps the pairs'
-    largest differences spread 4.5x and their means 1.9x
-    (tools/train_determinism.py --runs), so a 2x rule on the largest
-    fails on runs without a fault."""
+    """Where runs differ from run to run: the restarted run's mean
+    |difference| from the first uninterrupted run at most twice the
+    largest of the three uninterrupted runs' pairs.  The mean, not the
+    largest difference: over 5 ODP nnz=120 runs of 7 steps, while kernel 5
+    summed dW by float atomics, the pairs' largest differences spread 4.5x
+    and their means 1.9x (tools/train_determinism.py --runs), so a 2x rule
+    on the largest fails on runs without a fault."""
     if res["restart_mean_diff"] > 2 * res["runs_mean_diff"]:
         fail(f"checkpoint {label}: the restarted run is "
              f"{res['restart_mean_diff']} from an uninterrupted one (mean "

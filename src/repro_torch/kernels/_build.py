@@ -53,9 +53,11 @@ SIGNATURES = {
              _P, _P]},
     "mach_fused_xent_ell": {
         "fused_xent_ell_fwd_launch":
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-        "fused_xent_ell_bwd_launch":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]},
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "fused_xent_ell_dlogits_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "fused_xent_ell_dw_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]},
     "mach_fused_xent_gather": {
         "fused_xent_gather_fwd_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -2,23 +2,25 @@
 // (mach_fused_xent_{dense,ell,gather}.cu).
 //
 // Every kernel produces logits one tile at a time and never writes them
-// to device memory.  A block owns a few rows and a head group: heads
-// [h0, h0 + nh) and their columns [h0*B, (h0+nh)*B) of the R*B logits,
-// which it walks in chunks of kChunk columns.  A head of B <= kChunk
-// buckets lies in one chunk; a wider head (ImageNet-21k's B = 512) spans
-// several, and its logsumexp is completed across them with an online
-// max / sum-exp, as the TPU kernels' _online_update does across column
-// blocks.  Blocks of different head groups write disjoint (row, head)
-// entries, and a second small kernel sums each row's R heads in order
-// r = 0..R-1, so the forward pass is deterministic.
+// to device memory.  Here, as the gather kernel uses them: a block owns a
+// few rows and a head group: heads [h0, h0 + nh) and their columns
+// [h0*B, (h0+nh)*B) of the R*B logits, which it walks in chunks of kChunk
+// columns.  A head of B <= kChunk buckets lies in one chunk; a wider head
+// (ImageNet-21k's B = 512) spans several, and its logsumexp is completed
+// across them with an online max / sum-exp, as the TPU kernels'
+// _online_update does across column blocks.  Blocks of different head
+// groups write disjoint (row, head) entries, and a second small kernel
+// sums each row's R heads in order r = 0..R-1, so the forward pass is
+// deterministic.  (The dense and ELL kernels split a head across column
+// tiles and merge its partials in a second kernel instead.)
 //
 // The backward pass turns a recomputed logits tile into
 //   dlogits[n, c] = g[n] * (softmax[n, c] - 1[c = label column])
-// in shared memory (from the saved per-head logsumexp, not recomputed).
-// The dense and ELL kernels then reduce it into dW, dh and dbias with
-// float atomicAdd into zero-filled outputs: those sums run across blocks,
-// in an order that changes from run to run.  The gather kernel writes the
-// dlogits out and sums dW and dbias from them in a fixed order.
+// from the saved per-head logsumexp, not recomputed.  The dense kernel
+// reduces it into dW, dh and dbias with float atomic adds into zero-filled
+// outputs: those sums run across blocks, in an order that changes from run
+// to run.  The gather and ELL kernels write the dlogits out and sum dW and
+// dbias from them in a fixed order.
 #pragma once
 
 #include "mach_common.cuh"
@@ -151,17 +153,6 @@ __device__ __forceinline__ void dlogits_in_place(float* L, int tile_rows,
     L[n * kLd + c] = v;
   }
   __syncthreads();
-}
-
-// dbias[cc + c] += sum over the tile's rows of dlogits (rows in order).
-__device__ __forceinline__ void add_dbias(const float* L, int rows, int cc,
-                                          int cw, float* __restrict__ dbias) {
-  if (dbias == nullptr) return;
-  for (int c = threadIdx.x; c < cw; c += blockDim.x) {
-    float acc = 0.f;
-    for (int n = 0; n < rows; ++n) acc += L[n * kLd + c];
-    atomicAdd(dbias + cc + c, acc);
-  }
 }
 
 // loss[n] = sum over r = 0..R-1 of nll[n, r], one thread per row.

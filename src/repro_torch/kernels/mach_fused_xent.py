@@ -10,23 +10,28 @@ weights W (d, R·B), an optional bias (R·B,) and hashed labels y (N, R):
   ``repro/kernels/mach_fused_xent.py::mach_fused_xent_pallas``).
 * ``mach_fused_xent_ell``    — a is a padded-ELL batch cols/vals (N, J),
   padded slots carrying col id d and val 0; kernel
-  ``csrc/mach_fused_xent_ell.cu``, tiles of rows (replaces
-  ``mach_fused_xent_sparse_pallas``, the ODP default below
+  ``csrc/mach_fused_xent_ell.cu``, blocks of (row tile, 32 logits
+  columns) that stage W's column slice in shared memory where it fits
+  (replaces ``mach_fused_xent_sparse_pallas``, the default below
   ``GATHER_NNZ_THRESHOLD`` nonzeros a row).
 * ``mach_fused_xent_gather`` — the same ELL function, one row a block
   (replaces ``mach_fused_xent_gather_pallas``, for nnz at or above the
-  threshold).  Its backward puts the batch in column order (for each
-  feature, its (row, val) pairs) and writes each dW row once from the
-  dlogits, with no float atomics: the same bits from run to run.
+  threshold).
+
+Both sparse backwards put the batch in column order (for each feature,
+its (row, val) pairs; one shared launch) and write each dW element once
+from the dlogits, with no float atomics: the same bits from run to run.
 
 Each returns (loss (N,), lse (N, R)).  On CUDA tensors it runs a
 ``torch.autograd.Function`` whose forward and backward are the kernels:
 the forward keeps the per-head logsumexp as its residual and the
 backward uses it, forming dlogits = g·(softmax − onehot(y)) from one
 recomputation of each logits tile.  The (N, R·B) logits never reach
-device memory.  On CPU tensors the family's plain PyTorch version runs
-and autograd differentiates it; the gather family's CPU backward is
-``gather_bwd_plain``, the plain versions of its kernel's three steps.
+device memory (the sparse backwards write the (N, R·B) dlogits).  On
+CPU tensors the family's plain PyTorch version runs and autograd
+differentiates it; the gather family's CPU backward is
+``gather_bwd_plain``, the plain versions of the three steps both sparse
+kernels' backwards take.
 Gradients flow to W, the bias and (dense family) a; ELL ``vals`` are
 data and get none on either device.
 
@@ -45,17 +50,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mach_decode import _SMEM_OPTIN
 
 GATHER_NNZ_THRESHOLD = 512    # nnz_max at which CSR batches take the gather family
 DENSE_DTYPES = (torch.float32, torch.bfloat16)
 # logits columns a dense block owns (csrc Lay<T>)
 _DENSE_COLS = {torch.float32: 128, torch.bfloat16: 256}
 
-_ELL_MAX_ROWS = 16            # rows an ELL block stages (csrc kMaxRows)
-_ELL_FIXED_SMEM = 4 * (16 * 129 + 3 * 16 * 8)   # its logits tile + statistics
+_ELL_COLS = 32                # logits columns an ELL block owns (csrc kTileCols)
 _HEAVY_TERMS = 64             # pairs over which a block shares a dW row
-#                               (csrc kHeavyTerms)
+#                               (csrc mach_xent_dw.cuh kHeavyTerms)
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +147,15 @@ def fused_xent_ell_plain(cols, vals, w, bias, labels, num_buckets):
     return _xent_plain(logits, labels, num_buckets)
 
 
+def ell_span(num_buckets: int) -> int:
+    """Most 32-column tiles one head of B buckets can touch: the ELL
+    forward's per-(row, head) partial slots."""
+    return (num_buckets + _ELL_COLS - 2) // _ELL_COLS + 1
+
+
 def gather_dlogits_plain(cols, vals, w, bias, labels, lse, g, num_buckets):
     """Plain PyTorch: dlogits = g·(softmax − onehot(y)) (N, R·B) float32
-    of the ELL logits, from the forward's lse — the gather backward's
+    of the ELL logits, from the forward's lse — both sparse backwards'
     first step."""
     valid = (cols >= 0) & (cols < w.shape[0])
     rows = w[torch.where(valid, cols, 0).long()]
@@ -179,7 +188,8 @@ def gather_column_order_plain(cols, vals, d):
 def gather_dw_plain(colptr, term_row, term_val, dlogits):
     """Plain PyTorch: dW (d, R·B) with row f = Σ over f's pairs of
     val·dlogits[row] (rows the batch does not touch are zero), and dbias,
-    the column sums of dlogits."""
+    the column sums of dlogits — what both sparse backwards' dW launch
+    writes."""
     d = colptr.shape[0] - 1
     feature = torch.repeat_interleave(
         torch.arange(d, device=dlogits.device), torch.diff(colptr.long()))
@@ -190,8 +200,9 @@ def gather_dw_plain(colptr, term_row, term_val, dlogits):
 
 
 def gather_bwd_plain(cols, vals, w, bias, labels, lse, g, num_buckets):
-    """Plain PyTorch: the gather family's backward in its kernel's three
-    steps (dlogits, column order, dW row by row) -> (dW, dbias or None)."""
+    """Plain PyTorch: the sparse families' backward in their kernels'
+    three steps (dlogits, column order, dW feature by feature) -> (dW,
+    dbias or None)."""
     dlogits = gather_dlogits_plain(cols, vals, w, bias, labels, lse, g,
                                    num_buckets)
     dw, db = gather_dw_plain(*gather_column_order_plain(cols, vals,
@@ -221,12 +232,11 @@ def _forward_outputs(n, r, device):
                                                     device=device)
 
 
-def _ell_rows_per_block(j: int) -> int:
-    rows = (_SMEM_OPTIN - _ELL_FIXED_SMEM) // (8 * j)
-    if rows < 1:
-        raise ValueError(f"J={j} ELL slots of one row do not fit in shared "
-                         f"memory; use the gather family")
-    return min(_ELL_MAX_ROWS, rows)
+def _heavy_scratch(d, m, device):
+    """The dW row launch's scratch: the heavy-row count, then the list (a
+    heavy row has more than _HEAVY_TERMS of the at most m pairs)."""
+    return torch.empty((2 + min(d, m // (_HEAVY_TERMS + 1)),),
+                       dtype=torch.int32, device=device)
 
 
 def dense_span(num_buckets: int, dtype: torch.dtype) -> int:
@@ -273,24 +283,63 @@ def dense_bwd_cuda(h, w, bias, labels, lse, g, num_buckets, need_dh=True):
 
 
 def ell_fwd_cuda(cols, vals, w, bias, labels, num_buckets):
+    """Forward launch on contiguous CUDA operands -> (loss, lse): the
+    logits tiles' per-(row, head) partials, merged, the heads summed."""
     (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
     lse, nll, loss = _forward_outputs(n, r, cols.device)
+    span = ell_span(num_buckets)
+    part = torch.empty((3, n * r * span), dtype=torch.float32,
+                       device=cols.device)
     _launch("mach_fused_xent_ell", "fused_xent_ell_fwd_launch", cols.device,
             cols.data_ptr(), vals.data_ptr(), w.data_ptr(), _ptr(bias),
-            labels.data_ptr(), n, j, d, r, num_buckets, _ell_rows_per_block(j),
+            labels.data_ptr(), n, j, d, r, num_buckets, span, part.data_ptr(),
             lse.data_ptr(), nll.data_ptr(), loss.data_ptr())
     ell_fwd_cuda.launches += 1
     return loss, lse
 
 
-def ell_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+def ell_dlogits_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """The ELL backward's first launch -> (dlogits (N, R·B) float32, the
+    slots' sort keys (N·J,) int32: col id, d for padding)."""
     (n, j), d, r = cols.shape, w.shape[0], labels.shape[1]
-    dw = torch.zeros_like(w)
-    db = None if bias is None else torch.zeros_like(bias)
-    _launch("mach_fused_xent_ell", "fused_xent_ell_bwd_launch", cols.device,
-            cols.data_ptr(), vals.data_ptr(), w.data_ptr(), _ptr(bias),
-            labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, j, d, r,
-            num_buckets, _ell_rows_per_block(j), dw.data_ptr(), _ptr(db))
+    dlogits = torch.empty((n, r * num_buckets), dtype=torch.float32,
+                          device=cols.device)
+    keys = torch.empty((n * j,), dtype=torch.int32, device=cols.device)
+    _launch("mach_fused_xent_ell", "fused_xent_ell_dlogits_launch",
+            cols.device, cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
+            _ptr(bias), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, j,
+            d, r, num_buckets, dlogits.data_ptr(), keys.data_ptr())
+    ell_dlogits_cuda.launches += 1
+    return dlogits, keys
+
+
+def ell_dw_cuda(colptr, term_row, term_val, dlogits, with_bias):
+    """The ELL backward's dW launch -> (dW (d, R·B), every element written
+    once from the column order and the dlogits, and dbias or None)."""
+    d, (n, c), m = colptr.shape[0] - 1, dlogits.shape, term_row.shape[0]
+    f32 = dict(dtype=torch.float32, device=dlogits.device)
+    dw = torch.empty((d, c), **f32)
+    db = torch.empty((c,), **f32) if with_bias else None
+    heavy = _heavy_scratch(d, m, dlogits.device)
+    _launch("mach_fused_xent_ell", "fused_xent_ell_dw_launch", dlogits.device,
+            colptr.data_ptr(), term_row.data_ptr(), term_val.data_ptr(),
+            dlogits.data_ptr(), n, m, d, c, dw.data_ptr(), _ptr(db),
+            heavy.data_ptr())
+    ell_dw_cuda.launches += 1
+    return dw, db
+
+
+def ell_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """The ELL backward on the card -> (dW, dbias or None), the same bits
+    from run to run: dlogits, the column order (the gather family's
+    launch), dW.  Its counter counts these composed calls; each launching
+    wrapper counts its own launches."""
+    if cols.shape[0] * cols.shape[1] >= 2 ** 31:
+        raise ValueError("the ELL backward takes fewer than 2^31 slots")
+    dlogits, keys = ell_dlogits_cuda(cols, vals, w, bias, labels, lse, g,
+                                     num_buckets)
+    order = gather_column_order_cuda(keys, vals, w.shape[0])
+    dw, db = ell_dw_cuda(*order, dlogits, bias is not None)
     ell_bwd_cuda.launches += 1
     return dw, db
 
@@ -345,10 +394,7 @@ def gather_dw_cuda(colptr, term_row, term_val, dlogits):
     from the column order and the dlogits."""
     d, c = colptr.shape[0] - 1, dlogits.shape[1]
     dw = torch.empty((d, c), dtype=torch.float32, device=dlogits.device)
-    # the heavy-row count, then the list: a heavy row has more than
-    # _HEAVY_TERMS of the (at most N·J) pairs
-    heavy = torch.empty((2 + min(d, term_row.shape[0] // (_HEAVY_TERMS + 1)),),
-                        dtype=torch.int32, device=dlogits.device)
+    heavy = _heavy_scratch(d, term_row.shape[0], dlogits.device)
     _launch("mach_fused_xent_gather", "fused_xent_gather_dw_launch",
             dlogits.device, colptr.data_ptr(), term_row.data_ptr(),
             term_val.data_ptr(), dlogits.data_ptr(), d, c, int(c % 4 == 0),
@@ -373,7 +419,8 @@ def gather_bwd_cuda(cols, vals, w, bias, labels, lse, g, num_buckets):
 
 
 CUDA_WRAPPERS = (dense_fwd_cuda, dense_bwd_cuda, ell_fwd_cuda, ell_bwd_cuda,
-                 gather_fwd_cuda, gather_bwd_cuda, gather_dlogits_cuda,
+                 ell_dlogits_cuda, ell_dw_cuda, gather_fwd_cuda,
+                 gather_bwd_cuda, gather_dlogits_cuda,
                  gather_column_order_cuda, gather_dw_cuda)
 for _fn in CUDA_WRAPPERS:
     _fn.launches = 0

@@ -14,11 +14,11 @@ block (``models/moe.apply_moe``) against its plain sequential version
 ``moe_ref`` and against itself on a CPU copy: expert ids and the kept
 mask equal, y and the aux losses at rtol 1e-5 in float32, to a relative
 L2 of 2^-8 in bf16.  Gradients at
-rtol 1e-4 / atol 1e-6: the dense and ELL kernels reduce dW, dh and dbias
-with float atomics, in another order than the plain version (and from
-run to run); the gather backward sums each dW row and dbias in a fixed
-order of its own, so two runs return the same bits, and rows the batch
-does not touch are written as zeros (dW comes from torch.empty).  The
+rtol 1e-4 / atol 1e-6: the dense kernel reduces dW, dh and dbias with
+float atomics, in another order than the plain version (and from run to
+run); the ELL and gather backwards sum each dW element and dbias in a
+fixed order of their own, so two runs return the same bits, and rows the
+batch does not touch are written as zeros (dW comes from torch.empty).  The
 dense kernel's float32 case is held to the plain version run in float64
 (at N(0, 1) features cuBLAS's float32 plain version is itself outside
 atol 1e-6); its bf16 case keeps loss and lse at rtol 1e-5 and
@@ -488,8 +488,14 @@ def test_dense_xent_kernel_misaligned_view(dev):
 @pytest.mark.parametrize("family", ["ell", "gather"])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("n,d,r,b,j", [(37, 5000, 25, 32, 120),
-                                       (6, 3000, 3, 37, 1024)])
+                                       (6, 3000, 3, 37, 1024),
+                                       (512, 1024, 8, 512, 64),
+                                       (512, 1024, 8, 4096, 64),
+                                       (64, 60000, 25, 32, 120)])
 def test_sparse_xent_kernels_equal_plain(dev, family, n, d, r, b, j, bias):
+    """At the 500k-label workload's shapes, B' = 512 and B = 4,096 (d =
+    1,024: the ELL kernel stages W's column slices), and ODP-like ones (d
+    >= 50,000: it reads W rows from L2)."""
     w, bb, y, g = _xent_case(dev, n, d, r, b, bias, seed=j)
     cols, vals = _ell(dev, n, d, j, seed=j)
     leaves = [t.requires_grad_(True) for t in (w, bb) if t is not None]
@@ -517,24 +523,30 @@ def _heavy_ell(dev, n, d, j, seed=0):
     return cols, vals
 
 
+@pytest.mark.parametrize("family", ["ell", "gather"])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("n,d,r,b,j", [(37, 5000, 25, 32, 1024),
                                        (6, 3000, 3, 37, 600),
                                        (512, 20000, 25, 32, 1024),
-                                       (1000, 3000, 3, 37, 64)])
-def test_gather_backward_same_bits_twice(dev, n, d, r, b, j, bias):
-    """No float atomics touch dW or dbias: two backward runs return the
-    same bits, with heavy dW rows (kHeavyTerms) in the batch, at N up to
-    1,000; and equal the plain version run in float64 at the sparse
-    tolerance, under the mean loss's cotangent g / N (the training path's;
-    a dW row of thousands of pairs carries float32 rounding of its partial
-    sums)."""
+                                       (1000, 3000, 3, 37, 64),
+                                       (512, 1024, 8, 512, 64),
+                                       (2048, 1024, 3, 37, 24)])
+def test_gather_backward_same_bits_twice(dev, family, n, d, r, b, j, bias):
+    """No float atomics touch dW or dbias in either sparse backward: two
+    runs return the same bits, with heavy dW rows (kHeavyTerms) in the
+    batch, at N up to 2,048 (past it the ELL dW launch reads the dlogits
+    from L2, not shared memory) and at the 500k workload's B' shape; and
+    equal the plain version run in float64 at the sparse tolerance, under
+    the mean loss's cotangent g / N (the training path's; a dW row of
+    thousands of pairs carries float32 rounding of its partial sums)."""
     w, bb, y, g = _xent_case(dev, n, d, r, b, bias, seed=j + n)
     g = g / n
     cols, vals = _heavy_ell(dev, n, d, j, seed=j + n)
-    _, lse = mfx.gather_fwd_cuda(cols, vals, w, bb, y, b)
-    first = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
-    second = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
+    fwd = getattr(mfx, f"{family}_fwd_cuda")
+    bwd = getattr(mfx, f"{family}_bwd_cuda")
+    _, lse = fwd(cols, vals, w, bb, y, b)
+    first = bwd(cols, vals, w, bb, y, lse, g, b)
+    second = bwd(cols, vals, w, bb, y, lse, g, b)
     for got, again in zip(first, second):
         if got is not None:
             assert torch.equal(got, again)
@@ -575,24 +587,61 @@ def test_gather_backward_pieces_equal_plain(dev):
     assert [fn.launches for fn in pieces] == [k + 1 for k in before]
 
 
-def test_gather_backward_untouched_rows_are_zero_on_nan_memory(dev):
-    """dW comes from torch.empty: rows the batch does not touch read
-    exactly 0 even when the allocator hands back memory just filled with
-    NaN, and the touched rows are finite."""
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("family", ["ell", "gather"])
+def test_gather_backward_untouched_rows_are_zero_on_nan_memory(dev, family,
+                                                               heavy):
+    """dW comes from torch.empty in both sparse backwards: rows the batch
+    does not touch read exactly 0 even when the allocator hands back
+    memory just filled with NaN, and the touched rows are finite, also
+    with heavy dW rows (``_heavy_ell``) in the batch."""
     n, d, r, b, j = 16, 6000, 25, 32, 600
     w, bb, y, g = _xent_case(dev, n, d, r, b, True, seed=5)
-    cols, vals = _ell(dev, n, d, j, seed=5)
-    _, lse = mfx.gather_fwd_cuda(cols, vals, w, bb, y, b)
+    cols, vals = (_heavy_ell if heavy else _ell)(dev, n, d, j, seed=5)
+    fwd = getattr(mfx, f"{family}_fwd_cuda")
+    bwd = getattr(mfx, f"{family}_bwd_cuda")
+    _, lse = fwd(cols, vals, w, bb, y, b)
     junk = torch.full((d, r * b), float("nan"), device=dev)
     junk_ptr = junk.data_ptr()
     del junk
-    dw, db = mfx.gather_bwd_cuda(cols, vals, w, bb, y, lse, g, b)
+    dw, db = bwd(cols, vals, w, bb, y, lse, g, b)
     assert dw.data_ptr() == junk_ptr      # the NaN block came back as dW
     touched = torch.zeros(d, dtype=torch.bool, device=dev)
     touched[cols[cols < d].long()] = True
     assert torch.equal(dw[~touched], torch.zeros_like(dw[~touched]))
     assert bool(torch.isfinite(dw[touched]).all()) and bool(touched.any())
     assert bool(torch.isfinite(db).all())
+
+
+@pytest.mark.parametrize("n,d,r,b,j", [(64, 4000, 5, 32, 700),
+                                       (512, 1024, 8, 512, 64),
+                                       (512, 1024, 8, 4096, 64),
+                                       (29, 200, 7, 37, 50)])
+def test_ell_backward_pieces_equal_plain(dev, n, d, r, b, j):
+    """The ELL backward's launches on the card against their plain
+    versions: dlogits (rtol 1e-5: the logits' f32 sums run in another
+    order) and the sort keys exactly, then dW and dbias from the same
+    column order and dlogits against the plain version in float64 (rtol
+    1e-5), under the mean loss's g / N; R·B = 259 takes the 4-byte
+    copies.  Each launching wrapper counts its own launch."""
+    w, bb, y, g = _xent_case(dev, n, d, r, b, True, seed=3)
+    g = g / n
+    cols, vals = _heavy_ell(dev, n, d, j, seed=3)
+    _, lse = mfx.ell_fwd_cuda(cols, vals, w, bb, y, b)
+    pieces = (mfx.ell_dlogits_cuda, mfx.ell_dw_cuda)
+    before = [fn.launches for fn in pieces]
+    dlogits, keys = mfx.ell_dlogits_cuda(cols, vals, w, bb, y, lse, g, b)
+    torch.testing.assert_close(dlogits, mfx.gather_dlogits_plain(
+        cols, vals, w, bb, y, lse, g, b), rtol=1e-5, atol=1e-6)
+    assert torch.equal(keys, torch.where(cols < d, cols, d).reshape(-1))
+    order = mfx.gather_column_order_cuda(keys, vals, d)
+    dw, db = mfx.ell_dw_cuda(*order, dlogits, True)
+    want = mfx.gather_column_order_plain(cols, vals, d)
+    want_dw, want_db = mfx.gather_dw_plain(want[0], want[1], want[2].double(),
+                                           dlogits.double())
+    torch.testing.assert_close(dw, want_dw.float(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(db, want_db.float(), rtol=1e-5, atol=1e-6)
+    assert [fn.launches for fn in pieces] == [k + 1 for k in before]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

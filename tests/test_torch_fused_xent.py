@@ -8,10 +8,11 @@ Same numpy inputs to both; loss and gradients agree at rtol 1e-5 (atol
 1e-6 for gradient entries near zero: f32 sums in another order).  Cases
 mirror the JAX suite's: bias and none, a head wider than a kernel tile,
 B not a multiple of 32, duplicate ids, ragged and empty rows, nnz on
-both sides of GATHER_NNZ_THRESHOLD.  The gather family's backward is
+both sides of GATHER_NNZ_THRESHOLD.  The sparse families' backward is
 also held step by step: its column order (the batch's pairs for each
 feature in (row, slot) order) against a numpy walk, exactly, and the dW
-and dbias it sums from the dlogits against ``jax.grad``.
+and dbias it sums from the dlogits against ``jax.grad``, also at the
+500k-label workload's density (every feature touched by many rows).
 """
 
 import re
@@ -123,7 +124,11 @@ def test_dense_family_returns_lse_and_keeps_leading_dims():
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("impl", ["densify", "gather"])
 @pytest.mark.parametrize("n,d,r,b,nnz_max", [(12, 300, 4, 32, 24),
-                                             (5, 2000, 3, 37, 600)])
+                                             (5, 2000, 3, 37, 600),
+                                             # d small against N·nnz, as
+                                             # at the 500k workload
+                                             (32, 48, 4, 32, 40),
+                                             (64, 16, 2, 64, 12)])
 def test_csr_loss_and_grads_match_ref(n, d, r, b, nnz_max, impl, bias):
     rng = np.random.default_rng(n + d + nnz_max)
     indptr, indices, values = _csr(rng, n, d, nnz_max)
@@ -394,7 +399,9 @@ def _column_walk(cols, vals, d):
             np.array(out, np.float32))
 
 
-@pytest.mark.parametrize("n,d,j", [(7, 12, 9), (5, 40, 30), (1, 3, 4)])
+@pytest.mark.parametrize("n,d,j", [(7, 12, 9), (5, 40, 30), (1, 3, 4),
+                                   (16, 8, 20),      # every feature, many rows
+                                   (12, 5, 16)])
 def test_column_order_matches_a_numpy_walk(n, d, j):
     """Duplicate ids in a row, ragged and empty rows, padding (id d, and
     a negative id), a column touched by every row and columns by one."""
@@ -420,14 +427,20 @@ def test_column_order_matches_a_numpy_walk(n, d, j):
 
 
 @pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("nnz_max", [mfx.GATHER_NNZ_THRESHOLD - 488,
-                                     mfx.GATHER_NNZ_THRESHOLD + 88])
-def test_column_ordered_dw_matches_jax_grad(nnz_max, bias):
+@pytest.mark.parametrize("n,d,r,b,nnz_max", [
+    (9, 700, 3, 37, mfx.GATHER_NNZ_THRESHOLD - 488),
+    (9, 700, 3, 37, mfx.GATHER_NNZ_THRESHOLD + 88),
+    (9, 700, 3, 37, 50),
+    (16, 24, 2, 64, 20),          # d small against N·nnz: many pairs
+    (40, 64, 3, 37, 48),          # a feature
+    (30, 16, 2, 32, 12)])
+def test_column_ordered_dw_matches_jax_grad(n, d, r, b, nnz_max, bias):
     """dW and dbias from the dlogits through the column order, against
     jax.grad of the JAX oracle on the same numpy inputs, for nnz on both
-    sides of GATHER_NNZ_THRESHOLD; and gather_bwd_plain, which composes
-    the three steps, returns the same."""
-    n, d, r, b = 9, 700, 3, 37
+    sides of GATHER_NNZ_THRESHOLD, and where d is small against N·nnz
+    (every feature in many rows, as at the 500k workload's d = 1,024);
+    and gather_bwd_plain, which composes the three steps, returns the
+    same."""
     rng = np.random.default_rng(nnz_max + int(bias))
     indptr, indices, values = _csr(rng, n, d, nnz_max)
     w, bb = _head(rng, d, r, b, bias)
@@ -456,8 +469,13 @@ def test_column_ordered_dw_matches_jax_grad(nnz_max, bias):
 
 
 def test_python_constants_match_csrc():
-    """The gather wrapper sizes its heavy-row list from kHeavyTerms."""
-    src = (Path(mfx.__file__).resolve().parent / "csrc"
-           / "mach_fused_xent_gather.cu").read_text()
-    want = int(re.search(r"constexpr int kHeavyTerms = (\d+);", src).group(1))
-    assert mfx._HEAVY_TERMS == want
+    """The sparse wrappers size their heavy-row list from kHeavyTerms, the
+    ELL wrapper its partials' span from kTileCols."""
+    csrc = Path(mfx.__file__).resolve().parent / "csrc"
+    for source, name, value in (("mach_xent_dw.cuh", "kHeavyTerms",
+                                 mfx._HEAVY_TERMS),
+                                ("mach_fused_xent_ell.cu", "kTileCols",
+                                 mfx._ELL_COLS)):
+        text = (csrc / source).read_text()
+        want = re.search(rf"constexpr int {name} = (\d+);", text).group(1)
+        assert value == int(want), (source, name)

@@ -68,12 +68,14 @@ def test_kernel_sources_present_and_hashed():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # the three fused-xent families: one source each, a forward and a
     # backward launch function each (the gather backward in three: its
-    # dlogits, the column order after a sort, dW), and the shared
-    # epilogue header
-    backward = {family: [f"fused_xent_{family}_bwd_launch"]
-                for family in ("dense", "ell")}
+    # dlogits, the column order after a sort, dW; the ELL backward in its
+    # dlogits and dW, around the gather library's column order), and the
+    # shared epilogue header
+    backward = {"dense": ["fused_xent_dense_bwd_launch"]}
     backward["gather"] = [f"fused_xent_gather_{step}_launch"
                           for step in ("dlogits", "order", "dw")]
+    backward["ell"] = [f"fused_xent_ell_{step}_launch"
+                       for step in ("dlogits", "dw")]
     for family in ("dense", "ell", "gather"):
         name = f"mach_fused_xent_{family}"
         assert name in _build.SOURCES
