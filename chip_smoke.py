@@ -419,7 +419,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    directory (rc 0; ``--local-mesh`` is ``--local``),
    and ``topk_compress`` / ``quantize_8bit`` on the card equal to the
    CPU, bit for bit.
-18. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
+18. The dry run (``repro_torch.launch.dryrun``) against the card: phase
+   17's sharded tinyllama-1.1b step (MACH head, 2 x 4,096 tokens) dry-run
+   at world 1 on fake CUDA tensors, and one untimed real step of the same
+   trainer on an NCCL world of one counted by the same counter
+   (``launch/cost_analysis.py``): flops, bytes and each kernel's
+   ``work()`` equal exactly; the dry run's step peak within DRY_PEAK_RTOL
+   of phase 17's measured peak; the counted 6·N·D and all counted flops
+   over phase 17's ms a step, as TFLOP/s and a share of 989.  Then
+   mistral-large-123b x train_4k on the (16, 16) mesh through ``python -m
+   repro_torch.launch.dryrun`` (started at nice 10 when the script starts
+   and run beside the card's phases: its eager step takes minutes of one
+   host core): rc 0, its per-rank step and init peaks, fit and roofline
+   (data-sheet arithmetic) printed.
+19. The kernel report (one JSON line; rows 2, 7, 8 and 10 with their
    launches on phase 13's path, rows 2, 3, 7, 8 and 10 on phase 14's,
    rows 1, 2, 3 and 10 on phase 15's and kernel 10's new modes, rows 2,
    3, 5, 6, 9 and 10 on phase 16's, rows 3, 4 and 10 on phase 17's, rows
@@ -564,15 +577,23 @@ def wall_ms(fn, runs: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound_of(work, rate: float) -> tuple[float, str]:
+    """Least time (ms) on this card for ``work`` = (operations, bytes), a
+    kernel's ``work()`` (``src/repro_torch/kernels``: each kernel's
+    bound is that one arithmetic): its operations at ``rate`` against
+    its bytes at HBM's rate, and which of the two bounds it."""
+    ops_, nbytes = work
+    t_ops, t_bytes = ops_ / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def bound_ms(n: int, r: int, b: int, num_classes: int, k: int,
              table: bool) -> tuple[float, str]:
-    """Least time for the decode on this card: bytes (probabilities,
-    the table in table mode, outputs) over HBM rate vs one float32
-    operation per gathered value (N·K·R) over the float32 rate."""
-    nbytes = 4 * n * r * b + (4 * r * num_classes if table else 0) + 8 * n * k
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n * num_classes * r / F32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for the decode on this card (``mach_decode.work``: the
+    probabilities, the table in table mode and the outputs read or
+    written, one float32 operation a gathered value, N·K·R)."""
+    from repro_torch.kernels import mach_decode as md
+    return bound_of(md.work(n, r, b, num_classes, table, k), F32_OPS_PER_S)
 
 
 # ---------------------------------------------------------------------------
@@ -1160,26 +1181,24 @@ def _candidate_bounds(meta, ids, inv, table, n, r, b, k, num_classes,
     table entries of the classes in them), counted once, and the
     outputs.  Kernel 7: N·R·B comparisons vs the probabilities read and
     tau and ids written."""
-    from repro_torch.kernels.mach_candidates import candidate_chunks
+    from repro_torch.kernels import mach_candidates as mc
     m, ell = ids.shape[-1], inv.shape[1]
-    rows = torch.unique(candidate_chunks(ids, b))
-    nbytes = 4 * n * r * b + 4 * n * r * (1 + m) + 4 * rows.numel() * ell \
-        + 12 * n * k
+    rows = torch.unique(mc.candidate_chunks(ids, b))
+    classes = None
     if table is not None:
         cls = torch.unique(inv[rows.long()])
-        nbytes += 4 * r * int((cls < num_classes).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = gathers / F32_OPS_PER_S * 1e3
-    k8 = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        classes = int((cls < num_classes).sum())
+    k8 = bound_of(mc.work(n, r, b, m, ell, k, num_classes, table is not None,
+                          gathers=gathers, rows=rows.numel(),
+                          classes=classes), F32_OPS_PER_S)
     return k8, _topm_bound(n, r, b, m)
 
 
 def _topm_bound(n, r, b, m) -> tuple[float, str]:
-    """Least time (ms) for kernel 7: N·R·B comparisons vs the
-    probabilities read and tau and ids written."""
-    t_bytes = (4 * n * r * b + 4 * n * r * (1 + m)) / HBM_BYTES_PER_S * 1e3
-    t_ops = n * r * b / F32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time (ms) for kernel 7 (``mach_candidates.topm_work``: N·R·B
+    comparisons, the probabilities read and tau and ids written)."""
+    from repro_torch.kernels import mach_candidates as mc
+    return bound_of(mc.topm_work(n, r, b, m), F32_OPS_PER_S)
 
 
 def _topm_timed(dev) -> dict:
@@ -1889,35 +1908,21 @@ def phase_xent_vs_plain(dev) -> dict:
 def _bound(family, n, d, r, b, nnz=0, unique=0, j=0, dtype=torch.float32,
            need_dh=False):
     """Least time (ms) for the forward and the backward on this card, and
-    what bounds each.  Dense: 2·N·d·R·B operations forward, 4·N·d·R·B
-    backward (the logits again, then dW; 6 with dh), on the tensor cores —
-    bf16 at the bf16 rate, float32 as 3xTF32, three TF32 products an
-    operation at the TF32 rate.  Sparse: 2·nnz·R·B and 4·nnz·R·B float32
-    operations over this batch's valid slots.  Bytes count each input
-    once (sparse: the W rows this batch touches, the ELL batch, labels and
-    lse) and every output once — the dense dW (d·R·B) included.  The main
-    path's dense backward runs without dh (its input features need no
-    gradient)."""
-    c = r * b
+    what bounds each (``mach_fused_xent.work``, with the bias): the
+    dense family's operations on the tensor cores — bf16 at the bf16
+    rate, float32 as 3xTF32, three TF32 products an operation at the
+    TF32 rate; the sparse families' float32 operations over this batch's
+    ``nnz`` valid slots and its ``unique`` W rows.  The main path's dense
+    backward runs without dh (its input features need no gradient)."""
+    from repro_torch.kernels import mach_fused_xent as mfx
     if family == "dense":
-        es = 2 if dtype == torch.bfloat16 else 4
-        ops_f, ops_b = 2 * n * d * c, (6 if need_dh else 4) * n * d * c
-        rate = BF16_TOPS_PER_S if es == 2 else TF32_OPS_PER_S / 3
-        bytes_f = es * (n * d + d * c + c) + 4 * n * r + 4 * (n + n * r)
-        bytes_b = (es * (n * d + d * c + c) + 4 * (2 * n * r + n)
-                   + es * (d * c + c + (n * d if need_dh else 0)))
+        rate = BF16_TOPS_PER_S if dtype == torch.bfloat16 \
+            else TF32_OPS_PER_S / 3
+        kw = dict(dtype=dtype, need_dh=need_dh)
     else:
-        ops_f, ops_b = 2 * nnz * c, 4 * nnz * c
-        rate = F32_OPS_PER_S
-        ell = 8 * n * j
-        bytes_f = 4 * unique * c + ell + 4 * (c + n * r) + 4 * (n + n * r)
-        bytes_b = 4 * unique * c + ell + 4 * (c + 2 * n * r + n) + 4 * (d * c + c)
-    out = []
-    for ops_, bytes_ in ((ops_f, bytes_f), (ops_b, bytes_b)):
-        t_ops = ops_ / rate * 1e3
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        out.append((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
-    return out
+        rate, kw = F32_OPS_PER_S, dict(j=j, nnz=nnz, unique=unique)
+    return [bound_of(mfx.work(family, n, d, r, b, backward=bwd, **kw), rate)
+            for bwd in (False, True)]
 
 
 def _train(head, params, batch_at, steps, opt, state):
@@ -2355,13 +2360,6 @@ def _flash_inputs(dev, b, t, h, kv, hd, dtype, seed):
     return q, k, v
 
 
-def attended_pairs(t: int, window) -> int:
-    """(query, key) pairs a causal, optionally windowed self-attention of
-    length t attends: sum over rows i of min(i + 1, window)."""
-    w = t if window is None else min(window, t)
-    return w * (w + 1) // 2 + (t - w) * w
-
-
 def phase_lm_kernels_vs_plain(dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lru_scan as ls
@@ -2417,24 +2415,15 @@ def phase_lm_kernels_vs_plain(dev) -> dict:
 
 def _flash_bound(b, t, s, h, kv, hd, causal, window, backward,
                  dtype) -> tuple:
-    """(bound ms, what bounds it, GFLOP) of kernel 10: 4·hd flops an
-    attended (query, key) pair and head forward, 10·hd backward, at the
-    dtype's peak (bf16 tensor cores; float32 outside them); the bytes of
-    q, k, v and out (backward: also dout and lse read, dq, dk and dv
-    written) at HBM's rate.  Causal pairs by ``attended_pairs`` (S = T),
-    non-causal pairs T·S."""
-    pairs = b * h * (attended_pairs(t, window) if causal else t * s)
-    flops = (10 if backward else 4) * hd * pairs
-    q_el, kv_el = b * t * h * hd, b * s * kv * hd
-    n_bytes = dtype.itemsize * ((4 * q_el + 4 * kv_el) if backward
-                                else (2 * q_el + 2 * kv_el))
-    if backward:
-        n_bytes += 4 * b * h * t
+    """(bound ms, what bounds it, GFLOP) of kernel 10
+    (``flash_attention.work``: 4·hd flops an attended (query, key) pair
+    and head forward, 10·hd backward, at the dtype's peak — bf16 tensor
+    cores, float32 outside them; q, k, v and out, backward also dout and
+    lse read and dq, dk and dv written, at HBM's rate)."""
+    from repro_torch.kernels import flash_attention as fa
+    work = fa.work(b, t, s, h, kv, hd, dtype, causal, window, backward)
     rate = BF16_TOPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_ops = flops / rate * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops / 1e9)
+    return bound_of(work, rate) + (work[0] / 1e9,)
 
 
 def _flash_times(dev, smi, cases) -> dict:
@@ -2918,7 +2907,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
     ms9_decode = kernel_ms(lambda: ls.lru_scan_cuda(a4, x4, h04))
     ms9_decode_graph = graph_ms(lambda: ls.lru_scan_cuda(a4, x4, h04))
     plain9 = kernel_ms(lambda: ls.lru_scan_plain(a, x, h0), iters=3, warmup=1)
-    bytes9 = 3 * b * t * d * 4 + b * d * 4
+    bound9 = bound_of(ls.work(b, t, d, x.dtype), F32_OPS_PER_S)
     rows.append({
         "name": "lru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
@@ -2926,7 +2915,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
         "launches": served["lru_scan"],
         "max_abs_err": checks["errs"]["lru_scan"],
         "ms": ms9, "ms_graph": ms9_graph, "plain_ms": plain9,
-        "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": bound9[0], "bound_by": bound9[1],
         "library_ms": None,
         "shape": f"prefill (B, T, D)=({b}, {t}, {d}) float32",
         "ms_decode": ms9_decode, "ms_decode_graph": ms9_decode_graph,
@@ -2942,7 +2931,7 @@ def phase_lm_serve(dev, checks: dict) -> tuple[list[dict], dict]:
     plain10 = kernel_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                          window=window),
                         iters=3, warmup=1)
-    pairs = attended_pairs(t, window)
+    pairs = fa.attended_pairs(t, window)
     bound10, bound10_by, gflop = _flash_bound(b, t, t, h, kv, hd, True, window,
                                               False, cfg.dtype)
     rows_i = torch.arange(t, device=dev)[:, None]
@@ -3462,19 +3451,19 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     lib_b = kernel_ms(lambda: torch.autograd.grad(ce, flat, g_rep,
                                                   retain_graph=True))
     del ce, flat
-    bytes_f = n * r * nb * logits.element_size() + 4 * n * r + 4 * n
-    bytes_b = 2 * n * r * nb * logits.element_size() + 4 * n * r + 4 * n
+    bound_f = bound_of(mx.work(n, r, nb, logits.dtype), F32_OPS_PER_S)
+    bound_b = bound_of(mx.work(n, r, nb, logits.dtype, True), F32_OPS_PER_S)
     shape3 = f"(N, R, B)=({n}, {r}, {nb}) {str(cfg.dtype).split('.')[-1]}"
-    for name, ms, plain, lib, nbytes, direction in (
-            ("mach_xent_fwd", ms_f, plain_f, lib_f, bytes_f, "forward"),
-            ("mach_xent_bwd", ms_b, plain_b, lib_b, bytes_b, "backward")):
+    for name, ms, plain, lib, bound, direction in (
+            ("mach_xent_fwd", ms_f, plain_f, lib_f, bound_f, "forward"),
+            ("mach_xent_bwd", ms_b, plain_b, lib_b, bound_b, "backward")):
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mach_xent.cu",
             "replaces": "src/repro/kernels/mach_xent.py:89",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib,
             "shape": f"{direction}, LM head logits {shape3}",
             "library": "F.cross_entropy over the (N·R, B) view, reduction "
@@ -3494,7 +3483,7 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
     ms9_fwd_graph = graph_ms(lambda: ls.lru_scan_cuda(a, x, h0))
     plain9 = kernel_ms(lambda: ls.lru_scan_bwd_plain(a, h, h0, dh), iters=2,
                        warmup=1)
-    bytes9 = 5 * b * t * d * 4 + 2 * b * d * 4
+    bound9 = bound_of(ls.work(b, t, d, h.dtype, True), F32_OPS_PER_S)
     rows.append({
         "name": "lru_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lru_scan_bwd.cu",
@@ -3502,13 +3491,13 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
         "launches": launches["lru_scan_bwd"],
         "max_abs_err": errs["lru_scan_bwd"],
         "ms": ms9, "ms_graph": ms9_graph, "plain_ms": plain9,
-        "bound_ms": bytes9 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": bound9[0], "bound_by": bound9[1],
         "library_ms": None,
         "shape": f"training (B, T, D)=({b}, {t}, {d}) float32",
         "ms_forward_at_this_shape": ms9_fwd,
         "ms_forward_at_this_shape_graph": ms9_fwd_graph,
         "bound_ms_forward_at_this_shape":
-            (3 * b * t * d * 4 + b * d * 4) / HBM_BYTES_PER_S * 1e3,
+            bound_of(ls.work(b, t, d, x.dtype), F32_OPS_PER_S)[0],
         "ptxas": _ptxas_registers(_build.build_log("lru_scan_bwd")),
         "timing": "ms by kernel_ms (CUDA events); *_graph by graph_ms "
                   "(CUDA-graph replay, device time)"})
@@ -3525,7 +3514,7 @@ def _lm_train_kernel_rows(dev, cfg, launches, checks, smi) -> list[dict]:
         q, k, v, out, dout, lse, window=window), iters=5)
     plain10 = kernel_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, dout, lse, window=window), iters=2, warmup=1)
-    pairs = attended_pairs(t, window)
+    pairs = fa.attended_pairs(t, window)
     bound10, bound10_by, gflop = _flash_bound(b, t, t, h_, kv, hd, True,
                                               window, True, cfg.dtype)
     rows_i = torch.arange(t, device=dev)[:, None]
@@ -6298,12 +6287,15 @@ def _md_per_range(dev, smi) -> dict:
                     lambda: mfx.dense_bwd_cuda(h, ww, None, yy, ls, g, b))}
 
     def bounds(reps):
-        logit_bytes = n_rows * reps * b * 2
-        flop = 2 * n_rows * d * reps * b
-        return {"xent_fwd": logit_bytes / HBM_BYTES_PER_S * 1e3,
-                "xent_bwd": 2 * logit_bytes / HBM_BYTES_PER_S * 1e3,
-                "dense_fwd": flop / BF16_TOPS_PER_S * 1e3,
-                "dense_bwd": 3 * flop / BF16_TOPS_PER_S * 1e3}
+        bf16 = torch.bfloat16
+        dense = [bound_of(mfx.work("dense", n_rows, d, reps, b, bf16,
+                                   backward=bwd, need_dh=True, bias=False),
+                          BF16_TOPS_PER_S)[0] for bwd in (False, True)]
+        return {"xent_fwd": bound_of(mx.work(n_rows, reps, b, bf16),
+                                     F32_OPS_PER_S)[0],
+                "xent_bwd": bound_of(mx.work(n_rows, reps, b, bf16, True),
+                                     F32_OPS_PER_S)[0],
+                "dense_fwd": dense[0], "dense_bwd": dense[1]}
 
     out = {"whole": {"ms": times(logits, y, w), "bound_ms": bounds(r)},
            "shape": f"N={n_rows} d={d} R={r} B={b} bfloat16"}
@@ -6803,10 +6795,9 @@ def _md_scan_per_rank(dev, smi) -> dict:
                                                               ddh))}
 
     def bounds(d):
-        return {"fwd": (3 * b * t * d * 4 + b * d * 4)
-                / HBM_BYTES_PER_S * 1e3,
-                "bwd": (5 * b * t * d * 4 + 2 * b * d * 4)
-                / HBM_BYTES_PER_S * 1e3}
+        return {"fwd": bound_of(ls.work(b, t, d, a.dtype), F32_OPS_PER_S)[0],
+                "bwd": bound_of(ls.work(b, t, d, a.dtype, True),
+                                F32_OPS_PER_S)[0]}
 
     res = {"whole": {"ms": times(a, x, h0, h, dh), "bound_ms": bounds(w)},
            "shape": f"(B, T, W)=({b}, {t}, {w}) float32"}
@@ -7491,6 +7482,226 @@ def _add_multidevice_launches(rows, md) -> None:
                for split in per if split.startswith("n=")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+# the production cell run through the dry run's entry point (the JAX
+# package's perf.py "mistral_train" cell)
+DRY_CELL = ("mistral-large-123b", "train_4k")
+# the dry run's step peak against phase 17's measured one: at most this
+# far apart (relative)
+DRY_PEAK_RTOL = 0.02
+
+
+class _BackgroundCell:
+    """``python -m repro_torch.launch.dryrun --arch A --shape S`` started as
+    a subprocess at nice 10 when the script starts: the dry run computes
+    nothing on the card (rank 0 of the (16, 16) mesh on fake tensors on
+    the CPU), and its eager step takes minutes of one host core, so it
+    runs beside the card's phases and phase 18 waits for it.  ``stop``
+    ends it if it still runs."""
+
+    def __init__(self, arch: str, shape: str):
+        import tempfile
+        self.arch, self.shape = arch, shape
+        self.cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.log = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, cwd=ROOT, env=env,
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        os.setpriority(os.PRIO_PROCESS, self.proc.pid, 10)
+
+    def wait(self, timeout: float) -> tuple[int, str]:
+        """(its return code, its output) once it ends; fails after
+        ``timeout`` seconds more."""
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"dry run: {' '.join(self.cmd[2:])} still running after "
+                 f"{time.perf_counter() - self.t0:.0f} s")
+        self.log.seek(0)
+        return rc, self.log.read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def _dry_world1(dev) -> dict:
+    """Phase 17's sharded trainer (MD_ARCH with its MACH head, MD_BATCH x
+    MD_SEQ tokens, launch/train.py's train_config, the FSDP rules) as the
+    dry run runs it: a fake world of one, a (1, 1) mesh, fake CUDA
+    tensors (``dryrun.lower_cell`` with a spec)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    spec = dict(kind="train", seq_len=MD_SEQ, global_batch=MD_BATCH, world=1,
+                train_config=launch_train.train_config(MD_STEPS, 3e-4))
+    res = dryrun.lower_cell(MD_ARCH, "train_4k", mach="on", spec=spec,
+                            device=dev)
+    if not res.ok:
+        fail(f"dry run: {MD_ARCH} at world 1: {res.reason}")
+    return res.data
+
+
+def _counted_real_step(dev) -> tuple[dict, dict]:
+    """One untimed step of phase 17's sharded trainer on the card (an NCCL
+    world of one, the (1, 1) mesh, seed 0's state, the stream's first
+    batch) under the dry run's counter: its counts, and the launches of
+    the path's kernels over the step."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mach_xent as mx
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import ShardingRules, activate
+    from repro_torch.train import Trainer
+    launchers = {"flash_attention": fa.flash_attention_cuda,
+                 "flash_attention_bwd": fa.flash_attention_bwd_cuda,
+                 "mach_xent_fwd": mx.mach_xent_cuda_fwd,
+                 "mach_xent_bwd": mx.mach_xent_cuda_bwd}
+    cfg = get_config(MD_ARCH, mach="on")
+    rules = ShardingRules(fsdp=True, sp=False)
+    batch = launch_train.data_stream(cfg, MD_SEQ, MD_BATCH, 0,
+                                     dev).batch_at(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as root:
+        dist.init_process_group("nccl", init_method=f"file://{root}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            trainer = Trainer(LanguageModel(cfg),
+                              launch_train.train_config(MD_STEPS, 3e-4),
+                              mesh=mesh, rules=rules)
+            state = trainer.init_state(
+                torch.Generator(device=dev).manual_seed(0), dev)
+            before = {k: f.launches for k, f in launchers.items()}
+            with activate(mesh, rules), CostCounter() as counter:
+                state, _ = trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+            launched = {k: f.launches - before[k]
+                        for k, f in launchers.items()}
+            del state
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return counter.summary(), launched
+
+
+def phase_dry_run(dev, md: dict, cell: _BackgroundCell) -> dict:
+    """(a) The dry run at world 1 against the card: phase 17's sharded
+    step dry-run on fake CUDA tensors, and one real step counted by the
+    same counter — flops, bytes and each kernel's ``work()`` equal
+    exactly; the dry run's step peak within DRY_PEAK_RTOL of phase 17's
+    measured peak; the counted model flops (6·N·D) and all counted flops
+    over phase 17's measured ms a step, the port's whole-step share of
+    the H100's 989 TFLOP/s.  (b) DRY_CELL through the entry point (started
+    when the script started, ``_BackgroundCell``): rc 0, its JSON read
+    back and its per-rank peak, init peak, fit and roofline printed."""
+    t0 = time.perf_counter()
+    smi = _nvidia_smi()
+    dry = _dry_world1(dev)
+    t_dry = time.perf_counter() - t0
+    real, launched = _counted_real_step(dev)
+    out = {"dry": {k: dry[k] for k in ("cost", "kernels", "memory",
+                                        "roofline")},
+           "real": real, "launched": launched, "dry_seconds": t_dry}
+    cost = dry["cost"]
+    same = (cost["flops_per_device"] == real["flops"]
+            and cost["bytes_accessed_per_device"] == real["bytes"]
+            and dry["kernels"] == real["kernels"])
+    print(f"dry run: {MD_ARCH} (MACH head) {MD_BATCH} x {MD_SEQ}, world 1, "
+          f"fake CUDA tensors ({t_dry:.1f} s): {cost['flops_per_device']:.6e} "
+          f"flops, {cost['bytes_accessed_per_device']:.6e} bytes; one real "
+          f"step of phase 17's sharded trainer counted: {real['flops']:.6e} "
+          f"flops, {real['bytes']:.6e} bytes; kernels' work "
+          f"{'equal' if dry['kernels'] == real['kernels'] else 'DIFFER'} "
+          f"{ {k: v['count'] for k, v in real['kernels'].items()} }",
+          flush=True)
+    if not same:
+        fail(f"dry run: the dry run's counts differ from the card's step: "
+             f"dry {cost}, {dry['kernels']}; real {real['flops']}, "
+             f"{real['bytes']}, {real['kernels']}")
+    # the real tensors took the kernels: each launched as often as counted
+    if launched != {k: v["count"] for k, v in real["kernels"].items()}:
+        fail(f"dry run: the real step's kernel launches {launched} are not "
+             f"the counted ones {real['kernels']}")
+    peak = dry["memory"]["per_device_peak_bytes"]
+    measured = md["sharded"]["peak_gib"] * 2**30
+    gap = peak / measured - 1.0
+    out["peak"] = {"dry_bytes": peak, "measured_bytes": measured, "gap": gap}
+    print(f"dry run: step peak {peak / 2**30:.3f} GiB (PeakTracker on fake "
+          f"tensors) against phase 17's sharded steps' "
+          f"max_memory_allocated {md['sharded']['peak_gib']:.3f} GiB: "
+          f"{gap:+.2%} (bound {DRY_PEAK_RTOL:.0%}); argument bytes "
+          f"{dry['memory']['per_device_argument_bytes'] / 2**30:.3f} GiB, "
+          f"init peak {dry['memory']['init_peak_bytes'] / 2**30:.3f} GiB "
+          f"(measured {md['sharded']['init_peak_gib']:.3f}) [{smi}]",
+          flush=True)
+    if abs(gap) > DRY_PEAK_RTOL:
+        fail(f"dry run: step peak {peak} bytes {gap:+.2%} from the "
+             f"measured {measured:.0f}")
+    ms = md["sharded"]["step_ms"]
+    share = {}
+    for name, flops in (("model_flops", dry["roofline"]["model_flops"]),
+                        ("counted_flops", cost["flops_per_device"])):
+        rate = flops / (ms * 1e-3)
+        share[name] = {"flops": flops, "tflops_per_s": rate / 1e12,
+                       "share_of_989": rate / BF16_TOPS_PER_S}
+        print(f"dry run: {name} {flops:.6e} a step over phase 17's "
+              f"{ms:.3f} ms a step (sharded, measured): "
+              f"{rate / 1e12:.2f} TFLOP/s, {rate / BF16_TOPS_PER_S:.2%} of "
+              f"989 TFLOP/s [{smi}]", flush=True)
+    out["share_of_peak"] = share
+
+    t1 = time.perf_counter()
+    rc, text = cell.wait(timeout=max(60.0, 900.0 - (t1 - cell.t0)))
+    waited = time.perf_counter() - t1
+    for line in text.strip().splitlines()[:2]:
+        print(f"  | {line}", flush=True)
+    if rc != 0:
+        print(text[-3000:], flush=True)
+        fail(f"dry run: {' '.join(cell.cmd[2:])} returned {rc}")
+    path = (ROOT / "artifacts" / "dryrun_torch" / "pod16x16"
+            / f"{cell.arch}__{cell.shape}.json")
+    rec = json.loads(path.read_text())
+    data = rec["data"]
+    mem, rf = data["memory"], data["roofline"]
+    out["cell"] = {"seconds": rec["seconds"], "waited_s": waited,
+                   "memory": mem, "roofline": rf}
+    print(f"dry run: {cell.arch} x {cell.shape} on the (16, 16) mesh through "
+          f"the entry point (rc {rc}, its step {rec['seconds']:.0f} s of "
+          f"host time beside the phases, {waited:.1f} s waited here): "
+          f"per-rank step peak {mem['per_device_peak_bytes'] / 2**30:.2f} "
+          f"GiB, init peak {mem['init_peak_bytes'] / 2**30:.2f} GiB, "
+          f"fits_hbm {mem['fits_hbm']} (at init {mem['fits_hbm_at_init']}); "
+          f"roofline (H100 data-sheet arithmetic, not measured): compute "
+          f"{rf['compute_s'] * 1e3:.1f} ms, memory "
+          f"{rf['memory_s'] * 1e3:.1f} ms, collectives "
+          f"{rf['collective_s'] * 1e3:.1f} ms -> {rf['bottleneck']}, useful "
+          f"flops {rf['useful_flops_fraction']:.3f}", flush=True)
+    if not rec["ok"]:
+        fail(f"dry run: {cell.arch} x {cell.shape} not ok: {rec['reason']}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dry run: phase wall time {out['seconds']:.1f} s ({waited:.1f} s "
+          f"of it waiting for the production cell)", flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -7526,7 +7737,17 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    cell = _BackgroundCell(*DRY_CELL)
+    try:
+        return _phases(dev, smi, cell)
+    finally:
+        cell.stop()
 
+
+def _phases(dev, smi: str, cell: _BackgroundCell) -> int:
+    """Phases 2-18 and the kernel report; ``cell`` is phase 18's
+    production cell, running since the script started."""
+    from repro_torch.kernels import _build
     t_script = time.perf_counter()
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -7642,6 +7863,9 @@ def main() -> int:
     md = phase_multidevice(dev)
     print(f"multidevice: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     _add_multidevice_launches(rows, md)
+    t0 = time.perf_counter()
+    phase_dry_run(dev, md, cell)
+    print(f"dry run: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_script:.1f} s, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

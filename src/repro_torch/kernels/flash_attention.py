@@ -17,6 +17,8 @@ float32 on float32 FMAs (``flash_kernel``; ``row_dot_kernel``,
 ``flash_attention_plain`` and ``flash_attention_bwd_plain``.  When a
 gradient is wanted the forward also returns the row log-sum-exp
 (B, H, T) float32, which the backward reads; otherwise it is not formed.
+On fake tensors both passes run the kernels' stand-ins (``counting``);
+``work`` is their arithmetic.
 
 The plain version computes what the TPU kernel's ``_flash_body`` does,
 with the same cast points — q scaled in float32 and rounded to k's
@@ -40,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 BLOCK_K = 64                 # key tile of the kernels (csrc kBK)
@@ -61,6 +63,37 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v are on different devices")
+
+
+def attended_pairs(t: int, window) -> int:
+    """(query, key) pairs a causal, optionally windowed self-attention of
+    length t attends: sum over rows i of min(i + 1, window)."""
+    w = t if window is None else min(window, t)
+    return w * (w + 1) // 2 + (t - w) * w
+
+
+def work(b: int, t: int, s: int, h: int, kv: int, hd: int,
+         dtype: torch.dtype, causal: bool, window: Optional[int],
+         backward: bool = False, lse: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of kernel 10 on q (B, T, H, hd) and k, v (B, S, KV,
+    hd) of ``dtype``: 4·hd flops an attended (query, key) pair and head
+    forward (two products), 10·hd backward (five); causal pairs by
+    ``attended_pairs`` (S = T), otherwise T·S.  Bytes: q, k and v read
+    and out written (with ``lse`` the (B, H, T) float32 lse too);
+    backward q, k, v, out, dout and lse read, dq, dk and dv written."""
+    pairs = b * h * (attended_pairs(t, window) if causal else t * s)
+    q_el, kv_el = b * t * h * hd, b * s * kv * hd
+    if backward:
+        return (10 * hd * pairs,
+                dtype.itemsize * (4 * q_el + 4 * kv_el) + 4 * b * h * t)
+    return (4 * hd * pairs, dtype.itemsize * (2 * q_el + 2 * kv_el)
+            + (4 * b * h * t if lse else 0))
+
+
+def _work(q, k, causal, window, backward=False, lse=False):
+    b, t, h, hd = q.shape
+    return work(b, t, k.shape[1], h, k.shape[2], hd, q.dtype, causal,
+                window, backward, lse)
 
 
 def _mask(rows, cols, causal, window):
@@ -265,18 +298,46 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 flash_attention_bwd_cuda.launches = 0
 
 
+def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         return_lse: bool = False):
+    """The forward kernel's stand-in on fake tensors: out (and lse) with
+    the kernel's shapes and dtypes; nothing built or launched."""
+    b, t, h, _ = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not return_lse:
+        return out
+    return out, q.new_empty((b, h, t), dtype=torch.float32)
+
+
+def flash_attention_bwd_fake(q, k, v, out, dout, lse, *, causal=True,
+                             window=None):
+    """The backward kernels' stand-in on fake tensors: dq, dk, dv."""
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
 class FlashAttention(torch.autograd.Function):
     """Kernel 10 and its backward kernels on CUDA tensors, the plain
-    versions on CPU tensors.  The lse is formed only when a gradient is
-    wanted; then q, k, v, out and lse are saved."""
+    versions on CPU tensors, the stand-ins on fake tensors.  The lse is
+    formed only when a gradient is wanted; then q, k, v, out and lse are
+    saved."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        fwd = flash_attention_cuda if q.device.type == "cuda" \
-            else flash_attention_plain
-        if not any(ctx.needs_input_grad[:3]):
-            return fwd(q, k, v, causal=causal, window=window)
-        out, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        if counting.is_fake(q):
+            fwd = flash_attention_fake
+        else:
+            fwd = flash_attention_cuda if q.device.type == "cuda" \
+                else flash_attention_plain
+        grad = any(ctx.needs_input_grad[:3])
+        with counting.launch("flash_attention",
+                             _work(q, k, causal, window, lse=grad)):
+            if not grad:
+                return fwd(q, k, v, causal=causal, window=window)
+            out, lse = fwd(q, k, v, causal=causal, window=window,
+                           return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -284,9 +345,15 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.device.type == "cuda" \
-            else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse,
-                         causal=ctx.causal, window=ctx.window)
+        if counting.is_fake(q):
+            bwd = flash_attention_bwd_fake
+        else:
+            bwd = flash_attention_bwd_cuda if q.device.type == "cuda" \
+                else flash_attention_bwd_plain
+        dout = dout.contiguous()
+        with counting.launch("flash_attention_bwd",
+                             _work(q, k, ctx.causal, ctx.window, True)):
+            dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal,
+                             window=ctx.window)
         return dq, dk, dv, None, None
 

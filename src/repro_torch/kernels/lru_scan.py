@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -35,6 +35,19 @@ STEPS_LONG = 32        # kStepsLong: steps a stage holds in float32 (x2 in bf16)
 STEPS_SHORT = 16       # kStepsShort: the same, when an SM holds > 2 groups
 MAX_STAGES = 24        # kMaxStages: ring slots at most
 UNITS = (16, 4, 2)     # Unit: bytes a copy moves
+
+
+def work(b: int, t: int, d: int, dtype: torch.dtype,
+         backward: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of kernel 9 on (B, T, D) operands of ``dtype``:
+    forward a multiply and an add a step and channel, a and x read, h
+    written and the float32 h0 read; backward three operations (g = dh +
+    a·g, da = g·h), a, h and dh read, da and dx written, h0 read and dh0
+    written."""
+    es, btd, bd = dtype.itemsize, b * t * d, b * d
+    if backward:
+        return 3 * btd, 5 * es * btd + 2 * 4 * bd
+    return 2 * btd, 3 * es * btd + 4 * bd
 
 
 class Card(NamedTuple):
@@ -222,23 +235,45 @@ def lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
 lru_scan_bwd_cuda.launches = 0
 
 
+def lru_scan_fake(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+                  ) -> torch.Tensor:
+    """The forward kernel's stand-in on fake tensors: h (B, T, D) in x's
+    dtype; nothing built or launched."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def lru_scan_bwd_fake(a, h, h0, dh):
+    """The backward kernel's stand-in on fake tensors: da, dx, dh0."""
+    return tuple(torch.empty_like(y, memory_format=torch.contiguous_format)
+                 for y in (a, h, h0))
+
+
 class LruScan(torch.autograd.Function):
     """Kernel 9 and its backward kernel on CUDA tensors, the plain loops
-    on CPU tensors.  Saves a, the output h and h0."""
+    on CPU tensors, the stand-ins on fake tensors.  Saves a, the output h
+    and h0."""
 
     @staticmethod
     def forward(ctx, a, x, h0):
-        cuda = x.device.type == "cuda"
-        h = (lru_scan_cuda if cuda else lru_scan_plain)(a, x, h0)
+        if counting.is_fake(x):
+            fwd = lru_scan_fake
+        else:
+            fwd = lru_scan_cuda if x.device.type == "cuda" else lru_scan_plain
+        with counting.launch("lru_scan", work(*x.shape, x.dtype)):
+            h = fwd(a, x, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
     @staticmethod
     def backward(ctx, dh):
         a, h, h0 = ctx.saved_tensors
-        if h.device.type == "cuda":
-            da, dx, dh0 = lru_scan_bwd_cuda(a, h, h0, dh.contiguous())
+        if counting.is_fake(h):
+            bwd = lru_scan_bwd_fake
         else:
-            da, dx, dh0 = lru_scan_bwd_plain(a, h, h0, dh)
+            bwd = lru_scan_bwd_cuda if h.device.type == "cuda" \
+                else lru_scan_bwd_plain
+        dh = dh.contiguous()
+        with counting.launch("lru_scan_bwd", work(*h.shape, h.dtype, True)):
+            da, dx, dh0 = bwd(a, h, h0, dh)
         return da, dx, dh0.to(h0.dtype)
 

@@ -38,7 +38,8 @@ On a CUDA tensor ``mach_candidate_topk`` launches the kernels of
 ``repro/kernels/mach_candidates.py::bucket_topm_pallas`` and
 ``::mach_candidate_topk_pallas``); on a CPU tensor it runs the plain
 versions, which work through rows and pool entries in blocks so their
-working set stays under about 1 GB at any shape.  Neither path has a
+working set stays under about 1 GB at any shape; on a fake tensor the
+kernels' stand-ins (``counting``).  Neither path has a
 counterpart of the JAX pure path's ``compact_cap`` (a workaround for
 XLA:CPU that bounds its min/median to a count-prioritized compaction):
 like the TPU kernel and the oracle, both score the whole pool.  Hash
@@ -53,7 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.estimators import ESTIMATORS, median_over_first
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 from repro_torch.kernels.mach_decode import (_SMEM_OPTIN, check_cuda_operands,
                                              check_decode_operands)
 from repro_torch.kernels.mach_topk import MAX_K, _next_pow2, unbiased_affine
@@ -108,6 +109,33 @@ def _check_inverted(inverted: torch.Tensor, r: int, b: int,
 # ---------------------------------------------------------------------------
 # Kernel 7: per-repetition bucket top-m.
 # ---------------------------------------------------------------------------
+
+def topm_work(n: int, r: int, b: int, m: int) -> tuple[int, int]:
+    """(flops, bytes) of kernel 7: a comparison a probability (N·R·B);
+    the probabilities read, tau and the m ids a repetition written."""
+    return n * r * b, 4 * n * r * b + 4 * n * r * (1 + m)
+
+
+def work(n: int, r: int, b: int, m: int, ell: int, k: int,
+         num_classes: int, table: bool, gathers: Optional[int] = None,
+         rows: Optional[int] = None, classes: Optional[int] = None
+         ) -> tuple[int, int]:
+    """(flops, bytes) of kernel 8: one float32 operation a probability
+    value it gathers (``gathers``: ``pool_gathers`` on given inputs;
+    without them the most the shapes allow, R values for each of the
+    N·R·m·L pool entries); the probabilities, tau and ids read, the
+    ``rows`` distinct inverted rows the batch touches (at most
+    min(R·B, N·R·m)) read once, in table mode the table entries of the
+    ``classes`` in them (at most min(K, rows·L)), and k (value, band,
+    id) triples a query written."""
+    if gathers is None:
+        gathers = n * r * m * ell * r
+    if rows is None:
+        rows = min(r * b, n * r * m)
+    if table and classes is None:
+        classes = min(num_classes, rows * ell)
+    nbytes = 4 * n * r * b + 4 * n * r * (1 + m) + 4 * rows * ell + 12 * n * k
+    return gathers, nbytes + (4 * r * classes if table else 0)
 
 def bucket_topm(meta_probs: torch.Tensor, m: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -189,6 +217,15 @@ def bucket_topm_cuda(meta_probs: torch.Tensor, m: int
 
 
 bucket_topm_cuda.launches = 0
+
+
+def bucket_topm_fake(meta_probs: torch.Tensor, m: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7's stand-in on fake tensors: tau (N, R) f32, ids (N, R, m)
+    int32; nothing built or launched."""
+    n, r, _ = meta_probs.shape
+    return (meta_probs.new_empty((n, r), dtype=torch.float32),
+            meta_probs.new_empty((n, r, m), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +566,16 @@ def mach_candidate_topk_cuda(meta_probs: torch.Tensor, tau: torch.Tensor,
 mach_candidate_topk_cuda.launches = 0
 
 
+def mach_candidate_topk_fake(meta_probs, tau, ids, inverted, table=None, *,
+                             k, **_):
+    """Kernel 8's stand-in on fake tensors: sel (N, k) f32, band and idx
+    (N, k) int32; nothing built or launched."""
+    n = meta_probs.shape[0]
+    return (meta_probs.new_empty((n, k), dtype=torch.float32),
+            meta_probs.new_empty((n, k), dtype=torch.int32),
+            meta_probs.new_empty((n, k), dtype=torch.int32))
+
+
 def mach_candidate_topk(meta_probs: torch.Tensor, inverted: torch.Tensor,
                         table: Optional[torch.Tensor] = None, *,
                         num_classes: int, k: int, m: int, t: int = 1,
@@ -539,7 +586,7 @@ def mach_candidate_topk(meta_probs: torch.Tensor, inverted: torch.Tensor,
     """Candidate-filtered top-k.  meta_probs (N, R, B), inverted (R·B, L)
     -> (val, idx) (N, k) on the estimator's scale; filtered slots are
     (-inf, -1).  Kernels 7 and 8 on a CUDA tensor, their plain versions
-    on a CPU tensor."""
+    on a CPU tensor, their stand-ins on a fake tensor."""
     check_decode_operands(meta_probs, table, num_classes, inline_coeffs,
                           inline_shift)
     n, r, b = meta_probs.shape
@@ -547,14 +594,21 @@ def mach_candidate_topk(meta_probs: torch.Tensor, inverted: torch.Tensor,
     _check_limits(num_classes, k)
     _check_inverted(inverted, r, b, meta_probs.device)
     kind = meta_probs.device.type
-    if kind == "cuda":
+    if counting.is_fake(meta_probs):
+        topm, fn = bucket_topm_fake, mach_candidate_topk_fake
+    elif kind == "cuda":
         topm, fn = bucket_topm_cuda, mach_candidate_topk_cuda
     elif kind == "cpu":
         topm, fn = bucket_topm, mach_candidate_topk_plain
     else:
         raise ValueError(f"no decode path for device {meta_probs.device}")
-    tau, ids = topm(meta_probs, m)
-    sel, band, idx = fn(meta_probs, tau, ids, inverted, table,
-                        num_classes=num_classes, k=k, t=t, estimator=estimator,
-                        inline_coeffs=inline_coeffs, inline_shift=inline_shift)
+    with counting.launch("bucket_topm", topm_work(n, r, b, m)):
+        tau, ids = topm(meta_probs, m)
+    with counting.launch("mach_candidate_topk", work(
+            n, r, b, m, inverted.shape[1], k, num_classes,
+            table is not None)):
+        sel, band, idx = fn(meta_probs, tau, ids, inverted, table,
+                            num_classes=num_classes, k=k, t=t,
+                            estimator=estimator, inline_coeffs=inline_coeffs,
+                            inline_shift=inline_shift)
     return finish_candidates(sel, band, idx, r, b, estimator)

@@ -6,7 +6,7 @@ estimate); ties go to the lowest class id.  On a CUDA tensor it launches
 the hand-written kernel in ``csrc/mach_decode.cu`` (which replaces the
 TPU kernel ``repro/kernels/mach_decode.py::mach_decode_pallas``); on a
 CPU tensor it runs ``mach_decode_plain``, the same arithmetic in plain
-PyTorch.
+PyTorch; on a fake tensor the kernel's stand-in (``counting``).
 
 Two hash sources, as on the TPU: the (R, K) int32 table (any
 2-universal family), or inline multiply-shift coefficients (R,) with
@@ -20,13 +20,30 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 
 MAX_R = 32               # largest R the CUDA kernels take
 _MAX_QUERIES = 8         # class per thread: queries a block (kMaxQueries)
 _LANE_WARPS = 16         # query per lane: warps a block (kLaneThreads / 32)
 _SMEM_OPTIN = 232448     # Hopper: dynamic shared memory a block may opt into
 MAPPINGS = ("class_per_thread", "query_per_lane")   # csrc Mapping
+
+
+def work(n: int, r: int, b: int, num_classes: int, table: bool,
+         k: int = 1) -> tuple[int, int]:
+    """(flops, bytes) of a streaming decode of N queries over K classes
+    (kernel 1; kernel 2 with its k): one float32 operation a gathered
+    value (N·K·R); the probabilities read, in table mode the (R, K)
+    table, and k (value, id) pairs a query written."""
+    nbytes = 4 * n * r * b + (4 * r * num_classes if table else 0) + 8 * n * k
+    return n * num_classes * r, nbytes
+
+
+def fake_decode(meta_probs: torch.Tensor, shape: tuple):
+    """A decode kernel's stand-in on fake tensors: (val f32, idx int32)
+    of ``shape``; nothing built or launched."""
+    return (meta_probs.new_empty(shape, dtype=torch.float32),
+            meta_probs.new_empty(shape, dtype=torch.int32))
 
 
 def table_from_inline(inline_coeffs: torch.Tensor, inline_shift: int,
@@ -223,17 +240,25 @@ def mach_decode(meta_probs: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused top-1 decode.  meta_probs (N, R, B) -> (val (N,), idx (N,)).
 
-    The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    The kernel on a CUDA tensor, the plain version on a CPU tensor, the
+    stand-in on a fake tensor.
     """
     check_decode_operands(meta_probs, table, num_classes, inline_coeffs,
                           inline_shift)
-    kind = meta_probs.device.type
-    if kind == "cuda":
-        return mach_decode_cuda(meta_probs, table, num_classes=num_classes,
-                                inline_coeffs=inline_coeffs,
-                                inline_shift=inline_shift)
-    if kind == "cpu":
-        return mach_decode_plain(meta_probs, table, num_classes=num_classes,
-                                 inline_coeffs=inline_coeffs,
-                                 inline_shift=inline_shift)
+    n, r, b = meta_probs.shape
+    with counting.launch("mach_decode", work(n, r, b, num_classes,
+                                             table is not None)):
+        if counting.is_fake(meta_probs):
+            return fake_decode(meta_probs, (n,))
+        kind = meta_probs.device.type
+        if kind == "cuda":
+            return mach_decode_cuda(meta_probs, table,
+                                    num_classes=num_classes,
+                                    inline_coeffs=inline_coeffs,
+                                    inline_shift=inline_shift)
+        if kind == "cpu":
+            return mach_decode_plain(meta_probs, table,
+                                     num_classes=num_classes,
+                                     inline_coeffs=inline_coeffs,
+                                     inline_shift=inline_shift)
     raise ValueError(f"no decode path for device {meta_probs.device}")

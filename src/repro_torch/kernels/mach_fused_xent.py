@@ -40,7 +40,9 @@ JAX kernel takes them: products are formed from float32 values (bf16
 upcast, exactly), loss and lse are float32, and the gradients come back
 in the inputs' dtype.  The ELL and gather families take float32.  Other
 dtypes raise ``ValueError``; labels are int32.  The kernels choose their
-own tiles; there are no block-size knobs.
+own tiles; there are no block-size knobs.  On fake tensors the Functions
+run the kernels' stand-ins (``counting``); ``work`` is the three
+families' arithmetic.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 
 GATHER_NNZ_THRESHOLD = 512    # nnz_max at which CSR batches take the gather family
 DENSE_DTYPES = (torch.float32, torch.bfloat16)
@@ -59,6 +61,43 @@ _DENSE_COLS = {torch.float32: 128, torch.bfloat16: 256}
 _ELL_COLS = 32                # logits columns an ELL block owns (csrc kTileCols)
 _HEAVY_TERMS = 64             # pairs over which a block shares a dW row
 #                               (csrc mach_xent_dw.cuh kHeavyTerms)
+
+
+def work(family: str, n: int, d: int, r: int, b: int,
+         dtype: torch.dtype = torch.float32, *, backward: bool = False,
+         need_dh: bool = False, bias: bool = True, j: int = 0,
+         nnz: Optional[int] = None, unique: Optional[int] = None
+         ) -> tuple[int, int]:
+    """(flops, bytes) of kernels 4 (``family`` "dense": h (N, d) of
+    ``dtype``) and 5-6 ("ell" / "gather": an (N, J) ELL batch, float32)
+    on W (d, R·B).  Dense: 2·N·d·R·B operations forward, 4·N·d·R·B
+    backward (the logits again, then dW; 6 with dh); h, W, the bias and
+    the labels read, loss and lse written; backward also lse and g read
+    and dW, dbias (and dh) written.  Sparse: 2·nnz·R·B forward and
+    4·nnz·R·B backward over the ``nnz`` valid slots (without it the N·J
+    slots), the ``unique`` W rows the batch touches read once (without
+    it min(d, nnz)) and the ELL batch read; dW written whole."""
+    c = r * b
+    cb = c if bias else 0
+    if family == "dense":
+        es = dtype.itemsize
+        read = es * (n * d + d * c + cb)
+        if backward:
+            return ((6 if need_dh else 4) * n * d * c,
+                    read + 4 * (2 * n * r + n)
+                    + es * (d * c + cb + (n * d if need_dh else 0)))
+        return 2 * n * d * c, read + 4 * n * r + 4 * (n + n * r)
+    nnz = n * j if nnz is None else nnz
+    unique = min(d, nnz) if unique is None else unique
+    read = 4 * unique * c + 8 * n * j + 4 * cb
+    if backward:
+        return 4 * nnz * c, read + 4 * (2 * n * r + n) + 4 * (d * c + cb)
+    return 2 * nnz * c, read + 4 * n * r + 4 * (n + n * r)
+
+
+def _kind(x: torch.Tensor) -> str:
+    """The path a tensor takes: "fake" (the stand-ins) or its device."""
+    return "fake" if counting.is_fake(x) else x.device.type
 
 
 # ---------------------------------------------------------------------------
@@ -426,11 +465,48 @@ for _fn in CUDA_WRAPPERS:
     _fn.launches = 0
 
 
+def _forward_fake(x, *operands):
+    """The forward kernels' stand-in on fake tensors (operands as the
+    family's forward kernel takes them: labels next to last): loss (N,)
+    and lse (N, R) float32; nothing built or launched."""
+    n, r = operands[-2].shape
+    return (x.new_empty((n,), dtype=torch.float32),
+            x.new_empty((n, r), dtype=torch.float32))
+
+
+def dense_bwd_fake(h, w, bias, labels, lse, g, num_buckets, need_dh=True):
+    """The dense backward's stand-in: (dh or None, dW, dbias or None) in
+    the inputs' dtype."""
+    return tuple(None if t is None else torch.empty_like(
+        t, memory_format=torch.contiguous_format)
+        for t in (h if need_dh else None, w, bias))
+
+
+def sparse_bwd_fake(cols, vals, w, bias, labels, lse, g, num_buckets):
+    """The sparse backwards' stand-in: (dW, dbias or None) float32."""
+    return tuple(None if t is None else torch.empty_like(
+        t, dtype=torch.float32, memory_format=torch.contiguous_format)
+        for t in (w, bias))
+
+
+# path -> (forward, backward) of ``_DenseXent``
+_DENSE_PATHS = {"cuda": (dense_fwd_cuda, dense_bwd_cuda),
+                "fake": (_forward_fake, dense_bwd_fake)}
+
+
+def _dense_work(h, w, bias, labels, backward=False, need_dh=False):
+    (n, d), r = h.shape, labels.shape[1]
+    return work("dense", n, d, r, w.shape[1] // r, h.dtype,
+                backward=backward, need_dh=need_dh, bias=bias is not None)
+
+
 class _DenseXent(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, bias, labels, num_buckets):
-        loss, lse = dense_fwd_cuda(h, w, bias, labels, num_buckets)
+        fwd, _ = _DENSE_PATHS[_kind(h)]
+        with counting.launch("dense_fwd", _dense_work(h, w, bias, labels)):
+            loss, lse = fwd(h, w, bias, labels, num_buckets)
         ctx.save_for_backward(h, w, bias, labels, lse)
         ctx.num_buckets = num_buckets
         ctx.mark_non_differentiable(lse)
@@ -439,27 +515,41 @@ class _DenseXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         h, w, bias, labels, lse = ctx.saved_tensors
-        dh, dw, db = dense_bwd_cuda(h, w, bias, labels, lse,
-                                    g.to(torch.float32).contiguous(),
-                                    ctx.num_buckets,
-                                    need_dh=ctx.needs_input_grad[0])
+        _, bwd = _DENSE_PATHS[_kind(h)]
+        g = g.to(torch.float32).contiguous()
+        need_dh = ctx.needs_input_grad[0]
+        with counting.launch("dense_bwd", _dense_work(h, w, bias, labels,
+                                                      True, need_dh)):
+            dh, dw, db = bwd(h, w, bias, labels, lse, g, ctx.num_buckets,
+                             need_dh=need_dh)
         return dh, dw, db, None, None
 
 
-# (family, device type) -> (forward, backward) of ``_SparseXent``: the
-# kernels on the card; on the CPU the gather family's plain versions
-# (the ELL family's CPU path is autograd through its plain version)
+# (family, path) -> (forward, backward) of ``_SparseXent``: the kernels
+# on the card, their stand-ins on fake tensors; on the CPU the gather
+# family's plain versions (the ELL family's CPU path is autograd through
+# its plain version)
 _SPARSE_PATHS = {("ell", "cuda"): (ell_fwd_cuda, ell_bwd_cuda),
                  ("gather", "cuda"): (gather_fwd_cuda, gather_bwd_cuda),
-                 ("gather", "cpu"): (fused_xent_ell_plain, gather_bwd_plain)}
+                 ("gather", "cpu"): (fused_xent_ell_plain, gather_bwd_plain),
+                 ("ell", "fake"): (_forward_fake, sparse_bwd_fake),
+                 ("gather", "fake"): (_forward_fake, sparse_bwd_fake)}
+
+
+def _sparse_work(family, cols, w, bias, labels, backward=False):
+    (n, j), r = cols.shape, labels.shape[1]
+    return work(family, n, w.shape[0], r, w.shape[1] // r, j=j,
+                backward=backward, bias=bias is not None)
 
 
 class _SparseXent(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cols, vals, w, bias, labels, num_buckets, family):
-        fwd, _ = _SPARSE_PATHS[family, cols.device.type]
-        loss, lse = fwd(cols, vals, w, bias, labels, num_buckets)
+        fwd, _ = _SPARSE_PATHS[family, _kind(cols)]
+        with counting.launch(f"{family}_fwd",
+                             _sparse_work(family, cols, w, bias, labels)):
+            loss, lse = fwd(cols, vals, w, bias, labels, num_buckets)
         ctx.save_for_backward(cols, vals, w, bias, labels, lse)
         ctx.num_buckets, ctx.family = num_buckets, family
         ctx.mark_non_differentiable(lse)
@@ -468,9 +558,12 @@ class _SparseXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         cols, vals, w, bias, labels, lse = ctx.saved_tensors
-        _, bwd = _SPARSE_PATHS[ctx.family, cols.device.type]
-        dw, db = bwd(cols, vals, w, bias, labels, lse,
-                     g.to(torch.float32).contiguous(), ctx.num_buckets)
+        _, bwd = _SPARSE_PATHS[ctx.family, _kind(cols)]
+        g = g.to(torch.float32).contiguous()
+        with counting.launch(f"{ctx.family}_bwd", _sparse_work(
+                ctx.family, cols, w, bias, labels, True)):
+            dw, db = bwd(cols, vals, w, bias, labels, lse, g,
+                         ctx.num_buckets)
         return None, None, dw, db, None, None, None
 
 
@@ -494,20 +587,24 @@ def mach_fused_xent_dense(h: torch.Tensor, w: torch.Tensor,
     bfloat16 — and labels (N, R) int32 -> (loss (N,), lse (N, R)) float32.
     Differentiable wrt h, w and bias; gradients in the inputs' dtype."""
     check_dense(h, w, bias, labels, num_buckets)
-    if h.device.type == "cuda":
+    if _kind(h) in _DENSE_PATHS:
         return _DenseXent.apply(*_contig(h, w, bias, labels), num_buckets)
     if h.device.type == "cpu":
-        return fused_xent_dense_plain(h, w, bias, labels, num_buckets)
+        with counting.launch("dense_fwd", _dense_work(h, w, bias, labels)):
+            return fused_xent_dense_plain(h, w, bias, labels, num_buckets)
     raise _no_path(h.device)
 
 
 def _sparse(family, cols, vals, w, bias, labels, num_buckets):
     check_ell(cols, vals, w, bias, labels, num_buckets)
-    if (family, cols.device.type) in _SPARSE_PATHS:
+    if (family, _kind(cols)) in _SPARSE_PATHS:
         return _SparseXent.apply(*_contig(cols, vals.detach(), w, bias, labels),
                                  num_buckets, family)
     if cols.device.type == "cpu":
-        return fused_xent_ell_plain(cols, vals, w, bias, labels, num_buckets)
+        with counting.launch(f"{family}_fwd",
+                             _sparse_work(family, cols, w, bias, labels)):
+            return fused_xent_ell_plain(cols, vals, w, bias, labels,
+                                        num_buckets)
     raise _no_path(cols.device)
 
 

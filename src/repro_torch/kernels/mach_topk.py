@@ -6,7 +6,8 @@ class id, without the (N, K) score matrix.  On a CUDA tensor it launches
 the hand-written kernel in ``csrc/mach_topk.cu`` (which replaces the TPU
 kernel ``repro/kernels/mach_topk.py::mach_topk_pallas``); on a CPU
 tensor it runs ``mach_topk_plain``, the same arithmetic in plain PyTorch
-over the materialized scores.
+over the materialized scores; on a fake tensor the kernel's stand-in
+(``counting``).
 
 Unbiased selection runs on the raw sum; Eq. 2's monotone affine map
 ``(b/(b-1))*(val/r - 1/b)`` is applied to the k selected sums, exactly
@@ -20,12 +21,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.estimators import ESTIMATORS, median_over_first
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting, mach_decode
 from repro_torch.kernels.mach_decode import (MAPPINGS, _SMEM_OPTIN,
                                              _num_splits, check_cuda_operands,
                                              check_decode_operands,
-                                             gather_rows, summed_scores,
-                                             table_from_inline)
+                                             fake_decode, gather_rows,
+                                             summed_scores, table_from_inline)
 from repro_torch.kernels.ref import topk_lowest_id
 
 MAX_K = 128              # largest k the CUDA kernel takes (csrc kMaxK)
@@ -34,6 +35,13 @@ _POOL = 512              # class per thread: a query's candidate pool
 _LANE_WARPS = 16         # query per lane: warps a block (kTopkLaneWarps)
 _LANE_LISTS = (1, 16, 32)   # query per lane: keys a lane keeps per query
 _MERGE_MAX = 4096        # largest split-merge width (num_splits * kcap)
+
+
+def work(n: int, r: int, b: int, num_classes: int, k: int,
+         table: bool) -> tuple[int, int]:
+    """(flops, bytes) of kernel 2: kernel 1's arithmetic
+    (``mach_decode.work``) with k (value, id) pairs a query written."""
+    return mach_decode.work(n, r, b, num_classes, table, k)
 
 
 def check_topk_args(num_classes: int, k: int, estimator: str) -> None:
@@ -197,6 +205,11 @@ def mach_topk_cuda(meta_probs: torch.Tensor,
 mach_topk_cuda.launches = 0
 
 
+def _fake_topk(meta_probs, table=None, *, k, **_):
+    """Kernel 2's stand-in on fake tensors: (val, idx) (N, k)."""
+    return fake_decode(meta_probs, (meta_probs.shape[0], k))
+
+
 def mach_topk(meta_probs: torch.Tensor,
               table: Optional[torch.Tensor] = None, *,
               num_classes: int, k: int, estimator: str = "unbiased",
@@ -205,21 +218,25 @@ def mach_topk(meta_probs: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused streaming top-k.  meta_probs (N, R, B) -> (val, idx) (N, k),
     values on the estimator's scale.  The kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor, the stand-in on a fake tensor."""
     check_decode_operands(meta_probs, table, num_classes, inline_coeffs,
                           inline_shift)
     check_topk_args(num_classes, k, estimator)
+    n, r, b = meta_probs.shape
     kind = meta_probs.device.type
-    if kind == "cuda":
+    if counting.is_fake(meta_probs):
+        fn = _fake_topk
+    elif kind == "cuda":
         fn = mach_topk_cuda
     elif kind == "cpu":
         fn = mach_topk_plain
     else:
         raise ValueError(f"no decode path for device {meta_probs.device}")
-    val, idx = fn(meta_probs, table, num_classes=num_classes, k=k,
-                  estimator=estimator, inline_coeffs=inline_coeffs,
-                  inline_shift=inline_shift)
+    with counting.launch("mach_topk", work(n, r, b, num_classes, k,
+                                           table is not None)):
+        val, idx = fn(meta_probs, table, num_classes=num_classes, k=k,
+                      estimator=estimator, inline_coeffs=inline_coeffs,
+                      inline_shift=inline_shift)
     if estimator == "unbiased":
-        _, r, b = meta_probs.shape
         val = unbiased_affine(val, r, b)
     return val, idx

@@ -15,16 +15,29 @@ same Function runs the plain versions, ``mach_xent_plain`` forward and
 bfloat16 and the arithmetic float32; the loss is float32 and the
 gradient takes the logits' dtype, as the TPU kernel's backward writes
 it.  Labels get no gradient.  A label outside [0, B) picks nothing (the
-TPU kernel's one-hot contraction).
+TPU kernel's one-hot contraction).  On fake tensors the Function runs
+the kernels' stand-ins (``counting``); ``work`` is their arithmetic.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counting
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def work(n: int, r: int, b: int, dtype: torch.dtype,
+         backward: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of kernel 3 on (N, R, B) logits of ``dtype``: four
+    operations a logit each pass (max, subtract, exp, sum; backward exp,
+    subtract, scale, one-hot); forward the logits and labels read and
+    the (N,) loss written, backward also g read and the gradient
+    written."""
+    logits = n * r * b
+    nbytes = (2 if backward else 1) * dtype.itemsize * logits
+    return 4 * logits, nbytes + 4 * n * r + 4 * n
 
 
 def check_operands(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -117,21 +130,43 @@ mach_xent_cuda_fwd.launches = 0
 mach_xent_cuda_bwd.launches = 0
 
 
+def mach_xent_fake_fwd(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """The forward kernel's stand-in on fake tensors: its (N,) float32
+    loss; nothing built or launched."""
+    return logits.new_empty(logits.shape[:1], dtype=torch.float32)
+
+
+def mach_xent_fake_bwd(logits: torch.Tensor, labels: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's stand-in on fake tensors: the gradient."""
+    return torch.empty_like(logits, memory_format=torch.contiguous_format)
+
+
 class MachXent(torch.autograd.Function):
-    """The kernels on CUDA tensors, the plain versions on CPU tensors."""
+    """The kernels on CUDA tensors, the plain versions on CPU tensors,
+    the stand-ins on fake tensors."""
 
     @staticmethod
     def forward(ctx, logits, labels):
         ctx.save_for_backward(logits, labels)
-        if logits.device.type == "cuda":
-            return mach_xent_cuda_fwd(logits, labels)
-        return mach_xent_plain(logits, labels)
+        with counting.launch("mach_xent_fwd", work(*logits.shape,
+                                                   logits.dtype)):
+            if counting.is_fake(logits):
+                return mach_xent_fake_fwd(logits, labels)
+            if logits.device.type == "cuda":
+                return mach_xent_cuda_fwd(logits, labels)
+            return mach_xent_plain(logits, labels)
 
     @staticmethod
     def backward(ctx, g):
         logits, labels = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
-        if logits.device.type == "cuda":
-            return mach_xent_cuda_bwd(logits, labels, g), None
-        return mach_xent_grad_plain(logits, labels, g), None
+        with counting.launch("mach_xent_bwd", work(*logits.shape,
+                                                   logits.dtype, True)):
+            if counting.is_fake(logits):
+                return mach_xent_fake_bwd(logits, labels, g), None
+            if logits.device.type == "cuda":
+                return mach_xent_cuda_bwd(logits, labels, g), None
+            return mach_xent_grad_plain(logits, labels, g), None
 

@@ -2,7 +2,8 @@
 
 Dispatch is by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions (large CPU top-k
-problems to a blocked streaming version with the same results).  There
+problems to a blocked streaming version with the same results), fake
+tensors to the kernels' stand-ins (``counting``).  There
 are no knobs that pick a device path.  The algorithm knobs are
 ``sparse_impl`` (a sparse kernel family), ``bucket_select`` (dynamic
 bucket selection) and ``candidate_mode`` (the count-min candidate
@@ -16,8 +17,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counting
 from repro_torch.kernels import mach_fused_xent as mfx
 from repro_torch.kernels import mach_xent as _mx
+from repro_torch.kernels import mach_topk as _mtk
 from repro_torch.kernels import ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lru_scan as _ls
@@ -121,13 +124,17 @@ def mach_topk(meta_probs: torch.Tensor,
     lead = meta_probs.shape[:-2]
     r, b = meta_probs.shape[-2:]
     flat = meta_probs.reshape((-1, r, b)).to(torch.float32).contiguous()
-    if flat.device.type == "cpu" and flat.shape[0] * num_classes * r > _BLOCKED_MIN:
+    if (flat.device.type == "cpu" and not counting.is_fake(flat)
+            and flat.shape[0] * num_classes * r > _BLOCKED_MIN):
         check_decode_operands(flat, table, num_classes, inline_coeffs,
                               inline_shift)
+        work = _mtk.work(flat.shape[0], r, b, num_classes, k,
+                         table is not None)
         if table is None:
             table = _table_from_inline(inline_coeffs, inline_shift,
                                        num_classes)
-        val, idx = _blocked_topk_fallback(flat, table, k, estimator)
+        with counting.launch("mach_topk", work):
+            val, idx = _blocked_topk_fallback(flat, table, k, estimator)
     else:
         val, idx = _mach_topk_kernel(flat, table, num_classes=num_classes,
                                      k=k, estimator=estimator,
@@ -181,7 +188,8 @@ def mach_scores(meta_probs: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def _check_device(x: torch.Tensor, what: str) -> str:
-    """The device kind of an op with a kernel and a plain version."""
+    """The device kind of an op with a kernel and a plain version (a fake
+    tensor's too: the kernel's wrapper stands in for it there)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no {what} path for device {x.device}")
     return x.device.type

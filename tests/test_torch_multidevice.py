@@ -95,9 +95,9 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import LanguageModel
 from repro_torch.train import Trainer
-from torch_multidevice_ranks import (DECODER_WORLD4, model_config,
-                                     rglru_channels, spawn_world,
-                                     train_config)
+from torch_multidevice_ranks import (DECODER_WORLD4, mach_model_config,
+                                     model_config, rglru_channels,
+                                     spawn_world, train_config)
 
 RTOL = 1e-6
 BF16_RTOL = 2.0 ** -6
@@ -947,3 +947,25 @@ def test_world2_serve_local(world2, capsys):
 def test_world2_rules_read_a_device_mesh(world2):
     """``resolve_spec`` on the (2, 1) ``DeviceMesh`` itself."""
     assert world2["mesh_view"] == ("data", "model")
+
+
+def test_dry_run_step_matches_a_real_world(world4_split):
+    """Rank 0 of a fake world of 4 on fake tensors (``dryrun.dry_step``,
+    mesh (1, 4)) against rank 0 of ``world4_split``'s real gloo world on
+    the same mesh (``counted_step``): one step of the smoke tinyllama
+    with its MACH head split by repetition and its decoder by heads and
+    hidden, the same flops, bytes, kernels and collectives by kind
+    exactly, and the dry run's argument bytes the real rank's placed
+    local state and batch."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import ShardingRules
+    real = world4_split["counted_step"]
+    spec = dict(kind="train", seq_len=16, global_batch=4, world=4,
+                model_axis=4, train_config=train_config())
+    fake = dryrun.dry_step(mach_model_config(), spec, ShardingRules())
+    got, want = fake["counts"].summary(), real["counts"]
+    assert got["collectives"] and got["kernels"]["mach_xent_fwd"]
+    assert got == want
+    assert fake["memory"]["per_device_argument_bytes"] == \
+        real["state_bytes"] + real["batch_bytes"]
+

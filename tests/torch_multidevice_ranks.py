@@ -770,7 +770,29 @@ def world4_split(rank, directory):
     for case, arch in DECODER_WORLD4.items():
         cfg = model_config(arch)
         out[case] = split_case(cfg, m14, batches(cfg, 2), grads=True)
+    out["counted_step"] = counted_step(mach_model_config(), m14)
     return out
+
+
+def counted_step(model_cfg, mesh) -> dict:
+    """One step of ``Trainer(mesh=)`` (the FSDP rules, ``train_config()``)
+    on ``batches(model_cfg, 1)`` under a ``CostCounter``, as
+    ``launch/dryrun.py`` runs a training cell on fake tensors: this
+    rank's counts and the bytes of its placed local state and batch."""
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import _storage_bytes
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import ShardingRules, activate
+    from repro_torch.train import Trainer
+    rules = ShardingRules()
+    trainer = Trainer(LanguageModel(model_cfg), train_config(), mesh=mesh,
+                      rules=rules)
+    state = trainer.init_state(torch.Generator().manual_seed(0), "cpu")
+    batch = batches(model_cfg, 1)[0]
+    with activate(mesh, rules), CostCounter() as counter:
+        trainer.step_fn(state, batch)
+    return {"counts": counter.summary(), "state_bytes": _storage_bytes(state),
+            "batch_bytes": _storage_bytes(batch)}
 
 
 def head_split_world4() -> dict:
